@@ -1,0 +1,15 @@
+"""Config registry (copy of `repro.configs`): importing this package registers
+the architectures the port runs so far."""
+from repro_torch.configs.base import (  # noqa: F401
+    ALL_SHAPES,
+    SHAPES_BY_NAME,
+    ArchConfig,
+    LayerSpec,
+    ShapeSpec,
+    get_arch,
+    list_archs,
+    reduced,
+    register,
+)
+
+from repro_torch.configs import qwen3_8b  # noqa: F401

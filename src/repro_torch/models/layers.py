@@ -1,0 +1,50 @@
+"""Common layers: norms, rotary embeddings, initializers (`repro.models.layers`)."""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+
+def dense_init(generator, shape, in_axis=0, *, dtype=torch.float32, device="cuda"):
+    """normal / sqrt(fan_in), drawn in float32 and stored in `dtype`."""
+    fan_in = shape[in_axis] if isinstance(in_axis, int) else int(np.prod([shape[a] for a in in_axis]))
+    scale = 1.0 / math.sqrt(max(fan_in, 1))
+    w = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
+    return w.mul_(scale).to(dtype)
+
+
+def rms_norm(x, weight, eps=1e-6):
+    """RMS over the last axis in float32, scaled by (1 + weight), cast back."""
+    dtype = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * (1.0 + weight.float())).to(dtype)
+
+
+def head_rms_norm(x, weight, eps=1e-6):
+    """qk-norm: RMS over the head_dim of (..., H, dh)."""
+    return rms_norm(x, weight, eps)
+
+
+def rope_angles(positions, head_dim, theta):
+    """(...,) integer positions -> (..., head_dim//2) float32 angles."""
+    half = head_dim // 2
+    exponent = torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
+    inv_freq = 1.0 / (theta ** exponent)
+    return positions.float()[..., None] * inv_freq
+
+
+def apply_rope(x, angles):
+    """Rotate-half RoPE. x: (..., H, dh); angles: (..., dh//2).
+
+    cos and sin are cast to x's dtype before the multiply, as the reference
+    does; bf16 results depend on it.
+    """
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    cos = torch.cos(angles)[..., None, :].to(x.dtype)
+    sin = torch.sin(angles)[..., None, :].to(x.dtype)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)

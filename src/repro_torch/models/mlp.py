@@ -1,0 +1,23 @@
+"""Dense gated FFN (SwiGLU), as `repro.models.mlp`."""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import dense_init
+
+
+def init_mlp(generator, cfg, *, dtype=torch.bfloat16, device="cuda"):
+    D, Fd = cfg.d_model, cfg.d_ff
+    kw = dict(dtype=dtype, device=device)
+    return {
+        "w_gate": dense_init(generator, (D, Fd), **kw),
+        "w_up": dense_init(generator, (D, Fd), **kw),
+        "w_down": dense_init(generator, (Fd, D), **kw),
+    }
+
+
+def mlp(cfg, p, x):
+    h = x @ p["w_gate"].to(x.dtype)
+    u = x @ p["w_up"].to(x.dtype)
+    return (F.silu(h) * u) @ p["w_down"].to(x.dtype)

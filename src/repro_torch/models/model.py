@@ -1,0 +1,195 @@
+"""Model assembly: init, packed forward and loss, prefill, decode step, cache.
+
+Counterpart of `repro.models.model` for dense attention LMs. Parameters are a
+plain dict with the reference's keys and shapes; `layers` is a list with one
+dict per layer (layer j*P + pos is `layers[pos][...][j]` of the reference's
+scan layout, P the period). Matrices are stored in the compute dtype and norm
+weights in float32; the reference keeps float32 masters and casts them at each
+use, which gives the same numbers. The reference's `lax.scan` over layers is a
+Python loop here.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.models.attention import attention, init_attention
+from repro_torch.models.layers import rms_norm
+from repro_torch.models.mlp import init_mlp, mlp
+
+
+def _check_spec(spec):
+    if spec.mixer != "attn" or spec.ffn != "dense":
+        raise NotImplementedError(f"layer {spec} is not ported yet (attention + dense FFN only)")
+
+
+# ------------------------------------------------------------------- init
+def init_layer(generator, cfg, spec, *, dtype=torch.bfloat16, device="cuda"):
+    _check_spec(spec)
+    D = cfg.d_model
+    return {
+        "norm1": torch.zeros(D, dtype=torch.float32, device=device),
+        "mixer": init_attention(generator, cfg, dtype=dtype, device=device),
+        "norm2": torch.zeros(D, dtype=torch.float32, device=device),
+        "ffn": init_mlp(generator, cfg, dtype=dtype, device=device),
+    }
+
+
+def init_params(cfg, seed=0, *, dtype=torch.bfloat16, device="cuda"):
+    """Random weights from `seed`, with the reference's keys, shapes and law
+    (normal / sqrt(fan_in), norms zero)."""
+    if cfg.enc_dec or cfg.vlm or cfg.n_experts:
+        raise NotImplementedError(f"{cfg.arch_id}: only plain dense LMs are ported yet")
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    V, D = cfg.padded_vocab, cfg.d_model
+
+    def normal(shape):
+        w = torch.randn(shape, generator=g, dtype=torch.float32, device=device)
+        return w.mul_(1.0 / math.sqrt(D)).to(dtype)
+
+    params = {
+        "embed": normal((V, D)),
+        "final_norm": torch.zeros(D, dtype=torch.float32, device=device),
+        "layers": [init_layer(g, cfg, cfg.layer_spec(i), dtype=dtype, device=device)
+                   for i in range(cfg.n_layers)],
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = normal((D, V))
+    return params
+
+
+# ----------------------------------------------------------------- layers
+def apply_layer(cfg, spec, p, x, md, cache=None):
+    mix_cache = cache.get("mixer") if cache else None
+    h, new_mix = attention(cfg, spec, p["mixer"], rms_norm(x, p["norm1"], cfg.norm_eps), md,
+                           cache=mix_cache)
+    x = x + h
+    new_cache = {"mixer": new_mix} if new_mix is not None else None
+    x = x + mlp(cfg, p["ffn"], rms_norm(x, p["norm2"], cfg.norm_eps))
+    return x, new_cache
+
+
+def _run_layers(cfg, layers, x, md, caches=None):
+    """Run the layers in order; returns (x, per-layer caches or None)."""
+    new_caches = []
+    for i, p in enumerate(layers):
+        spec = cfg.layer_spec(i)
+        _check_spec(spec)
+        x, nc = apply_layer(cfg, spec, p, x, md, cache=caches[i] if caches is not None else None)
+        new_caches.append(nc)
+    return x, (new_caches if new_caches and new_caches[0] is not None else None)
+
+
+# ----------------------------------------------------------------- embed
+def embed_tokens(cfg, params, tokens, compute_dtype=torch.bfloat16):
+    return params["embed"][tokens.long()].to(compute_dtype)
+
+
+def lm_logits(cfg, params, x):
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return x @ w.to(x.dtype)
+
+
+# ------------------------------------------------------------------ train
+def _default_md(batch):
+    seg = batch["segment_ids"]
+    B, S = seg.shape
+    return {
+        "segment_ids": seg,
+        "positions": batch["positions"],
+        "abs_positions": torch.arange(S, dtype=torch.int32, device=seg.device).repeat(B, 1),
+        "causal": True,
+    }
+
+
+def _hidden(cfg, params, batch, compute_dtype, collect):
+    md = _default_md(batch)
+    if collect:
+        md["collect_state"] = True
+    x = embed_tokens(cfg, params, batch["tokens"], compute_dtype)
+    return _run_layers(cfg, params["layers"], x, md)
+
+
+def forward_train(cfg, params, batch, *, compute_dtype=torch.bfloat16):
+    """Packed forward: tokens, segment_ids, positions (B,S) -> logits (B,S,V), aux."""
+    x, _ = _hidden(cfg, params, batch, compute_dtype, collect=False)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    aux = {"moe_aux": torch.zeros((), dtype=torch.float32, device=x.device)}
+    return lm_logits(cfg, params, x), aux
+
+
+def loss_fn(cfg, params, batch, **fw_kwargs):
+    """NLL over labels >= 0 plus 1e-4 z-loss (forward only)."""
+    logits, aux = forward_train(cfg, params, batch, **fw_kwargs)
+    labels = batch["labels"]
+    mask = (labels >= 0).float()
+    labels_c = labels.clamp_min(0).long()
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels_c[..., None])[..., 0]
+    nll = (lse - ll) * mask
+    denom = mask.sum().clamp_min(1.0)
+    loss = nll.sum() / denom
+    zloss = 1e-4 * (lse.square() * mask).sum() / denom
+    total = loss + zloss + 0.01 * aux["moe_aux"]
+    return total, {"loss": loss, "zloss": zloss, "moe_aux": aux["moe_aux"], "ntokens": mask.sum()}
+
+
+def prefill_forward(cfg, params, batch, *, compute_dtype=torch.bfloat16):
+    """Inference prefill: last-position logits (B,1,V) + per-layer K/V caches
+    of length S. Only the last position goes through the LM head."""
+    x, caches = _hidden(cfg, params, batch, compute_dtype, collect=True)
+    x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
+    return lm_logits(cfg, params, x), caches
+
+
+# ----------------------------------------------------------------- decode
+def init_cache(cfg, B, max_len, cache_dtype=torch.bfloat16, device="cuda"):
+    """Per-layer decode cache: zero K/V of length max_len, positions -1."""
+    K, dh = cfg.n_kv_heads, cfg.head_dim
+    caches = []
+    for i in range(cfg.n_layers):
+        spec = cfg.layer_spec(i)
+        _check_spec(spec)
+        if spec.attn_kind != "full":
+            raise NotImplementedError("sliding-window ring-buffer caches are not ported yet")
+        caches.append({"mixer": {
+            "k": torch.zeros((B, max_len, K, dh), dtype=cache_dtype, device=device),
+            "v": torch.zeros((B, max_len, K, dh), dtype=cache_dtype, device=device),
+            "pos": torch.full((B, max_len), -1, dtype=torch.int32, device=device),
+        }})
+    return caches
+
+
+def extend_cache(cfg, prefill_caches, max_len):
+    """A max_len decode cache holding the prefill K/V in slots 0..S-1."""
+    first = prefill_caches[0]["mixer"]["k"]
+    B, S = first.shape[:2]
+    if S > max_len:
+        raise ValueError(f"prompt length {S} exceeds max_len {max_len}")
+    cache = init_cache(cfg, B, max_len, cache_dtype=first.dtype, device=first.device)
+    for dst, src in zip(cache, prefill_caches):
+        for name in ("k", "v", "pos"):
+            dst["mixer"][name][:, :S].copy_(src["mixer"][name])
+    return cache
+
+
+def serve_forward(cfg, params, cache, batch, *, compute_dtype=torch.bfloat16):
+    """One decode step. batch: tokens (B,1), lengths (B,) current positions.
+
+    Returns (logits (B,1,V), cache), the cache updated in place.
+    """
+    tokens, lengths = batch["tokens"], batch["lengths"]
+    B = tokens.shape[0]
+    md = {
+        "positions": lengths[:, None].to(torch.int32),
+        "lengths": lengths,
+        "segment_ids": torch.ones((B, 1), dtype=torch.int32, device=tokens.device),
+        "causal": True,
+    }
+    x = embed_tokens(cfg, params, tokens, compute_dtype)
+    x, cache = _run_layers(cfg, params["layers"], x, md, caches=cache)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return lm_logits(cfg, params, x), cache

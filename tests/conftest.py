@@ -8,6 +8,7 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers",
         "slow: heavy jax compile/train tests; tier-1 runs -m 'not slow'")
+    config.addinivalue_line("markers", "gpu: needs a CUDA card; skips without one")
 
 
 @pytest.fixture
