@@ -1,33 +1,34 @@
-// Packed (segment-aware) flash attention, forward, for Hopper (sm_90a).
+// Packed (segment-aware) flash attention, forward, fp32, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel `_attn_kernel`, launched by
-// `packed_flash_attention` in src/repro/kernels/packed_flash_attn.py. It
-// computes the same function: a key is visible from a query when both carry
-// the same nonzero segment id, pos_q >= pos_k (causal) and
-// pos_q - pos_k < window (sliding window); GQA maps query head h to kv head
-// h * K / H; a row with no visible key returns exactly 0.
+// `packed_flash_attention` in src/repro/kernels/packed_flash_attn.py, for
+// fp32 inputs; bf16 inputs take the tensor-core kernel in
+// packed_flash_attn_sm90.cu. It computes the same function: a key is visible
+// from a query when both carry the same nonzero segment id, pos_q >= pos_k
+// (causal) and pos_q - pos_k < window (sliding window); GQA maps query head h
+// to kv head h * K / H; a row with no visible key returns exactly 0.
+//
+// Why fp32 stays on CUDA cores: fp32 is the parity path, held to 1e-4
+// against the plain version with TF32 off. The tensor cores take fp32 only
+// as TF32 (10-bit mantissa), which cannot meet that tolerance.
 //
 // Design. One CTA of 128 threads owns 64 query rows of one (batch, head) and
 // loops over 64-row KV tiles in order, carrying the running max, sum and
 // accumulator in fp32 registers (the Pallas grid's sequential KV axis becomes
-// this loop). A tile whose bit in `blk_ok` is 0 (computed by the wrapper from
-// per-tile segment and position ranges, at these tile sizes) is skipped
+// this loop). A tile whose code in `blk_ok` is 0 (computed by the wrapper
+// from per-tile segment and position ranges, at these tile sizes) is skipped
 // before it is loaded, which is what makes the cost scale with sum(l_i^2)
-// rather than N^2. Q, K and V tiles sit in shared memory in the input type
-// with rows padded by 4 elements, so the row reads of a warp fall in distinct
-// banks; the probability tile is fp32. Each thread owns 4 query rows x 8 keys
-// of the score tile and 4 query rows x head_dim/8 columns of the output, and
-// the products are fp32 FMAs on the CUDA cores. Rows and keys beyond the
-// sequence are zero-filled and carry segment id 0, so the mask removes them.
+// rather than N^2. Q, K and V tiles sit in shared memory with rows padded by
+// 4 elements, so the row reads of a warp fall in distinct banks; the
+// probability tile is fp32. Each thread owns 4 query rows x 8 keys of the
+// score tile and 4 query rows x head_dim/8 columns of the output, and the
+// products are fp32 FMAs on the CUDA cores. Rows and keys beyond the
+// sequence are zero-filled and carry segment id 0 (the wrapper pads seg/pos),
+// so the mask removes them.
 //
-// Bound on an H100 SXM: compute. At the serving shape (B=4, S=2048, H=32,
-// K=8, dh=128, causal, one document per row) the visible pairs need
-// 4 * dh * H * B * S(S+1)/2 = 137.5 GFLOP, 0.139 ms at 989 TFLOP/s (bf16
-// tensor cores), against 168 MB of q, k, v and out, 0.050 ms at 3.35 TB/s.
-// This kernel uses no tensor cores, so it runs far from that bound; mma /
-// wgmma tiles are the next step.
+// Bound on an H100 SXM: compute, 4 * dh flops per visible (query, key) pair
+// and head, at the 67 TFLOP/s of fp32 outside the tensor cores.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -45,21 +46,9 @@ __device__ __forceinline__ void load4(const float* p, float* o) {
   o[0] = x.x; o[1] = x.y; o[2] = x.z; o[3] = x.w;
 }
 
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* o) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
-}
-
 __device__ __forceinline__ void load2(const float* p, float* o) {
   const float2 x = *reinterpret_cast<const float2*>(p);
   o[0] = x.x; o[1] = x.y;
-}
-
-__device__ __forceinline__ void load2(const __nv_bfloat16* p, float* o) {
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-  o[0] = a.x; o[1] = a.y;
 }
 
 template <int N, typename T>
@@ -68,7 +57,6 @@ __device__ __forceinline__ void loadv(const T* p, float* o) {
 }
 
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
 // Copy rows [row0, row0 + ROWS) of one head into a padded shared tile, in
 // 16-byte chunks; rows at or past `limit` become zeros.
@@ -124,10 +112,9 @@ packed_flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   load_tile<T, DH, BQ>(Qs, qb, q0, Sq, q_stride);
   for (int r = tid; r < BQ; r += THREADS) {
-    const int s = q0 + r;
-    const bool in = s < Sq;
-    sq_s[r] = in ? seg_q[(size_t)b * Sq + s] : 0;
-    pq_s[r] = in ? pos_q[(size_t)b * Sq + s] : 0;
+    const size_t i = (size_t)b * nQ * BQ + q0 + r;  // seg/pos padded with zeros
+    sq_s[r] = seg_q[i];
+    pq_s[r] = pos_q[i];
   }
 
   float m[4], l[4], acc[4][DC];
@@ -147,10 +134,9 @@ packed_flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     load_tile<T, DH, BK>(Ks, kb, k0, Sk, kv_stride);
     load_tile<T, DH, BK>(Vs, vb, k0, Sk, kv_stride);
     for (int r = tid; r < BK; r += THREADS) {
-      const int s = k0 + r;
-      const bool in = s < Sk;
-      sk_s[r] = in ? seg_k[(size_t)b * Sk + s] : 0;
-      pk_s[r] = in ? pos_k[(size_t)b * Sk + s] : 0;
+      const size_t i = (size_t)b * nK * BK + k0 + r;
+      sk_s[r] = seg_k[i];
+      pk_s[r] = pos_k[i];
     }
     __syncthreads();
 
@@ -311,21 +297,17 @@ extern "C" {
 int packed_flash_attn_block_q() { return BQ; }
 int packed_flash_attn_block_k() { return BK; }
 
-// dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the launch.
-int packed_flash_attn_fwd(int dtype, int head_dim, const void* q, const void* k,
-                          const void* v, const void* seg_q, const void* seg_k,
-                          const void* pos_q, const void* pos_k, const void* blk_ok, void* out,
-                          int B, int Sq, int Sk, int H, int KH, int nQ, int nK, float scale,
-                          int causal, int has_window, int window, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)dispatch<float>(head_dim, q, k, v, seg_q, seg_k, pos_q, pos_k, blk_ok, out, B,
-                                Sq, Sk, H, KH, nQ, nK, scale, causal, has_window, window, st);
-  if (dtype == 1)
-    return (int)dispatch<__nv_bfloat16>(head_dim, q, k, v, seg_q, seg_k, pos_q, pos_k, blk_ok,
-                                        out, B, Sq, Sk, H, KH, nQ, nK, scale, causal,
-                                        has_window, window, st);
-  return (int)cudaErrorInvalidValue;
+// fp32 q (B,Sq,H,dh), k/v (B,Sk,KH,dh), out like q. seg/pos are int32 padded
+// with zeros to (B, nQ*64) and (B, nK*64); blk_ok is (B, nQ, nK) int8 tile
+// codes (0 skip, else run). Returns the cudaError_t of the launch.
+int packed_flash_attn_fwd(int head_dim, const void* q, const void* k, const void* v,
+                          const void* seg_q, const void* seg_k, const void* pos_q,
+                          const void* pos_k, const void* blk_ok, void* out, int B, int Sq,
+                          int Sk, int H, int KH, int nQ, int nK, float scale, int causal,
+                          int has_window, int window, void* stream) {
+  return (int)dispatch<float>(head_dim, q, k, v, seg_q, seg_k, pos_q, pos_k, blk_ok, out, B, Sq,
+                              Sk, H, KH, nQ, nK, scale, causal, has_window, window,
+                              static_cast<cudaStream_t>(stream));
 }
 
 const char* packed_flash_attn_error_string(int code) {

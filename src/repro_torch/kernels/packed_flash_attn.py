@@ -1,26 +1,60 @@
-"""Segment-aware (packed) flash attention: Hopper kernel wrapper and its tile map.
+"""Segment-aware (packed) flash attention: Hopper kernel wrappers and their tile map.
 
-Counterpart of `repro.kernels.packed_flash_attn`. The kernel itself is CUDA C++
-for sm_90a (`csrc/packed_flash_attn.cu`), built by nvcc at first use and bound
-with ctypes. `block_metadata` gives the (B, nQ, nK) int8 map of tiles that can
-hold a visible (query, key) pair; the kernel skips the others, so attention
-cost follows sum(l_i^2) of the packed documents rather than N^2.
+Counterpart of `repro.kernels.packed_flash_attn`. Two CUDA C++ kernels for
+sm_90a, built by nvcc at first use and bound with ctypes, one per input type:
+bf16 runs on the tensor cores (`csrc/packed_flash_attn_sm90.cu`: wgmma fed by
+TMA through an mbarrier ring, 128 x 128 tiles); fp32 runs on the CUDA cores
+(`csrc/packed_flash_attn.cu`, 64 x 64 tiles), since TF32 tensor cores cannot
+hold the fp32 parity tolerance. `block_metadata` gives the (B, nQ, nK) int8
+map of tiles that can hold a visible (query, key) pair; the kernels skip the
+others, so attention cost follows sum(l_i^2) of the packed documents rather
+than N^2. `tile_map` adds the tiles in which every pair is visible, which the
+bf16 kernel runs without a mask.
 
-`packed_flash_attention.launches` counts kernel launches (a plain integer a
-caller may reset), so a run can show its main path went through the kernel.
+`packed_flash_attention.launches` counts kernel launches per kernel source
+(a dict a caller may reset), so a run can show which kernel its main path
+went through.
 """
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build
 
-SOURCE = "packed_flash_attn.cu"
 HEAD_DIMS = (16, 32, 64, 128)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@dataclass(frozen=True)
+class Kernel:
+    """One compiled kernel: its source under `csrc/`, the prefix of its C
+    symbols and the tile sizes its `blk_ok` map is built at."""
+
+    source: str
+    symbol: str
+    block_q: int
+    block_k: int
+
+
+SM90 = Kernel("packed_flash_attn_sm90.cu", "packed_flash_attn_sm90", 128, 128)
+SIMT = Kernel("packed_flash_attn.cu", "packed_flash_attn", 64, 64)
+KERNELS = {torch.bfloat16: SM90, torch.float32: SIMT}
+
+
+def kernel_for(dtype) -> Kernel:
+    """The kernel that takes inputs of `dtype`."""
+    if dtype not in KERNELS:
+        raise TypeError(f"q must be float32 or bfloat16, got {dtype}")
+    return KERNELS[dtype]
+
+
+def tile_sizes(dtype):
+    """(block_q, block_k) of the kernel that takes `dtype`."""
+    kern = kernel_for(dtype)
+    return kern.block_q, kern.block_k
 
 
 def block_metadata(seg_q, seg_k, pos_q, pos_k, bq, bk, *, causal, window):
@@ -66,31 +100,57 @@ def _pad_to(x, mult):
     return F.pad(x, (0, pad)) if pad else x
 
 
+def _pad_all(seg_q, seg_k, pos_q, pos_k, bq, bk):
+    return _pad_to(seg_q, bq), _pad_to(seg_k, bk), _pad_to(pos_q, bq), _pad_to(pos_k, bk)
+
+
 def tile_map(seg_q, seg_k, pos_q, pos_k, bq, bk, *, causal, window):
-    """`block_metadata` of any sequence lengths: the sequences are padded to
-    tile multiples with segment id 0, as the reference wrapper pads them."""
-    return block_metadata(_pad_to(seg_q, bq), _pad_to(seg_k, bk), _pad_to(pos_q, bq),
-                          _pad_to(pos_k, bk), bq, bk, causal=causal, window=window)
+    """(B, nQ, nK) int8 tile codes at any sequence lengths: 0 = no visible
+    pair (skip), 1 = some pairs visible (mask per element), 2 = every pair
+    visible (no mask needed). The sequences are padded to tile multiples with
+    segment id 0, as the reference wrapper pads them.
+
+    Without a window, nonzero exactly where `block_metadata` is 1. With one,
+    a tile is skipped only when min(pos_q) - max(pos_k) >= window, which no
+    visible pair can cross. `block_metadata`'s window test, max(pos_q) -
+    min(pos_k) < window + bq + bk, assumes positions run contiguously through
+    a tile and drops visible pairs when a key tile holds a document start or
+    padding (position 0); the kernels do not use it."""
+    seg_q, seg_k, pos_q, pos_k = _pad_all(seg_q, seg_k, pos_q, pos_k, bq, bk)
+    ok = block_metadata(seg_q, seg_k, pos_q, pos_k, bq, bk, causal=causal, window=None)
+    B = seg_q.shape[0]
+    sq, pq = seg_q.reshape(B, -1, bq), pos_q.reshape(B, -1, bq)
+    sk, pk = seg_k.reshape(B, -1, bk), pos_k.reshape(B, -1, bk)
+    if window is not None:
+        ok &= ((pq.amin(-1)[:, :, None] - pk.amax(-1)[:, None, :]) < window).to(torch.int8)
+    # one nonzero segment over both tiles, and every position pair in range
+    seg_one = sq.amax(-1)[:, :, None]
+    full = ((sq.amin(-1) == sq.amax(-1))[:, :, None] & (sk.amin(-1) == sk.amax(-1))[:, None, :]
+            & (seg_one == sk.amax(-1)[:, None, :]) & (seg_one != 0))
+    if causal:
+        full &= pq.amin(-1)[:, :, None] >= pk.amax(-1)[:, None, :]
+    if window is not None:
+        full &= (pq.amax(-1)[:, :, None] - pk.amin(-1)[:, None, :]) < window
+    return ok + full.to(torch.int8)
 
 
-def _library():
-    lib = build.load(SOURCE)
-    fwd = lib.packed_flash_attn_fwd
-    if fwd.argtypes is None:  # first use: declare the C signatures
+_FWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+                 + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+
+
+def _library(kern: Kernel):
+    lib = build.load(kern.source)
+    fwd = getattr(lib, f"{kern.symbol}_fwd")
+    if fwd.argtypes is None:  # first use: declare the C signatures, check the tiles
         fwd.restype = ctypes.c_int
-        fwd.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
-                        + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-        lib.packed_flash_attn_error_string.restype = ctypes.c_char_p
-        lib.packed_flash_attn_error_string.argtypes = [ctypes.c_int]
-        lib.packed_flash_attn_block_q.restype = ctypes.c_int
-        lib.packed_flash_attn_block_k.restype = ctypes.c_int
+        fwd.argtypes = _FWD_ARGTYPES
+        err = getattr(lib, f"{kern.symbol}_error_string")
+        err.restype, err.argtypes = ctypes.c_char_p, [ctypes.c_int]
+        compiled = (getattr(lib, f"{kern.symbol}_block_q")(), getattr(lib, f"{kern.symbol}_block_k")())
+        if compiled != (kern.block_q, kern.block_k):
+            raise RuntimeError(f"{kern.source}: compiled tiles {compiled} != "
+                               f"{(kern.block_q, kern.block_k)}")
     return lib
-
-
-def tile_sizes():
-    """(block_q, block_k) the compiled kernel uses."""
-    lib = _library()
-    return lib.packed_flash_attn_block_q(), lib.packed_flash_attn_block_k()
 
 
 def _check(q, k, v, seg_q, seg_k, pos_q, pos_k):
@@ -100,8 +160,7 @@ def _check(q, k, v, seg_q, seg_k, pos_q, pos_k):
                     ("pos_q", pos_q), ("pos_k", pos_k)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-    if q.dtype not in _DTYPE_CODE:
-        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    kernel_for(q.dtype)
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
     if q.dim() != 4 or k.dim() != 4:
@@ -124,8 +183,7 @@ def _check(q, k, v, seg_q, seg_k, pos_q, pos_k):
                     ("pos_q", pos_q), ("pos_k", pos_k)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.data_ptr() % 16:
+        if t.data_ptr() % 16:  # TMA and bulk copies need 16-byte aligned rows
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
@@ -133,30 +191,33 @@ def packed_flash_attention(q, k, v, seg_q, seg_k, pos_q, pos_k, *,
                            causal=True, window=None, scale=None):
     """q (B,Sq,H,dh); k/v (B,Sk,K,dh) un-repeated -> (B,Sq,H,dh), on the card.
 
-    Raises on a tensor the kernel does not take; never falls back.
+    bf16 takes the tensor-core kernel, fp32 the CUDA-core one. Raises on a
+    tensor the kernels do not take; never falls back.
     """
     _check(q, k, v, seg_q, seg_k, pos_q, pos_k)
+    kern = kernel_for(q.dtype)
     B, Sq, H, dh = q.shape
     Sk, K = k.shape[1], k.shape[2]
     if scale is None:
         scale = dh ** -0.5
-    lib = _library()
-    bq, bk = lib.packed_flash_attn_block_q(), lib.packed_flash_attn_block_k()
-    blk_ok = tile_map(seg_q, seg_k, pos_q, pos_k, bq, bk, causal=causal, window=window)
-    nq, nk = blk_ok.shape[1], blk_ok.shape[2]
+    lib = _library(kern)
+    bq, bk = kern.block_q, kern.block_k
+    padded = _pad_all(seg_q, seg_k, pos_q, pos_k, bq, bk)  # whole tiles of ids
+    blk = tile_map(*padded, bq, bk, causal=causal, window=window)
+    nq, nk = blk.shape[1], blk.shape[2]
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        rc = lib.packed_flash_attn_fwd(
-            _DTYPE_CODE[q.dtype], dh, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            seg_q.data_ptr(), seg_k.data_ptr(), pos_q.data_ptr(), pos_k.data_ptr(),
-            blk_ok.data_ptr(), out.data_ptr(), B, Sq, Sk, H, K, nq, nk, float(scale),
+        rc = getattr(lib, f"{kern.symbol}_fwd")(
+            dh, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            *(t.data_ptr() for t in padded), blk.data_ptr(), out.data_ptr(),
+            B, Sq, Sk, H, K, nq, nk, float(scale),
             int(causal), int(window is not None), int(window or 0), stream)
     if rc != 0:
-        msg = lib.packed_flash_attn_error_string(rc).decode()
-        raise RuntimeError(f"packed flash attention launch failed: {msg} ({rc})")
-    packed_flash_attention.launches += 1
+        msg = getattr(lib, f"{kern.symbol}_error_string")(rc).decode()
+        raise RuntimeError(f"packed flash attention launch failed ({kern.source}): {msg} ({rc})")
+    packed_flash_attention.launches[kern.source] += 1
     return out
 
 
-packed_flash_attention.launches = 0
+packed_flash_attention.launches = {kern.source: 0 for kern in KERNELS.values()}

@@ -1,6 +1,6 @@
-"""On the card: the Hopper packed flash attention kernel against its plain
-PyTorch version, and the port's reduced model on the card against itself on
-the CPU. Every case is marked `gpu` and skips without a CUDA card. This file
+"""On the card: the Hopper packed flash attention kernels (bf16 on the tensor
+cores, fp32 on the CUDA cores) against their plain PyTorch version, and the
+port's reduced model on the card against itself on the CPU. Every case is marked `gpu` and skips without a CUDA card. This file
 imports no JAX, so it runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -11,7 +11,7 @@ import torch
 
 from repro_torch.configs import get_arch, reduced
 from repro_torch.data.synth import SyntheticPackedDataset
-from repro_torch.kernels.packed_flash_attn import packed_flash_attention
+from repro_torch.kernels.packed_flash_attn import SIMT, SM90, packed_flash_attention
 from repro_torch.kernels.ref import packed_attention_ref
 from repro_torch.models.model import forward_train, init_params, loss_fn
 
@@ -20,6 +20,10 @@ from torch_helpers import cuda, n, t  # noqa: F401
 
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _launches():
+    return sum(packed_flash_attention.launches.values())
 
 
 def _args(rng, device, B, S, H, K, dh, dtype, doc_lens=None):
@@ -41,27 +45,86 @@ def _args(rng, device, B, S, H, K, dh, dtype, doc_lens=None):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_gpu_kernel_matches_plain(cuda, rng, S, H, K, dh, dtype):
     args = _args(rng, cuda, 2, S, H, K, dh, dtype)
-    before = packed_flash_attention.launches
+    before = _launches()
     out = packed_flash_attention(*args, causal=True)
     torch.cuda.synchronize()
-    assert packed_flash_attention.launches == before + 1
+    assert _launches() == before + 1
     ref = packed_attention_ref(*args, causal=True)
     np.testing.assert_allclose(n(out), n(ref), atol=TOL[dtype], rtol=TOL[dtype])
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("window", [16, 64, None])
-def test_gpu_kernel_window_and_padding_rows(cuda, rng, window):
-    B, S, H, dh = 1, 64, 2, 16
-    q, k, v, *_ = _args(rng, cuda, B, S, H, H, dh, "float32")
+@pytest.mark.parametrize("S,dh,valid", [(64, 16, 40), (300, 128, 260)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_kernel_window_and_padding_rows(cuda, rng, window, S, dh, valid, dtype):
+    """Sliding window, and rows of segment 0 exactly 0, on both kernels."""
+    B, H = 1, 2
+    q, k, v, *_ = _args(rng, cuda, B, S, H, H, dh, dtype)
     seg = torch.zeros((B, S), dtype=torch.int32, device=cuda)
-    seg[:, :40] = 1
-    pos = torch.arange(S, dtype=torch.int32, device=cuda)[None] * (seg > 0)
-    args = (q, k, v, seg, seg, pos.to(torch.int32), pos.to(torch.int32))
+    seg[:, :valid] = 1
+    pos = (torch.arange(S, dtype=torch.int32, device=cuda)[None] * (seg > 0)).to(torch.int32)
+    args = (q, k, v, seg, seg, pos, pos)
     out = packed_flash_attention(*args, causal=True, window=window)
     ref = packed_attention_ref(*args, causal=True, window=window)
-    assert bool((out[:, 40:] == 0).all())
-    np.testing.assert_allclose(n(out), n(ref), atol=2e-5, rtol=2e-5)
+    assert bool((out[:, valid:] == 0).all())
+    np.testing.assert_allclose(n(out), n(ref), atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_kernel_window_across_position_resets(cuda, rng, dtype):
+    """A sliding window over a key tile that holds a document start and
+    padding (position 0) next to late positions: no visible pair is lost."""
+    S = 1000
+    q, k, v, *_ = _args(rng, cuda, 2, S, 4, 2, 64, dtype)
+    seg = torch.ones((2, S), dtype=torch.int32, device=cuda)
+    pos = torch.arange(S, dtype=torch.int32, device=cuda).repeat(2, 1)
+    seg[1, 300:] = 2
+    pos[1, 300:] -= 300
+    seg[1, 900:] = 0
+    pos[1, 900:] = 0
+    args = (q, k, v, seg, seg, pos, pos)
+    out = packed_flash_attention(*args, causal=True, window=256)
+    ref = packed_attention_ref(*args, causal=True, window=256)
+    assert bool((out[1, 900:] == 0).all())
+    np.testing.assert_allclose(n(out), n(ref), atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("doc_lens", [[1024], [100, 300, 24, 600]])
+def test_gpu_kernel_qwen3_shape_bf16(cuda, rng, doc_lens):
+    """qwen3-8b widths (H=32, K=8, dh=128) at S=1024: one document, several."""
+    args = _args(rng, cuda, 2, 1024, 32, 8, 128, "bfloat16", doc_lens=doc_lens)
+    out = packed_flash_attention(*args, causal=True)
+    ref = packed_attention_ref(*args, causal=True)
+    np.testing.assert_allclose(n(out), n(ref), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [200, 333])
+@pytest.mark.parametrize("dh", [32, 128])
+def test_gpu_kernel_ragged_bf16(cuda, rng, S, dh):
+    """Lengths that are no tile multiple: TMA zero-fills the ragged edge of
+    the tensor-core kernel's tiles."""
+    args = _args(rng, cuda, 2, S, 8, 2, dh, "bfloat16")
+    out = packed_flash_attention(*args, causal=True)
+    ref = packed_attention_ref(*args, causal=True)
+    np.testing.assert_allclose(n(out), n(ref), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.gpu
+def test_gpu_launch_counts_by_dtype(cuda, rng):
+    """A bf16 call launches the tensor-core kernel once, an fp32 call the
+    CUDA-core kernel once; each raises its own source's count by one."""
+    for dtype, kern in (("bfloat16", SM90), ("float32", SIMT)):
+        args = _args(rng, cuda, 1, 128, 4, 2, 64, dtype)
+        before = dict(packed_flash_attention.launches)
+        packed_flash_attention(*args, causal=True)
+        torch.cuda.synchronize()
+        after = packed_flash_attention.launches
+        assert {s: after[s] - before[s] for s in after} == {
+            s: int(s == kern.source) for s in after}
 
 
 @pytest.mark.gpu
@@ -93,9 +156,9 @@ def test_gpu_reduced_model_matches_cpu(cuda):
     cpu_b = {k: t(v) for k, v in batch.items()}
     gpu_b = {k: v.to(cuda) for k, v in cpu_b.items()}
     gpu_p = _to(params, cuda)
-    before = packed_flash_attention.launches
+    before = _launches()
     loss_gpu, _ = loss_fn(cfg, gpu_p, gpu_b, compute_dtype=torch.float32)
-    assert packed_flash_attention.launches == before + cfg.n_layers
+    assert _launches() == before + cfg.n_layers
     loss_cpu, _ = loss_fn(cfg, params, cpu_b, compute_dtype=torch.float32)
     np.testing.assert_allclose(float(loss_gpu), float(loss_cpu), atol=1e-4, rtol=1e-4)
     logits_gpu, _ = forward_train(cfg, gpu_p, gpu_b, compute_dtype=torch.float32)

@@ -11,13 +11,21 @@ from _ht import given, settings, strategies as st
 
 from repro.kernels.ops import packed_attention as j_packed_attention
 from repro.kernels.packed_flash_attn import block_metadata as j_block_metadata
+from repro.kernels.packed_flash_attn import packed_flash_attention as j_packed_flash_attention
 from repro.kernels.ref import packed_attention_ref as j_ref
 from repro_torch.kernels import ops
 from repro_torch.kernels.packed_flash_attn import (
+    HEAD_DIMS,
+    SIMT,
+    SM90,
     block_metadata,
+    kernel_for,
     packed_flash_attention,
     skipped_block_fraction,
+    tile_map,
+    tile_sizes,
 )
+from repro_torch.kernels.ref import attention_mask
 
 from conftest import make_packed
 from torch_helpers import n, t
@@ -32,6 +40,8 @@ SWEEP = [
     (256, 8, 1, 16, 128, 128),  # MQA
     (192, 4, 4, 64, 64, 64),    # non-power-of-two block count + padding
     (128, 4, 4, 32, 32, 64),    # bq != bk
+    (256, 4, 2, 64, 128, 128),  # the bf16 Hopper kernel's tiles
+    (384, 4, 4, 32, 128, 64),   # 128-row tiles, bq != bk, odd tile count
 ]
 
 
@@ -155,6 +165,150 @@ def test_block_metadata_never_skips_needed_tiles(rng):
         for ik in range(S // bk):
             if mask[iq * bq:(iq + 1) * bq, ik * bk:(ik + 1) * bk].any():
                 assert meta[iq, ik] == 1
+
+
+def test_tile_codes_mark_fully_visible_tiles(rng):
+    """`tile_map` codes: nonzero where `block_metadata` (and so the JAX map)
+    is 1 when there is no window, never zero on a tile with a visible pair,
+    and 2 exactly where every pair of the tile is visible, which is where the
+    bf16 kernel runs without a mask."""
+    S = 512
+    seg, pos = make_packed(rng, 2, S, doc_lens=[200, 56, 256])
+    ts, tp = t(seg), t(pos)
+    seen = set()
+    for bq, bk in ((128, 128), (128, 64), (64, 64)):
+        for window in (None, 200):
+            codes = tile_map(ts, ts, tp, tp, bq, bk, causal=True, window=window).numpy()
+            mask = attention_mask(ts, ts, tp, tp, causal=True, window=window).numpy()
+            tiles = mask.reshape(2, S // bq, bq, S // bk, bk)
+            assert np.all(codes[tiles.any(axis=(2, 4))] != 0)
+            np.testing.assert_array_equal(codes == 2, tiles.all(axis=(2, 4)))
+            if window is None:
+                meta = block_metadata(ts, ts, tp, tp, bq, bk, causal=True, window=None).numpy()
+                np.testing.assert_array_equal(codes != 0, meta == 1)
+            seen |= set(np.unique(codes).tolist())
+    assert seen == {0, 1, 2}
+
+
+def test_tile_map_pads_ragged_lengths(rng):
+    """At a length that is not a tile multiple the padding (segment id 0,
+    position 0) makes its tiles masked: the tile below the diagonal that is
+    fully visible at S=256 needs the mask at S=200, and the tile above it is
+    kept, as the JAX map keeps it (the padded keys' position 0)."""
+    for S, want in ((256, [[1, 0], [2, 1]]), (200, [[1, 1], [1, 1]])):
+        seg, pos = make_packed(rng, 1, S, doc_lens=[S])
+        codes = tile_map(t(seg), t(seg), t(pos), t(pos), 128, 128, causal=True, window=None)
+        np.testing.assert_array_equal(codes[0].numpy(), want)
+
+
+def _window_reset_ids(S=1000):
+    """Row 0: one document and trailing tile padding; row 1: a document
+    start at 300 and padding (segment 0, position 0) from 900."""
+    seg = np.ones((2, S), np.int32)
+    pos = np.tile(np.arange(S, dtype=np.int32), (2, 1))
+    seg[1, 300:] = 2
+    pos[1, 300:] -= 300
+    seg[1, 900:] = 0
+    pos[1, 900:] = 0
+    return seg, pos
+
+
+@pytest.mark.parametrize("bq,bk", [(128, 128), (128, 64), (64, 64)])
+def test_tile_map_window_keeps_tiles_across_position_resets(bq, bk):
+    """A key tile that holds a document start or padding (position 0) next
+    to late positions: the JAX map's window test skips a tile whose pairs are
+    visible; `tile_map`, which the kernels use, keeps every tile with a
+    visible pair and still skips tiles left of the window."""
+    S, window = 1000, 256
+    seg, pos = _window_reset_ids(S)
+    codes = tile_map(t(seg), t(seg), t(pos), t(pos), bq, bk, causal=True, window=window)
+    sp, pp = (np.pad(x, ((0, 0), (0, (-S) % bq))) for x in (seg, pos))
+    sj, pj = jnp.asarray(sp), jnp.asarray(pp)
+    jmeta = np.asarray(j_block_metadata(sj, sj, pj, pj, bq, bk, causal=True, window=window))
+    meta = block_metadata(t(sp), t(sp), t(pp), t(pp), bq, bk, causal=True, window=window)
+    np.testing.assert_array_equal(meta.numpy(), jmeta)
+    mask = attention_mask(t(sp), t(sp), t(pp), t(pp), causal=True, window=window)
+    need = mask.reshape(2, -1, bq, mask.shape[2] // bk, bk).any(4).any(2).numpy()
+    assert np.any(need & (jmeta == 0))  # the reference's test drops some
+    assert not bool((t(need) & (codes == 0)).any())
+    assert float((codes == 0).float().mean()) > 0.3  # tiles left of the window go
+
+
+def test_jax_window_skip_loses_visible_keys(rng):
+    """The JAX package's own witness of the window fault above: its Pallas
+    kernel (interpret mode, 128 x 128 tiles) differs from its jnp oracle on
+    exactly the rows with a visible key in a tile its map skips, and the
+    port's plain version agrees with the oracle on every row."""
+    S, window, bq = 1000, 256, 128
+    seg, pos = _window_reset_ids(S)
+    q, k, v, _, _ = _inputs(rng, 2, S, 2, 1, 16, "float32")
+    kern = _jax(j_packed_flash_attention, q, k, v, seg, pos, "float32", causal=True,
+                window=window, block_q=bq, block_k=bq, interpret=True)
+    ref = _jax(j_ref, q, k, v, seg, pos, "float32", causal=True, window=window)
+    sp, pp = (np.pad(x, ((0, 0), (0, (-S) % bq))) for x in (seg, pos))
+    sj, pj = jnp.asarray(sp), jnp.asarray(pp)
+    jmeta = np.asarray(j_block_metadata(sj, sj, pj, pj, bq, bq, causal=True, window=window))
+    mask = attention_mask(t(sp), t(sp), t(pp), t(pp), causal=True, window=window).numpy()
+    skipped = np.repeat(np.repeat(jmeta == 0, bq, axis=1), bq, axis=2)
+    lost = (mask & skipped).any(-1)[:, :S]
+    assert lost[0, 896:].all() and lost[1, 896:900].all()  # diagonal tiles with padding
+    off = np.abs(kern - ref).max(axis=(2, 3))
+    assert np.all(off[lost] > 1e-3)
+    np.testing.assert_allclose(kern[~lost], ref[~lost], atol=2e-5, rtol=2e-5)
+    port = _port(q, k, v, seg, pos, "float32", causal=True, window=window)
+    np.testing.assert_allclose(port, ref, atol=2e-5, rtol=2e-5)
+
+
+def test_kernel_choice_by_dtype():
+    """bf16 takes the tensor-core source at 128-row tiles, fp32 the CUDA-core
+    source at 64 x 64; anything else is refused. Needs no card."""
+    assert kernel_for(torch.bfloat16) is SM90
+    assert SM90.source == "packed_flash_attn_sm90.cu" and tile_sizes(torch.bfloat16) == (128, 128)
+    assert kernel_for(torch.float32) is SIMT
+    assert SIMT.source == "packed_flash_attn.cu" and tile_sizes(torch.float32) == (64, 64)
+    for dtype in (torch.float16, torch.float64, torch.int32):
+        with pytest.raises(TypeError):
+            kernel_for(dtype)
+    assert HEAD_DIMS == (16, 32, 64, 128)
+    assert packed_flash_attention.launches.keys() == {SM90.source, SIMT.source}
+
+
+def _plain_bf16_p(q, k, v, seg, pos, *, window=None):
+    """The port's plain version (`kernels/ref.py`) with one change, the bf16
+    kernel's: P is rounded to bf16 before P.V. The row sums stay fp32."""
+    B, S, H, dh = q.shape
+    K = k.shape[2]
+    k, v = (x.repeat_interleave(H // K, dim=2) for x in (k, v))
+    mask = attention_mask(seg, seg, pos, pos, causal=True, window=window)[:, None]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * dh ** -0.5
+    s = s.masked_fill(~mask, -1e30)
+    p = torch.exp(s - s.amax(-1, keepdim=True)).masked_fill_(~mask, 0.0)
+    l = p.sum(-1, keepdim=True).transpose(1, 2)[..., 0][..., None]
+    o = torch.einsum("bhqk,bkhd->bqhd", p.to(torch.bfloat16).float(), v.float())
+    return torch.where(l > 0, o / l.clamp_min(1e-30), 0.0).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("S,H,K,dh,window,pad", [
+    (256, 8, 2, 128, None, 0),   # qwen3-8b head width and GQA 4:1
+    (192, 4, 4, 64, 48, 0),      # sliding window
+    (160, 4, 1, 32, None, 40),   # MQA, 40 padding rows
+])
+def test_bf16_probabilities_stay_within_tolerance(rng, S, H, K, dh, window, pad):
+    """The tolerance argument for the bf16 kernel's one numerical change:
+    rounding P to bf16 before P.V keeps the output within 2e-2 of the JAX
+    reference (which keeps P in fp32) on bf16 inputs."""
+    q, k, v, seg, pos = _inputs(rng, 2, S, H, K, dh, "bfloat16", doc_lens=[S // 3, S])
+    if pad:
+        seg[:, -pad:] = 0
+        pos[:, -pad:] = 0
+    tq, tk, tv = (t(a).to(torch.bfloat16) for a in (q, k, v))
+    out = n(_plain_bf16_p(tq, tk, tv, t(seg), t(pos), window=window))
+    ref = _jax(j_ref, q, k, v, seg, pos, "bfloat16", causal=True, window=window)
+    np.testing.assert_allclose(out, ref, atol=2e-2, rtol=2e-2)
+    plain = _port(q, k, v, seg, pos, "bfloat16", causal=True, window=window)
+    assert np.abs(out - plain).max() > 0  # the rounding is really there
+    if pad:
+        assert np.all(out[:, -pad:] == 0)
 
 
 def test_kernel_wrapper_refuses_cpu_tensors(rng):
