@@ -7,19 +7,26 @@ Phases, in one process; any failure exits nonzero:
              and check in the SASS that the bf16 kernel runs on the tensor
              cores (HGMMA instructions);
   2. kernel  hold each kernel against its plain PyTorch version on the card
-             (bf16 tensor-core kernel: serving shape and a packed shape,
+             (bf16 tensor-core forward: serving shape and a packed shape,
              timed also with every visible tile masked, and a windowed
-             shape with padding rows; fp32 CUDA-core kernel: a ragged shape)
-             and time it beside its bound, the plain version and one
-             PyTorch library call;
+             shape with padding rows; fp32 CUDA-core forward: a ragged
+             shape and the parity path's shape; the backward kernel in
+             both types at the same shapes and at the shape of each
+             micro-batch the train paths launch it on) and time it beside
+             its bound, the plain version and one PyTorch library call;
   3. fp32    the fp32 parity path: reduced qwen3-8b in fp32 on the card (the
-             CUDA-core kernel, one launch per layer) against the CPU;
+             CUDA-core forward, one launch per layer, and the backward
+             kernel in one train step) against the CPU;
   4. forward full-width, 36-layer qwen3-8b (random bf16 weights from a seed):
              packed forward + loss over synthetic batches, one kernel launch
              per layer, and the Eq. 1 micro-batch predictor fit on the times;
-  5. serve   the main path: packed prefill of 4 x 2048-token prompts through
-             the bf16 kernel, then 64 greedy decode steps over a 2112-slot
-             cache, checked against the packed forward.
+  5. serve   the serving path: packed prefill of 4 x 2048-token prompts
+             through the bf16 kernel, then 64 greedy decode steps over a
+             2112-slot cache, checked against the packed forward;
+  6. train   the training path: full-width qwen3-8b cut to 8 layers (fp32
+             masters + AdamW, bf16 compute, remat) trained for 20 steps by
+             the port's spmd driver, through the bf16 forward and backward
+             kernels, with the Eq. 1 fit and the Detector on the step times.
 Prints the card's name and power limit first, a `kernels` JSON line before
 the last, and as the last line {"ok": true, "device": {...}}. Imports no JAX
 and nothing of the JAX package.
@@ -43,6 +50,13 @@ PEAK_FP32_FLOPS = 67e12    # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 SERVE_B, PROMPT, NEW_TOKENS = 4, 2048, 64
 FORWARD_BATCHES, FIT_BATCHES = 12, 8
+# training: 8 layers of full-width qwen3-8b fit one 80 GB card in fp32
+# masters + fp32 gradients + AdamW m and v (16 bytes per parameter)
+TRAIN_LAYERS, TRAIN_STEPS, TRAIN_WARMUP, TRAIN_FIT = 8, 20, 2, 8
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICROBATCHES = 4096, 2, 2
+TRAIN_PROFILED_STEP = 1  # after the warm-up step 0; Eq. 1 and the Detector skip it
+# the fp32 parity path: reduced qwen3-8b at the real head width
+PARITY_SEQ, PARITY_BATCH, PARITY_MICROBATCHES = 256, 2, 2
 TOL_BF16, TOL_FP32 = 2e-2, 1e-4
 # bf16 end to end, 36 layers: prefill vs the packed forward differ only in
 # the LM-head product's shape; the first decode step takes the dense cache
@@ -68,10 +82,10 @@ def cuda_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters, name=None):
-    """Device time per call of fn() in ms, from torch.profiler: the kernels
-    whose name contains `name`, or every kernel the call launches. Unlike
-    `cuda_ms`, host time between launches does not count."""
+def device_us_by_kernel(fn, iters):
+    """Device time in us of each kernel name over `iters` calls of fn (after
+    one warm-up call), from torch.profiler. Host time between launches does
+    not count."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -81,27 +95,37 @@ def device_ms(fn, iters, name=None):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and (name is None or name in e.key))
+    return {e.key: e.self_device_time_total for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
+
+
+def device_ms(fn, iters, name=None):
+    """Device time per call of fn() in ms: the kernels whose name contains
+    `name`, or every kernel the call launches. Unlike `cuda_ms`, host time
+    between launches does not count."""
+    us = sum(t for key, t in device_us_by_kernel(fn, iters).items() if name is None or name in key)
     if us <= 0:
         raise AssertionError(f"the profiler saw no device time{f' for {name}' if name else ''}")
     return us / 1e3 / iters
 
 
-def attention_bound(q, k, mask, out_bytes, extra_bytes):
+def attention_bound(q, mask, products, moved_bytes):
     """Least time (ms) for packed attention on these inputs, and what bounds it.
 
-    Operations: 4 * dh per visible (query, key) pair and head (QK^T and PV),
-    counted from this run's mask. Bytes: q, k, v and the int32 seg/pos read
-    once, the output written once.
+    Operations: `products` matrix products of 2 * dh per visible (query,
+    key) pair and head, counted from this run's mask (forward: QK^T and PV;
+    backward: QK^T again, dP = dO V^T, dV, dK, dQ). Bytes: `moved_bytes`, each
+    input read once and each output written once.
     """
     H, dh = q.shape[2], q.shape[3]
-    flops = 4.0 * dh * H * float(mask.sum())
-    nbytes = (q.numel() * q.element_size() + 2 * k.numel() * k.element_size()
-              + out_bytes + extra_bytes)
+    flops = 2.0 * products * dh * H * float(mask.sum())
     peak = PEAK_BF16_FLOPS if q.dtype == torch.bfloat16 else PEAK_FP32_FLOPS
-    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+    t_ops, t_bytes = flops / peak * 1e3, moved_bytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, moved_bytes
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def check_case(name, out, ref, tol, seg):
@@ -151,8 +175,9 @@ def kernel_case(name, q, k, v, seg, pos, tol, *, time_it, window=None):
            "unmasked_tile_fraction": float((codes == 2).float().mean())}
     if time_it:
         mask = attention_mask(seg, seg, pos, pos, **kw)
-        bound, by, flops, nbytes = attention_bound(
-            q, k, mask, out.numel() * out.element_size(), 4 * seg.numel() * 4)
+        # q, k, v and the int32 seg/pos of both sides read, out written
+        bound, by, flops, moved = attention_bound(q, mask, 2,
+                                                  nbytes(q, k, v, out) + 4 * nbytes(seg))
         # ms: the kernel's own device time; wrapper_*: the whole call (tile
         # map + launch), on the device and on CUDA events (host gaps count)
         call = lambda: packed_flash_attention(*args, **kw)  # noqa: E731
@@ -160,7 +185,7 @@ def kernel_case(name, q, k, v, seg, pos, tol, *, time_it, window=None):
         row.update(ms=device_ms(call, 20, kname), wrapper_device_ms=device_ms(call, 20),
                    wrapper_event_ms=cuda_ms(call, iters=20),
                    plain_ms=device_ms(lambda: packed_attention_ref(*args, **kw), 3),
-                   bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes)
+                   bound_ms=bound, bound_by=by, flops=flops, bytes=moved)
         # yardstick only: one PyTorch call computing the same function
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         bmask = mask[:, None]
@@ -178,6 +203,99 @@ def kernel_case(name, q, k, v, seg, pos, tol, *, time_it, window=None):
     return row
 
 
+def backward_case(name, q, k, v, seg, pos, tol, *, time_it, window=None):
+    """Backward kernel vs autograd through the plain version; optionally
+    timed. Returns a row."""
+    from repro_torch.kernels.packed_flash_attn import (
+        BWD, packed_flash_attention, packed_flash_attention_backward, tile_map)
+    from repro_torch.kernels.ref import attention_mask, packed_attention_ref_backward
+
+    kw = {"causal": True, "window": window}
+    g = torch.Generator(device=q.device)
+    g.manual_seed(4321)
+    d_out = torch.randn(q.shape, generator=g, device=q.device).to(q.dtype)
+    out, lse = packed_flash_attention(q, k, v, seg, seg, pos, pos, **kw, return_lse=True)
+    call = lambda: packed_flash_attention_backward(  # noqa: E731
+        q, k, v, out, lse, d_out, seg, seg, pos, pos, **kw)
+    grads = call()
+    torch.cuda.synchronize()
+    plain = lambda: packed_attention_ref_backward(  # noqa: E731
+        q, k, v, d_out, seg, seg, pos, pos, **kw)
+    ref = plain()
+    errs = {}
+    for gname, a, b in zip(("dq", "dk", "dv"), grads, ref):
+        err = float((a.float() - b.float()).abs().max())
+        limit = tol * float(b.float().abs().max())
+        if not err <= limit:  # also fails on NaN
+            raise AssertionError(f"{name}: {gname} max abs err {err} > {limit} "
+                                 f"({tol} of max |ref|)")
+        errs[gname] = err
+    pad = seg == 0
+    if pad.any() and not all(bool((x[pad] == 0).all()) for x in grads):
+        raise AssertionError(f"{name}: gradients of padding rows or keys are not exactly 0")
+    codes = tile_map(seg, seg, pos, pos, BWD.block_q, BWD.block_k, **kw)
+    row = {"case": name, "kernel": BWD.source, "shape": list(q.shape), "kv_heads": k.shape[2],
+           "dtype": str(q.dtype), "window": window, "max_abs_err": max(errs.values()),
+           "max_abs_err_by_grad": errs, "tol_of_max_ref": tol,
+           "padding_rows": int(pad.sum()), "tiles": [BWD.block_q, BWD.block_k],
+           "skipped_tile_fraction": float((codes == 0).float().mean())}
+    if time_it:
+        mask = attention_mask(seg, seg, pos, pos, **kw)
+        # q, k, v, out, d_out, lse and seg/pos read; dq, dk, dv written
+        bound, by, flops, moved = attention_bound(
+            q, mask, 5, 2 * nbytes(q, k, v) + nbytes(out, d_out, lse) + 4 * nbytes(seg))
+        us = device_us_by_kernel(call, 10)
+        by_name = {name: sum(t for key, t in us.items() if name in key) / 1e3 / 10
+                   for name in ("bwd_delta_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel")}
+        if not all(by_name.values()):
+            raise AssertionError(f"{name}: the profiler saw no device time for {by_name}")
+        row.update(ms=sum(by_name.values()), ms_by_kernel=by_name,
+                   wrapper_event_ms=cuda_ms(call, iters=10),
+                   plain_ms=device_ms(plain, 2), bound_ms=bound, bound_by=by, flops=flops,
+                   bytes=moved)
+        # yardstick only: SDPA's backward on the same bool mask, out.backward(dO) alone
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+        o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask[:, None], enable_gqa=True)
+        dot = d_out.transpose(1, 2)
+        row["library_ms"] = device_ms(lambda: o.backward(dot, retain_graph=True), 5)
+        row["library_call"] = ("torch.nn.functional.scaled_dot_product_attention(bool mask, "
+                               "enable_gqa) backward")
+        del o, qt, kt, vt
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        row["tflops"] = flops / row["ms"] / 1e9
+    log("backward", json.dumps(row))
+    return row
+
+
+def parity_model(cfg):
+    """The fp32 parity path's model and its batch."""
+    from repro_torch.configs import reduced
+    from repro_torch.data.synth import SyntheticPackedDataset
+
+    small = reduced(cfg, head_dim=cfg.head_dim)
+    return small, SyntheticPackedDataset(small, PARITY_SEQ, PARITY_BATCH, seed=0, mu=4.0,
+                                         sigma=0.8).batch_at(0)
+
+
+def microbatch_cases(name, inputs, seg, pos, microbatches, tol):
+    """The backward kernel timed at each micro-batch of a packed batch: the
+    launches a train step makes."""
+    n = seg.shape[0] // microbatches
+    return [backward_case(f"{name}{i}", *(x[i * n:(i + 1) * n] for x in (*inputs, seg, pos)),
+                          tol, time_it=True) for i in range(microbatches)]
+
+
+def per_launch(rows):
+    """One row for the launches of `rows` (one per micro-batch): the mean
+    of each time and bound, the largest error."""
+    mean = {k: sum(r[k] for r in rows) / len(rows)
+            for k in ("ms", "plain_ms", "bound_ms", "library_ms", "wrapper_event_ms")}
+    return {**mean, "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "bound_by": max(rows, key=lambda r: r["bound_ms"])["bound_by"],
+            "shape": rows[0]["shape"], "dtype": rows[0]["dtype"],
+            "microbatch_ms": [r["ms"] for r in rows]}
+
+
 def kernel_phase(cfg, device):
     from repro_torch.data.synth import SyntheticPackedDataset
 
@@ -185,9 +303,9 @@ def kernel_phase(cfg, device):
     g = torch.Generator(device=device)
     g.manual_seed(1234)
 
-    def qkv(B, S, dtype):
+    def qkv(B, S, dtype, heads=(H, K, K)):
         return tuple(torch.randn((B, S, h, dh), generator=g, device=device).to(dtype)
-                     for h in (H, K, K))
+                     for h in heads)
 
     def one_doc(B, S):
         seg = torch.ones((B, S), dtype=torch.int32, device=device)
@@ -195,56 +313,89 @@ def kernel_phase(cfg, device):
 
     rows = {}
     seg, pos = one_doc(SERVE_B, PROMPT)
-    rows["serving"] = kernel_case("serving", *qkv(SERVE_B, PROMPT, torch.bfloat16), seg, pos,
-                                  TOL_BF16, time_it=True)
-    packed = SyntheticPackedDataset(cfg, 4096, 2, seed=0).batch_at(0)
-    seg = torch.from_numpy(packed["segment_ids"]).to(device)
-    pos = torch.arange(4096, dtype=torch.int32, device=device).repeat(2, 1)  # abs positions
-    rows["packed"] = kernel_case("packed", *qkv(2, 4096, torch.bfloat16), seg, pos,
-                                 TOL_BF16, time_it=True)
+    inputs = qkv(SERVE_B, PROMPT, torch.bfloat16)
+    rows["serving"] = kernel_case("serving", *inputs, seg, pos, TOL_BF16, time_it=True)
+    rows["serving_bwd"] = backward_case("serving_bwd", *inputs, seg, pos, TOL_BF16, time_it=True)
+    # the packed shape: the forward phase's batch 0
+    packed = SyntheticPackedDataset(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    seg = torch.from_numpy(packed.batch_at(0)["segment_ids"]).to(device)
+    pos = torch.arange(TRAIN_SEQ, dtype=torch.int32, device=device).repeat(TRAIN_BATCH, 1)
+    inputs = qkv(TRAIN_BATCH, TRAIN_SEQ, torch.bfloat16)
+    rows["packed"] = kernel_case("packed", *inputs, seg, pos, TOL_BF16, time_it=True)
+    rows["packed_bwd"] = backward_case("packed_bwd", *inputs, seg, pos, TOL_BF16, time_it=True)
+    # the train step's backward launches, one per micro-batch, on the batch of
+    # the step the train phase profiles, so that the two times compare
+    seg = torch.from_numpy(packed.batch_at(TRAIN_PROFILED_STEP)["segment_ids"]).to(device)
+    rows["train_bwd"] = microbatch_cases("train_bwd_microbatch", inputs, seg, pos,
+                                         TRAIN_MICROBATCHES, TOL_BF16)
+    del inputs
+    torch.cuda.empty_cache()
     seg, pos = one_doc(2, 1000)  # ragged, two documents, padding rows, a window
     seg[1, 300:] = 2
     pos[1, 300:] -= 300
     seg[1, 900:] = 0
     pos[1, 900:] = 0
+    inputs = qkv(2, 1000, torch.bfloat16)
     rows["bf16_window_padding"] = kernel_case(
-        "bf16_window_padding", *qkv(2, 1000, torch.bfloat16), seg, pos, TOL_BF16,
-        time_it=False, window=256)
+        "bf16_window_padding", *inputs, seg, pos, TOL_BF16, time_it=False, window=256)
+    rows["bf16_window_padding_bwd"] = backward_case(
+        "bf16_window_padding_bwd", *inputs, seg, pos, TOL_BF16, time_it=False, window=256)
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's fp32 einsums
     log(f"fp32 check: torch.backends.cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
     seg, pos = one_doc(2, 777)
     seg[1, 500:] = 2  # a second document and a ragged edge
     pos[1, 500:] -= 500
-    rows["fp32_ragged"] = kernel_case("fp32_ragged", *qkv(2, 777, torch.float32), seg, pos,
-                                      TOL_FP32, time_it=True)
+    inputs = qkv(2, 777, torch.float32)
+    rows["fp32_ragged"] = kernel_case("fp32_ragged", *inputs, seg, pos, TOL_FP32, time_it=True)
+    rows["fp32_ragged_bwd"] = backward_case("fp32_ragged_bwd", *inputs, seg, pos, TOL_FP32,
+                                            time_it=True)
+    # the parity path's shapes: its forward's batch, its train step's micro-batches
+    small, batch = parity_model(cfg)
+    seg = torch.from_numpy(batch["segment_ids"]).to(device)
+    pos = torch.arange(PARITY_SEQ, dtype=torch.int32, device=device).repeat(PARITY_BATCH, 1)
+    inputs = qkv(PARITY_BATCH, PARITY_SEQ, torch.float32,
+                 (small.n_heads, small.n_kv_heads, small.n_kv_heads))
+    rows["fp32_parity"] = kernel_case("fp32_parity", *inputs, seg, pos, TOL_FP32, time_it=True)
+    rows["fp32_parity_bwd"] = microbatch_cases("fp32_parity_bwd_microbatch", inputs, seg, pos,
+                                               PARITY_MICROBATCHES, TOL_FP32)
     return rows
 
 
 def reset_counts():
-    from repro_torch.kernels.packed_flash_attn import packed_flash_attention
+    from repro_torch.kernels.packed_flash_attn import (
+        packed_flash_attention, packed_flash_attention_backward)
 
-    for src in packed_flash_attention.launches:
-        packed_flash_attention.launches[src] = 0
+    for counts in (packed_flash_attention.launches, packed_flash_attention_backward.launches):
+        for key in counts:
+            counts[key] = 0
 
 
 def read_counts():
-    """Kernel launches by kernel source since the last `reset_counts`."""
+    """Forward kernel launches by kernel source since the last `reset_counts`."""
     from repro_torch.kernels.packed_flash_attn import packed_flash_attention
 
     return dict(packed_flash_attention.launches)
 
 
+def read_backward_counts():
+    """Backward kernel launches by input type since the last `reset_counts`."""
+    from repro_torch.kernels.packed_flash_attn import packed_flash_attention_backward
+
+    return dict(packed_flash_attention_backward.launches)
+
+
 def fp32_phase(cfg, device):
     """The fp32 parity path: a reduced qwen3-8b (real head width) in fp32 on
-    the card, through the CUDA-core kernel, against the same model on the CPU."""
-    from repro_torch.configs import reduced
-    from repro_torch.data.synth import SyntheticPackedDataset
+    the card, through the CUDA-core kernel, against the same model on the
+    CPU: the packed forward's logits, then one train step (2 micro-batches,
+    remat, AdamW) through the forward and backward kernels."""
     from repro_torch.kernels.packed_flash_attn import SIMT, SM90
     from repro_torch.models.model import forward_train, init_params
+    from repro_torch.train.optimizer import make_optimizer, tree_leaves
+    from repro_torch.train.train_step import build_train_step
 
-    small = reduced(cfg, head_dim=cfg.head_dim)
+    small, batch = parity_model(cfg)
     params = init_params(small, seed=0, dtype=torch.float32, device="cpu")
-    batch = SyntheticPackedDataset(small, 256, 2, seed=0, mu=4.0, sigma=0.8).batch_at(0)
     cpu_b = {k: torch.from_numpy(v) for k, v in batch.items()}
     gpu_b = to_device(batch, device)
     gpu_p = to_tree(params, device)
@@ -260,8 +411,57 @@ def fp32_phase(cfg, device):
     err = float((logits_gpu.cpu()[valid] - logits_cpu[valid]).abs().max())
     if not err <= TOL_FP32 * (1 + float(logits_cpu[valid].abs().max())):
         raise AssertionError(f"fp32 path: card vs CPU logits differ by {err}")
+
+    stepped, lr = {}, 1e-3
+    for dev, p, b in (("cpu", params, cpu_b), ("cuda", gpu_p, gpu_b)):
+        for leaf in tree_leaves(p):
+            leaf.requires_grad_(True)
+        opt = make_optimizer("adamw", lr=lr)
+        state = {"params": p, "opt": opt.init(p),
+                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
+        step = build_train_step(small, opt, microbatches=PARITY_MICROBATCHES,
+                                compute_dtype=torch.float32)
+        reset_counts()
+        state, metrics = step(state, b)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            train_counts, bwd_counts = read_counts(), read_backward_counts()
+        stepped[dev] = (float(metrics["loss"]), float(metrics["grad_norm"]),
+                        [x.grad.detach().cpu() for x in tree_leaves(p)],
+                        [x.detach().cpu() for x in tree_leaves(p)])
+    # per micro-batch and layer: forward + remat recompute, one backward
+    want = {SIMT.source: 2 * PARITY_MICROBATCHES * small.n_layers, SM90.source: 0}
+    want_bwd = {"float32": PARITY_MICROBATCHES * small.n_layers, "bfloat16": 0}
+    if train_counts != want or bwd_counts != want_bwd:
+        raise AssertionError(f"fp32 train step launches {train_counts} {bwd_counts}, "
+                             f"expected {want} and {want_bwd}")
+    (l_cpu, n_cpu, g_cpu, p_cpu), (l_gpu, n_gpu, g_gpu, p_gpu) = stepped["cpu"], stepped["cuda"]
+    step_err = {"loss_rel": abs(l_gpu - l_cpu) / abs(l_cpu),
+                "grad_norm_rel": abs(n_gpu - n_cpu) / abs(n_cpu),
+                "grad_max_rel": max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                                    for a, b in zip(g_gpu, g_cpu)),
+                "param_max_abs": max(float((a - b).abs().max()) for a, b in zip(p_gpu, p_cpu))}
+    grads_ok = all(float((a - b).abs().max()) <= TOL_FP32 * float(b.abs().max()) + 1e-7
+                   for a, b in zip(g_gpu, g_cpu))
+    # AdamW's step m / (sqrt(v) + eps) follows the rounding noise of a
+    # gradient within the gradient tolerance of 0 (0 < |g| <= 1e-4 max|g| of
+    # its leaf), which can move it anywhere in [-1, 1]: such elements are held
+    # to 2 lr and may be at most 0.1% of all (0.051% on the card); every
+    # other parameter to 1e-4
+    params_ok, exempt = True, 0
+    for a, b, g in zip(p_gpu, p_cpu, g_cpu):
+        noisy = (g != 0) & (g.abs() <= TOL_FP32 * g.abs().max())
+        d = (a - b).abs()
+        exempt += int(noisy.sum())
+        params_ok = (params_ok and bool((d[noisy] <= 2 * lr).all())
+                     and bool((d[~noisy] <= TOL_FP32 + TOL_FP32 * b.abs()[~noisy]).all()))
+    step_err["exempt_fraction"] = exempt / sum(x.numel() for x in p_cpu)
+    if not (step_err["loss_rel"] <= TOL_FP32 and step_err["grad_norm_rel"] <= TOL_FP32
+            and grads_ok and params_ok and step_err["exempt_fraction"] <= 1e-3):
+        raise AssertionError(f"fp32 train step: card vs CPU differ: {step_err}")
     res = {"layers": small.n_layers, "head_dim": small.head_dim, "launches": counts,
-           "max_abs_err": err, "tol": TOL_FP32}
+           "max_abs_err": err, "tol": TOL_FP32, "train_step_launches": train_counts,
+           "train_step_backward_launches": bwd_counts, "train_step_err": step_err}
     log("fp32", json.dumps(res))
     return res
 
@@ -325,23 +525,34 @@ def forward_phase(cfg, params, device):
     return {"batches": [{"N": a, "sum_l2": b, "seconds": c} for a, b, c in obs], "eq1": fit}
 
 
+# kernel names by what they compute, for the shares of a device profile
+KERNEL_GROUPS = {"attention_forward": ("packed_flash_attn",), "attention_backward": ("bwd_",),
+                 "gemm": ("gemm", "nvjet")}
+
+
 def device_profile(fn, steps):
-    """Device time by kernel over `steps` calls of fn, from torch.profiler."""
+    """Device time by kernel over `steps` calls of fn, from torch.profiler,
+    and the wall time of the same calls (the profiler's host cost included)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         for _ in range(steps):
             fn()
         torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    device_s = sum(e.self_device_time_total for e in kernels) / 1e6 / steps
+    total_us = max(sum(e.self_device_time_total for e in kernels), 1e-6)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    return {"device_seconds_per_call": device_s,
-            "top_kernels": [{"name": e.key[:90], "share": e.self_device_time_total / 1e6 / steps
-                             / max(device_s, 1e-12), "count_per_call": e.count / steps}
-                            for e in top]}
+    return {"device_seconds_per_call": total_us / 1e6 / steps,
+            "profiled_wall_seconds_per_call": wall / steps,
+            "top_kernels": [{"name": e.key[:90], "share": e.self_device_time_total / total_us,
+                             "count_per_call": e.count / steps} for e in top],
+            "group_shares": {g: sum(e.self_device_time_total for e in kernels
+                                    if any(w in e.key for w in words)) / total_us
+                             for g, words in KERNEL_GROUPS.items()}}
 
 
 def rel_err(a, b):
@@ -431,6 +642,148 @@ def serve_phase(cfg, params, device):
     return res
 
 
+def counting_plain_calls():
+    """Count calls of the plain attention version through `kernels.ops`
+    (none may happen on a card's main path). Returns (counts, undo)."""
+    from repro_torch.kernels import ops
+
+    plain, calls = ops.packed_attention_ref, {"plain_calls": 0}
+
+    def counted(*a, **kw):
+        calls["plain_calls"] += 1
+        return plain(*a, **kw)
+
+    ops.packed_attention_ref = counted
+    return calls, lambda: setattr(ops, "packed_attention_ref", plain)
+
+
+def train_phase(cfg, device):
+    """The training path: full-width qwen3-8b cut to TRAIN_LAYERS layers,
+    trained by the port's spmd driver (`launch.train.run_spmd`) through the
+    bf16 forward and backward kernels. Checks every step's launches and step
+    0's gradients and loss; reports step times, the Eq. 1 fit and the
+    Detector's statistics."""
+    import dataclasses
+
+    import repro_torch.launch.train as driver
+    from repro_torch.core.detector.predictor import MicroBatchTimePredictor
+    from repro_torch.data.packing import pack_stats
+    from repro_torch.data.synth import SyntheticPackedDataset
+    from repro_torch.kernels.packed_flash_attn import SIMT, SM90
+    from repro_torch.models.model import init_params, loss_fn
+    from repro_torch.train.optimizer import tree_leaves
+
+    tcfg = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS)  # depth only: every width stays
+    L, S, B, mb = TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICROBATCHES
+    args = driver.parser().parse_args(
+        ["--steps", str(TRAIN_STEPS), "--seq-len", str(S), "--batch", str(B), "--microbatches",
+         str(mb), "--lr", "1e-3", "--seed", "0", "--device", str(device)])
+    ds = SyntheticPackedDataset(tcfg, S, B, seed=args.seed)
+
+    # step 0's loss by loss_fn, on the params the driver draws from the same
+    # seed and on the same micro-batches, before the counted run
+    params = init_params(tcfg, args.seed, dtype=torch.float32, device=device)
+    batch, n = to_device(ds.batch_at(0), device), B // mb
+    with torch.no_grad():
+        loss0_fn = sum(float(loss_fn(tcfg, params, {k: v[i * n:(i + 1) * n]
+                                                    for k, v in batch.items()})[0])
+                       for i in range(mb)) / mb
+    del params, batch
+    torch.cuda.empty_cache()
+
+    def counts():
+        return {**read_counts(), **{f"backward[{k}]": v for k, v in read_backward_counts().items()},
+                "plain_calls": calls["plain_calls"]}
+
+    per_step, step0 = [], {}
+    build = driver.build_train_step
+
+    def checked_build(cfg_, opt, **kw):
+        step_fn = build(cfg_, opt, **kw)
+
+        def step(state, batch):
+            before = counts()
+            if len(per_step) == TRAIN_PROFILED_STEP:
+                out = []
+                step0["profile"] = device_profile(lambda: out.append(step_fn(state, batch)), 1)
+                state, metrics = out[0]
+            else:
+                state, metrics = step_fn(state, batch)
+            per_step.append({k: v - before[k] for k, v in counts().items()})
+            if len(per_step) == 1:
+                flags = [bool(torch.isfinite(p.grad).all() & (p.grad != 0).any())
+                         for p in tree_leaves(state["params"])]
+                step0.update(leaves=len(flags), leaves_with_finite_nonzero_grad=sum(flags))
+            return state, metrics
+
+        return step
+
+    calls, undo = counting_plain_calls()
+    driver.build_train_step = checked_build
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    try:
+        result = driver.run_spmd(tcfg, args)
+        torch.cuda.synchronize()
+        total = counts()
+    finally:
+        driver.build_train_step = build
+        undo()
+    peak = torch.cuda.max_memory_allocated()
+
+    # per step: each micro-batch runs every layer's forward kernel twice
+    # (forward and remat recompute) and its backward kernel once
+    want = {SM90.source: 2 * L * mb, SIMT.source: 0, "backward[bfloat16]": L * mb,
+            "backward[float32]": 0, "plain_calls": 0}
+    for i, got in enumerate(per_step):
+        if got != want:
+            raise AssertionError(f"train step {i}: launches {got}, expected {want}")
+    if len(per_step) != TRAIN_STEPS or total != {k: v * TRAIN_STEPS for k, v in want.items()}:
+        raise AssertionError(f"train run: {len(per_step)} steps, launches {total}")
+    if step0["leaves_with_finite_nonzero_grad"] != step0["leaves"]:
+        raise AssertionError(f"step 0: only {step0['leaves_with_finite_nonzero_grad']} of "
+                             f"{step0['leaves']} parameter leaves have a finite nonzero gradient")
+    losses, times = result["losses"], result["times"]
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train losses not finite: {losses}")
+    loss0_rel = abs(losses[0] - loss0_fn) / abs(loss0_fn)
+    if not loss0_rel <= 1e-3:
+        raise AssertionError(f"step 0 loss {losses[0]} vs loss_fn {loss0_fn}")
+
+    # Eq. 1 on whole-step times (forward + backward of both micro-batches),
+    # after the warm-up steps the driver skips too
+    obs = []
+    for it in range(TRAIN_WARMUP, TRAIN_STEPS):
+        stats = pack_stats(ds.batch_at(it)["segment_ids"])
+        obs.append((sum(x[0] for x in stats), sum(x[1] for x in stats), times[it]))
+    pred = MicroBatchTimePredictor()
+    for n_tok, l2, dt in obs[:TRAIN_FIT]:
+        pred.observe(n_tok, l2, dt)
+    pred.fit()
+    mape = pred.mape([(n_tok, l2, 1, dt) for n_tok, l2, dt in obs[TRAIN_FIT:]])
+    steady = times[TRAIN_WARMUP:]
+    res = {"layers": L, "steps": TRAIN_STEPS, "seq_len": S, "batch": B, "microbatches": mb,
+           "params": tcfg.param_count(), "losses": losses, "step_seconds": times,
+           "step_seconds_mean": sum(steady) / len(steady),
+           "step_seconds_min": min(steady), "step_seconds_max": max(steady),
+           "positions_per_s": B * S * len(steady) / sum(steady),
+           "tokens_per_s": sum(o[0] for o in obs) / sum(steady),
+           "launches_per_step": want, "launches": total,
+           "step0_loss": losses[0], "step0_loss_fn": loss0_fn, "step0_loss_rel": loss0_rel,
+           "step0_leaves": step0["leaves"],
+           "eq1": {"alpha": pred.alpha, "beta": pred.beta, "gamma": pred.gamma,
+                   "mape_heldout": mape, "fit_steps": TRAIN_FIT,
+                   "heldout_steps": len(obs) - TRAIN_FIT},
+           "detector": result["detector"], "max_memory_allocated_bytes": peak,
+           "profiled_step": TRAIN_PROFILED_STEP, "profile": step0["profile"]}
+    # device time over the wall time of the same step; the profiler's host
+    # cost counts in that wall, so this is a lower bound on the busy share
+    prof = res["profile"]
+    prof["busy_share"] = prof["device_seconds_per_call"] / prof["profiled_wall_seconds_per_call"]
+    log("train", json.dumps(res))
+    return res
+
+
 def sass_count(lib, opcode):
     """Lines of the library's SASS (cuobjdump, beside nvcc) with `opcode`."""
     from repro_torch.kernels import build
@@ -455,7 +808,7 @@ def main(argv=None):
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.configs import get_arch
     from repro_torch.kernels import build
-    from repro_torch.kernels.packed_flash_attn import SIMT, SM90
+    from repro_torch.kernels.packed_flash_attn import BWD, SIMT, SM90
     from repro_torch.models.model import init_params
 
     device = torch.device("cuda", 0)
@@ -494,21 +847,39 @@ def main(argv=None):
 
     record["forward"] = forward_phase(cfg, params, device)
     record["serve"] = serve_phase(cfg, params, device)
+    del params  # the train phase needs the card's memory
+    torch.cuda.empty_cache()
+    record["train"] = train_phase(cfg, device)
 
-    def entry(name, kern, row, launches):
+    def entry(name, kern, row, launches, **extra):
         return {"name": name,
                 "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{kern.source}",
                 "replaces": "src/repro/kernels/packed_flash_attn.py:39", "launches": launches,
                 "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-                "library_ms": row["library_ms"], "wrapper_device_ms": row["wrapper_device_ms"],
-                "wrapper_event_ms": row["wrapper_event_ms"]}
+                "library_ms": row["library_ms"], "wrapper_event_ms": row["wrapper_event_ms"],
+                "shape": row["shape"], "dtype": row["dtype"], **extra}
 
-    kernels = [  # bf16: the main path (serve), at the serving shape; fp32: its parity path
-        entry("packed_flash_attention", SM90, record["kernel"]["serving"],
-              record["serve"]["main_path_launches_by_source"][SM90.source]),
-        entry("packed_flash_attention[float32]", SIMT, record["kernel"]["fp32_ragged"],
-              record["fp32_path"]["launches"][SIMT.source]),
+    serve_launches = record["serve"]["main_path_launches_by_source"][SM90.source]
+    # the backward's device time per launch inside the profiled train step
+    prof = record["train"]["profile"]
+    train_bwd_ms = (prof["group_shares"]["attention_backward"] * prof["device_seconds_per_call"]
+                    * 1e3 / record["train"]["launches_per_step"]["backward[bfloat16]"])
+    kernels = [  # bf16: the main paths (serve; train), at their shapes; fp32: the parity path
+        entry("packed_flash_attention", SM90, record["kernel"]["serving"], serve_launches,
+              wrapper_device_ms=record["kernel"]["serving"]["wrapper_device_ms"],
+              launches_by_path={"serve": serve_launches,
+                                "train": record["train"]["launches"][SM90.source]}),
+        entry("packed_flash_attention[float32]", SIMT, record["kernel"]["fp32_parity"],
+              record["fp32_path"]["launches"][SIMT.source],
+              wrapper_device_ms=record["kernel"]["fp32_parity"]["wrapper_device_ms"]),
+        # the backward: per launch, at the train paths' micro-batches
+        entry("packed_flash_attention_backward", BWD, per_launch(record["kernel"]["train_bwd"]),
+              record["train"]["launches"]["backward[bfloat16]"],
+              train_step_ms_per_launch=train_bwd_ms),
+        entry("packed_flash_attention_backward[float32]", BWD,
+              per_launch(record["kernel"]["fp32_parity_bwd"]),
+              record["fp32_path"]["train_step_backward_launches"]["float32"]),
     ]
     record["kernels"] = kernels
     if args.out:

@@ -30,6 +30,7 @@
 // and head, at the 67 TFLOP/s of fp32 outside the tensor cores.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -84,8 +85,9 @@ packed_flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const int* __restrict__ seg_q,
                          const int* __restrict__ seg_k, const int* __restrict__ pos_q,
                          const int* __restrict__ pos_k, const int8_t* __restrict__ blk_ok,
-                         T* __restrict__ out, int Sq, int Sk, int H, int KH, int nQ, int nK,
-                         float scale, int causal, int has_window, int window) {
+                         T* __restrict__ out, float* __restrict__ lse, int Sq, int Sk, int H,
+                         int KH, int nQ, int nK, float scale, int causal, int has_window,
+                         int window) {
   constexpr int LDT = DH + PAD;
   constexpr int VEC = DH >= 32 ? 4 : 2;  // output columns per vector load of V
   constexpr int NM = DH / (8 * VEC);     // vectors per thread per output row
@@ -242,14 +244,18 @@ packed_flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int e = 0; e < VEC; ++e)
         store1(orow + cg * VEC + 8 * VEC * mm + e,
                l[i] > 0.f ? acc[i][mm * VEC + e] / denom : 0.f);
+    // row log-sum-exp of the scaled scores, for the backward; +inf where no
+    // key is visible, so that exp(s - lse) is exactly 0 there
+    if (lse != nullptr && cg == 0)
+      lse[((size_t)b * H + h) * Sq + s] = l[i] > 0.f ? m[i] + logf(l[i]) : INFINITY;
   }
 }
 
 template <typename T, int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* seg_q,
                    const void* seg_k, const void* pos_q, const void* pos_k,
-                   const void* blk_ok, void* out, int B, int Sq, int Sk, int H, int KH,
-                   int nQ, int nK, float scale, int causal, int has_window, int window,
+                   const void* blk_ok, void* out, void* lse, int B, int Sq, int Sk, int H,
+                   int KH, int nQ, int nK, float scale, int causal, int has_window, int window,
                    cudaStream_t stream) {
   constexpr int LDT = DH + PAD;
   const size_t smem = (size_t)(BQ + 2 * BK) * LDT * sizeof(T) +
@@ -263,21 +269,21 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* seg_
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const int*>(seg_q), static_cast<const int*>(seg_k),
       static_cast<const int*>(pos_q), static_cast<const int*>(pos_k),
-      static_cast<const int8_t*>(blk_ok), static_cast<T*>(out), Sq, Sk, H, KH, nQ, nK, scale,
-      causal, has_window, window);
+      static_cast<const int8_t*>(blk_ok), static_cast<T*>(out), static_cast<float*>(lse), Sq, Sk,
+      H, KH, nQ, nK, scale, causal, has_window, window);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(int head_dim, const void* q, const void* k, const void* v,
                      const void* seg_q, const void* seg_k, const void* pos_q,
-                     const void* pos_k, const void* blk_ok, void* out, int B, int Sq, int Sk,
-                     int H, int KH, int nQ, int nK, float scale, int causal, int has_window,
-                     int window, cudaStream_t stream) {
+                     const void* pos_k, const void* blk_ok, void* out, void* lse, int B, int Sq,
+                     int Sk, int H, int KH, int nQ, int nK, float scale, int causal,
+                     int has_window, int window, cudaStream_t stream) {
 #define PFA_CASE(DH)                                                                        \
   case DH:                                                                                  \
-    return launch<T, DH>(q, k, v, seg_q, seg_k, pos_q, pos_k, blk_ok, out, B, Sq, Sk, H, KH, \
-                         nQ, nK, scale, causal, has_window, window, stream);
+    return launch<T, DH>(q, k, v, seg_q, seg_k, pos_q, pos_k, blk_ok, out, lse, B, Sq, Sk, H, \
+                         KH, nQ, nK, scale, causal, has_window, window, stream);
   switch (head_dim) {
     PFA_CASE(16)
     PFA_CASE(32)
@@ -299,14 +305,16 @@ int packed_flash_attn_block_k() { return BK; }
 
 // fp32 q (B,Sq,H,dh), k/v (B,Sk,KH,dh), out like q. seg/pos are int32 padded
 // with zeros to (B, nQ*64) and (B, nK*64); blk_ok is (B, nQ, nK) int8 tile
-// codes (0 skip, else run). Returns the cudaError_t of the launch.
+// codes (0 skip, else run). lse, when not null, receives the fp32 (B,H,Sq)
+// row log-sum-exp of the scaled scores (+inf on rows with no visible key).
+// Returns the cudaError_t of the launch.
 int packed_flash_attn_fwd(int head_dim, const void* q, const void* k, const void* v,
                           const void* seg_q, const void* seg_k, const void* pos_q,
-                          const void* pos_k, const void* blk_ok, void* out, int B, int Sq,
-                          int Sk, int H, int KH, int nQ, int nK, float scale, int causal,
+                          const void* pos_k, const void* blk_ok, void* out, void* lse, int B,
+                          int Sq, int Sk, int H, int KH, int nQ, int nK, float scale, int causal,
                           int has_window, int window, void* stream) {
-  return (int)dispatch<float>(head_dim, q, k, v, seg_q, seg_k, pos_q, pos_k, blk_ok, out, B, Sq,
-                              Sk, H, KH, nQ, nK, scale, causal, has_window, window,
+  return (int)dispatch<float>(head_dim, q, k, v, seg_q, seg_k, pos_q, pos_k, blk_ok, out, lse, B,
+                              Sq, Sk, H, KH, nQ, nK, scale, causal, has_window, window,
                               static_cast<cudaStream_t>(stream));
 }
 

@@ -1,0 +1,538 @@
+// Packed (segment-aware) flash attention, backward, bf16 and fp32, for
+// Hopper (sm_90a).
+//
+// The gradient of the Pallas TPU kernel `_attn_kernel`, launched by
+// `packed_flash_attention` in src/repro/kernels/packed_flash_attn.py. The JAX
+// package has no backward kernel (it trains through its jnp attention, which
+// XLA differentiates); this one computes the same gradient under the forward
+// kernels' tile skip, so that a training micro-batch costs sum(l_i^2) rather
+// than N^2 in its backward too. The mask is the forward's exactly: a key is
+// visible from a query when both carry the same nonzero segment id,
+// pos_q >= pos_k (causal) and pos_q - pos_k < window (sliding window); GQA
+// maps query head h to kv head h * K / H. A row with no visible key has
+// lse = +inf from the forward, so its probabilities, and its gradients, are
+// exactly 0.
+//
+// Math (FlashAttention-2), per query head, with S = scale * Q K^T over the
+// visible pairs, P = exp(S - lse) recomputed from the forward's row
+// log-sum-exp, and delta_i = sum_d dO_id O_id:
+//   dV = P^T dO,  dP = dO V^T,  dS = P o (dP - delta),
+//   dQ = scale * dS K,  dK = scale * dS^T Q,
+// dK and dV summed over the H / K query heads of a KV head.
+//
+// Bound on an H100 SXM: operations, 5 products of 2 * dh flops per visible
+// (query, key) pair and head; at the packed training shape that is about
+// 2.5x the forward's bound. This first version runs them as fp32 FMAs on
+// the CUDA cores (bf16 and fp32 inputs alike, fp32 accumulation), so it
+// reaches a fraction of that bound; a wgmma design is later work.
+//
+// Design. Three kernels, deterministic, no atomics:
+//   (a) delta: one warp per (batch, row, head);
+//   (b) dK/dV: one CTA of 256 threads per (64-key tile, KV head, batch). It
+//       keeps its K and V tile in shared memory and dK, dV in registers, and
+//       loops over the query heads of its GQA group and over the 64-row
+//       query tiles whose code in `blk_ok` is nonzero. For each it loads Q,
+//       dO, lse and delta, recomputes P and forms dS (both to shared
+//       memory), then accumulates dV += P^T dO and dK += dS^T Q;
+//   (c) dQ: one CTA per (64-row query tile, head, batch). It keeps Q, dO
+//       and dQ, loops over the nonzero key tiles, recomputes dS, and
+//       accumulates dQ += dS K.
+// `blk_ok` is the wrapper's tile map at these 64 x 64 tiles (0 skip, 1 mask
+// per element, 2 every pair visible). Tiles sit in shared memory as fp32
+// (bf16 converted on load) with rows padded by 4 elements, so the row reads
+// of a warp fall in distinct banks. Rows and keys beyond the sequence are
+// zero-filled and carry segment id 0 (the wrapper pads seg/pos).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int BQ = 64;       // query rows per tile
+constexpr int BK = 64;       // keys per tile
+constexpr int THREADS = 256; // 16 row groups x 16 column groups
+constexpr int PAD = 4;       // row padding of the Q/K/V/dO tiles, in floats
+constexpr int LDS = BK + 16; // row stride of the P and dS tiles: rows 16 apart in banks
+constexpr int DELTA_WARPS = 8;
+
+template <typename T> __device__ __forceinline__ T from_float(float x);
+template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// 16 bytes of T -> 16 / sizeof(T) floats
+__device__ __forceinline__ void unpack(const uint4& raw, float* o, float) {
+  o[0] = __uint_as_float(raw.x); o[1] = __uint_as_float(raw.y);
+  o[2] = __uint_as_float(raw.z); o[3] = __uint_as_float(raw.w);
+}
+__device__ __forceinline__ void unpack(const uint4& raw, float* o, __nv_bfloat16) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    o[2 * i] = f.x;
+    o[2 * i + 1] = f.y;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void lds(const float* p, float* o) {
+  if constexpr (N == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    o[0] = x.x; o[1] = x.y; o[2] = x.z; o[3] = x.w;
+  } else if constexpr (N == 2) {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    o[0] = x.x; o[1] = x.y;
+  } else {
+    o[0] = *p;
+  }
+}
+
+// Copy rows [row0, row0 + 64) of one head into a padded fp32 shared tile;
+// rows at or past `limit` become zeros.
+template <typename T, int DH>
+__device__ __forceinline__ void load_tile(float* dst, const T* src, int row0, int limit,
+                                          size_t row_stride) {
+  constexpr int LDT = DH + PAD;
+  constexpr int CH = 16 / sizeof(T);  // elements per 16-byte chunk
+  constexpr int CPR = DH / CH;        // chunks per row
+  for (int idx = threadIdx.x; idx < 64 * CPR; idx += THREADS) {
+    const int r = idx / CPR;
+    const int c = (idx % CPR) * CH;
+    const int s = row0 + r;
+    float vals[CH];
+    if (s < limit) {
+      unpack(*reinterpret_cast<const uint4*>(src + (size_t)s * row_stride + c), vals, T());
+    } else {
+#pragma unroll
+      for (int e = 0; e < CH; ++e) vals[e] = 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < CH; e += 4)
+      *reinterpret_cast<float4*>(dst + r * LDT + c + e) =
+          make_float4(vals[e], vals[e + 1], vals[e + 2], vals[e + 3]);
+  }
+}
+
+__device__ __forceinline__ bool visible(int sq, int pq, int sk, int pk, int causal,
+                                        int has_window, int window) {
+  bool ok = sq == sk && sq != 0;
+  if (causal) ok = ok && pq >= pk;
+  if (has_window) ok = ok && pq - pk < window;
+  return ok;
+}
+
+// s[i][j] = sum_d A[rq + 16 i][d] * B[ck + 16 j][d] over padded fp32 tiles
+template <int DH>
+__device__ __forceinline__ void tile_product(const float* A, const float* B, float (&s)[4][4],
+                                             int rq, int ck) {
+  constexpr int LDT = DH + PAD;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < DH; d += 4) {
+    float a[4][4], b[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) lds<4>(A + (rq + 16 * i) * LDT + d, a[i]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) lds<4>(B + (ck + 16 * j) * LDT + d, b[j]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float x = s[i][j];
+        x = fmaf(a[i][0], b[j][0], x);
+        x = fmaf(a[i][1], b[j][1], x);
+        x = fmaf(a[i][2], b[j][2], x);
+        x = fmaf(a[i][3], b[j][3], x);
+        s[i][j] = x;
+      }
+  }
+}
+
+// Shared memory of one CTA: Q, dO, K, V tiles, then P and dS, then the rows'
+// segment ids, positions, lse and delta, and the keys' segment ids and
+// positions.
+template <int DH>
+struct Smem {
+  static constexpr int LDT = DH + PAD;
+  static constexpr int TILE = 64 * LDT;  // floats
+  static constexpr int PS = 4 * TILE;
+  static constexpr int DS = PS + BQ * LDS;
+  static constexpr int META = DS + BQ * LDS;
+  static constexpr size_t BYTES = (size_t)(META + 4 * BQ + 2 * BK) * 4;
+};
+
+struct Rows {  // per-row metadata of the current query tile, in shared memory
+  int* seg;
+  int* pos;
+  float* lse;
+  float* delta;
+};
+
+// Load the query-side tiles of (batch b, head h, query tile qt): Q, dO, and
+// the rows' segment ids, positions, lse and delta.
+template <typename T, int DH>
+__device__ __forceinline__ void load_query_side(float* Qs, float* dOs, Rows rows, const T* q,
+                                                const T* d_out, const float* lse,
+                                                const float* delta, const int* seg_q,
+                                                const int* pos_q, int b, int h, int qt, int Sq,
+                                                int H, int nQ) {
+  const size_t stride = (size_t)H * DH;
+  const size_t base = (size_t)b * Sq * stride + (size_t)h * DH;
+  const int q0 = qt * BQ;
+  load_tile<T, DH>(Qs, q + base, q0, Sq, stride);
+  load_tile<T, DH>(dOs, d_out + base, q0, Sq, stride);
+  for (int r = threadIdx.x; r < BQ; r += THREADS) {
+    const size_t i = (size_t)b * nQ * BQ + q0 + r;  // seg/pos padded with zeros
+    rows.seg[r] = seg_q[i];
+    rows.pos[r] = pos_q[i];
+    const int s = q0 + r;
+    const size_t li = ((size_t)b * H + h) * Sq + s;
+    rows.lse[r] = s < Sq ? lse[li] : INFINITY;
+    rows.delta[r] = s < Sq ? delta[li] : 0.f;
+  }
+}
+
+template <typename T, int DH>
+__device__ __forceinline__ void load_key_side(float* Ks, float* Vs, int* sk, int* pk, const T* k,
+                                              const T* v, const int* seg_k, const int* pos_k,
+                                              int b, int kh, int kt, int Sk, int KH, int nK) {
+  const size_t stride = (size_t)KH * DH;
+  const size_t base = (size_t)b * Sk * stride + (size_t)kh * DH;
+  const int k0 = kt * BK;
+  load_tile<T, DH>(Ks, k + base, k0, Sk, stride);
+  load_tile<T, DH>(Vs, v + base, k0, Sk, stride);
+  for (int r = threadIdx.x; r < BK; r += THREADS) {
+    const size_t i = (size_t)b * nK * BK + k0 + r;
+    sk[r] = seg_k[i];
+    pk[r] = pos_k[i];
+  }
+}
+
+// One (query tile, key tile) pair: recompute P and form dS = P o (dP - delta)
+// into shared memory (P only when Ps is not null). Thread (rq, ck) owns rows
+// rq + 16 i and keys ck + 16 j.
+template <int DH>
+__device__ __forceinline__ void probs_and_dscores(const float* Qs, const float* dOs,
+                                                  const float* Ks, const float* Vs, Rows rows,
+                                                  const int* sk, const int* pk, float* Ps,
+                                                  float* dSs, int code, float scale, int causal,
+                                                  int has_window, int window) {
+  const int rq = threadIdx.x >> 4, ck = threadIdx.x & 15;
+  float s[4][4], dp[4][4];
+  tile_product<DH>(Qs, Ks, s, rq, ck);
+  tile_product<DH>(dOs, Vs, dp, rq, ck);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = rq + 16 * i;
+    const int sqv = rows.seg[r], pqv = rows.pos[r];
+    const float l = rows.lse[r], dl = rows.delta[r];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = ck + 16 * j;
+      const bool vis = code == 2 || visible(sqv, pqv, sk[c], pk[c], causal, has_window, window);
+      const float p = vis ? expf(fmaf(s[i][j], scale, -l)) : 0.f;
+      if (Ps != nullptr) Ps[r * LDS + c] = p;
+      dSs[r * LDS + c] = p * (dp[i][j] - dl);
+    }
+  }
+}
+
+// (a) delta[b, h, s] = sum_d dO[b, s, h, d] * O[b, s, h, d]: one warp per row
+template <typename T, int DH>
+__global__ void __launch_bounds__(DELTA_WARPS * 32)
+bwd_delta_kernel(const T* __restrict__ out, const T* __restrict__ d_out,
+                 float* __restrict__ delta, int Sq, int H, long long rows) {
+  const long long row = (long long)blockIdx.x * DELTA_WARPS + (threadIdx.x >> 5);
+  if (row >= rows) return;  // uniform over the warp
+  const int lane = threadIdx.x & 31;
+  const T* o = out + row * DH;
+  const T* g = d_out + row * DH;
+  float acc = 0.f;
+  for (int d = lane; d < DH; d += 32) acc = fmaf(to_float(o[d]), to_float(g[d]), acc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) {
+    const int h = (int)(row % H);
+    const long long bs = row / H;  // b * Sq + s
+    const int s = (int)(bs % Sq);
+    const long long b = bs / Sq;
+    delta[((size_t)b * H + h) * Sq + s] = acc;
+  }
+}
+
+// (b) dK, dV of one key tile of one KV head
+template <typename T, int DH>
+__global__ void __launch_bounds__(THREADS, 1)
+bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                const T* __restrict__ d_out, const float* __restrict__ lse,
+                const float* __restrict__ delta, const int* __restrict__ seg_q,
+                const int* __restrict__ seg_k, const int* __restrict__ pos_q,
+                const int* __restrict__ pos_k, const int8_t* __restrict__ blk_ok,
+                T* __restrict__ dk, T* __restrict__ dv, int Sq, int Sk, int H, int KH, int nQ,
+                int nK, float scale, int causal, int has_window, int window) {
+  using M = Smem<DH>;
+  constexpr int LDT = M::LDT;
+  constexpr int DC = DH / 16;            // output columns per thread
+  constexpr int VEC = DC < 4 ? DC : 4;   // columns per vector read
+  constexpr int NM = DC / VEC;
+  extern __shared__ __align__(16) float smem[];
+  float *Qs = smem, *dOs = smem + M::TILE, *Ks = smem + 2 * M::TILE, *Vs = smem + 3 * M::TILE;
+  float *Ps = smem + M::PS, *dSs = smem + M::DS;
+  Rows rows{reinterpret_cast<int*>(smem + M::META), reinterpret_cast<int*>(smem + M::META) + BQ,
+            smem + M::META + 2 * BQ, smem + M::META + 3 * BQ};
+  int* sk = reinterpret_cast<int*>(smem + M::META + 4 * BQ);
+  int* pk = sk + BK;
+
+  const int kt = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, rk = tid >> 4, cc = tid & 15;
+  load_key_side<T, DH>(Ks, Vs, sk, pk, k, v, seg_k, pos_k, b, kh, kt, Sk, KH, nK);
+
+  float dk_acc[4][DC], dv_acc[4][DC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < DC; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
+
+  const int group = H / KH;
+  for (int h = kh * group; h < (kh + 1) * group; ++h) {
+    for (int qt = 0; qt < nQ; ++qt) {
+      const int code = blk_ok[((size_t)b * nQ + qt) * nK + kt];
+      if (!code) continue;  // uniform over the CTA
+      __syncthreads();      // the previous pair's reads of Qs, dOs, Ps, dSs are done
+      load_query_side<T, DH>(Qs, dOs, rows, q, d_out, lse, delta, seg_q, pos_q, b, h, qt, Sq, H,
+                             nQ);
+      __syncthreads();
+      probs_and_dscores<DH>(Qs, dOs, Ks, Vs, rows, sk, pk, Ps, dSs, code, scale, causal,
+                            has_window, window);
+      __syncthreads();
+      // dV += P^T dO, dK += dS^T Q: keys rk + 16 i, columns cc * VEC + 16 VEC mm + e
+#pragma unroll 2
+      for (int r = 0; r < BQ; ++r) {
+        float p[4], ds[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          p[i] = Ps[r * LDS + rk + 16 * i];
+          ds[i] = dSs[r * LDS + rk + 16 * i];
+        }
+#pragma unroll
+        for (int mm = 0; mm < NM; ++mm) {
+          float gf[VEC], qf[VEC];
+          lds<VEC>(dOs + r * LDT + cc * VEC + 16 * VEC * mm, gf);
+          lds<VEC>(Qs + r * LDT + cc * VEC + 16 * VEC * mm, qf);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) {
+              dv_acc[i][mm * VEC + e] = fmaf(p[i], gf[e], dv_acc[i][mm * VEC + e]);
+              dk_acc[i][mm * VEC + e] = fmaf(ds[i], qf[e], dk_acc[i][mm * VEC + e]);
+            }
+        }
+      }
+    }
+  }
+
+  const size_t stride = (size_t)KH * DH;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int s = kt * BK + rk + 16 * i;
+    if (s >= Sk) continue;
+    const size_t row = ((size_t)b * Sk + s) * stride + (size_t)kh * DH;
+#pragma unroll
+    for (int mm = 0; mm < NM; ++mm)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const int c = cc * VEC + 16 * VEC * mm + e;
+        dk[row + c] = from_float<T>(dk_acc[i][mm * VEC + e] * scale);
+        dv[row + c] = from_float<T>(dv_acc[i][mm * VEC + e]);
+      }
+  }
+}
+
+// (c) dQ of one query tile of one head
+template <typename T, int DH>
+__global__ void __launch_bounds__(THREADS, 1)
+bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+              const T* __restrict__ d_out, const float* __restrict__ lse,
+              const float* __restrict__ delta, const int* __restrict__ seg_q,
+              const int* __restrict__ seg_k, const int* __restrict__ pos_q,
+              const int* __restrict__ pos_k, const int8_t* __restrict__ blk_ok,
+              T* __restrict__ dq, int Sq, int Sk, int H, int KH, int nQ, int nK, float scale,
+              int causal, int has_window, int window) {
+  using M = Smem<DH>;
+  constexpr int LDT = M::LDT;
+  constexpr int DC = DH / 16;
+  constexpr int VEC = DC < 4 ? DC : 4;
+  constexpr int NM = DC / VEC;
+  extern __shared__ __align__(16) float smem[];
+  float *Qs = smem, *dOs = smem + M::TILE, *Ks = smem + 2 * M::TILE, *Vs = smem + 3 * M::TILE;
+  float* dSs = smem + M::DS;
+  Rows rows{reinterpret_cast<int*>(smem + M::META), reinterpret_cast<int*>(smem + M::META) + BQ,
+            smem + M::META + 2 * BQ, smem + M::META + 3 * BQ};
+  int* sk = reinterpret_cast<int*>(smem + M::META + 4 * BQ);
+  int* pk = sk + BK;
+
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int kh = h * KH / H;
+  const int tid = threadIdx.x, rq = tid >> 4, cc = tid & 15;
+  load_query_side<T, DH>(Qs, dOs, rows, q, d_out, lse, delta, seg_q, pos_q, b, h, qt, Sq, H, nQ);
+
+  float acc[4][DC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
+
+  const int8_t* codes = blk_ok + ((size_t)b * nQ + qt) * nK;
+  for (int kt = 0; kt < nK; ++kt) {
+    const int code = codes[kt];
+    if (!code) continue;
+    __syncthreads();  // the previous pair's reads of Ks, Vs, dSs are done
+    load_key_side<T, DH>(Ks, Vs, sk, pk, k, v, seg_k, pos_k, b, kh, kt, Sk, KH, nK);
+    __syncthreads();
+    probs_and_dscores<DH>(Qs, dOs, Ks, Vs, rows, sk, pk, nullptr, dSs, code, scale, causal,
+                          has_window, window);
+    __syncthreads();
+    // dQ += dS K: rows rq + 16 i, columns cc * VEC + 16 VEC mm + e
+#pragma unroll 2
+    for (int c = 0; c < BK; ++c) {
+      float ds[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) ds[i] = dSs[(rq + 16 * i) * LDS + c];
+#pragma unroll
+      for (int mm = 0; mm < NM; ++mm) {
+        float kf[VEC];
+        lds<VEC>(Ks + c * LDT + cc * VEC + 16 * VEC * mm, kf);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int e = 0; e < VEC; ++e)
+            acc[i][mm * VEC + e] = fmaf(ds[i], kf[e], acc[i][mm * VEC + e]);
+      }
+    }
+  }
+
+  const size_t stride = (size_t)H * DH;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int s = qt * BQ + rq + 16 * i;
+    if (s >= Sq) continue;
+    const size_t row = ((size_t)b * Sq + s) * stride + (size_t)h * DH;
+#pragma unroll
+    for (int mm = 0; mm < NM; ++mm)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        dq[row + cc * VEC + 16 * VEC * mm + e] = from_float<T>(acc[i][mm * VEC + e] * scale);
+  }
+}
+
+template <typename T, int DH>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* out,
+                   const void* d_out, const void* lse, const void* seg_q, const void* seg_k,
+                   const void* pos_q, const void* pos_k, const void* blk_ok, void* delta,
+                   void* dq, void* dk, void* dv, int B, int Sq, int Sk, int H, int KH, int nQ,
+                   int nK, float scale, int causal, int has_window, int window,
+                   cudaStream_t stream) {
+  const T *qp = static_cast<const T*>(q), *kp = static_cast<const T*>(k),
+          *vp = static_cast<const T*>(v), *gp = static_cast<const T*>(d_out);
+  const float* lp = static_cast<const float*>(lse);
+  float* dp = static_cast<float*>(delta);
+  const int *sq = static_cast<const int*>(seg_q), *sk = static_cast<const int*>(seg_k),
+            *pq = static_cast<const int*>(pos_q), *pk = static_cast<const int*>(pos_k);
+  const int8_t* codes = static_cast<const int8_t*>(blk_ok);
+
+  const long long rows = (long long)B * Sq * H;
+  bwd_delta_kernel<T, DH><<<(unsigned)((rows + DELTA_WARPS - 1) / DELTA_WARPS),
+                            DELTA_WARPS * 32, 0, stream>>>(static_cast<const T*>(out), gp, dp,
+                                                           Sq, H, rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  constexpr size_t smem = Smem<DH>::BYTES;
+  auto dkdv = bwd_dkdv_kernel<T, DH>;
+  err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dkdv<<<dim3(nK, KH, B), THREADS, smem, stream>>>(
+      qp, kp, vp, gp, lp, dp, sq, sk, pq, pk, codes, static_cast<T*>(dk), static_cast<T*>(dv),
+      Sq, Sk, H, KH, nQ, nK, scale, causal, has_window, window);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  auto dqk = bwd_dq_kernel<T, DH>;
+  err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dqk<<<dim3(nQ, H, B), THREADS, smem, stream>>>(qp, kp, vp, gp, lp, dp, sq, sk, pq, pk, codes,
+                                                 static_cast<T*>(dq), Sq, Sk, H, KH, nQ, nK,
+                                                 scale, causal, has_window, window);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch(int head_dim, const void* q, const void* k, const void* v, const void* out,
+                     const void* d_out, const void* lse, const void* seg_q, const void* seg_k,
+                     const void* pos_q, const void* pos_k, const void* blk_ok, void* delta,
+                     void* dq, void* dk, void* dv, int B, int Sq, int Sk, int H, int KH, int nQ,
+                     int nK, float scale, int causal, int has_window, int window,
+                     cudaStream_t stream) {
+#define PFA_CASE(DH)                                                                          \
+  case DH:                                                                                    \
+    return launch<T, DH>(q, k, v, out, d_out, lse, seg_q, seg_k, pos_q, pos_k, blk_ok, delta, \
+                         dq, dk, dv, B, Sq, Sk, H, KH, nQ, nK, scale, causal, has_window,     \
+                         window, stream);
+  switch (head_dim) {
+    PFA_CASE(16)
+    PFA_CASE(32)
+    PFA_CASE(64)
+    PFA_CASE(128)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef PFA_CASE
+}
+
+}  // namespace
+
+extern "C" {
+
+// Tile sizes, so the wrapper builds `blk_ok` at the kernels' own tiles.
+int packed_flash_attn_bwd_block_q() { return BQ; }
+int packed_flash_attn_bwd_block_k() { return BK; }
+
+// q, out, d_out, dq (B,Sq,H,dh); k, v, dk, dv (B,Sk,KH,dh); all of one type:
+// bf16 when `bf16` is nonzero, else fp32. lse and delta (scratch, written
+// here) are fp32 (B,H,Sq); lse is the forward's row log-sum-exp of the
+// scaled scores, +inf on rows with no visible key. seg/pos are int32 padded
+// with zeros to (B, nQ*64) and (B, nK*64); blk_ok is (B, nQ, nK) int8 tile
+// codes (0 skip, 1 mask, 2 all visible). Launches three kernels on `stream`;
+// returns the first cudaError_t that is not success.
+int packed_flash_attn_bwd_launch(int bf16, int head_dim, const void* q, const void* k,
+                                 const void* v, const void* out, const void* d_out, const void* lse,
+                                 const void* seg_q, const void* seg_k, const void* pos_q,
+                                 const void* pos_k, const void* blk_ok, void* delta, void* dq,
+                                 void* dk, void* dv, int B, int Sq, int Sk, int H, int KH,
+                                 int nQ, int nK, float scale, int causal, int has_window,
+                                 int window, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return (int)dispatch<__nv_bfloat16>(head_dim, q, k, v, out, d_out, lse, seg_q, seg_k, pos_q,
+                                        pos_k, blk_ok, delta, dq, dk, dv, B, Sq, Sk, H, KH, nQ,
+                                        nK, scale, causal, has_window, window, st);
+  return (int)dispatch<float>(head_dim, q, k, v, out, d_out, lse, seg_q, seg_k, pos_q, pos_k,
+                              blk_ok, delta, dq, dk, dv, B, Sq, Sk, H, KH, nQ, nK, scale, causal,
+                              has_window, window, st);
+}
+
+const char* packed_flash_attn_bwd_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

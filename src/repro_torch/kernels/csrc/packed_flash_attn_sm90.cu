@@ -52,6 +52,7 @@ constexpr int CONSUMERS = 256;           // two warpgroups of 64 query rows each
 constexpr int THREADS = CONSUMERS + 32;  // and one producer warp
 constexpr int STAGES = 2;                // K/V ring depth
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // Shared-memory tile layout of a head width: chunks of CW columns, each a
 // dense (rows x SW bytes) block under the SW-byte swizzle.
@@ -294,8 +295,8 @@ packed_flash_attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                               const int* __restrict__ seg_q, const int* __restrict__ seg_k,
                               const int* __restrict__ pos_q, const int* __restrict__ pos_k,
                               const int8_t* __restrict__ blk_ok, __nv_bfloat16* __restrict__ out,
-                              int Sq, int H, int KH, int nQ, int nK, float scale_log2, int causal,
-                              int has_window, int window) {
+                              float* __restrict__ lse, int Sq, int H, int KH, int nQ, int nK,
+                              float scale_log2, int causal, int has_window, int window) {
   using C = Chunking<DH>;
   using M = Smem<DH>;
   extern __shared__ unsigned char smem_raw[];
@@ -465,7 +466,9 @@ packed_flash_attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (++stage == STAGES) { stage = 0; phase ^= 1u; }
   }
 
-  // epilogue: O / l, exactly 0 where no key was visible
+  // epilogue: O / l, exactly 0 where no key was visible; the row
+  // log-sum-exp of the scaled scores for the backward, +inf where no key is
+  // visible (so that exp(s - lse) is exactly 0 there)
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
     float lt = l[j];
@@ -479,6 +482,9 @@ packed_flash_attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int i = 0; i < DH / 8; ++i)
         *reinterpret_cast<__nv_bfloat162*>(orow + 8 * i) =
             __floats2bfloat162_rn(o[4 * i + 2 * j] * inv, o[4 * i + 2 * j + 1] * inv);
+      if (lse != nullptr && (lane & 3) == 0)
+        lse[((size_t)b * H + h) * Sq + row] =
+            lt > 0.f ? (m[j] * scale_log2 + log2f(lt)) * LN2 : INFINITY;
     }
   }
 }
@@ -532,9 +538,9 @@ bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int B, int S, 
 
 template <int DH>
 int launch(const void* q, const void* k, const void* v, const void* seg_q, const void* seg_k,
-           const void* pos_q, const void* pos_k, const void* blk_ok, void* out, int B, int Sq,
-           int Sk, int H, int KH, int nQ, int nK, float scale, int causal, int has_window,
-           int window, cudaStream_t stream) {
+           const void* pos_q, const void* pos_k, const void* blk_ok, void* out, void* lse, int B,
+           int Sq, int Sk, int H, int KH, int nQ, int nK, float scale, int causal,
+           int has_window, int window, cudaStream_t stream) {
   EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return ERR_NO_ENCODER;
   CUtensorMap tm_q, tm_k, tm_v;
@@ -549,8 +555,8 @@ int launch(const void* q, const void* k, const void* v, const void* seg_q, const
   kern<<<grid, THREADS, smem, stream>>>(
       tm_q, tm_k, tm_v, static_cast<const int*>(seg_q), static_cast<const int*>(seg_k),
       static_cast<const int*>(pos_q), static_cast<const int*>(pos_k),
-      static_cast<const int8_t*>(blk_ok), static_cast<__nv_bfloat16*>(out), Sq, H, KH, nQ, nK,
-      scale * LOG2E, causal, has_window, window);
+      static_cast<const int8_t*>(blk_ok), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(lse), Sq, H, KH, nQ, nK, scale * LOG2E, causal, has_window, window);
   return (int)cudaGetLastError();
 }
 
@@ -564,19 +570,21 @@ int packed_flash_attn_sm90_block_k() { return BK; }
 
 // bf16 q (B,Sq,H,dh), k/v (B,Sk,KH,dh), out like q. seg/pos are int32 padded
 // with zeros to (B, nQ*128) and (B, nK*128); blk_ok is (B, nQ, nK) int8
-// tile codes (0 skip, 1 mask, 2 all visible). Returns 0, a cudaError_t, or a
-// negative code of this file (see the error string).
+// tile codes (0 skip, 1 mask, 2 all visible). lse, when not null, receives
+// the fp32 (B,H,Sq) row log-sum-exp of the scaled scores (+inf on rows with
+// no visible key). Returns 0, a cudaError_t, or a negative code of this file
+// (see the error string).
 int packed_flash_attn_sm90_fwd(int head_dim, const void* q, const void* k, const void* v,
                                const void* seg_q, const void* seg_k,
                                const void* pos_q, const void* pos_k, const void* blk_ok,
-                               void* out, int B, int Sq, int Sk, int H, int KH, int nQ, int nK,
-                               float scale, int causal, int has_window, int window,
+                               void* out, void* lse, int B, int Sq, int Sk, int H, int KH, int nQ,
+                               int nK, float scale, int causal, int has_window, int window,
                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define PFA_CASE(DH)                                                                         \
   if (head_dim == DH)                                                                        \
-    return launch<DH>(q, k, v, seg_q, seg_k, pos_q, pos_k, blk_ok, out, B, Sq, Sk, H, KH, nQ, \
-                      nK, scale, causal, has_window, window, st);
+    return launch<DH>(q, k, v, seg_q, seg_k, pos_q, pos_k, blk_ok, out, lse, B, Sq, Sk, H, KH, \
+                      nQ, nK, scale, causal, has_window, window, st);
   PFA_CASE(16)
   PFA_CASE(32)
   PFA_CASE(64)

@@ -11,9 +11,16 @@ others, so attention cost follows sum(l_i^2) of the packed documents rather
 than N^2. `tile_map` adds the tiles in which every pair is visible, which the
 bf16 kernel runs without a mask.
 
-`packed_flash_attention.launches` counts kernel launches per kernel source
-(a dict a caller may reset), so a run can show which kernel its main path
-went through.
+The forward can also return the row log-sum-exp (`return_lse=True`), which
+`packed_flash_attention_backward` takes: a third CUDA C++ source
+(`csrc/packed_flash_attn_bwd.cu`, both types, CUDA cores, 64 x 64 tiles)
+computes dq, dk and dv under the same tile skip. `kernels.ops` wires the two
+into autograd.
+
+`packed_flash_attention.launches` counts forward launches per kernel source
+and `packed_flash_attention_backward.launches` backward launches per input
+type (dicts a caller may reset), so a run can show which kernels its main
+path went through.
 """
 from __future__ import annotations
 
@@ -42,6 +49,7 @@ class Kernel:
 SM90 = Kernel("packed_flash_attn_sm90.cu", "packed_flash_attn_sm90", 128, 128)
 SIMT = Kernel("packed_flash_attn.cu", "packed_flash_attn", 64, 64)
 KERNELS = {torch.bfloat16: SM90, torch.float32: SIMT}
+BWD = Kernel("packed_flash_attn_bwd.cu", "packed_flash_attn_bwd", 64, 64)  # both types
 
 
 def kernel_for(dtype) -> Kernel:
@@ -134,23 +142,36 @@ def tile_map(seg_q, seg_k, pos_q, pos_k, bq, bk, *, causal, window):
     return ok + full.to(torch.int8)
 
 
-_FWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
-                 + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+# head_dim, q, k, v, seg_q, seg_k, pos_q, pos_k, blk_ok, out, lse, B, Sq, Sk, H, KH, nQ, nK,
+# scale, causal, has_window, window, stream
+_FWD_ARGTYPES = [_INT] + [_PTR] * 10 + [_INT] * 7 + [ctypes.c_float] + [_INT] * 3 + [_PTR]
+# bf16, head_dim, q, k, v, out, d_out, lse, seg_q, seg_k, pos_q, pos_k, blk_ok, delta, dq, dk,
+# dv, B, Sq, Sk, H, KH, nQ, nK, scale, causal, has_window, window, stream
+_BWD_ARGTYPES = [_INT] * 2 + [_PTR] * 15 + [_INT] * 7 + [ctypes.c_float] + [_INT] * 3 + [_PTR]
 
 
-def _library(kern: Kernel):
+def _entry(kern: Kernel, name: str, argtypes):
+    """The C function `{symbol}_{name}` of the kernel's library, built and
+    declared at first use (tile sizes checked against `kern`)."""
     lib = build.load(kern.source)
-    fwd = getattr(lib, f"{kern.symbol}_fwd")
-    if fwd.argtypes is None:  # first use: declare the C signatures, check the tiles
-        fwd.restype = ctypes.c_int
-        fwd.argtypes = _FWD_ARGTYPES
+    fn = getattr(lib, f"{kern.symbol}_{name}")
+    if fn.argtypes is None:
+        fn.restype = _INT
+        fn.argtypes = argtypes
         err = getattr(lib, f"{kern.symbol}_error_string")
-        err.restype, err.argtypes = ctypes.c_char_p, [ctypes.c_int]
+        err.restype, err.argtypes = ctypes.c_char_p, [_INT]
         compiled = (getattr(lib, f"{kern.symbol}_block_q")(), getattr(lib, f"{kern.symbol}_block_k")())
         if compiled != (kern.block_q, kern.block_k):
             raise RuntimeError(f"{kern.source}: compiled tiles {compiled} != "
                                f"{(kern.block_q, kern.block_k)}")
-    return lib
+    return fn
+
+
+def _raise_on(rc, kern: Kernel, what):
+    if rc != 0:
+        msg = getattr(build.load(kern.source), f"{kern.symbol}_error_string")(rc).decode()
+        raise RuntimeError(f"packed flash attention {what} failed ({kern.source}): {msg} ({rc})")
 
 
 def _check(q, k, v, seg_q, seg_k, pos_q, pos_k):
@@ -187,37 +208,90 @@ def _check(q, k, v, seg_q, seg_k, pos_q, pos_k):
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
+def _check_like(name, t, like, shape, dtype):
+    if t.device != like.device or t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must be {dtype} of shape {tuple(shape)} on {like.device}, "
+                         f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
 def packed_flash_attention(q, k, v, seg_q, seg_k, pos_q, pos_k, *,
-                           causal=True, window=None, scale=None):
+                           causal=True, window=None, scale=None, return_lse=False):
     """q (B,Sq,H,dh); k/v (B,Sk,K,dh) un-repeated -> (B,Sq,H,dh), on the card.
 
-    bf16 takes the tensor-core kernel, fp32 the CUDA-core one. Raises on a
-    tensor the kernels do not take; never falls back.
+    bf16 takes the tensor-core kernel, fp32 the CUDA-core one. With
+    `return_lse`, also returns the fp32 (B,H,Sq) row log-sum-exp of the
+    scaled scores (+inf on rows with no visible key), which the backward
+    takes. Raises on a tensor the kernels do not take; never falls back. The
+    output has no gradient: it raises when autograd would need one, so a
+    caller that trains goes through `kernels.ops.packed_attention`.
     """
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("packed_flash_attention has no autograd graph; call "
+                           "repro_torch.kernels.ops.packed_attention to differentiate it")
     _check(q, k, v, seg_q, seg_k, pos_q, pos_k)
     kern = kernel_for(q.dtype)
     B, Sq, H, dh = q.shape
     Sk, K = k.shape[1], k.shape[2]
     if scale is None:
         scale = dh ** -0.5
-    lib = _library(kern)
+    fwd = _entry(kern, "fwd", _FWD_ARGTYPES)
     bq, bk = kern.block_q, kern.block_k
     padded = _pad_all(seg_q, seg_k, pos_q, pos_k, bq, bk)  # whole tiles of ids
     blk = tile_map(*padded, bq, bk, causal=causal, window=window)
     nq, nk = blk.shape[1], blk.shape[2]
     out = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) if return_lse else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        rc = getattr(lib, f"{kern.symbol}_fwd")(
-            dh, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            *(t.data_ptr() for t in padded), blk.data_ptr(), out.data_ptr(),
-            B, Sq, Sk, H, K, nq, nk, float(scale),
-            int(causal), int(window is not None), int(window or 0), stream)
-    if rc != 0:
-        msg = getattr(lib, f"{kern.symbol}_error_string")(rc).decode()
-        raise RuntimeError(f"packed flash attention launch failed ({kern.source}): {msg} ({rc})")
+        rc = fwd(dh, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 *(t.data_ptr() for t in padded), blk.data_ptr(), out.data_ptr(),
+                 lse.data_ptr() if return_lse else None,
+                 B, Sq, Sk, H, K, nq, nk, float(scale),
+                 int(causal), int(window is not None), int(window or 0), stream)
+    _raise_on(rc, kern, "launch")
     packed_flash_attention.launches[kern.source] += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 packed_flash_attention.launches = {kern.source: 0 for kern in KERNELS.values()}
+
+
+def packed_flash_attention_backward(q, k, v, out, lse, d_out, seg_q, seg_k, pos_q, pos_k, *,
+                                    causal=True, window=None, scale=None):
+    """Gradients of `packed_flash_attention` -> (dq, dk, dv), on the card.
+
+    out and lse are the forward's (`return_lse=True`), d_out the gradient of
+    out; dk and dv carry the un-repeated KV heads, summed over each GQA
+    group. bf16 and fp32 inputs, fp32 accumulation, under the same mask and
+    tile skip as the forward (the tile map at the backward's 64 x 64 tiles).
+    Raises on a tensor the kernel does not take; never falls back.
+    """
+    _check(q, k, v, seg_q, seg_k, pos_q, pos_k)
+    B, Sq, H, dh = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    _check_like("out", out, q, q.shape, q.dtype)
+    _check_like("d_out", d_out, q, q.shape, q.dtype)
+    _check_like("lse", lse, q, (B, H, Sq), torch.float32)
+    if scale is None:
+        scale = dh ** -0.5
+    bwd = _entry(BWD, "launch", _BWD_ARGTYPES)
+    padded = _pad_all(seg_q, seg_k, pos_q, pos_k, BWD.block_q, BWD.block_k)
+    blk = tile_map(*padded, BWD.block_q, BWD.block_k, causal=causal, window=window)
+    nq, nk = blk.shape[1], blk.shape[2]
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        rc = bwd(int(q.dtype == torch.bfloat16), dh,
+                 *(t.data_ptr() for t in (q, k, v, out, d_out, lse, *padded, blk, delta,
+                                          dq, dk, dv)),
+                 B, Sq, Sk, H, K, nq, nk, float(scale),
+                 int(causal), int(window is not None), int(window or 0), stream)
+    _raise_on(rc, BWD, "backward launch")
+    packed_flash_attention_backward.launches[str(q.dtype).removeprefix("torch.")] += 1
+    return dq, dk, dv
+
+
+packed_flash_attention_backward.launches = {"bfloat16": 0, "float32": 0}

@@ -3,16 +3,20 @@
 Counterpart of `repro.models.model` for dense attention LMs. Parameters are a
 plain dict with the reference's keys and shapes; `layers` is a list with one
 dict per layer (layer j*P + pos is `layers[pos][...][j]` of the reference's
-scan layout, P the period). Matrices are stored in the compute dtype and norm
-weights in float32; the reference keeps float32 masters and casts them at each
-use, which gives the same numbers. The reference's `lax.scan` over layers is a
-Python loop here.
+scan layout, P the period). Norm weights are always float32. Matrices are
+stored in whatever dtype `init_params` was given: serving and the forward
+phase keep them in bf16; training keeps float32 masters, as the reference
+does, and every use casts them to the compute dtype (`attention`, `mlp`,
+`embed_tokens`, `lm_logits`), so both give the same numbers. The reference's
+`lax.scan` over layers is a Python loop here, and its `jax.checkpoint` per
+layer (`remat`) is `torch.utils.checkpoint`.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.attention import attention, init_attention
 from repro_torch.models.layers import rms_norm
@@ -71,13 +75,23 @@ def apply_layer(cfg, spec, p, x, md, cache=None):
     return x, new_cache
 
 
-def _run_layers(cfg, layers, x, md, caches=None):
-    """Run the layers in order; returns (x, per-layer caches or None)."""
+def _run_layers(cfg, layers, x, md, caches=None, *, remat=False):
+    """Run the layers in order; returns (x, per-layer caches or None).
+
+    With `remat`, while autograd records, each layer keeps only its input for
+    the backward and runs again there (the reference's `jax.checkpoint`).
+    """
+    remat = remat and caches is None and torch.is_grad_enabled()
     new_caches = []
     for i, p in enumerate(layers):
         spec = cfg.layer_spec(i)
         _check_spec(spec)
-        x, nc = apply_layer(cfg, spec, p, x, md, cache=caches[i] if caches is not None else None)
+        if remat:
+            x, nc = checkpoint(apply_layer, cfg, spec, p, x, md, use_reentrant=False,
+                               preserve_rng_state=False)  # no layer draws random numbers
+        else:
+            x, nc = apply_layer(cfg, spec, p, x, md,
+                                cache=caches[i] if caches is not None else None)
         new_caches.append(nc)
     return x, (new_caches if new_caches and new_caches[0] is not None else None)
 
@@ -104,24 +118,26 @@ def _default_md(batch):
     }
 
 
-def _hidden(cfg, params, batch, compute_dtype, collect):
+def _hidden(cfg, params, batch, compute_dtype, collect, remat=False):
     md = _default_md(batch)
     if collect:
         md["collect_state"] = True
     x = embed_tokens(cfg, params, batch["tokens"], compute_dtype)
-    return _run_layers(cfg, params["layers"], x, md)
+    return _run_layers(cfg, params["layers"], x, md, remat=remat)
 
 
-def forward_train(cfg, params, batch, *, compute_dtype=torch.bfloat16):
-    """Packed forward: tokens, segment_ids, positions (B,S) -> logits (B,S,V), aux."""
-    x, _ = _hidden(cfg, params, batch, compute_dtype, collect=False)
+def forward_train(cfg, params, batch, *, remat=True, compute_dtype=torch.bfloat16):
+    """Packed forward: tokens, segment_ids, positions (B,S) -> logits (B,S,V), aux.
+
+    Differentiable; `remat` recomputes each layer in the backward."""
+    x, _ = _hidden(cfg, params, batch, compute_dtype, collect=False, remat=remat)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     aux = {"moe_aux": torch.zeros((), dtype=torch.float32, device=x.device)}
     return lm_logits(cfg, params, x), aux
 
 
 def loss_fn(cfg, params, batch, **fw_kwargs):
-    """NLL over labels >= 0 plus 1e-4 z-loss (forward only)."""
+    """NLL over labels >= 0 plus 1e-4 z-loss -> (total, metrics)."""
     logits, aux = forward_train(cfg, params, batch, **fw_kwargs)
     labels = batch["labels"]
     mask = (labels >= 0).float()

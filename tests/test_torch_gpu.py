@@ -1,7 +1,9 @@
 """On the card: the Hopper packed flash attention kernels (bf16 on the tensor
-cores, fp32 on the CUDA cores) against their plain PyTorch version, and the
-port's reduced model on the card against itself on the CPU. Every case is marked `gpu` and skips without a CUDA card. This file
-imports no JAX, so it runs where only PyTorch is installed:
+cores, fp32 on the CUDA cores; the forward's row log-sum-exp; the backward
+kernel) against their plain PyTorch versions, and the port's reduced model
+and train step on the card against themselves on the CPU. Every case is
+marked `gpu` and skips without a CUDA card. This file imports no JAX, so it
+runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
@@ -11,9 +13,21 @@ import torch
 
 from repro_torch.configs import get_arch, reduced
 from repro_torch.data.synth import SyntheticPackedDataset
-from repro_torch.kernels.packed_flash_attn import SIMT, SM90, packed_flash_attention
-from repro_torch.kernels.ref import packed_attention_ref
+from repro_torch.kernels import ops
+from repro_torch.kernels.packed_flash_attn import (
+    SIMT,
+    SM90,
+    packed_flash_attention,
+    packed_flash_attention_backward,
+)
+from repro_torch.kernels.ref import (
+    attention_mask,
+    packed_attention_ref,
+    packed_attention_ref_backward,
+)
 from repro_torch.models.model import forward_train, init_params, loss_fn
+from repro_torch.train.optimizer import make_optimizer, tree_leaves
+from repro_torch.train.train_step import build_train_step
 
 from conftest import make_packed
 from torch_helpers import cuda, n, t  # noqa: F401
@@ -165,3 +179,134 @@ def test_gpu_reduced_model_matches_cpu(cuda):
     logits_cpu, _ = forward_train(cfg, params, cpu_b, compute_dtype=torch.float32)
     valid = batch["segment_ids"] != 0
     np.testing.assert_allclose(n(logits_gpu)[valid], n(logits_cpu)[valid], atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------- backward
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # of max |ref|, per tensor
+
+
+def _check_grads(got, ref, dtype):
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= BWD_TOL[dtype] * float(b.float().abs().max()), (name, err)
+
+
+def _backward_case(rng, device, args, dtype, window=None):
+    q = args[0]
+    d_out = t(rng.normal(size=tuple(q.shape)).astype(np.float32)).to(device, TDT[dtype])
+    kw = {"causal": True, "window": window}
+    out, lse = packed_flash_attention(*args, **kw, return_lse=True)
+    before = dict(packed_flash_attention_backward.launches)
+    got = packed_flash_attention_backward(*args[:3], out, lse, d_out, *args[3:], **kw)
+    torch.cuda.synchronize()
+    after = packed_flash_attention_backward.launches
+    assert {s: after[s] - before[s] for s in after} == {s: int(s == dtype) for s in after}
+    ref = packed_attention_ref_backward(*args[:3], d_out, *args[3:], **kw)
+    _check_grads(got, ref, dtype)
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_backward_matches_plain(cuda, rng, dh, group, dtype):
+    """Ragged lengths (no tile multiple), several documents per row."""
+    K = 2
+    _backward_case(rng, cuda, _args(rng, cuda, 2, 200, K * group, K, dh, dtype), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_backward_window_padding_and_position_resets(cuda, rng, dtype):
+    """A window over tiles that hold a document start and padding; rows and
+    keys with no visible pair get gradients of exactly 0."""
+    S = 1000
+    q, k, v, *_ = _args(rng, cuda, 2, S, 4, 2, 64, dtype)
+    seg = torch.ones((2, S), dtype=torch.int32, device=cuda)
+    pos = torch.arange(S, dtype=torch.int32, device=cuda).repeat(2, 1)
+    seg[1, 300:] = 2
+    pos[1, 300:] -= 300
+    seg[1, 900:] = 0
+    pos[1, 900:] = 0
+    dq, dk, dv = _backward_case(rng, cuda, (q, k, v, seg, seg, pos, pos), dtype, window=256)
+    for g in (dq, dk, dv):
+        assert bool((g[1, 900:] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_backward_qwen3_shape(cuda, rng, dtype):
+    """qwen3-8b widths (H=32, K=8, dh=128) at S=1024, several documents."""
+    args = _args(rng, cuda, 1, 1024, 32, 8, 128, dtype, doc_lens=[100, 300, 24, 600])
+    _backward_case(rng, cuda, args, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [None, 48])
+def test_gpu_forward_lse_is_logsumexp_of_scores(cuda, rng, dtype, window):
+    B, S, H, K, dh = 2, 300, 4, 2, 64
+    q, k, v, seg, _, pos, _ = _args(rng, cuda, B, S, H, K, dh, dtype)
+    seg[:, 260:] = 0  # padding rows: no visible key
+    args = (q, k, v, seg, seg, pos, pos)
+    out, lse = packed_flash_attention(*args, causal=True, window=window, return_lse=True)
+    assert lse.shape == (B, H, S) and lse.dtype == torch.float32
+    np.testing.assert_allclose(n(out), n(packed_attention_ref(*args, causal=True, window=window)),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+    mask = attention_mask(seg, seg, pos, pos, causal=True, window=window)[:, None]
+    kr = k.float().repeat_interleave(H // K, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr) * dh ** -0.5
+    ref = torch.logsumexp(s.masked_fill(~mask, float("-inf")), dim=-1)
+    visible = mask.any(-1).expand_as(ref)
+    assert bool(torch.isinf(lse[~visible]).all()) and bool((lse[~visible] > 0).all())
+    np.testing.assert_allclose(n(lse[visible]), n(ref[visible]), atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_gpu_raw_kernel_refuses_inputs_that_require_grad(cuda, rng):
+    """No silent loss of gradients: the raw wrapper has no autograd graph, so
+    it raises; `ops.packed_attention` takes the autograd Function."""
+    q, k, v, *rest = _args(rng, cuda, 1, 128, 4, 2, 64, "bfloat16")
+    q.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="autograd"):
+        packed_flash_attention(q, k, v, *rest)
+    with torch.no_grad():
+        packed_flash_attention(q, k, v, *rest)  # no graph needed: runs
+    out = ops.packed_attention(q, k, v, *rest)
+    out.float().square().sum().backward()
+    assert q.grad is not None and bool(torch.isfinite(q.grad.float()).all())
+
+
+@pytest.mark.gpu
+def test_gpu_reduced_train_step_matches_cpu(cuda):
+    """One fp32 train step of reduced qwen3-8b (real head width, 2 micro-
+    batches, remat): loss, every gradient and every updated parameter on the
+    card (forward and backward kernels) against the CPU (plain version)."""
+    cfg = reduced(get_arch("qwen3-8b"), head_dim=128)
+    batch = SyntheticPackedDataset(cfg, 128, 4, seed=0, mu=3.6, sigma=0.8).batch_at(0)
+    results = {}
+    for device in ("cpu", cuda):
+        params = init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+        params = _to(params, device)
+        for p in tree_leaves(params):
+            p.requires_grad_(True)
+        opt = make_optimizer("adamw", lr=1e-3)
+        state = {"params": params, "opt": opt.init(params),
+                 "step": torch.zeros((), dtype=torch.int32, device=device)}
+        step = build_train_step(cfg, opt, microbatches=2, compute_dtype=torch.float32)
+        b = {k: t(v).to(device) for k, v in batch.items()}
+        bwd_before = packed_flash_attention_backward.launches["float32"]
+        state, metrics = step(state, b)
+        launches = packed_flash_attention_backward.launches["float32"] - bwd_before
+        results[str(device)] = (metrics, [n(p.grad) for p in tree_leaves(params)],
+                                [n(p) for p in tree_leaves(params)], launches)
+    (m_cpu, g_cpu, p_cpu, l_cpu), (m_gpu, g_gpu, p_gpu, l_gpu) = results.values()
+    assert l_cpu == 0 and l_gpu == cfg.n_layers * 2
+    np.testing.assert_allclose(float(m_gpu["loss"]), float(m_cpu["loss"]), rtol=1e-4)
+    np.testing.assert_allclose(float(m_gpu["grad_norm"]), float(m_cpu["grad_norm"]), rtol=1e-4)
+    for a, b in zip(g_gpu, g_cpu):
+        assert np.abs(a - b).max() <= 1e-4 * np.abs(b).max() + 1e-7
+    for a, b in zip(p_gpu, p_cpu):
+        np.testing.assert_allclose(a, b, atol=1e-4, rtol=1e-4)

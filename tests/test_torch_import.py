@@ -21,6 +21,9 @@ bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxl
 print(len(names), bad)
 assert not bad, bad
 assert "repro_torch.kernels.packed_flash_attn" in names and "repro_torch.bridge" in names
+assert {"repro_torch.launch.train", "repro_torch.train.optimizer",
+        "repro_torch.core.detector.changepoint", "repro_torch.core.detector.detector",
+        "repro_torch.core.detector.heartbeat"} <= set(names)
 """
 
 
