@@ -4,15 +4,16 @@
 
 Phases, in one process; any failure exits nonzero:
   1. build   every CUDA kernel from src/repro_torch/kernels/csrc with nvcc,
-             and check in the SASS that the bf16 kernel runs on the tensor
-             cores (HGMMA instructions);
+             and check in the SASS that the bf16 kernels, forward and
+             backward, run on the tensor cores (HGMMA instructions);
   2. kernel  hold each kernel against its plain PyTorch version on the card
              (bf16 tensor-core forward: serving shape and a packed shape,
              timed also with every visible tile masked, and a windowed
              shape with padding rows; fp32 CUDA-core forward: a ragged
-             shape and the parity path's shape; the backward kernel in
-             both types at the same shapes and at the shape of each
-             micro-batch the train paths launch it on) and time it beside
+             shape and the parity path's shape; the backward kernels,
+             bf16 tensor-core and fp32 CUDA-core, at the same shapes and
+             at the shape of each micro-batch the train paths launch them
+             on) and time it beside
              its bound, the plain version and one PyTorch library call;
   3. fp32    the fp32 parity path: reduced qwen3-8b in fp32 on the card (the
              CUDA-core forward, one launch per layer, and the backward
@@ -181,7 +182,7 @@ def kernel_case(name, q, k, v, seg, pos, tol, *, time_it, window=None):
         # ms: the kernel's own device time; wrapper_*: the whole call (tile
         # map + launch), on the device and on CUDA events (host gaps count)
         call = lambda: packed_flash_attention(*args, **kw)  # noqa: E731
-        kname = f"{kern.symbol}_kernel"
+        kname = kern.names[0]
         row.update(ms=device_ms(call, 20, kname), wrapper_device_ms=device_ms(call, 20),
                    wrapper_event_ms=cuda_ms(call, iters=20),
                    plain_ms=device_ms(lambda: packed_attention_ref(*args, **kw), 3),
@@ -207,7 +208,8 @@ def backward_case(name, q, k, v, seg, pos, tol, *, time_it, window=None):
     """Backward kernel vs autograd through the plain version; optionally
     timed. Returns a row."""
     from repro_torch.kernels.packed_flash_attn import (
-        BWD, packed_flash_attention, packed_flash_attention_backward, tile_map)
+        backward_kernel_for, backward_tile_maps, packed_flash_attention,
+        packed_flash_attention_backward)
     from repro_torch.kernels.ref import attention_mask, packed_attention_ref_backward
 
     kw = {"causal": True, "window": window}
@@ -233,21 +235,26 @@ def backward_case(name, q, k, v, seg, pos, tol, *, time_it, window=None):
     pad = seg == 0
     if pad.any() and not all(bool((x[pad] == 0).all()) for x in grads):
         raise AssertionError(f"{name}: gradients of padding rows or keys are not exactly 0")
-    codes = tile_map(seg, seg, pos, pos, BWD.block_q, BWD.block_k, **kw)
-    row = {"case": name, "kernel": BWD.source, "shape": list(q.shape), "kv_heads": k.shape[2],
+    kern = backward_kernel_for(q.dtype)
+    _, (codes, codes_dq) = backward_tile_maps(kern, seg, seg, pos, pos, **kw)
+    row = {"case": name, "kernel": kern.source, "shape": list(q.shape), "kv_heads": k.shape[2],
            "dtype": str(q.dtype), "window": window, "max_abs_err": max(errs.values()),
            "max_abs_err_by_grad": errs, "tol_of_max_ref": tol,
-           "padding_rows": int(pad.sum()), "tiles": [BWD.block_q, BWD.block_k],
+           "padding_rows": int(pad.sum()), "tiles": [kern.block_q, kern.block_k],
            "skipped_tile_fraction": float((codes == 0).float().mean())}
+    if kern.dq_tiles is not None:
+        row.update(dq_tiles=list(kern.dq_tiles),
+                   dq_skipped_tile_fraction=float((codes_dq == 0).float().mean()),
+                   unmasked_tile_fraction=float((codes == 2).float().mean()))
     if time_it:
         mask = attention_mask(seg, seg, pos, pos, **kw)
         # q, k, v, out, d_out, lse and seg/pos read; dq, dk, dv written
         bound, by, flops, moved = attention_bound(
             q, mask, 5, 2 * nbytes(q, k, v) + nbytes(out, d_out, lse) + 4 * nbytes(seg))
         us = device_us_by_kernel(call, 10)
-        by_name = {name: sum(t for key, t in us.items() if name in key) / 1e3 / 10
-                   for name in ("bwd_delta_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel")}
-        if not all(by_name.values()):
+        by_name = {kname: sum(t for key, t in us.items() if kname in key) / 1e3 / 10
+                   for kname in kern.names}
+        if not all(by_name.values()):  # also when the other source's kernels ran
             raise AssertionError(f"{name}: the profiler saw no device time for {by_name}")
         row.update(ms=sum(by_name.values()), ms_by_kernel=by_name,
                    wrapper_event_ms=cuda_ms(call, iters=10),
@@ -378,7 +385,7 @@ def read_counts():
 
 
 def read_backward_counts():
-    """Backward kernel launches by input type since the last `reset_counts`."""
+    """Backward kernel launches by kernel source since the last `reset_counts`."""
     from repro_torch.kernels.packed_flash_attn import packed_flash_attention_backward
 
     return dict(packed_flash_attention_backward.launches)
@@ -389,7 +396,7 @@ def fp32_phase(cfg, device):
     the card, through the CUDA-core kernel, against the same model on the
     CPU: the packed forward's logits, then one train step (2 micro-batches,
     remat, AdamW) through the forward and backward kernels."""
-    from repro_torch.kernels.packed_flash_attn import SIMT, SM90
+    from repro_torch.kernels.packed_flash_attn import BWD_SIMT, BWD_SM90, SIMT, SM90
     from repro_torch.models.model import forward_train, init_params
     from repro_torch.train.optimizer import make_optimizer, tree_leaves
     from repro_torch.train.train_step import build_train_step
@@ -431,7 +438,7 @@ def fp32_phase(cfg, device):
                         [x.detach().cpu() for x in tree_leaves(p)])
     # per micro-batch and layer: forward + remat recompute, one backward
     want = {SIMT.source: 2 * PARITY_MICROBATCHES * small.n_layers, SM90.source: 0}
-    want_bwd = {"float32": PARITY_MICROBATCHES * small.n_layers, "bfloat16": 0}
+    want_bwd = {BWD_SIMT.source: PARITY_MICROBATCHES * small.n_layers, BWD_SM90.source: 0}
     if train_counts != want or bwd_counts != want_bwd:
         raise AssertionError(f"fp32 train step launches {train_counts} {bwd_counts}, "
                              f"expected {want} and {want_bwd}")
@@ -669,7 +676,7 @@ def train_phase(cfg, device):
     from repro_torch.core.detector.predictor import MicroBatchTimePredictor
     from repro_torch.data.packing import pack_stats
     from repro_torch.data.synth import SyntheticPackedDataset
-    from repro_torch.kernels.packed_flash_attn import SIMT, SM90
+    from repro_torch.kernels.packed_flash_attn import BWD_SIMT, BWD_SM90, SIMT, SM90
     from repro_torch.models.model import init_params, loss_fn
     from repro_torch.train.optimizer import tree_leaves
 
@@ -732,9 +739,9 @@ def train_phase(cfg, device):
     peak = torch.cuda.max_memory_allocated()
 
     # per step: each micro-batch runs every layer's forward kernel twice
-    # (forward and remat recompute) and its backward kernel once
-    want = {SM90.source: 2 * L * mb, SIMT.source: 0, "backward[bfloat16]": L * mb,
-            "backward[float32]": 0, "plain_calls": 0}
+    # (forward and remat recompute) and its backward kernel once, all bf16
+    want = {SM90.source: 2 * L * mb, SIMT.source: 0, f"backward[{BWD_SM90.source}]": L * mb,
+            f"backward[{BWD_SIMT.source}]": 0, "plain_calls": 0}
     for i, got in enumerate(per_step):
         if got != want:
             raise AssertionError(f"train step {i}: launches {got}, expected {want}")
@@ -808,7 +815,7 @@ def main(argv=None):
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.configs import get_arch
     from repro_torch.kernels import build
-    from repro_torch.kernels.packed_flash_attn import BWD, SIMT, SM90
+    from repro_torch.kernels.packed_flash_attn import BWD_SIMT, BWD_SM90, SIMT, SM90
     from repro_torch.models.model import init_params
 
     device = torch.device("cuda", 0)
@@ -823,12 +830,13 @@ def main(argv=None):
             if any(w in line for w in ("registers", "spill", "warning", "wgmma")):
                 log(f"ptxas {src}: {line.strip()}")
     log(f"build: {record['build_seconds']:.1f} s")
-    # the bf16 kernel must run on the tensor cores: HGMMA in its SASS
+    # the bf16 kernels must run on the tensor cores: HGMMA in their SASS
     record["hgmma_instructions"] = {k.source: sass_count(build.library_path(k.source), "HGMMA")
-                                    for k in (SM90, SIMT)}
+                                    for k in (SM90, SIMT, BWD_SM90, BWD_SIMT)}
     log(f"sass: HGMMA instructions {record['hgmma_instructions']}")
-    if record["hgmma_instructions"][SM90.source] == 0:
-        raise AssertionError(f"{SM90.source}: no HGMMA instruction in its SASS")
+    for kern in (SM90, BWD_SM90):
+        if record["hgmma_instructions"][kern.source] == 0:
+            raise AssertionError(f"{kern.source}: no HGMMA instruction in its SASS")
 
     cfg = get_arch("qwen3-8b")
     record["kernel"] = kernel_phase(cfg, device)
@@ -864,7 +872,7 @@ def main(argv=None):
     # the backward's device time per launch inside the profiled train step
     prof = record["train"]["profile"]
     train_bwd_ms = (prof["group_shares"]["attention_backward"] * prof["device_seconds_per_call"]
-                    * 1e3 / record["train"]["launches_per_step"]["backward[bfloat16]"])
+                    * 1e3 / record["train"]["launches_per_step"][f"backward[{BWD_SM90.source}]"])
     kernels = [  # bf16: the main paths (serve; train), at their shapes; fp32: the parity path
         entry("packed_flash_attention", SM90, record["kernel"]["serving"], serve_launches,
               wrapper_device_ms=record["kernel"]["serving"]["wrapper_device_ms"],
@@ -874,12 +882,13 @@ def main(argv=None):
               record["fp32_path"]["launches"][SIMT.source],
               wrapper_device_ms=record["kernel"]["fp32_parity"]["wrapper_device_ms"]),
         # the backward: per launch, at the train paths' micro-batches
-        entry("packed_flash_attention_backward", BWD, per_launch(record["kernel"]["train_bwd"]),
-              record["train"]["launches"]["backward[bfloat16]"],
+        entry("packed_flash_attention_backward", BWD_SM90,
+              per_launch(record["kernel"]["train_bwd"]),
+              record["train"]["launches"][f"backward[{BWD_SM90.source}]"],
               train_step_ms_per_launch=train_bwd_ms),
-        entry("packed_flash_attention_backward[float32]", BWD,
+        entry("packed_flash_attention_backward[float32]", BWD_SIMT,
               per_launch(record["kernel"]["fp32_parity_bwd"]),
-              record["fp32_path"]["train_step_backward_launches"]["float32"]),
+              record["fp32_path"]["train_step_backward_launches"][BWD_SIMT.source]),
     ]
     record["kernels"] = kernels
     if args.out:

@@ -2,14 +2,17 @@
 
 Each source under `csrc/` compiles on its own into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds), named by a
-hash of the source so that an edit triggers a rebuild. Libraries go to
-`kernels/_build/`, which git ignores. Nothing here runs at import.
+hash of the source and of every header it includes from `csrc/` (quoted
+includes, followed recursively), so that an edit of either triggers a
+rebuild. Libraries go to `kernels/_build/`, which git ignores. Nothing here
+runs at import.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -36,9 +39,28 @@ def nvcc_path() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def sources_of(source: str) -> list[Path]:
+    """`source` and the headers it includes from `csrc/`, recursively, each
+    once, in the order first met."""
+    seen: list[Path] = []
+    todo = [CSRC / source]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [path.parent / m.decode() for m in _INCLUDE.findall(path.read_bytes())]
+    return seen
+
+
 def library_path(source: str) -> Path:
-    digest = hashlib.sha1((CSRC / source).read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{Path(source).stem}-{digest[:12]}.so"
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in sources_of(source):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:12]}.so"
 
 
 @dataclass

@@ -1,0 +1,626 @@
+// Packed (segment-aware) flash attention, backward, bf16, for Hopper (sm_90a):
+// tensor-core products (wgmma) fed by TMA through an mbarrier ring.
+//
+// The gradient of the Pallas TPU kernel `_attn_kernel`
+// (src/repro/kernels/packed_flash_attn.py:39, launched by
+// `packed_flash_attention`), for bf16 inputs; fp32 inputs take the CUDA-core
+// backward in packed_flash_attn_bwd.cu. The JAX package has no backward
+// kernel (it trains through its jnp attention, which XLA differentiates);
+// this one computes the same gradient under the forward's tile skip, so a
+// training micro-batch costs sum(l_i^2) rather than N^2 in its backward too.
+// The mask is the forward's exactly: a key is visible from a query when both
+// carry the same nonzero segment id, pos_q >= pos_k (causal) and
+// pos_q - pos_k < window (sliding window); GQA maps query head h to kv head
+// h * K / H. A row with no visible key has lse = +inf from the forward, so its
+// probabilities, and its gradients, are exactly 0.
+//
+// Math (FlashAttention-2), per query head, with S = scale * Q K^T over the
+// visible pairs, P = exp(S - lse) recomputed from the forward's row
+// log-sum-exp, and delta_i = sum_d dO_id O_id:
+//   dV = P^T dO,  dP = dO V^T,  dS = P o (dP - delta),
+//   dQ = scale * dS K,  dK = scale * dS^T Q,
+// dK and dV summed over the H / K query heads of a KV head, and returned
+// un-repeated. One numerical difference from the fp32 backward, as in
+// FlashAttention-2/3: P and dS are rounded to bf16 before the three products
+// that take them (dV, dK, dQ); S, dP, P's exponent and every sum stay fp32.
+//
+// Bound on an H100 SXM: operations, 5 products of 2 * dh flops per visible
+// (query, key) pair and head (S, dP, dV, dK, dQ). At the serving shape
+// (B=4, S=2048, H=32, K=8, dh=128, causal) that is 344 GFLOP, 0.348 ms at
+// the 989 TFLOP/s of the bf16 tensor cores, against 337 MB of q, k, v, out,
+// dO, lse read and dq, dk, dv written, 0.10 ms at 3.35 TB/s. So every
+// product runs on the tensor cores and no tile waits on a synchronous load.
+//
+// Design. Three kernels, deterministic, no atomics:
+//   (a) delta: rowsum(dO o O) over 16-byte loads, a group of dh / 8 lanes per
+//       row; it also writes the forward's lse in units of log2 (+inf on
+//       padding rows) and delta (0 there) to (B, H, Sqp) buffers padded to
+//       whole 128-row tiles, so that the other kernels copy whole rows of
+//       them by bulk copy and need no bounds test.
+//   (b) dK/dV: a CTA owns 128 keys of one (batch, KV head), two consumer
+//       warpgroups of 64 keys each, plus one producer warpgroup whose first
+//       thread issues every copy (and which hands its registers to the
+//       consumers by setmaxnreg). K and V arrive once by TMA. The producer
+//       streams, for each query head of the GQA group, the 64-row Q and dO
+//       tiles whose code in this key tile's column of `blk_kv` is nonzero
+//       (with their rows' lse, delta, segment ids and positions by bulk
+//       copy) through a ring of STAGES stages. Each warpgroup computes
+//       S^T = K Q^T and dP^T = V dO^T with wgmma m64n64k16 (both operands
+//       K-major from shared memory), masks code-1 tiles, forms P^T and dS^T
+//       in registers with lse and delta taken per column, rounds both to bf16
+//       as register A operands (the accumulator layout of S^T is the A layout
+//       of P^T), and accumulates dV += P^T dO and dK += dS^T Q with wgmma
+//       m64n{dh}k16, reading the same swizzled Q and dO stage as MN-major B
+//       operands. dK and dV stay in fp32 registers to the end. Early key
+//       tiles, which see the most queries under the causal mask, launch
+//       first.
+//   (c) dQ: the forward's skeleton with other products. A CTA owns 128 query
+//       rows of one (batch, head); Q and dO arrive once by TMA, K and V tiles
+//       of 128 keys stream through the ring; each warpgroup computes
+//       S = Q K^T and dP = dO V^T (ss), dS in registers, and dQ += dS K (rs,
+//       the K tile as an MN-major B operand). Late (heavy) query tiles first.
+// This runs 7 products per visible pair where the bound counts 5 (S and dP
+// twice): the price of keeping dQ out of atomics. Shared tiles use the
+// forward's chunked swizzled layout (sm90_common.cuh); TMA maps are 4-D over
+// (dh, heads, S, B), so rows and keys past the sequence are zero-filled. Tile
+// codes: 0 skip, 1 mask per element, 2 every pair visible (no mask).
+
+#include "sm90_common.cuh"
+
+namespace {
+
+constexpr int KV_BQ = 64;                 // dK/dV: query rows per streamed tile
+constexpr int KV_BK = 128;                // dK/dV: keys per CTA
+constexpr int DQ_BQ = 128;                // dQ: query rows per CTA
+constexpr int DQ_BK = 128;                // dQ: keys per streamed tile
+constexpr int PAD = 128;                  // row padding of lse2, delta, seg, pos
+constexpr int CONSUMERS = 256;            // two warpgroups of 64 rows each
+constexpr int THREADS = CONSUMERS + 128;  // and one producer warpgroup
+constexpr int STAGES = 2;                 // ring depth
+constexpr int DELTA_THREADS = 256;
+// Registers per thread after `setmaxnreg`: ptxas gives a kernel of three
+// warpgroups 168 at launch (65536 / 384), under which dK and dV (or dQ and
+// two score tiles) spill at dh = 128; the producer hands its spare ones to
+// the consumers. 2 x 232 + 40 = 3 x 168.
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+static_assert(PAD % KV_BQ == 0 && PAD % KV_BK == 0 && PAD % DQ_BQ == 0 && PAD % DQ_BK == 0,
+              "every tile divides the padding");
+
+// dK/dV shared memory: K and V tiles, then per stage the Q and dO tiles and
+// the rows' lse2, delta, segment ids and positions; then the barriers.
+template <int DH>
+struct KvSmem {
+  static constexpr int KT_BYTES = KV_BK * DH * 2;
+  static constexpr int QT_BYTES = KV_BQ * DH * 2;
+  static constexpr int META_BYTES = 4 * KV_BQ * 4;
+  static constexpr int STAGE_BYTES = 2 * QT_BYTES + META_BYTES;
+  static constexpr int STAGE0 = 2 * KT_BYTES;
+  static constexpr int BAR = STAGE0 + STAGES * STAGE_BYTES;  // kv, full[STAGES], empty[STAGES]
+  static constexpr int ALLOC = BAR + (1 + 2 * STAGES) * 8 + 1024;  // + slack to align to 1024
+  static_assert(KT_BYTES % 1024 == 0 && QT_BYTES % 1024 == 0 && META_BYTES % 1024 == 0,
+                "swizzle atoms need 1024-byte alignment");
+};
+
+// dQ shared memory: Q and dO tiles, then per stage the K and V tiles and the
+// keys' segment ids and positions; then the barriers.
+template <int DH>
+struct DqSmem {
+  static constexpr int QT_BYTES = DQ_BQ * DH * 2;
+  static constexpr int KT_BYTES = DQ_BK * DH * 2;
+  static constexpr int META_BYTES = 2 * DQ_BK * 4;
+  static constexpr int STAGE_BYTES = 2 * KT_BYTES + META_BYTES;
+  static constexpr int STAGE0 = 2 * QT_BYTES;
+  static constexpr int BAR = STAGE0 + STAGES * STAGE_BYTES;  // q, full[STAGES], empty[STAGES]
+  static constexpr int ALLOC = BAR + (1 + 2 * STAGES) * 8 + 1024;
+  static_assert(QT_BYTES % 1024 == 0 && KT_BYTES % 1024 == 0 && META_BYTES % 1024 == 0,
+                "swizzle atoms need 1024-byte alignment");
+};
+
+__device__ __forceinline__ bool visible(int sq, int pq, int sk, int pk, int causal,
+                                        int has_window, int window) {
+  bool ok = sq == sk && sq != 0;
+  if (causal) ok = ok && pq >= pk;
+  if (has_window) ok = ok && pq - pk < window;
+  return ok;
+}
+
+__device__ __forceinline__ void init_ring(uint32_t first) {
+  // first: the once-loaded tiles' barrier; then full[STAGES], empty[STAGES]
+  mbar_init(first, 1);
+  for (int s = 0; s < STAGES; ++s) {
+    mbar_init(first + 8u * (1 + s), 1);
+    mbar_init(first + 8u * (1 + STAGES + s), CONSUMERS / 32);  // lane 0 of each consumer warp
+  }
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// (a) delta[b, h, s] = sum_d dO[b, s, h, d] O[b, s, h, d] and
+// lse2[b, h, s] = lse[b, h, s] * log2(e), over s < Sqp: 0 and +inf past Sq.
+template <int DH>
+__global__ void __launch_bounds__(DELTA_THREADS)
+bwd_sm90_delta_kernel(const __nv_bfloat16* __restrict__ out, const __nv_bfloat16* __restrict__ d_out,
+                      const float* __restrict__ lse, float* __restrict__ lse2,
+                      float* __restrict__ delta, int Sq, int Sqp, int H, long long rows) {
+  constexpr int LPR = DH / 8;  // lanes per row, 8 bf16 (16 bytes) each
+  const long long row = (long long)blockIdx.x * (DELTA_THREADS / LPR) + threadIdx.x / LPR;
+  const int part = threadIdx.x % LPR;
+  const int s = (int)(row % Sqp);
+  const long long bh = row / Sqp;  // b * H + h
+  const bool valid = row < rows && s < Sq;
+  float acc = 0.f;
+  if (valid) {
+    const size_t at = (((size_t)(bh / H) * Sq + s) * H + (size_t)(bh % H)) * DH + part * 8;
+    const uint4 o = *reinterpret_cast<const uint4*>(out + at);
+    const uint4 g = *reinterpret_cast<const uint4*>(d_out + at);
+    const uint32_t ow[4] = {o.x, o.y, o.z, o.w}, gw[4] = {g.x, g.y, g.z, g.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 of = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ow[i]));
+      const float2 gf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&gw[i]));
+      acc = fmaf(of.x, gf.x, acc);
+      acc = fmaf(of.y, gf.y, acc);
+    }
+  }
+#pragma unroll
+  for (int off = LPR / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (row < rows && part == 0) {
+    delta[row] = valid ? acc : 0.f;
+    lse2[row] = valid ? lse[bh * Sq + s] * LOG2E : INFINITY;
+  }
+}
+
+// (b) dK, dV of 128 keys of one KV head
+template <int DH>
+__global__ void __launch_bounds__(THREADS, 1)
+bwd_sm90_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_do,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ lse2,
+                     const float* __restrict__ delta, const int* __restrict__ seg_q,
+                     const int* __restrict__ seg_k, const int* __restrict__ pos_q,
+                     const int* __restrict__ pos_k, const int8_t* __restrict__ blk,
+                     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int Sk,
+                     int Sqp, int Skp, int H, int KH, float scale, float scale_log2, int causal,
+                     int has_window, int window) {
+  using C = Chunking<DH>;
+  using M = KvSmem<DH>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t bar_kv = base + M::BAR;
+  auto bar_full = [&](int s) { return bar_kv + 8u * (1 + s); };
+  auto bar_empty = [&](int s) { return bar_kv + 8u * (1 + STAGES + s); };
+
+  const int kh = blockIdx.x, b = blockIdx.y, kt = blockIdx.z;  // early (heavy) key tiles first
+  const int nQ = Sqp / KV_BQ, nK = Skp / KV_BK, group = H / KH;
+  const int8_t* codes = blk + (size_t)b * nQ * nK + kt;  // this key tile's column: codes[qt * nK]
+  const int tid = threadIdx.x;
+
+  if (tid == 0) init_ring(bar_kv);
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {
+    // producer warpgroup: one thread issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (tid == CONSUMERS) {
+      mbar_expect_tx(bar_kv, 2 * M::KT_BYTES);
+#pragma unroll
+      for (int c = 0; c < C::NCH; ++c) {
+        tma_load_4d(base + c * KV_BK * C::SW, &tm_k, bar_kv, c * C::CW, kh, kt * KV_BK, b);
+        tma_load_4d(base + M::KT_BYTES + c * KV_BK * C::SW, &tm_v, bar_kv, c * C::CW, kh,
+                    kt * KV_BK, b);
+      }
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int h = kh * group; h < (kh + 1) * group; ++h) {
+        for (int qt = 0; qt < nQ; ++qt) {
+          if (!codes[(size_t)qt * nK]) continue;
+          mbar_wait(bar_empty(stage), phase ^ 1u);
+          const uint32_t full = bar_full(stage);
+          mbar_expect_tx(full, M::STAGE_BYTES);
+          const uint32_t dst = base + M::STAGE0 + stage * M::STAGE_BYTES;
+#pragma unroll
+          for (int c = 0; c < C::NCH; ++c) {
+            tma_load_4d(dst + c * KV_BQ * C::SW, &tm_q, full, c * C::CW, h, qt * KV_BQ, b);
+            tma_load_4d(dst + M::QT_BYTES + c * KV_BQ * C::SW, &tm_do, full, c * C::CW, h,
+                        qt * KV_BQ, b);
+          }
+          const uint32_t meta = dst + 2 * M::QT_BYTES;
+          const size_t stat = ((size_t)b * H + h) * Sqp + (size_t)qt * KV_BQ;
+          const size_t ids = (size_t)b * Sqp + (size_t)qt * KV_BQ;
+          bulk_load(meta, lse2 + stat, KV_BQ * 4, full);
+          bulk_load(meta + KV_BQ * 4, delta + stat, KV_BQ * 4, full);
+          bulk_load(meta + 2 * KV_BQ * 4, seg_q + ids, KV_BQ * 4, full);
+          bulk_load(meta + 3 * KV_BQ * 4, pos_q + ids, KV_BQ * 4, full);
+          if (++stage == STAGES) { stage = 0; phase ^= 1u; }
+        }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+
+  // consumers: warpgroup wg owns keys 64 wg .. 64 wg + 63 of the tile; this
+  // thread holds keys r0 and r0 + 8 of them (the rows of S^T) and queries
+  // 8i + cq (+1) of each streamed tile (its columns)
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int r0 = 64 * wg + 16 * warp + (lane >> 2);
+  const int cq = 2 * (lane & 3);
+  int sk[2], pk[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const size_t i = (size_t)b * Skp + (size_t)kt * KV_BK + r0 + 8 * j;  // padded: in range
+    sk[j] = seg_k[i];
+    pk[j] = pos_k[i];
+  }
+  float dk_acc[DH / 2], dv_acc[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  const uint32_t k_addr = base + wg * 64 * C::SW, v_addr = k_addr + M::KT_BYTES;
+  mbar_wait(bar_kv, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int h = kh * group; h < (kh + 1) * group; ++h) {
+    for (int qt = 0; qt < nQ; ++qt) {
+      const int code = codes[(size_t)qt * nK];
+      if (!code) continue;
+      mbar_wait(bar_full(stage), phase);
+      const uint32_t q_addr = base + M::STAGE0 + stage * M::STAGE_BYTES;
+      const uint32_t do_addr = q_addr + M::QT_BYTES;
+
+      // S^T = K Q^T and dP^T = V dO^T: m64 keys x n64 queries, dh / 16 k-steps
+      float s[KV_BQ / 2], dp[KV_BQ / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk)
+        Wgmma<KV_BQ>::ss(s, kmajor_desc<DH>(k_addr, KV_BK, kk),
+                         kmajor_desc<DH>(q_addr, KV_BQ, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk)
+        Wgmma<KV_BQ>::ss(dp, kmajor_desc<DH>(v_addr, KV_BK, kk),
+                         kmajor_desc<DH>(do_addr, KV_BQ, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(s);
+      pin(dp);
+
+      // P^T = exp2(S^T scale log2e - lse2) where visible, else 0;
+      // dS^T = P^T o (dP^T - delta); lse2, delta, ids of column (query) c
+      const float* row_lse = reinterpret_cast<const float*>(smem + M::STAGE0 +
+                                                            stage * M::STAGE_BYTES +
+                                                            2 * M::QT_BYTES);
+      const float* row_delta = row_lse + KV_BQ;
+      const int* row_seg = reinterpret_cast<const int*>(row_delta + KV_BQ);
+      const int* row_pos = row_seg + KV_BQ;
+#pragma unroll
+      for (int i = 0; i < KV_BQ / 8; ++i) {
+        const int c = 8 * i + cq;
+        const float2 l2 = *reinterpret_cast<const float2*>(row_lse + c);
+        const float2 dl = *reinterpret_cast<const float2*>(row_delta + c);
+        const int2 sq = *reinterpret_cast<const int2*>(row_seg + c);
+        const int2 pq = *reinterpret_cast<const int2*>(row_pos + c);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const bool v0 = code == 2 || visible(sq.x, pq.x, sk[j], pk[j], causal, has_window, window);
+          const bool v1 = code == 2 || visible(sq.y, pq.y, sk[j], pk[j], causal, has_window, window);
+          const int e = 4 * i + 2 * j;
+          const float p0 = v0 ? exp2f(fmaf(s[e], scale_log2, -l2.x)) : 0.f;
+          const float p1 = v1 ? exp2f(fmaf(s[e + 1], scale_log2, -l2.y)) : 0.f;
+          s[e] = p0;
+          s[e + 1] = p1;
+          dp[e] = p0 * (dp[e] - dl.x);
+          dp[e + 1] = p1 * (dp[e + 1] - dl.y);
+        }
+      }
+      // P^T and dS^T to bf16 in the register layout of the wgmma A operand
+      uint32_t pa[KV_BQ / 4], dsa[KV_BQ / 4];
+#pragma unroll
+      for (int i = 0; i < KV_BQ / 4; ++i) {
+        pa[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+        dsa[i] = pack_bf16(dp[2 * i], dp[2 * i + 1]);
+      }
+
+      // dV += P^T dO, dK += dS^T Q: 16 queries per k-step, dO and Q MN-major
+      pin(dv_acc);
+      pin(dk_acc);
+      pin(pa);
+      pin(dsa);
+      wgmma_fence();
+#pragma unroll
+      for (int t = 0; t < KV_BQ / 16; ++t) {
+        Wgmma<DH>::rs(dv_acc, pa + 4 * t, mnmajor_desc<DH>(do_addr, KV_BQ, t));
+        Wgmma<DH>::rs(dk_acc, dsa + 4 * t, mnmajor_desc<DH>(q_addr, KV_BQ, t));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(dv_acc);
+      pin(dk_acc);
+      if (lane == 0) mbar_arrive(bar_empty(stage));
+      if (++stage == STAGES) { stage = 0; phase ^= 1u; }
+    }
+  }
+
+  // epilogue: keys past Sk are not stored; a key no query sees stores 0
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int key = kt * KV_BK + r0 + 8 * j;
+    if (key < Sk) {
+      const size_t at = (((size_t)b * Sk + key) * KH + kh) * DH + cq;
+#pragma unroll
+      for (int i = 0; i < DH / 8; ++i) {
+        *reinterpret_cast<__nv_bfloat162*>(dk + at + 8 * i) = __floats2bfloat162_rn(
+            dk_acc[4 * i + 2 * j] * scale, dk_acc[4 * i + 2 * j + 1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + at + 8 * i) =
+            __floats2bfloat162_rn(dv_acc[4 * i + 2 * j], dv_acc[4 * i + 2 * j + 1]);
+      }
+    }
+  }
+}
+
+// (c) dQ of 128 query rows of one head
+template <int DH>
+__global__ void __launch_bounds__(THREADS, 1)
+bwd_sm90_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_do,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ lse2,
+                   const float* __restrict__ delta, const int* __restrict__ seg_q,
+                   const int* __restrict__ seg_k, const int* __restrict__ pos_q,
+                   const int* __restrict__ pos_k, const int8_t* __restrict__ blk,
+                   __nv_bfloat16* __restrict__ dq, int Sq, int Sqp, int Skp, int H, int KH,
+                   float scale, float scale_log2, int causal, int has_window, int window) {
+  using C = Chunking<DH>;
+  using M = DqSmem<DH>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t bar_q = base + M::BAR;
+  auto bar_full = [&](int s) { return bar_q + 8u * (1 + s); };
+  auto bar_empty = [&](int s) { return bar_q + 8u * (1 + STAGES + s); };
+
+  const int nQ = Sqp / DQ_BQ, nK = Skp / DQ_BK;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int qt = nQ - 1 - (int)blockIdx.z;  // heavy causal q-tiles first
+  const int kh = h * KH / H;
+  const int q0 = qt * DQ_BQ;
+  const int8_t* codes = blk + ((size_t)b * nQ + qt) * nK;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) init_ring(bar_q);
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (tid == CONSUMERS) {
+      mbar_expect_tx(bar_q, 2 * M::QT_BYTES);
+#pragma unroll
+      for (int c = 0; c < C::NCH; ++c) {
+        tma_load_4d(base + c * DQ_BQ * C::SW, &tm_q, bar_q, c * C::CW, h, q0, b);
+        tma_load_4d(base + M::QT_BYTES + c * DQ_BQ * C::SW, &tm_do, bar_q, c * C::CW, h, q0, b);
+      }
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int kt = 0; kt < nK; ++kt) {
+        if (!codes[kt]) continue;
+        mbar_wait(bar_empty(stage), phase ^ 1u);
+        const uint32_t full = bar_full(stage);
+        mbar_expect_tx(full, M::STAGE_BYTES);
+        const uint32_t dst = base + M::STAGE0 + stage * M::STAGE_BYTES;
+#pragma unroll
+        for (int c = 0; c < C::NCH; ++c) {
+          tma_load_4d(dst + c * DQ_BK * C::SW, &tm_k, full, c * C::CW, kh, kt * DQ_BK, b);
+          tma_load_4d(dst + M::KT_BYTES + c * DQ_BK * C::SW, &tm_v, full, c * C::CW, kh,
+                      kt * DQ_BK, b);
+        }
+        const uint32_t meta = dst + 2 * M::KT_BYTES;
+        const size_t ids = (size_t)b * Skp + (size_t)kt * DQ_BK;
+        bulk_load(meta, seg_k + ids, DQ_BK * 4, full);
+        bulk_load(meta + DQ_BK * 4, pos_k + ids, DQ_BK * 4, full);
+        if (++stage == STAGES) { stage = 0; phase ^= 1u; }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+
+  // consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63 of the q-tile; this
+  // thread holds rows r0 and r0 + 8 of them
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int r0 = 64 * wg + 16 * warp + (lane >> 2);
+  const int cq = 2 * (lane & 3);
+  int sq[2], pq[2];
+  float l2[2], dl[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int row = q0 + r0 + 8 * j;  // < Sqp: every buffer is padded
+    sq[j] = seg_q[(size_t)b * Sqp + row];
+    pq[j] = pos_q[(size_t)b * Sqp + row];
+    l2[j] = lse2[((size_t)b * H + h) * Sqp + row];
+    dl[j] = delta[((size_t)b * H + h) * Sqp + row];
+  }
+  float dq_acc[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) dq_acc[i] = 0.f;
+
+  const uint32_t q_addr = base + wg * 64 * C::SW, do_addr = q_addr + M::QT_BYTES;
+  mbar_wait(bar_q, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int kt = 0; kt < nK; ++kt) {
+    const int code = codes[kt];
+    if (!code) continue;
+    mbar_wait(bar_full(stage), phase);
+    const uint32_t k_addr = base + M::STAGE0 + stage * M::STAGE_BYTES;
+    const uint32_t v_addr = k_addr + M::KT_BYTES;
+
+    // S = Q K^T and dP = dO V^T: m64 rows x n128 keys
+    float s[DQ_BK / 2], dp[DQ_BK / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      Wgmma<DQ_BK>::ss(s, kmajor_desc<DH>(q_addr, DQ_BQ, kk), kmajor_desc<DH>(k_addr, DQ_BK, kk),
+                       kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      Wgmma<DQ_BK>::ss(dp, kmajor_desc<DH>(do_addr, DQ_BQ, kk),
+                       kmajor_desc<DH>(v_addr, DQ_BK, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(s);
+    pin(dp);
+
+    // dS = P o (dP - delta), P = exp2(S scale log2e - lse2) where visible
+    const int* key_seg = reinterpret_cast<const int*>(smem + M::STAGE0 + stage * M::STAGE_BYTES +
+                                                      2 * M::KT_BYTES);
+    const int* key_pos = key_seg + DQ_BK;
+#pragma unroll
+    for (int i = 0; i < DQ_BK / 8; ++i) {
+      const int2 skv = *reinterpret_cast<const int2*>(key_seg + 8 * i + cq);
+      const int2 pkv = *reinterpret_cast<const int2*>(key_pos + 8 * i + cq);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const bool v0 = code == 2 || visible(sq[j], pq[j], skv.x, pkv.x, causal, has_window, window);
+        const bool v1 = code == 2 || visible(sq[j], pq[j], skv.y, pkv.y, causal, has_window, window);
+        const int e = 4 * i + 2 * j;
+        const float p0 = v0 ? exp2f(fmaf(s[e], scale_log2, -l2[j])) : 0.f;
+        const float p1 = v1 ? exp2f(fmaf(s[e + 1], scale_log2, -l2[j])) : 0.f;
+        dp[e] = p0 * (dp[e] - dl[j]);
+        dp[e + 1] = p1 * (dp[e + 1] - dl[j]);
+      }
+    }
+    uint32_t dsa[DQ_BK / 4];
+#pragma unroll
+    for (int i = 0; i < DQ_BK / 4; ++i) dsa[i] = pack_bf16(dp[2 * i], dp[2 * i + 1]);
+
+    // dQ += dS K: 16 keys per k-step, K MN-major
+    pin(dq_acc);
+    pin(dsa);
+    wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < DQ_BK / 16; ++t)
+      Wgmma<DH>::rs(dq_acc, dsa + 4 * t, mnmajor_desc<DH>(k_addr, DQ_BK, t));
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(dq_acc);
+    if (lane == 0) mbar_arrive(bar_empty(stage));
+    if (++stage == STAGES) { stage = 0; phase ^= 1u; }
+  }
+
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int row = q0 + r0 + 8 * j;
+    if (row < Sq) {
+      __nv_bfloat16* drow = dq + (((size_t)b * Sq + row) * H + h) * DH + cq;
+#pragma unroll
+      for (int i = 0; i < DH / 8; ++i)
+        *reinterpret_cast<__nv_bfloat162*>(drow + 8 * i) = __floats2bfloat162_rn(
+            dq_acc[4 * i + 2 * j] * scale, dq_acc[4 * i + 2 * j + 1] * scale);
+    }
+  }
+}
+
+template <int DH>
+int launch(const void* q, const void* k, const void* v, const void* out, const void* d_out,
+           const void* lse, const void* seg_q, const void* seg_k, const void* pos_q,
+           const void* pos_k, const void* blk_kv, const void* blk_dq, void* lse2, void* delta,
+           void* dq, void* dk, void* dv, int B, int Sq, int Sk, int H, int KH, int Sqp, int Skp,
+           float scale, int causal, int has_window, int window, cudaStream_t stream) {
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return ERR_NO_ENCODER;
+  CUtensorMap tm_q64, tm_do64, tm_q128, tm_do128, tm_k, tm_v;
+  static_assert(KV_BK == DQ_BK, "one K/V map serves both kernels");
+  if (!make_map<DH>(enc, &tm_q64, q, B, Sq, H, KV_BQ) ||
+      !make_map<DH>(enc, &tm_do64, d_out, B, Sq, H, KV_BQ) ||
+      !make_map<DH>(enc, &tm_q128, q, B, Sq, H, DQ_BQ) ||
+      !make_map<DH>(enc, &tm_do128, d_out, B, Sq, H, DQ_BQ) ||
+      !make_map<DH>(enc, &tm_k, k, B, Sk, KH, KV_BK) ||
+      !make_map<DH>(enc, &tm_v, v, B, Sk, KH, KV_BK))
+    return ERR_ENCODE;
+  const float* l2 = static_cast<const float*>(lse2);
+  const float* dl = static_cast<const float*>(delta);
+  const int *sq = static_cast<const int*>(seg_q), *sk = static_cast<const int*>(seg_k),
+            *pq = static_cast<const int*>(pos_q), *pk = static_cast<const int*>(pos_k);
+  const float scale_log2 = scale * LOG2E;
+
+  const long long rows = (long long)B * H * Sqp;
+  constexpr int rows_per_block = DELTA_THREADS / (DH / 8);
+  bwd_sm90_delta_kernel<DH><<<(unsigned)((rows + rows_per_block - 1) / rows_per_block),
+                              DELTA_THREADS, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(out), static_cast<const __nv_bfloat16*>(d_out),
+      static_cast<const float*>(lse), static_cast<float*>(lse2), static_cast<float*>(delta), Sq,
+      Sqp, H, rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  auto dkdv = bwd_sm90_dkdv_kernel<DH>;
+  constexpr int kv_smem = KvSmem<DH>::ALLOC;
+  err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, kv_smem);
+  if (err != cudaSuccess) return (int)err;
+  dkdv<<<dim3(KH, B, Skp / KV_BK), THREADS, kv_smem, stream>>>(
+      tm_q64, tm_do64, tm_k, tm_v, l2, dl, sq, sk, pq, pk, static_cast<const int8_t*>(blk_kv),
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), Sk, Sqp, Skp, H, KH,
+      scale, scale_log2, causal, has_window, window);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  auto dqk = bwd_sm90_dq_kernel<DH>;
+  constexpr int q_smem = DqSmem<DH>::ALLOC;
+  err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, q_smem);
+  if (err != cudaSuccess) return (int)err;
+  dqk<<<dim3(H, B, Sqp / DQ_BQ), THREADS, q_smem, stream>>>(
+      tm_q128, tm_do128, tm_k, tm_v, l2, dl, sq, sk, pq, pk, static_cast<const int8_t*>(blk_dq),
+      static_cast<__nv_bfloat16*>(dq), Sq, Sqp, Skp, H, KH, scale, scale_log2, causal,
+      has_window, window);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Tile sizes, so the wrapper builds each kernel's tile map at its own tiles:
+// dK/dV (query rows streamed, keys per CTA), then dQ (rows per CTA, keys
+// streamed). Sequences are padded to multiples of 128.
+int packed_flash_attn_bwd_sm90_block_q() { return KV_BQ; }
+int packed_flash_attn_bwd_sm90_block_k() { return KV_BK; }
+int packed_flash_attn_bwd_sm90_dq_block_q() { return DQ_BQ; }
+int packed_flash_attn_bwd_sm90_dq_block_k() { return DQ_BK; }
+
+// bf16 q, out, d_out, dq (B,Sq,H,dh); k, v, dk, dv (B,Sk,KH,dh). lse is the
+// forward's fp32 (B,H,Sq) row log-sum-exp of the scaled scores, +inf on rows
+// with no visible key. seg/pos are int32 padded with zeros to (B, Sqp) and
+// (B, Skp), multiples of 128. blk_kv is the (B, Sqp/64, Skp/128) and blk_dq the
+// (B, Sqp/128, Skp/128) int8 tile map (0 skip, 1 mask, 2 all visible).
+// lse2 and delta are fp32 (B,H,Sqp) scratch, written here. Launches three
+// kernels on `stream`; returns 0, a cudaError_t, or a negative code of this
+// file (see the error string).
+int packed_flash_attn_bwd_sm90_launch(int head_dim, const void* q, const void* k, const void* v,
+                                      const void* out, const void* d_out, const void* lse,
+                                      const void* seg_q, const void* seg_k, const void* pos_q,
+                                      const void* pos_k, const void* blk_kv, const void* blk_dq,
+                                      void* lse2, void* delta, void* dq, void* dk, void* dv,
+                                      int B, int Sq, int Sk, int H, int KH, int Sqp, int Skp,
+                                      float scale, int causal, int has_window, int window,
+                                      void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (Sqp % PAD || Skp % PAD) return (int)cudaErrorInvalidValue;
+#define PFA_CASE(DH)                                                                           \
+  if (head_dim == DH)                                                                          \
+    return launch<DH>(q, k, v, out, d_out, lse, seg_q, seg_k, pos_q, pos_k, blk_kv, blk_dq,   \
+                      lse2, delta, dq, dk, dv, B, Sq, Sk, H, KH, Sqp, Skp, scale, causal,      \
+                      has_window, window, st);
+  PFA_CASE(16)
+  PFA_CASE(32)
+  PFA_CASE(64)
+  PFA_CASE(128)
+#undef PFA_CASE
+  return ERR_HEAD_DIM;
+}
+
+const char* packed_flash_attn_bwd_sm90_error_string(int code) { return error_string(code); }
+
+}  // extern "C"

@@ -12,15 +12,17 @@ than N^2. `tile_map` adds the tiles in which every pair is visible, which the
 bf16 kernel runs without a mask.
 
 The forward can also return the row log-sum-exp (`return_lse=True`), which
-`packed_flash_attention_backward` takes: a third CUDA C++ source
-(`csrc/packed_flash_attn_bwd.cu`, both types, CUDA cores, 64 x 64 tiles)
-computes dq, dk and dv under the same tile skip. `kernels.ops` wires the two
-into autograd.
+`packed_flash_attention_backward` takes: it computes dq, dk and dv under the
+same tile skip, again one source per input type. bf16 runs on the tensor
+cores (`csrc/packed_flash_attn_bwd_sm90.cu`: wgmma fed by TMA, a dK/dV kernel
+at 64 x 128 tiles and a dQ kernel at 128 x 128, their tile maps derived from
+one map by `coarsen`); fp32 on the CUDA cores (`csrc/packed_flash_attn_bwd.cu`,
+64 x 64). The two sm_90a sources share `csrc/sm90_common.cuh`. `kernels.ops`
+wires forward and backward into autograd.
 
-`packed_flash_attention.launches` counts forward launches per kernel source
-and `packed_flash_attention_backward.launches` backward launches per input
-type (dicts a caller may reset), so a run can show which kernels its main
-path went through.
+`packed_flash_attention.launches` and `packed_flash_attention_backward.launches`
+count launches per kernel source (dicts a caller may reset), so a run can
+show which kernels its main path went through.
 """
 from __future__ import annotations
 
@@ -37,26 +39,45 @@ HEAD_DIMS = (16, 32, 64, 128)
 
 @dataclass(frozen=True)
 class Kernel:
-    """One compiled kernel: its source under `csrc/`, the prefix of its C
-    symbols and the tile sizes its `blk_ok` map is built at."""
+    """One compiled kernel source: its file under `csrc/`, the prefix of its C
+    symbols, the tile sizes its `blk_ok` map is built at, the names of its
+    CUDA kernels as the profiler shows them, and the tiles of a backward's
+    dQ kernel where they differ (None: the same)."""
 
     source: str
     symbol: str
     block_q: int
     block_k: int
+    names: tuple[str, ...]
+    dq_tiles: tuple[int, int] | None = None
 
 
-SM90 = Kernel("packed_flash_attn_sm90.cu", "packed_flash_attn_sm90", 128, 128)
-SIMT = Kernel("packed_flash_attn.cu", "packed_flash_attn", 64, 64)
+SM90 = Kernel("packed_flash_attn_sm90.cu", "packed_flash_attn_sm90", 128, 128,
+              ("packed_flash_attn_sm90_kernel",))
+SIMT = Kernel("packed_flash_attn.cu", "packed_flash_attn", 64, 64, ("packed_flash_attn_kernel",))
 KERNELS = {torch.bfloat16: SM90, torch.float32: SIMT}
-BWD = Kernel("packed_flash_attn_bwd.cu", "packed_flash_attn_bwd", 64, 64)  # both types
+BWD_SM90 = Kernel("packed_flash_attn_bwd_sm90.cu", "packed_flash_attn_bwd_sm90", 64, 128,
+                  ("bwd_sm90_delta_kernel", "bwd_sm90_dkdv_kernel", "bwd_sm90_dq_kernel"),
+                  dq_tiles=(128, 128))
+BWD_SIMT = Kernel("packed_flash_attn_bwd.cu", "packed_flash_attn_bwd", 64, 64,
+                  ("bwd_delta_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel"))
+BACKWARD_KERNELS = {torch.bfloat16: BWD_SM90, torch.float32: BWD_SIMT}
+
+
+def _pick(table, dtype) -> Kernel:
+    if dtype not in table:
+        raise TypeError(f"q must be float32 or bfloat16, got {dtype}")
+    return table[dtype]
 
 
 def kernel_for(dtype) -> Kernel:
-    """The kernel that takes inputs of `dtype`."""
-    if dtype not in KERNELS:
-        raise TypeError(f"q must be float32 or bfloat16, got {dtype}")
-    return KERNELS[dtype]
+    """The forward kernel that takes inputs of `dtype`."""
+    return _pick(KERNELS, dtype)
+
+
+def backward_kernel_for(dtype) -> Kernel:
+    """The backward kernel that takes inputs of `dtype`."""
+    return _pick(BACKWARD_KERNELS, dtype)
 
 
 def tile_sizes(dtype):
@@ -142,13 +163,44 @@ def tile_map(seg_q, seg_k, pos_q, pos_k, bq, bk, *, causal, window):
     return ok + full.to(torch.int8)
 
 
+def coarsen(codes, fq, fk):
+    """Tile codes of tiles fq x fk times larger, from a (B, nQ, nK) map whose
+    tile counts they divide: 0 where every part is 0, 2 where every part is
+    2, else 1. Applied to a `tile_map`, the result is never 0 on a tile with
+    a visible pair, 2 exactly where every pair is visible, and 0 on at least
+    the tiles `tile_map` skips at the larger tiles (on more where its range
+    tests over a large tile hold though no part has a visible pair)."""
+    B, nq, nk = codes.shape
+    parts = codes.reshape(B, nq // fq, fq, nk // fk, fk)
+    lo, hi = parts.amin(dim=(2, 4)), parts.amax(dim=(2, 4))
+    return torch.where(hi == 0, 0, torch.where(lo == 2, 2, 1)).to(torch.int8)
+
+
+def backward_tile_maps(kern: Kernel, seg_q, seg_k, pos_q, pos_k, *, causal, window):
+    """The backward kernel's ids, padded to whole tiles of every kernel it
+    launches, and its tile maps: (padded, (blk, blk_dq)). `tile_map` runs
+    once, at (block_q, block_k); the dQ kernel's map, where its tiles are
+    larger, is derived from it by `coarsen`."""
+    bq, bk = kern.dq_tiles or (kern.block_q, kern.block_k)
+    padded = _pad_all(seg_q, seg_k, pos_q, pos_k, max(bq, kern.block_q), max(bk, kern.block_k))
+    blk = tile_map(*padded, kern.block_q, kern.block_k, causal=causal, window=window)
+    if kern.dq_tiles is None:
+        return padded, (blk, blk)
+    return padded, (blk, coarsen(blk, bq // kern.block_q, bk // kern.block_k))
+
+
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 # head_dim, q, k, v, seg_q, seg_k, pos_q, pos_k, blk_ok, out, lse, B, Sq, Sk, H, KH, nQ, nK,
 # scale, causal, has_window, window, stream
 _FWD_ARGTYPES = [_INT] + [_PTR] * 10 + [_INT] * 7 + [ctypes.c_float] + [_INT] * 3 + [_PTR]
-# bf16, head_dim, q, k, v, out, d_out, lse, seg_q, seg_k, pos_q, pos_k, blk_ok, delta, dq, dk,
-# dv, B, Sq, Sk, H, KH, nQ, nK, scale, causal, has_window, window, stream
-_BWD_ARGTYPES = [_INT] * 2 + [_PTR] * 15 + [_INT] * 7 + [ctypes.c_float] + [_INT] * 3 + [_PTR]
+_BWD_ARGTYPES = {
+    # head_dim, q, k, v, out, d_out, lse, seg_q, seg_k, pos_q, pos_k, blk_ok, delta, dq, dk, dv,
+    # B, Sq, Sk, H, KH, nQ, nK, scale, causal, has_window, window, stream
+    BWD_SIMT.source: [_INT] + [_PTR] * 15 + [_INT] * 7 + [ctypes.c_float] + [_INT] * 3 + [_PTR],
+    # head_dim, q, k, v, out, d_out, lse, seg_q, seg_k, pos_q, pos_k, blk_kv, blk_dq, lse2,
+    # delta, dq, dk, dv, B, Sq, Sk, H, KH, Sqp, Skp, scale, causal, has_window, window, stream
+    BWD_SM90.source: [_INT] + [_PTR] * 17 + [_INT] * 7 + [ctypes.c_float] + [_INT] * 3 + [_PTR],
+}
 
 
 def _entry(kern: Kernel, name: str, argtypes):
@@ -161,10 +213,14 @@ def _entry(kern: Kernel, name: str, argtypes):
         fn.argtypes = argtypes
         err = getattr(lib, f"{kern.symbol}_error_string")
         err.restype, err.argtypes = ctypes.c_char_p, [_INT]
-        compiled = (getattr(lib, f"{kern.symbol}_block_q")(), getattr(lib, f"{kern.symbol}_block_k")())
-        if compiled != (kern.block_q, kern.block_k):
-            raise RuntimeError(f"{kern.source}: compiled tiles {compiled} != "
-                               f"{(kern.block_q, kern.block_k)}")
+        tiles = {"block": (kern.block_q, kern.block_k)}
+        if kern.dq_tiles is not None:
+            tiles["dq_block"] = kern.dq_tiles
+        for prefix, want in tiles.items():
+            compiled = (getattr(lib, f"{kern.symbol}_{prefix}_q")(),
+                        getattr(lib, f"{kern.symbol}_{prefix}_k")())
+            if compiled != want:
+                raise RuntimeError(f"{kern.source}: compiled {prefix} tiles {compiled} != {want}")
     return fn
 
 
@@ -264,9 +320,10 @@ def packed_flash_attention_backward(q, k, v, out, lse, d_out, seg_q, seg_k, pos_
 
     out and lse are the forward's (`return_lse=True`), d_out the gradient of
     out; dk and dv carry the un-repeated KV heads, summed over each GQA
-    group. bf16 and fp32 inputs, fp32 accumulation, under the same mask and
-    tile skip as the forward (the tile map at the backward's 64 x 64 tiles).
-    Raises on a tensor the kernel does not take; never falls back.
+    group. bf16 takes the tensor-core backward, fp32 the CUDA-core one; both
+    accumulate in fp32, under the same mask and tile skip as the forward
+    (each kernel's tile map at its own tiles). Raises on a tensor the kernels
+    do not take; never falls back.
     """
     _check(q, k, v, seg_q, seg_k, pos_q, pos_k)
     B, Sq, H, dh = q.shape
@@ -276,22 +333,28 @@ def packed_flash_attention_backward(q, k, v, out, lse, d_out, seg_q, seg_k, pos_
     _check_like("lse", lse, q, (B, H, Sq), torch.float32)
     if scale is None:
         scale = dh ** -0.5
-    bwd = _entry(BWD, "launch", _BWD_ARGTYPES)
-    padded = _pad_all(seg_q, seg_k, pos_q, pos_k, BWD.block_q, BWD.block_k)
-    blk = tile_map(*padded, BWD.block_q, BWD.block_k, causal=causal, window=window)
-    nq, nk = blk.shape[1], blk.shape[2]
-    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    kern = backward_kernel_for(q.dtype)
+    bwd = _entry(kern, "launch", _BWD_ARGTYPES[kern.source])
+    padded, (blk, blk_dq) = backward_tile_maps(kern, seg_q, seg_k, pos_q, pos_k,
+                                               causal=causal, window=window)
+    Sqp, Skp = padded[0].shape[1], padded[1].shape[1]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if kern is BWD_SM90:  # lse in log2 units and delta, padded to whole tiles
+        stats = torch.empty((2, B, H, Sqp), dtype=torch.float32, device=q.device)
+        bufs = (blk, blk_dq, stats[0], stats[1])
+        dims = (Sqp, Skp)
+    else:
+        bufs = (blk, torch.empty((B, H, Sq), dtype=torch.float32, device=q.device))
+        dims = (blk.shape[1], blk.shape[2])
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        rc = bwd(int(q.dtype == torch.bfloat16), dh,
-                 *(t.data_ptr() for t in (q, k, v, out, d_out, lse, *padded, blk, delta,
-                                          dq, dk, dv)),
-                 B, Sq, Sk, H, K, nq, nk, float(scale),
+        rc = bwd(dh, *(t.data_ptr() for t in (q, k, v, out, d_out, lse, *padded, *bufs,
+                                              dq, dk, dv)),
+                 B, Sq, Sk, H, K, *dims, float(scale),
                  int(causal), int(window is not None), int(window or 0), stream)
-    _raise_on(rc, BWD, "backward launch")
-    packed_flash_attention_backward.launches[str(q.dtype).removeprefix("torch.")] += 1
+    _raise_on(rc, kern, "backward launch")
+    packed_flash_attention_backward.launches[kern.source] += 1
     return dq, dk, dv
 
 
-packed_flash_attention_backward.launches = {"bfloat16": 0, "float32": 0}
+packed_flash_attention_backward.launches = {kern.source: 0 for kern in BACKWARD_KERNELS.values()}

@@ -1,6 +1,7 @@
 """On the card: the Hopper packed flash attention kernels (bf16 on the tensor
 cores, fp32 on the CUDA cores; the forward's row log-sum-exp; the backward
-kernel) against their plain PyTorch versions, and the port's reduced model
+kernels, bf16 on the tensor cores and fp32 on the CUDA cores) against their
+plain PyTorch versions, and the port's reduced model
 and train step on the card against themselves on the CPU. Every case is
 marked `gpu` and skips without a CUDA card. This file imports no JAX, so it
 runs where only PyTorch is installed:
@@ -13,10 +14,14 @@ import torch
 
 from repro_torch.configs import get_arch, reduced
 from repro_torch.data.synth import SyntheticPackedDataset
+import repro_torch.kernels.packed_flash_attn as pfa
 from repro_torch.kernels import ops
 from repro_torch.kernels.packed_flash_attn import (
+    BWD_SIMT,
+    BWD_SM90,
     SIMT,
     SM90,
+    backward_kernel_for,
     packed_flash_attention,
     packed_flash_attention_backward,
 )
@@ -192,29 +197,87 @@ def _check_grads(got, ref, dtype):
         assert err <= BWD_TOL[dtype] * float(b.float().abs().max()), (name, err)
 
 
-def _backward_case(rng, device, args, dtype, window=None):
+def _backward_inputs(rng, device, args, dtype, window=None):
+    """(d_out, out, lse, kw) of a backward case: the forward kernel's out and lse."""
     q = args[0]
     d_out = t(rng.normal(size=tuple(q.shape)).astype(np.float32)).to(device, TDT[dtype])
     kw = {"causal": True, "window": window}
     out, lse = packed_flash_attention(*args, **kw, return_lse=True)
+    return d_out, out, lse, kw
+
+
+def _backward_case(rng, device, args, dtype, window=None):
+    d_out, out, lse, kw = _backward_inputs(rng, device, args, dtype, window)
     before = dict(packed_flash_attention_backward.launches)
     got = packed_flash_attention_backward(*args[:3], out, lse, d_out, *args[3:], **kw)
     torch.cuda.synchronize()
     after = packed_flash_attention_backward.launches
-    assert {s: after[s] - before[s] for s in after} == {s: int(s == dtype) for s in after}
+    source = backward_kernel_for(TDT[dtype]).source
+    assert {s: after[s] - before[s] for s in after} == {s: int(s == source) for s in after}
     ref = packed_attention_ref_backward(*args[:3], d_out, *args[3:], **kw)
     _check_grads(got, ref, dtype)
     return got
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("S", [200, 333])
 @pytest.mark.parametrize("dh", [16, 32, 64, 128])
 @pytest.mark.parametrize("group", [1, 2, 4])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_gpu_backward_matches_plain(cuda, rng, dh, group, dtype):
-    """Ragged lengths (no tile multiple), several documents per row."""
+def test_gpu_backward_matches_plain(cuda, rng, S, dh, group, dtype):
+    """Ragged lengths (no multiple of 64 or 128), several documents per row,
+    every head width and GQA group: bf16 through the tensor-core backward,
+    fp32 through the CUDA-core one."""
     K = 2
-    _backward_case(rng, cuda, _args(rng, cuda, 2, 200, K * group, K, dh, dtype), dtype)
+    _backward_case(rng, cuda, _args(rng, cuda, 2, S, K * group, K, dh, dtype), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_backward_is_deterministic(cuda, rng, dtype):
+    """Two launches on the same inputs give bitwise-equal dq, dk and dv (no
+    atomics: every gradient element is summed by one thread in one order)."""
+    args = _args(rng, cuda, 2, 700, 8, 2, 128, dtype, doc_lens=[100, 300, 24, 276])
+    d_out, out, lse, kw = _backward_inputs(rng, cuda, args, dtype)
+    first = packed_flash_attention_backward(*args[:3], out, lse, d_out, *args[3:], **kw)
+    second = packed_flash_attention_backward(*args[:3], out, lse, d_out, *args[3:], **kw)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_backward_unmasked_tiles_match_masked(cuda, rng, dtype, monkeypatch):
+    """A tile whose every pair is visible (code 2) runs without the mask and
+    gives the same gradients, bit for bit, as the same tile with its mask
+    forced (every visible tile marked code 1)."""
+    args = _args(rng, cuda, 1, 512, 4, 2, 64, dtype, doc_lens=[512])
+    d_out, out, lse, kw = _backward_inputs(rng, cuda, args, dtype)
+    kern = backward_kernel_for(TDT[dtype])
+    _, (blk, blk_dq) = pfa.backward_tile_maps(kern, *args[3:], **kw)
+    assert bool((blk == 2).any()) and bool((blk_dq == 2).any())
+    free = packed_flash_attention_backward(*args[:3], out, lse, d_out, *args[3:], **kw)
+    tile_map = pfa.tile_map
+    monkeypatch.setattr(pfa, "tile_map", lambda *a, **k: tile_map(*a, **k).clamp_(max=1))
+    masked = packed_flash_attention_backward(*args[:3], out, lse, d_out, *args[3:], **kw)
+    for a, b in zip(free, masked):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_gpu_backward_launch_counts_by_source(cuda, rng):
+    """A bf16 backward launches the tensor-core source once and never the
+    CUDA-core one; an fp32 backward the CUDA-core source once."""
+    assert packed_flash_attention_backward.launches.keys() == {BWD_SM90.source, BWD_SIMT.source}
+    for dtype, kern in (("bfloat16", BWD_SM90), ("float32", BWD_SIMT)):
+        args = _args(rng, cuda, 1, 256, 4, 2, 64, dtype)
+        d_out, out, lse, kw = _backward_inputs(rng, cuda, args, dtype)
+        before = dict(packed_flash_attention_backward.launches)
+        packed_flash_attention_backward(*args[:3], out, lse, d_out, *args[3:], **kw)
+        torch.cuda.synchronize()
+        after = packed_flash_attention_backward.launches
+        assert {s: after[s] - before[s] for s in after} == {
+            s: int(s == kern.source) for s in after}
 
 
 @pytest.mark.gpu
@@ -297,13 +360,14 @@ def test_gpu_reduced_train_step_matches_cpu(cuda):
                  "step": torch.zeros((), dtype=torch.int32, device=device)}
         step = build_train_step(cfg, opt, microbatches=2, compute_dtype=torch.float32)
         b = {k: t(v).to(device) for k, v in batch.items()}
-        bwd_before = packed_flash_attention_backward.launches["float32"]
+        bwd_before = dict(packed_flash_attention_backward.launches)
         state, metrics = step(state, b)
-        launches = packed_flash_attention_backward.launches["float32"] - bwd_before
+        launches = {s: n_ - bwd_before[s] for s, n_ in packed_flash_attention_backward.launches.items()}
         results[str(device)] = (metrics, [n(p.grad) for p in tree_leaves(params)],
                                 [n(p) for p in tree_leaves(params)], launches)
     (m_cpu, g_cpu, p_cpu, l_cpu), (m_gpu, g_gpu, p_gpu, l_gpu) = results.values()
-    assert l_cpu == 0 and l_gpu == cfg.n_layers * 2
+    assert l_cpu == {BWD_SM90.source: 0, BWD_SIMT.source: 0}
+    assert l_gpu == {BWD_SM90.source: 0, BWD_SIMT.source: cfg.n_layers * 2}
     np.testing.assert_allclose(float(m_gpu["loss"]), float(m_cpu["loss"]), rtol=1e-4)
     np.testing.assert_allclose(float(m_gpu["grad_norm"]), float(m_cpu["grad_norm"]), rtol=1e-4)
     for a, b in zip(g_gpu, g_cpu):

@@ -13,14 +13,20 @@ from repro.kernels.ops import packed_attention as j_packed_attention
 from repro.kernels.packed_flash_attn import block_metadata as j_block_metadata
 from repro.kernels.packed_flash_attn import packed_flash_attention as j_packed_flash_attention
 from repro.kernels.ref import packed_attention_ref as j_ref
-from repro_torch.kernels import ops
+from repro_torch.kernels import build, ops
 from repro_torch.kernels.packed_flash_attn import (
+    BWD_SIMT,
+    BWD_SM90,
     HEAD_DIMS,
     SIMT,
     SM90,
+    backward_kernel_for,
+    backward_tile_maps,
     block_metadata,
+    coarsen,
     kernel_for,
     packed_flash_attention,
+    packed_flash_attention_backward,
     skipped_block_fraction,
     tile_map,
     tile_sizes,
@@ -213,7 +219,7 @@ def _window_reset_ids(S=1000):
     return seg, pos
 
 
-@pytest.mark.parametrize("bq,bk", [(128, 128), (128, 64), (64, 64)])
+@pytest.mark.parametrize("bq,bk", [(128, 128), (128, 64), (64, 64), (64, 128)])
 def test_tile_map_window_keeps_tiles_across_position_resets(bq, bk):
     """A key tile that holds a document start or padding (position 0) next
     to late positions: the JAX map's window test skips a tile whose pairs are
@@ -260,17 +266,128 @@ def test_jax_window_skip_loses_visible_keys(rng):
 
 
 def test_kernel_choice_by_dtype():
-    """bf16 takes the tensor-core source at 128-row tiles, fp32 the CUDA-core
-    source at 64 x 64; anything else is refused. Needs no card."""
+    """bf16 takes the tensor-core sources (forward at 128-row tiles; backward
+    with a dK/dV kernel at 64 x 128 and a dQ kernel at 128 x 128), fp32 the
+    CUDA-core sources at 64 x 64; anything else is refused. Needs no card."""
     assert kernel_for(torch.bfloat16) is SM90
     assert SM90.source == "packed_flash_attn_sm90.cu" and tile_sizes(torch.bfloat16) == (128, 128)
     assert kernel_for(torch.float32) is SIMT
     assert SIMT.source == "packed_flash_attn.cu" and tile_sizes(torch.float32) == (64, 64)
+    assert backward_kernel_for(torch.bfloat16) is BWD_SM90
+    assert BWD_SM90.source == "packed_flash_attn_bwd_sm90.cu"
+    assert (BWD_SM90.block_q, BWD_SM90.block_k, BWD_SM90.dq_tiles) == (64, 128, (128, 128))
+    assert backward_kernel_for(torch.float32) is BWD_SIMT
+    assert BWD_SIMT.source == "packed_flash_attn_bwd.cu"
+    assert (BWD_SIMT.block_q, BWD_SIMT.block_k, BWD_SIMT.dq_tiles) == (64, 64, None)
     for dtype in (torch.float16, torch.float64, torch.int32):
         with pytest.raises(TypeError):
             kernel_for(dtype)
+        with pytest.raises(TypeError):
+            backward_kernel_for(dtype)
     assert HEAD_DIMS == (16, 32, 64, 128)
     assert packed_flash_attention.launches.keys() == {SM90.source, SIMT.source}
+    assert packed_flash_attention_backward.launches.keys() == {BWD_SM90.source, BWD_SIMT.source}
+    sources = {k.source for k in (SM90, SIMT, BWD_SM90, BWD_SIMT)}
+    assert sources == {p.name for p in build.CSRC.glob("*.cu")}
+
+
+def _coarse_relation(fine, coarse_map, mask, fq, fk):
+    """`coarsen(fine)` against `tile_map` at the larger tiles on the same
+    padded ids: 2 on exactly the same tiles (every pair visible), never 0 on
+    a tile with a visible pair, and nonzero only where `tile_map` is."""
+    derived = coarsen(fine, fq, fk)
+    assert derived.shape == coarse_map.shape
+    B, nq, nk = coarse_map.shape
+    tiles = mask.reshape(B, nq, mask.shape[1] // nq, nk, mask.shape[2] // nk)
+    np.testing.assert_array_equal((derived == 2).numpy(), (coarse_map == 2).numpy())
+    np.testing.assert_array_equal((derived == 2).numpy(), tiles.all(4).all(2).numpy())
+    assert not bool((tiles.any(4).any(2) & (derived == 0)).any())
+    assert not bool(((derived != 0) & (coarse_map == 0)).any())
+    return derived
+
+
+@settings(max_examples=12, deadline=None)
+@given(
+    doc_split=st.lists(st.integers(1, 300), min_size=1, max_size=8),
+    S=st.integers(60, 700),
+    window=st.sampled_from([None, 7, 100, 300]),
+    pad=st.integers(0, 50),
+)
+def test_coarsened_tile_map_matches_tile_map(doc_split, S, window, pad):
+    """The backward's dQ map, derived from its dK/dV map (64 x 128) by
+    `coarsen`, against `tile_map` at 128 x 128 on random packings; and the
+    64 x 64 map coarsened to every backward tile."""
+    rng = np.random.default_rng(S)
+    seg, pos = make_packed(rng, 2, S, doc_lens=doc_split)
+    seg[1, S - pad:] = 0
+    pos[1, S - pad:] = 0
+    ts, tp = t(seg), t(pos)
+    kw = {"causal": True, "window": window}
+    padded, (blk, blk_dq) = backward_tile_maps(BWD_SM90, ts, ts, tp, tp, **kw)
+    assert padded[0].shape[1] % 128 == 0 and padded[0].shape[1] - S < 128
+    mask = attention_mask(*padded, **kw)
+    np.testing.assert_array_equal(blk.numpy(), tile_map(*padded, 64, 128, **kw).numpy())
+    derived = _coarse_relation(blk, tile_map(*padded, 128, 128, **kw), mask, 2, 1)
+    np.testing.assert_array_equal(derived.numpy(), blk_dq.numpy())
+    fine = tile_map(*padded, 64, 64, **kw)
+    for bq, bk in ((64, 128), (128, 64), (128, 128)):
+        _coarse_relation(fine, tile_map(*padded, bq, bk, **kw), mask, bq // 64, bk // 64)
+
+
+def test_coarsened_tile_map_can_skip_more():
+    """Where `tile_map`'s range tests over a 128-row tile both hold but no
+    64-row half has a visible pair, the derived map skips the tile: queries
+    128..191 of document 1 (late positions) and 192..255 of document 2 (early
+    ones) against keys 256..383 of document 2 (positions 64..191)."""
+    seg, pos = make_packed(np.random.default_rng(0), 1, 384, doc_lens=[192, 192])
+    ts, tp = t(seg), t(pos)
+    kw = {"causal": True, "window": None}
+    _, (blk, blk_dq) = backward_tile_maps(BWD_SM90, ts, ts, tp, tp, **kw)
+    coarse = tile_map(ts, ts, tp, tp, 128, 128, **kw)
+    assert int(coarse[0, 1, 2]) == 1 and int(blk_dq[0, 1, 2]) == 0
+    assert blk[0, 2:4, 2].tolist() == [0, 0]
+    _coarse_relation(blk, coarse, attention_mask(ts, ts, tp, tp, **kw), 2, 1)
+
+
+def test_backward_tile_maps_shapes():
+    """Ids are padded to whole 128-row tiles (segment 0, position 0); the
+    fp32 backward's two maps are its one 64 x 64 map."""
+    seg, pos = make_packed(np.random.default_rng(1), 2, 200)
+    ts, tp = t(seg), t(pos)
+    padded, (blk, blk_dq) = backward_tile_maps(BWD_SM90, ts, ts, tp, tp, causal=True, window=None)
+    assert [x.shape for x in padded] == [(2, 256)] * 4
+    assert bool((padded[0][:, 200:] == 0).all()) and bool((padded[2][:, 200:] == 0).all())
+    assert blk.shape == (2, 4, 2) and blk_dq.shape == (2, 2, 2)
+    padded, (blk, blk_dq) = backward_tile_maps(BWD_SIMT, ts, ts, tp, tp, causal=True, window=None)
+    assert [x.shape for x in padded] == [(2, 256)] * 4 and blk.shape == (2, 4, 4)
+    assert blk_dq is blk
+
+
+def test_library_name_hashes_included_headers(tmp_path, monkeypatch):
+    """Editing a header that a source includes (directly or through another
+    header) changes the source's library path, so the next load rebuilds;
+    editing an unrelated file does not. The real sm_90a sources name the
+    shared header."""
+    assert [p.name for p in build.sources_of("packed_flash_attn_bwd_sm90.cu")] == [
+        "packed_flash_attn_bwd_sm90.cu", "sm90_common.cuh"]
+    assert [p.name for p in build.sources_of("packed_flash_attn_sm90.cu")] == [
+        "packed_flash_attn_sm90.cu", "sm90_common.cuh"]
+    assert [p.name for p in build.sources_of("packed_flash_attn_bwd.cu")] == [
+        "packed_flash_attn_bwd.cu"]
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include <cuda.h>\n#include "a.cuh"\nint f() { return A; }\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n  #  include "b.cuh"\n#define A B\n')
+    (tmp_path / "b.cuh").write_text("#define B 1\n")
+    (tmp_path / "other.cuh").write_text("#define C 1\n")
+    first = build.library_path("k.cu")
+    assert [p.name for p in build.sources_of("k.cu")] == ["k.cu", "a.cuh", "b.cuh"]
+    (tmp_path / "other.cuh").write_text("#define C 2\n")
+    assert build.library_path("k.cu") == first
+    (tmp_path / "b.cuh").write_text("#define B 2\n")
+    second = build.library_path("k.cu")
+    assert second != first and second.name.startswith("k-")
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n#define A (B + 1)\n')
+    assert build.library_path("k.cu") not in (first, second)
 
 
 def _plain_bf16_p(q, k, v, seg, pos, *, window=None):
