@@ -27,7 +27,17 @@ Phases, in one process; any failure exits nonzero:
   6. train   the training path: full-width qwen3-8b cut to 8 layers (fp32
              masters + AdamW, bf16 compute, remat) trained for 20 steps by
              the port's spmd driver, through the bf16 forward and backward
-             kernels, with the Eq. 1 fit and the Detector on the step times.
+             kernels, with the Eq. 1 fit and the Detector on the step times;
+  7. pipeline the ResiHP runtime: the same model cut to 6 layers under a dp=2, pp=2,
+             tp=2 plan (8 plan devices on the one card) trained for 12 steps
+             by the port's pipeline driver, with a fail-stop injected at step
+             4 and a fail-slow at step 8: detect -> adapt -> recover ->
+             resume, each step's loss held to `loss_fn` on the same
+             parameters and batch, exact launches per step, and the
+             migration identity;
+  8. checkpoint the pipeline driver's restart on the fp32 parity model (6
+             steps straight against 3 + save + restart + 3) and a Fig. 8b
+             recovery from the checkpoint onto the card, bit for bit.
 Prints the card's name and power limit first, a `kernels` JSON line before
 the last, and as the last line {"ok": true, "device": {...}}. Imports no JAX
 and nothing of the JAX package.
@@ -56,6 +66,21 @@ FORWARD_BATCHES, FIT_BATCHES = 12, 8
 TRAIN_LAYERS, TRAIN_STEPS, TRAIN_WARMUP, TRAIN_FIT = 8, 20, 2, 8
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICROBATCHES = 4096, 2, 2
 TRAIN_PROFILED_STEP = 1  # after the warm-up step 0; Eq. 1 and the Detector skip it
+# the ResiHP runtime: full-width qwen3-8b under a dp x pp x tp plan whose 8
+# plan devices all map onto the card; a fail-stop, then a fail-slow. Depth 6,
+# not the train phase's 8: at 8 layers the fail-stop's repartition (4/4 ->
+# 2/6) gave a stage of 6 layers + the LM head whose recompute did not fit
+# beside fp32 masters, AdamW m and v and both replicas' fp32 gradients
+# (55.8 GB): out of memory at 74.7 GB allocated on the 80 GB card
+PIPE_LAYERS = 6
+PIPE_PLAN = {"dp": 2, "pp": 2, "tp": 2}
+PIPE_STEPS, PIPE_SEQ, PIPE_BATCH, PIPE_MICROBATCHES = 12, 4096, 4, 2
+PIPE_FAILSTOP, PIPE_FAILSLOW = "4:5", "8:1@0.3"
+PIPE_RECONFIGS = [4, 8]
+PIPE_CHECKED_STEPS = (0, 4, 8, 11)  # engine loss vs loss_fn before the update
+PIPE_PROFILED_STEP = 2
+TOL_PIPE_LOSS_REL, TOL_MIGRATION = 1e-3, 1e-5
+CKPT_STEPS, CKPT_INTERVAL, TOL_RESTART = 6, 3, 1e-5
 # the fp32 parity path: reduced qwen3-8b at the real head width
 PARITY_SEQ, PARITY_BATCH, PARITY_MICROBATCHES = 256, 2, 2
 TOL_BF16, TOL_FP32 = 2e-2, 1e-4
@@ -791,6 +816,275 @@ def train_phase(cfg, device):
     return res
 
 
+def counting_lse_calls():
+    """Count the forward wrapper's calls through `kernels.ops` by whether
+    they ask for the row log-sum-exp (the autograd path) or not. Returns
+    (counts, undo)."""
+    from repro_torch.kernels import ops
+
+    inner, calls = ops.packed_flash_attention, {"with_lse": 0, "without_lse": 0}
+
+    def counted(*a, return_lse=False, **kw):
+        calls["with_lse" if return_lse else "without_lse"] += 1
+        return inner(*a, return_lse=return_lse, **kw)
+
+    ops.packed_flash_attention = counted
+    return calls, lambda: setattr(ops, "packed_flash_attention", inner)
+
+
+def pipeline_args(driver, steps, seq, batch, device, *extra):
+    return driver.parser().parse_args(
+        ["--mode", "pipeline", "--steps", str(steps), "--seq-len", str(seq), "--batch", str(batch),
+         "--microbatches", str(PIPE_MICROBATCHES), "--lr", "1e-3", "--seed", "0",
+         "--device", str(device), *extra])
+
+
+def pipeline_phase(cfg, device):
+    """The ResiHP runtime on the train phase's model: the port's pipeline
+    driver (`launch.train.run_pipeline`) under a dp=2, pp=2, tp=2 plan,
+    a fail-stop at step 4 and a fail-slow at step 8. Checks the
+    reconfiguration steps and plans, every step's launches, the engine's
+    loss against `loss_fn` on the same parameters and batch before the
+    update, and then the migration identity; reports step times around each
+    reconfiguration, the planning and recovery overheads and peak memory."""
+    import dataclasses
+
+    import repro_torch.launch.train as driver
+    from repro_torch.core.detector.dag_sim import ChunkId
+    from repro_torch.data.synth import SyntheticPackedDataset
+    from repro_torch.kernels.packed_flash_attn import BWD_SIMT, BWD_SM90, SIMT, SM90
+    from repro_torch.models.model import loss_fn
+
+    from repro_torch.core.scheduler.plan import initial_plan
+
+    tcfg = dataclasses.replace(cfg, n_layers=PIPE_LAYERS)  # depth only: every width stays
+    plan_flags = [x for k, v in PIPE_PLAN.items() for x in (f"--{k}", str(v))]
+    args = pipeline_args(driver, PIPE_STEPS, PIPE_SEQ, PIPE_BATCH, device, *plan_flags,
+                         "--inject-failstop", PIPE_FAILSTOP, "--inject-failslow", PIPE_FAILSLOW)
+    ds = SyntheticPackedDataset(tcfg, PIPE_SEQ, PIPE_BATCH, seed=args.seed)
+
+    def counts():
+        return {**read_counts(), **{f"backward[{k}]": v for k, v in read_backward_counts().items()},
+                "plain_calls": plain["plain_calls"], **{f"forward_{k}": v for k, v in lse.items()}}
+
+    def diff(after, before):
+        return {k: v - before[k] for k, v in after.items()}
+
+    per_step, checks, engines, prof, engine_seconds = [], [], [], {}, []
+    check_launches = {}
+    Engine = driver.PipelineEngine
+
+    class CheckedEngine(Engine):
+        """The driver's engine, with each step's launches counted and, at
+        PIPE_CHECKED_STEPS, its loss held to loss_fn before the update."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            engines.append(self)
+
+        def run_iteration(self, batch, **kw):
+            step = self.step
+            ref = None
+            if step in PIPE_CHECKED_STEPS:
+                before = counts()
+                with torch.no_grad():  # token-weighted over rows, as the engine forms it
+                    nll = ntok = 0.0
+                    for b in range(batch["tokens"].shape[0]):
+                        _, m = loss_fn(tcfg, self.params_full, {k: v[b:b + 1]
+                                                                for k, v in batch.items()})
+                        nll += float(m["loss"]) * float(m["ntokens"])
+                        ntok += float(m["ntokens"])
+                ref = nll / ntok
+                for k, v in diff(counts(), before).items():
+                    check_launches[k] = check_launches.get(k, 0) + v
+            before = counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if step == PIPE_PROFILED_STEP:
+                out = []
+                prof.update(device_profile(
+                    lambda: out.append(Engine.run_iteration(self, batch, **kw)[0]), 1))
+                loss = out[0]
+            else:
+                loss = Engine.run_iteration(self, batch, **kw)[0]
+            torch.cuda.synchronize()
+            engine_seconds.append(time.perf_counter() - t0)
+            per_step.append(diff(counts(), before))
+            if ref is not None:
+                checks.append({"step": step, "engine_loss": loss, "loss_fn": ref,
+                               "rel": abs(loss - ref) / abs(ref), "plan": self.plan.summary()})
+            return loss, None
+
+    plain, undo_plain = counting_plain_calls()
+    lse, undo_lse = counting_lse_calls()
+    driver.PipelineEngine = CheckedEngine
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    try:
+        result = driver.run_pipeline(tcfg, args)
+        torch.cuda.synchronize()
+        total = counts()
+    finally:
+        driver.PipelineEngine = Engine
+        undo_plain()
+        undo_lse()
+    peak = torch.cuda.max_memory_allocated()
+
+    # per step, whatever the partition: every micro-batch of every replica
+    # runs each layer's forward kernel in F (no row log-sum-exp) and in B's
+    # recompute (with it), and each layer's backward kernel once in B
+    L, R, M = PIPE_LAYERS, PIPE_PLAN["dp"], PIPE_MICROBATCHES
+    want = {SM90.source: 2 * L * R * M, SIMT.source: 0, f"backward[{BWD_SM90.source}]": L * R * M,
+            f"backward[{BWD_SIMT.source}]": 0, "plain_calls": 0,
+            "forward_with_lse": L * R * M, "forward_without_lse": L * R * M}
+    for i, got in enumerate(per_step):
+        if got != want:
+            raise AssertionError(f"pipeline step {i}: launches {got}, expected {want}")
+    engine_total = diff(total, check_launches)
+    if len(per_step) != PIPE_STEPS or engine_total != {k: v * PIPE_STEPS for k, v in want.items()}:
+        raise AssertionError(f"pipeline run: {len(per_step)} steps, launches {engine_total} "
+                             f"(besides {check_launches} of the loss_fn checks)")
+    # the engine's own step times: the driver's also hold the loss_fn checks
+    losses, times = result["losses"], engine_seconds[:]  # before the migration check's runs
+    if len(losses) != PIPE_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"pipeline losses not finite: {losses}")
+    if result["reconfigs"] != PIPE_RECONFIGS:
+        raise AssertionError(f"reconfigurations at {result['reconfigs']}, expected {PIPE_RECONFIGS}")
+    initial = initial_plan(PIPE_LAYERS, **PIPE_PLAN).summary()
+    plans = [initial] + [a["plan"] for a in result["adaptations"]]
+    if len(set(plans)) != len(plans) or [c["plan"] for c in checks] != [
+            initial, plans[1], plans[2], plans[2]]:
+        raise AssertionError(f"the plans did not change as injected: {plans}, checks {checks}")
+    if [c["step"] for c in checks] != list(PIPE_CHECKED_STEPS) or not all(
+            c["rel"] <= TOL_PIPE_LOSS_REL for c in checks):
+        raise AssertionError(f"engine loss vs loss_fn: {checks}")
+
+    # migration identity: F and B of (mb 0, stage 1, replica 0) on replica 1,
+    # optimizer off, on the final plan; the same loss
+    engine = engines[0]
+    engine.optimizer = None
+    batch = to_device(ds.batch_at(PIPE_STEPS), device)
+    base = engine.run_iteration(batch)[0]
+    placement = {ChunkId("F", 0, 1, 0): (1, 1), ChunkId("B", 0, 1, 0): (1, 1)}
+    migrated = engine.run_iteration(batch, placement=placement)[0]
+    torch.cuda.synchronize()
+    if not abs(base - migrated) <= TOL_MIGRATION:
+        raise AssertionError(f"migration identity: {base} vs {migrated}")
+    del engine, engines[:]
+
+    def mean(xs):
+        return sum(xs) / len(xs)
+
+    a, b = PIPE_RECONFIGS
+
+    def steady(lo, hi):  # step 0 warms up; the profiled step carries the profiler's host cost
+        return mean([times[i] for i in range(max(lo, 1), hi) if i != PIPE_PROFILED_STEP])
+
+    res = {"layers": L, "steps": PIPE_STEPS, "seq_len": PIPE_SEQ, "batch": PIPE_BATCH,
+           "microbatches": M, "plan": PIPE_PLAN, "failstop": PIPE_FAILSTOP,
+           "failslow": PIPE_FAILSLOW, "params": tcfg.param_count(), "losses": losses,
+           "step_seconds": times, "driver_step_seconds": result["times"],
+           "reconfigs": result["reconfigs"], "plans": plans,
+           "step_seconds_mean": {"before": steady(0, a), "after_failstop": steady(a, b),
+                                 "after_failslow": steady(b, PIPE_STEPS)},
+           "first_step_after": {"failstop": times[a], "failslow": times[b]},
+           "adaptations": result["adaptations"],
+           "loss_checks": checks, "loss_tol_rel": TOL_PIPE_LOSS_REL,
+           "migration": {"base": base, "migrated": migrated, "abs": abs(base - migrated),
+                         "tol": TOL_MIGRATION},
+           "launches_per_step": want, "launches": engine_total, "check_launches": check_launches,
+           "max_memory_allocated_bytes": peak, "profiled_step": PIPE_PROFILED_STEP,
+           "profile": prof}
+    prof["busy_share"] = prof["device_seconds_per_call"] / prof["profiled_wall_seconds_per_call"]
+    for ad in result["adaptations"]:
+        log(f"pipeline adaptation at step {ad['step']}: {ad['plan']}; {len(ad['moves'])} layer "
+            f"moves, {ad['bytes']} bytes modelled; plan_overhead_s {ad['plan_overhead_s']:.6f}; "
+            f"recover + apply_plan {ad['recover_seconds']:.6f} s")
+    log(f"pipeline step seconds: {times}")
+    log("pipeline", json.dumps(res))
+    return res
+
+
+def checkpoint_phase(cfg, device):
+    """Checkpoint and restart on the card, on the fp32 parity model: the
+    pipeline driver 6 steps straight against 3 + save + restart + 3 (the
+    same final loss), then a Fig. 8b recovery (both replicas of stage 0
+    dead) from a checkpoint of a trained engine's state onto the card, bit
+    for bit. Reports save and restore seconds and bytes."""
+    import tempfile
+
+    import repro_torch.launch.train as driver
+    from repro_torch.checkpoint import CheckpointManager, save_checkpoint
+    from repro_torch.core.recovery import recover_state
+    from repro_torch.core.scheduler.plan import ParallelPlan, ReplicaPlan, StagePlan, initial_plan
+    from repro_torch.data.synth import SyntheticPackedDataset
+    from repro_torch.engine.pipeline import PipelineEngine
+    from repro_torch.train.optimizer import make_optimizer
+
+    small, _ = parity_model(cfg)
+    B = PIPE_PLAN["dp"] * PIPE_MICROBATCHES
+    with tempfile.TemporaryDirectory() as root:
+        root = Path(root)
+
+        def run(steps, where, *extra):
+            return driver.run_pipeline(small, pipeline_args(
+                driver, steps, PARITY_SEQ, B, device, "--ckpt-dir", str(root / where),
+                "--ckpt-interval", str(CKPT_INTERVAL), *extra))
+
+        straight = run(CKPT_STEPS, "straight")
+        run(CKPT_STEPS // 2, "restart")
+        restarted = run(CKPT_STEPS, "restart", "--resume")
+        restart_err = abs(restarted["losses"][-1] - straight["losses"][-1])
+        if len(restarted["losses"]) != CKPT_STEPS - CKPT_STEPS // 2 or not restart_err <= TOL_RESTART:
+            raise AssertionError(f"restart: {restarted['losses']} vs {straight['losses']}")
+
+        # Fig. 8b: stage 0 lost in both replicas; the state comes back from disk
+        old = initial_plan(small.n_layers, PIPE_PLAN["dp"], 2, 1, microbatches=PIPE_MICROBATCHES)
+        new = ParallelPlan(tuple(ReplicaPlan((StagePlan((), r.stages[0].layers), r.stages[1]))
+                                 for r in old.replicas))
+        engine = PipelineEngine(small, old, optimizer=make_optimizer("adamw", lr=1e-3),
+                                devices=[device])
+        engine.run_iteration(to_device(SyntheticPackedDataset(small, PARITY_SEQ, B, seed=0)
+                                       .batch_at(0), device))
+        state = {"params": engine.params_full, "opt": engine.opt_state, "step": engine.step}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save_checkpoint(root / "fig8b", state, engine.step)
+        save_s = time.perf_counter() - t0
+        n_bytes = sum(f.stat().st_size for f in path.glob("leaf_*.npy"))
+        t0 = time.perf_counter()
+        got, tp, step = recover_state(small, state, old_plan=old, new_plan=new, shardings=device,
+                                      checkpoint_mgr=CheckpointManager(root / "fig8b"),
+                                      dead_stages=[(0, 0), (1, 0)])
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    want_leaves, got_leaves = ckpt_leaves(state), ckpt_leaves(got)
+    exact = len(want_leaves) == len(got_leaves) and all(
+        isinstance(g, torch.Tensor) and g.device == w.device and torch.equal(g, w)
+        if isinstance(w, torch.Tensor) else g == w for w, g in zip(want_leaves, got_leaves))
+    if not (tp.restore_required and step == engine.step and exact):
+        raise AssertionError(f"Fig. 8b restore: required {tp.restore_required}, step {step}, "
+                             f"bit-exact on the card {exact}")
+    res = {"model": {"layers": small.n_layers, "d_model": small.d_model, "head_dim": small.head_dim},
+           "seq_len": PARITY_SEQ, "batch": B, "straight_losses": straight["losses"],
+           "restarted_losses": restarted["losses"], "restart_abs_err": restart_err,
+           "tol": TOL_RESTART, "fig8b": {"moves": len(tp.moves), "restored_step": step,
+                                         "leaves": len(want_leaves), "bit_exact": exact},
+           "save_seconds": save_s, "restore_seconds": restore_s, "bytes": n_bytes}
+    log("checkpoint", json.dumps(res))
+    return res
+
+
+def ckpt_leaves(tree):
+    """Leaves of a state tree, dict keys sorted (the checkpoint's order)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in ckpt_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in ckpt_leaves(v)]
+    return [tree]
+
+
 def sass_count(lib, opcode):
     """Lines of the library's SASS (cuobjdump, beside nvcc) with `opcode`."""
     from repro_torch.kernels import build
@@ -858,6 +1152,10 @@ def main(argv=None):
     del params  # the train phase needs the card's memory
     torch.cuda.empty_cache()
     record["train"] = train_phase(cfg, device)
+    torch.cuda.empty_cache()
+    record["pipeline"] = pipeline_phase(cfg, device)
+    torch.cuda.empty_cache()
+    record["checkpoint"] = checkpoint_phase(cfg, device)
 
     def entry(name, kern, row, launches, **extra):
         return {"name": name,
@@ -877,7 +1175,8 @@ def main(argv=None):
         entry("packed_flash_attention", SM90, record["kernel"]["serving"], serve_launches,
               wrapper_device_ms=record["kernel"]["serving"]["wrapper_device_ms"],
               launches_by_path={"serve": serve_launches,
-                                "train": record["train"]["launches"][SM90.source]}),
+                                "train": record["train"]["launches"][SM90.source],
+                                "pipeline": record["pipeline"]["launches"][SM90.source]}),
         entry("packed_flash_attention[float32]", SIMT, record["kernel"]["fp32_parity"],
               record["fp32_path"]["launches"][SIMT.source],
               wrapper_device_ms=record["kernel"]["fp32_parity"]["wrapper_device_ms"]),
@@ -885,7 +1184,10 @@ def main(argv=None):
         entry("packed_flash_attention_backward", BWD_SM90,
               per_launch(record["kernel"]["train_bwd"]),
               record["train"]["launches"][f"backward[{BWD_SM90.source}]"],
-              train_step_ms_per_launch=train_bwd_ms),
+              train_step_ms_per_launch=train_bwd_ms,
+              launches_by_path={
+                  path: record[path]["launches"][f"backward[{BWD_SM90.source}]"]
+                  for path in ("train", "pipeline")}),
         entry("packed_flash_attention_backward[float32]", BWD_SIMT,
               per_launch(record["kernel"]["fp32_parity_bwd"]),
               record["fp32_path"]["train_step_backward_launches"][BWD_SIMT.source]),

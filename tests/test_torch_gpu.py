@@ -1,8 +1,9 @@
 """On the card: the Hopper packed flash attention kernels (bf16 on the tensor
 cores, fp32 on the CUDA cores; the forward's row log-sum-exp; the backward
 kernels, bf16 on the tensor cores and fp32 on the CUDA cores) against their
-plain PyTorch versions, and the port's reduced model
-and train step on the card against themselves on the CPU. Every case is
+plain PyTorch versions, the port's reduced model, train step and pipeline
+engine on the card against themselves on the CPU, and a checkpoint of card
+tensors restored onto the card. Every case is
 marked `gpu` and skips without a CUDA card. This file imports no JAX, so it
 runs where only PyTorch is installed:
 
@@ -12,7 +13,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
 from repro_torch.configs import get_arch, reduced
+from repro_torch.core.detector.dag_sim import ChunkId
+from repro_torch.core.scheduler.plan import initial_plan
 from repro_torch.data.synth import SyntheticPackedDataset
 import repro_torch.kernels.packed_flash_attn as pfa
 from repro_torch.kernels import ops
@@ -30,6 +34,7 @@ from repro_torch.kernels.ref import (
     packed_attention_ref,
     packed_attention_ref_backward,
 )
+from repro_torch.engine.pipeline import PipelineEngine
 from repro_torch.models.model import forward_train, init_params, loss_fn
 from repro_torch.train.optimizer import make_optimizer, tree_leaves
 from repro_torch.train.train_step import build_train_step
@@ -374,3 +379,88 @@ def test_gpu_reduced_train_step_matches_cpu(cuda):
         assert np.abs(a - b).max() <= 1e-4 * np.abs(b).max() + 1e-7
     for a, b in zip(p_gpu, p_cpu):
         np.testing.assert_allclose(a, b, atol=1e-4, rtol=1e-4)
+
+
+def _pipeline(device, dtype, cfg=None):
+    """A dp2/pp2/tp1 engine on `device` (all plan devices there) with the
+    same fp32 weights wherever it runs, and its batch."""
+    cfg = cfg or reduced(get_arch("qwen3-8b"), n_layers=4, head_dim=128)
+    params = init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    eng = PipelineEngine(cfg, initial_plan(4, dp=2, pp=2, tp=1, microbatches=2),
+                         devices=[device], params=params, compute_dtype=dtype)
+    batch = SyntheticPackedDataset(cfg, 128, 4, seed=0, mu=3.6, sigma=0.8).batch_at(0)
+    return eng, {k: t(v).to(device) for k, v in batch.items()}
+
+
+@pytest.mark.gpu
+def test_gpu_pipeline_iteration_matches_cpu(cuda):
+    """One fp32 pipeline iteration of reduced qwen3-8b (real head width): the
+    loss and every replica's and stage's accumulated gradient on the card
+    (forward and backward kernels) against the CPU (plain version), 1e-4."""
+    out = {}
+    for device in ("cpu", cuda):
+        eng, batch = _pipeline(device, torch.float32)
+        loss, grads = eng.run_iteration(batch)
+        out[str(device)] = (loss, {k: [n(g) for g in tree_leaves(v)] for k, v in grads.items()})
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = out.values()
+    np.testing.assert_allclose(l_gpu, l_cpu, rtol=1e-4)
+    assert g_cpu.keys() == g_gpu.keys() == {(r, s) for r in range(2) for s in range(2)}
+    for key in g_cpu:
+        for a, b in zip(g_gpu[key], g_cpu[key]):
+            assert np.abs(a - b).max() <= 1e-4 * np.abs(b).max() + 1e-7
+
+
+@pytest.mark.gpu
+def test_gpu_pipeline_migration_identity(cuda):
+    """bf16 on the card: F and B of (mb 0, stage 1, replica 0) run on replica
+    1's stage give the same loss (replicas share their parameters)."""
+    eng, batch = _pipeline(cuda, torch.bfloat16)
+    base = eng.run_iteration(batch)[0]
+    placement = {ChunkId("F", 0, 1, 0): (1, 1), ChunkId("B", 0, 1, 0): (1, 1)}
+    assert abs(eng.run_iteration(batch, placement=placement)[0] - base) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_pipeline_launch_counts(cuda, dtype):
+    """Per iteration, every micro-batch of every replica runs each layer's
+    forward kernel twice (F, and B's recompute) and its backward kernel once,
+    of the source for its type; the plain version never runs."""
+    eng, batch = _pipeline(cuda, TDT[dtype])
+    plain = ops.packed_attention_ref
+    calls = []
+    ops.packed_attention_ref = lambda *a, **kw: calls.append(1) or plain(*a, **kw)
+    fwd, bwd = dict(packed_flash_attention.launches), dict(packed_flash_attention_backward.launches)
+    try:
+        eng.run_iteration(batch)
+        torch.cuda.synchronize()
+    finally:
+        ops.packed_attention_ref = plain
+    L, R, M = 4, 2, 2
+    kern, bkern = (SM90, BWD_SM90) if dtype == "bfloat16" else (SIMT, BWD_SIMT)
+    got = {s: c - fwd[s] for s, c in packed_flash_attention.launches.items()}
+    got_bwd = {s: c - bwd[s] for s, c in packed_flash_attention_backward.launches.items()}
+    assert got == {SM90.source: 0, SIMT.source: 0, kern.source: 2 * L * R * M}
+    assert got_bwd == {BWD_SM90.source: 0, BWD_SIMT.source: 0, bkern.source: L * R * M}
+    assert not calls
+
+
+@pytest.mark.gpu
+def test_gpu_checkpoint_restores_card_tensors_bitwise(cuda, tmp_path):
+    """fp32, bf16 and int32 tensors on the card and a Python int: saved,
+    then restored onto the card bit for bit, and onto the CPU by placement."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    state = {"params": {"w": torch.randn((64, 32), generator=g, device=cuda),
+                        "m": torch.randn((32,), generator=g, device=cuda).to(torch.bfloat16)},
+             "ids": torch.arange(7, dtype=torch.int32, device=cuda), "step": 5}
+    save_checkpoint(tmp_path, state, 5)
+    got, step, _ = restore_checkpoint(tmp_path, target=state, shardings=cuda)
+    assert step == 5 and got["step"] == 5
+    for key, a, b in ((k, state["params"][k], got["params"][k]) for k in ("w", "m")):
+        assert b.device.type == "cuda" and b.dtype == a.dtype, key
+        assert torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
+                           b.view(torch.int16) if b.dtype == torch.bfloat16 else b), key
+    assert torch.equal(got["ids"], state["ids"])
+    host, _, _ = restore_checkpoint(tmp_path, shardings={"params": {"w": "cpu", "m": cuda},
+                                                         "ids": None, "step": None})
+    assert host["params"]["w"].device.type == "cpu" and host["params"]["m"].device.type == "cuda"

@@ -30,6 +30,7 @@ from repro.parallel.sharding import NULL_POLICY, split_annotations
 from repro.train import train_step as j_train_step
 from repro.train.optimizer import make_optimizer as j_make_optimizer
 from repro_torch.bridge import params_from_jax
+from repro_torch.checkpoint import latest_step
 from repro_torch.configs import get_arch as t_get_arch, reduced as t_reduced
 from repro_torch.core.detector.changepoint import BOCPD, CusumDetector, SlopeDriftDetector
 from repro_torch.core.detector.detector import Detector
@@ -381,16 +382,44 @@ def test_run_spmd_on_cpu():
 
 
 def test_driver_refuses_what_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        t_launch.main(["--reduced", "--mode", "pipeline", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        t_launch.main(["--reduced", "--steps", "1", "--device", "cpu",
-                       "--ckpt-dir", str(tmp_path)])
+    """What is still not ported raises: --tp in spmd mode (sharding, ROADMAP
+    Queue 1 item 7); the pipeline-only flags raise in spmd mode. What this
+    test refused before is read now: --mode pipeline trains, --ckpt-dir
+    writes a committed checkpoint."""
+    base = ["--reduced", "--steps", "1", "--seq-len", "64", "--batch", "4", "--device", "cpu"]
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        t_launch.main(base + ["--tp", "2"])
+    with pytest.raises(ValueError, match="--mode pipeline"):
+        t_launch.main(base + ["--dp", "2"])
+    r = t_launch.main(base + ["--mode", "pipeline"])
+    assert r["reconfigs"] == [] and r["plan"] == "dp0[s0:tp1xL2 s1:tp1xL2] dp1[s0:tp1xL2 s1:tp1xL2]"
+    t_launch.main(base + ["--ckpt-dir", str(tmp_path), "--ckpt-interval", "1"])
+    assert latest_step(tmp_path) == 1
 
 
-@pytest.mark.parametrize("flag", [["--ckpt-interval", "5"], ["--resume"], ["--dp", "2"],
-                                  ["--pp", "2"], ["--tp", "2"], ["--inject-failstop", "3:0"],
-                                  ["--inject-failslow", "3:0@2.0"]])
-def test_driver_refuses_unported_flags(flag):
-    with pytest.raises(NotImplementedError, match=flag[0]):
-        t_launch.main(["--reduced", "--steps", "1", "--device", "cpu", *flag])
+# one case per flag the driver once refused; each now shows the flag read
+@pytest.mark.parametrize("flag", [["--ckpt-interval", "2"], ["--resume"], ["--dp", "1"],
+                                  ["--pp", "1"], ["--tp", "2"], ["--inject-failstop", "3:0"],
+                                  ["--inject-failslow", "3:1@0.3"]])
+def test_driver_refuses_unported_flags(flag, tmp_path):
+    pipe = ["--reduced", "--mode", "pipeline", "--seq-len", "64", "--batch", "4",
+            "--device", "cpu"]
+    name = flag[0]
+    if name == "--ckpt-interval":
+        t_launch.main(["--reduced", "--steps", "3", "--seq-len", "64", "--batch", "4",
+                       "--device", "cpu", "--ckpt-dir", str(tmp_path), *flag])
+        assert sorted(p.name for p in tmp_path.glob("step_*")) == ["step_000000002"]
+    elif name == "--resume":
+        t_launch.main(pipe + ["--steps", "2", "--ckpt-dir", str(tmp_path), "--ckpt-interval", "2"])
+        r = t_launch.main(pipe + ["--steps", "3", "--ckpt-dir", str(tmp_path), *flag])
+        assert len(r["losses"]) == 1  # steps 2.. only
+    elif name in ("--dp", "--pp", "--tp"):
+        r = t_launch.main(pipe + ["--steps", "1", *flag])
+        want = {"--dp": "dp0[s0:tp1xL2 s1:tp1xL2]",
+                "--pp": "dp0[s0:tp1xL4] dp1[s0:tp1xL4]",
+                "--tp": "dp0[s0:tp2xL2 s1:tp2xL2] dp1[s0:tp2xL2 s1:tp2xL2]"}[name]
+        assert r["plan"] == want
+    else:
+        r = t_launch.main(pipe + ["--steps", "4", "--tp", "2", *flag])
+        assert r["reconfigs"] == [3] and "dp0[s0:tp1" in r["plan"]
+        assert all(np.isfinite(r["losses"]))
