@@ -15,29 +15,42 @@ Phases, in one process; any failure exits nonzero:
              at the shape of each micro-batch the train paths launch them
              on) and time it beside
              its bound, the plain version and one PyTorch library call;
-  3. fp32    the fp32 parity path: reduced qwen3-8b in fp32 on the card (the
-             CUDA-core forward, one launch per layer, and the backward
+  3. family  the same, forward and backward, bf16 and fp32, at the heads of
+             gemma3-1b and gemma3-4b (head_dim 256), h2o-danube-1.8b (80),
+             llama2-7b (GQA group 1) and qwen2.5-7b (group 7), on 1 x 4096
+             packed documents at each arch's window;
+  4. fp32    the fp32 parity paths: reduced qwen3-8b, gemma3-1b and
+             h2o-danube-1.8b at their real head widths in fp32 on the card
+             (the CUDA-core forward, one launch per layer, and the backward
              kernel in one train step) against the CPU;
-  4. forward full-width, 36-layer qwen3-8b (random bf16 weights from a seed):
+  5. forward full-width, 36-layer qwen3-8b (random bf16 weights from a seed):
              packed forward + loss over synthetic batches, one kernel launch
              per layer, and the Eq. 1 micro-batch predictor fit on the times;
-  5. serve   the serving path: packed prefill of 4 x 2048-token prompts
+  6. serve   the serving path: packed prefill of 4 x 2048-token prompts
              through the bf16 kernel, then 64 greedy decode steps over a
              2112-slot cache, checked against the packed forward;
-  6. train   the training path: full-width qwen3-8b cut to 8 layers (fp32
+  7. train   the training path: full-width qwen3-8b cut to 8 layers (fp32
              masters + AdamW, bf16 compute, remat) trained for 20 steps by
              the port's spmd driver, through the bf16 forward and backward
              kernels, with the Eq. 1 fit and the Detector on the step times;
-  7. pipeline the ResiHP runtime: the same model cut to 6 layers under a dp=2, pp=2,
-             tp=2 plan (8 plan devices on the one card) trained for 12 steps
-             by the port's pipeline driver, with a fail-stop injected at step
-             4 and a fail-slow at step 8: detect -> adapt -> recover ->
-             resume, each step's loss held to `loss_fn` on the same
-             parameters and batch, exact launches per step, and the
+  8. pipeline the ResiHP runtime: the same model (8 layers) under a dp=2,
+             pp=2, tp=2 plan (8 plan devices on the one card) trained for 12
+             steps by the port's pipeline driver, with a fail-stop injected
+             at step 4 and a fail-slow at step 8: detect -> adapt -> recover
+             -> resume, each checked step's loss held to `loss_fn` on the
+             same parameters and batch, exact launches per step, and the
              migration identity;
-  8. checkpoint the pipeline driver's restart on the fp32 parity model (6
+  9. checkpoint the pipeline driver's restart on the fp32 parity model (6
              steps straight against 3 + save + restart + 3) and a Fig. 8b
-             recovery from the checkpoint onto the card, bit for bit.
+             recovery from the checkpoint onto the card, bit for bit;
+ 10. dense family at full width: gemma3-1b (26 layers, tied embeddings)
+             serves 4 x 2048 + 64 greedy steps through 1024-slot rings that
+             wrap (first and last step held to the packed forward), trains
+             10 steps, and runs 4 pipeline steps at dp1/pp2; h2o-danube-1.8b
+             (24 layers, head_dim 80) trains 10 steps; llama2-7b and
+             qwen2.5-7b (full depth) serve 4 x 2048 + 16 steps; llama2-7b
+             cut to 8 layers runs phase 8's faults under the paper's small
+             plan (tp4 dp2 pp2, 16 plan devices).
 Prints the card's name and power limit first, a `kernels` JSON line before
 the last, and as the last line {"ok": true, "device": {...}}. Imports no JAX
 and nothing of the JAX package.
@@ -66,20 +79,38 @@ FORWARD_BATCHES, FIT_BATCHES = 12, 8
 TRAIN_LAYERS, TRAIN_STEPS, TRAIN_WARMUP, TRAIN_FIT = 8, 20, 2, 8
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICROBATCHES = 4096, 2, 2
 TRAIN_PROFILED_STEP = 1  # after the warm-up step 0; Eq. 1 and the Detector skip it
-# the ResiHP runtime: full-width qwen3-8b under a dp x pp x tp plan whose 8
-# plan devices all map onto the card; a fail-stop, then a fail-slow. Depth 6,
-# not the train phase's 8: at 8 layers the fail-stop's repartition (4/4 ->
-# 2/6) gave a stage of 6 layers + the LM head whose recompute did not fit
+# the ResiHP runtime: a model under a dp x pp x tp plan whose plan devices
+# all map onto the card, each replica 2 micro-batches of 1 x 4096 a step; a
+# fail-stop, then a fail-slow, detected, adapted to, recovered from. qwen3-8b
+# at the train phase's 8 layers: the engine accumulates each leaf's
+# gradient in place inside the backward, so the fail-stop's repartition
+# (4/4 -> 2/6) leaves a 6-layer + LM-head stage whose gradient exists once
 # beside fp32 masters, AdamW m and v and both replicas' fp32 gradients
-# (55.8 GB): out of memory at 74.7 GB allocated on the 80 GB card
-PIPE_LAYERS = 6
-PIPE_PLAN = {"dp": 2, "pp": 2, "tp": 2}
-PIPE_STEPS, PIPE_SEQ, PIPE_BATCH, PIPE_MICROBATCHES = 12, 4096, 4, 2
-PIPE_FAILSTOP, PIPE_FAILSLOW = "4:5", "8:1@0.3"
-PIPE_RECONFIGS = [4, 8]
-PIPE_CHECKED_STEPS = (0, 4, 8, 11)  # engine loss vs loss_fn before the update
-PIPE_PROFILED_STEP = 2
+# (55.8 GB), where it once held a second copy and ran out of memory at
+# 74.7 GB allocated on the 80 GB card. gemma3-1b at full depth runs dp1/pp2
+# (its tied embeddings read by both stages), no fault; llama2-7b cut to 8
+# layers runs the paper's small plan (Table 3: tp4 dp2 pp2, 16 plan devices)
+# through the same faults.
+PIPE_SEQ, PIPE_MICROBATCHES = 4096, 2
+PIPE_SPECS = {
+    "qwen3-8b": {"layers": 8, "plan": {"dp": 2, "pp": 2, "tp": 2}, "steps": 12,
+                 "failstop": "4:5", "failslow": "8:1@0.3", "reconfigs": [4, 8],
+                 "checked": (0, 4, 8, 11), "profiled": 2},
+    "gemma3-1b": {"layers": None, "plan": {"dp": 1, "pp": 2, "tp": 1}, "steps": 4,
+                  "failstop": None, "failslow": None, "reconfigs": [], "checked": (0,),
+                  "profiled": None},
+    "llama2-7b": {"layers": 8, "plan": {"dp": 2, "pp": 2, "tp": 4}, "steps": 12,
+                  "failstop": "4:9", "failslow": "8:1@0.3", "reconfigs": [4, 8],
+                  "checked": (0, 4, 8, 11), "profiled": 2},
+}
+PIPE_PLAN = PIPE_SPECS["qwen3-8b"]["plan"]  # the checkpoint phase's plan
 TOL_PIPE_LOSS_REL, TOL_MIGRATION = 1e-3, 1e-5
+# the dense family: each arch's attention widths on its packed train shape
+FAMILY_KERNEL_ARCHS = ("gemma3-1b", "gemma3-4b", "h2o-danube-1.8b", "llama2-7b", "qwen2.5-7b")
+FAMILY_SEQ = 4096
+FAMILY_TRAIN_STEPS, FAMILY_TRAIN_FIT = 10, 6
+PAPER_NEW_TOKENS = 16
+PARITY_ARCHS = ("qwen3-8b", "gemma3-1b", "h2o-danube-1.8b")  # head_dim 128, 256, 80
 CKPT_STEPS, CKPT_INTERVAL, TOL_RESTART = 6, 3, 1e-5
 # the fp32 parity path: reduced qwen3-8b at the real head width
 PARITY_SEQ, PARITY_BATCH, PARITY_MICROBATCHES = 256, 2, 2
@@ -180,23 +211,27 @@ def all_tiles_masked(fn):
     return run
 
 
-def kernel_case(name, q, k, v, seg, pos, tol, *, time_it, window=None):
-    """Kernel vs plain version on one input; optionally timed. Returns a row."""
+def kernel_case(name, q, k, v, seg, pos, tol, *, time_it, window=None, time_masked=True):
+    """Kernel vs plain version on one input; optionally timed (and, for the
+    bf16 kernel with `time_masked`, timed again with every tile masked).
+    Returns a row."""
     from repro_torch.kernels.packed_flash_attn import (
-        SM90, kernel_for, packed_flash_attention, tile_map, tile_sizes)
+        SM90, kernel_for, packed_flash_attention, run_head_dim, tile_map, tile_sizes)
     from repro_torch.kernels.ref import attention_mask, packed_attention_ref
 
     args = (q, k, v, seg, seg, pos, pos)
     kw = {"causal": True, "window": window}
-    kern = kernel_for(q.dtype)
+    dh = q.shape[-1]
+    kern = kernel_for(q.dtype, dh)
     out = packed_flash_attention(*args, **kw)
     torch.cuda.synchronize()
     ref = packed_attention_ref(*args, **kw)
-    codes = tile_map(seg, seg, pos, pos, *tile_sizes(q.dtype), **kw)
+    codes = tile_map(seg, seg, pos, pos, *tile_sizes(q.dtype, dh), **kw)
     row = {"case": name, "kernel": kern.source, "shape": list(q.shape),
            "kv_heads": k.shape[2], "dtype": str(q.dtype), "window": window,
+           "head_dim": dh, "runs_at_head_dim": run_head_dim(q.dtype, dh),
            "max_abs_err": check_case(name, out, ref, tol, seg), "tol": tol,
-           "padding_rows": int((seg == 0).sum()), "tiles": list(tile_sizes(q.dtype)),
+           "padding_rows": int((seg == 0).sum()), "tiles": list(tile_sizes(q.dtype, dh)),
            "skipped_tile_fraction": float((codes == 0).float().mean()),
            "unmasked_tile_fraction": float((codes == 2).float().mean())}
     if time_it:
@@ -220,7 +255,7 @@ def kernel_case(name, q, k, v, seg, pos, tol, *, time_it, window=None):
         row["library_call"] = "torch.nn.functional.scaled_dot_product_attention(bool mask, enable_gqa)"
         row["bound_share"] = row["bound_ms"] / row["ms"]
         row["tflops"] = flops / row["ms"] / 1e9
-        if kern is SM90:  # what the unmasked tiles (code 2) save, on the same inputs
+        if kern.source == SM90.source and time_masked:  # what the unmasked tiles (code 2) save
             masked = all_tiles_masked(call)
             check_case(f"{name} all tiles masked", masked(), ref, tol, seg)
             row["all_masked_ms"] = device_ms(masked, 20, kname)
@@ -260,10 +295,11 @@ def backward_case(name, q, k, v, seg, pos, tol, *, time_it, window=None):
     pad = seg == 0
     if pad.any() and not all(bool((x[pad] == 0).all()) for x in grads):
         raise AssertionError(f"{name}: gradients of padding rows or keys are not exactly 0")
-    kern = backward_kernel_for(q.dtype)
+    kern = backward_kernel_for(q.dtype, q.shape[-1])
     _, (codes, codes_dq) = backward_tile_maps(kern, seg, seg, pos, pos, **kw)
     row = {"case": name, "kernel": kern.source, "shape": list(q.shape), "kv_heads": k.shape[2],
-           "dtype": str(q.dtype), "window": window, "max_abs_err": max(errs.values()),
+           "dtype": str(q.dtype), "window": window, "head_dim": q.shape[-1],
+           "max_abs_err": max(errs.values()),
            "max_abs_err_by_grad": errs, "tol_of_max_ref": tol,
            "padding_rows": int(pad.sum()), "tiles": [kern.block_q, kern.block_k],
            "skipped_tile_fraction": float((codes == 0).float().mean())}
@@ -393,6 +429,43 @@ def kernel_phase(cfg, device):
     return rows
 
 
+def arch_window(cfg):
+    """The window of the arch's sliding-window layers, or None."""
+    return cfg.window if any(s.attn_kind == "swa" for s in cfg.layer_specs()) else None
+
+
+def family_kernel_phase(device):
+    """Each dense arch's attention widths (head_dim 256 and 80; GQA groups 1
+    and 7 at head_dim 128) on its packed train shape: 1 x 4096 of
+    `SyntheticPackedDataset` documents, at the window of its local layers.
+    The forward and backward kernels, bf16 and fp32, against their plain
+    versions, each timed beside its bound, the plain version and SDPA."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synth import SyntheticPackedDataset
+
+    g = torch.Generator(device=device)
+    g.manual_seed(99)
+    rows = {}
+    for arch in FAMILY_KERNEL_ARCHS:
+        cfg = get_arch(arch)
+        H, K, dh, window = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, arch_window(cfg)
+        raw = SyntheticPackedDataset(cfg, FAMILY_SEQ, 1, seed=0).batch_at(0)
+        seg = torch.from_numpy(raw["segment_ids"]).to(device)
+        pos = torch.arange(FAMILY_SEQ, dtype=torch.int32, device=device)[None]
+        for dtype, tol, tag in ((torch.bfloat16, TOL_BF16, "bf16"),
+                                (torch.float32, TOL_FP32, "fp32")):
+            inputs = tuple(torch.randn((1, FAMILY_SEQ, h, dh), generator=g, device=device).to(dtype)
+                           for h in (H, K, K))
+            name = f"{arch}_{tag}"
+            rows[name] = kernel_case(name, *inputs, seg, pos, tol, time_it=True, window=window,
+                                     time_masked=False)
+            rows[f"{name}_bwd"] = backward_case(f"{name}_bwd", *inputs, seg, pos, tol,
+                                                time_it=True, window=window)
+            del inputs
+            torch.cuda.empty_cache()
+    return rows
+
+
 def reset_counts():
     from repro_torch.kernels.packed_flash_attn import (
         packed_flash_attention, packed_flash_attention_backward)
@@ -491,7 +564,8 @@ def fp32_phase(cfg, device):
     if not (step_err["loss_rel"] <= TOL_FP32 and step_err["grad_norm_rel"] <= TOL_FP32
             and grads_ok and params_ok and step_err["exempt_fraction"] <= 1e-3):
         raise AssertionError(f"fp32 train step: card vs CPU differ: {step_err}")
-    res = {"layers": small.n_layers, "head_dim": small.head_dim, "launches": counts,
+    res = {"arch": cfg.arch_id, "layers": small.n_layers, "head_dim": small.head_dim,
+           "window": arch_window(small), "launches": counts,
            "max_abs_err": err, "tol": TOL_FP32, "train_step_launches": train_counts,
            "train_step_backward_launches": bwd_counts, "train_step_err": step_err}
     log("fp32", json.dumps(res))
@@ -592,10 +666,13 @@ def rel_err(a, b):
     return float((a - b).abs().max() / b.abs().max())
 
 
-def serve_phase(cfg, params, device):
-    """The main path: prefill through the kernel, then greedy decode."""
-    from repro_torch.kernels.packed_flash_attn import SIMT, SM90
-    from repro_torch.models.model import extend_cache, forward_train
+def serve_phase(cfg, params, device, *, new_tokens=NEW_TOKENS, check_last=False):
+    """The main path: prefill through the kernel, then greedy decode (over
+    ring caches for sliding-window layers). The first decode step is held to
+    the packed forward; with `check_last`, the last step too, to a
+    teacher-forced packed forward over the prompt and the fed tokens."""
+    from repro_torch.kernels.packed_flash_attn import kernel_for
+    from repro_torch.models.model import cache_len, extend_cache, forward_train
     from repro_torch.train.train_step import build_prefill_step, build_serve_step
 
     rng = np.random.default_rng(7)
@@ -604,7 +681,8 @@ def serve_phase(cfg, params, device):
              "segment_ids": torch.ones((SERVE_B, PROMPT), dtype=torch.int32, device=device),
              "positions": torch.arange(PROMPT, dtype=torch.int32, device=device).repeat(SERVE_B, 1)}
     prefill_step, serve_step = build_prefill_step(cfg), build_serve_step(cfg)
-    max_len = PROMPT + NEW_TOKENS
+    max_len = PROMPT + new_tokens
+    kern = kernel_for(torch.bfloat16, cfg.head_dim)
     with torch.inference_mode():
         prefill_step(params, batch)  # warm-up (allocator, cuBLAS handles)
         torch.cuda.synchronize()
@@ -620,7 +698,7 @@ def serve_phase(cfg, params, device):
         first_tok, generated, first_logits = tok, [tok], None
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for i in range(NEW_TOKENS):
+        for i in range(new_tokens):
             lengths = torch.full((SERVE_B,), PROMPT + i, dtype=torch.int32, device=device)
             tok, logits, cache = serve_step(params, cache, {"tokens": tok[:, None], "lengths": lengths})
             if first_logits is None:
@@ -628,15 +706,21 @@ def serve_phase(cfg, params, device):
             generated.append(tok)
         torch.cuda.synchronize()
         t_decode = time.perf_counter() - t0
+        last_logits_decode = logits[:, 0].clone()
         by_source = read_counts()
         launches = sum(by_source.values())
         peak = torch.cuda.max_memory_allocated()
-        if by_source[SM90.source] != cfg.n_layers or by_source[SIMT.source] != 0:
+        if by_source[kern.source] != cfg.n_layers or launches != cfg.n_layers:
             raise AssertionError(f"main path launches {by_source}, expected {cfg.n_layers} of "
-                                 f"{SM90.source} and none of {SIMT.source}")
+                                 f"{kern.source} only")
         out = torch.stack(generated, 1)
-        if out.shape != (SERVE_B, NEW_TOKENS + 1) or not bool(torch.isfinite(logits.float()).all()):
+        if out.shape != (SERVE_B, new_tokens + 1) or not bool(torch.isfinite(logits.float()).all()):
             raise AssertionError("decode output has the wrong shape or non-finite logits")
+        slots = sorted({cache_len(cfg, spec, max_len) for spec in cfg.layer_specs()})
+        ring_pos = [c["mixer"]["pos"] for c in cache if c["mixer"]["pos"].shape[1] < max_len]
+        # a ring of T slots must hold exactly the last T positions written
+        ring_wrapped = bool(ring_pos) and all(int(p.min()) == PROMPT + new_tokens - p.shape[1]
+                                              for p in ring_pos)
 
         full, _ = forward_train(cfg, params, batch)
         e_prefill = rel_err(last_logits[:, 0], full[:, -1])
@@ -649,6 +733,17 @@ def serve_phase(cfg, params, device):
         e_decode = rel_err(first_logits, ref_first)
         agree = float((first_logits.argmax(-1) == ref_first.argmax(-1)).float().mean())
         del full
+        e_last = None
+        if check_last:  # every fed token, teacher-forced through the packed forward
+            fed = torch.stack(generated[:new_tokens], 1)
+            n_all = PROMPT + new_tokens
+            forced = {"tokens": torch.cat([batch["tokens"], fed], 1),
+                      "segment_ids": torch.ones((SERVE_B, n_all), dtype=torch.int32, device=device),
+                      "positions": torch.arange(n_all, dtype=torch.int32,
+                                                device=device).repeat(SERVE_B, 1)}
+            full, _ = forward_train(cfg, params, forced)
+            e_last = rel_err(last_logits_decode, full[:, -1])
+            del full
         # where the time goes: device time by kernel; busy share against the
         # unprofiled wall time of the same call
         prof_prefill = device_profile(lambda: prefill_step(params, batch), steps=1)
@@ -656,22 +751,45 @@ def serve_phase(cfg, params, device):
                       "lengths": torch.full((SERVE_B,), PROMPT, dtype=torch.int32, device=device)}
         prof_decode = device_profile(lambda: serve_step(params, cache, step_batch), steps=4)
     prof_prefill["busy_share"] = prof_prefill["device_seconds_per_call"] / t_prefill
-    prof_decode["busy_share"] = prof_decode["device_seconds_per_call"] / (t_decode / NEW_TOKENS)
+    prof_decode["busy_share"] = prof_decode["device_seconds_per_call"] / (t_decode / new_tokens)
     if e_prefill > TOL_PREFILL_REL:
         raise AssertionError(f"prefill logits off the packed forward by {e_prefill} (rel)")
     if e_decode > TOL_DECODE_REL:
         raise AssertionError(f"first decode logits off the packed forward by {e_decode} (rel)")
-    res = {"prefill_seconds": t_prefill, "decode_ms_per_token": t_decode / NEW_TOKENS * 1e3,
-           "decode_tokens_per_s": SERVE_B * NEW_TOKENS / t_decode,
+    if e_last is not None and not e_last <= TOL_DECODE_REL:
+        raise AssertionError(f"last decode logits off the teacher-forced packed forward by "
+                             f"{e_last} (rel)")
+    if ring_pos and not ring_wrapped:
+        raise AssertionError("the sliding-window ring caches did not hold the last positions")
+    res = {"arch": cfg.arch_id, "layers": cfg.n_layers, "params": cfg.param_count(),
+           "new_tokens": new_tokens, "cache_slots": slots, "ring_layers": len(ring_pos),
+           "ring_wrapped": ring_wrapped,
+           "prefill_seconds": t_prefill, "decode_ms_per_token": t_decode / new_tokens * 1e3,
+           "decode_tokens_per_s": SERVE_B * new_tokens / t_decode,
            "prefill_tokens_per_s": SERVE_B * PROMPT / t_prefill,
            "max_memory_allocated_bytes": peak, "main_path_launches": launches,
            "main_path_launches_by_source": by_source,
            "prefill_rel_err": e_prefill, "prefill_tol": TOL_PREFILL_REL,
            "decode_rel_err": e_decode, "decode_tol": TOL_DECODE_REL,
+           "last_decode_rel_err": e_last,
            "first_decode_argmax_agreement": agree,
            "prefill_profile": prof_prefill, "decode_profile": prof_decode}
     log("serve", json.dumps(res))
     return res
+
+
+def bf16_launches(head_dim, *, forward, backward):
+    """Expected launch counts of a bf16 run at `head_dim`: `forward` of the
+    forward source and `backward` of the backward source for that width,
+    none of the others, no plain-version call."""
+    from repro_torch.kernels.packed_flash_attn import (
+        BWD_SIMT, BWD_SM90, SIMT, SM90, backward_kernel_for, kernel_for)
+
+    want = {SM90.source: 0, SIMT.source: 0, f"backward[{BWD_SM90.source}]": 0,
+            f"backward[{BWD_SIMT.source}]": 0, "plain_calls": 0}
+    want[kernel_for(torch.bfloat16, head_dim).source] = forward
+    want[f"backward[{backward_kernel_for(torch.bfloat16, head_dim).source}]"] = backward
+    return want
 
 
 def counting_plain_calls():
@@ -689,26 +807,26 @@ def counting_plain_calls():
     return calls, lambda: setattr(ops, "packed_attention_ref", plain)
 
 
-def train_phase(cfg, device):
-    """The training path: full-width qwen3-8b cut to TRAIN_LAYERS layers,
-    trained by the port's spmd driver (`launch.train.run_spmd`) through the
-    bf16 forward and backward kernels. Checks every step's launches and step
-    0's gradients and loss; reports step times, the Eq. 1 fit and the
-    Detector's statistics."""
+def train_phase(cfg, device, *, layers=TRAIN_LAYERS, steps=TRAIN_STEPS, fit=TRAIN_FIT):
+    """The training path: a model at full width, cut to `layers` layers (None:
+    full depth), trained for `steps` steps by the port's spmd driver
+    (`launch.train.run_spmd`) through the bf16 forward and backward kernels
+    of its head width. Checks every step's launches and step 0's gradients
+    and loss; reports step times, the Eq. 1 fit (on `fit` steps after the
+    warm-up, held out on the rest) and the Detector's statistics."""
     import dataclasses
 
     import repro_torch.launch.train as driver
     from repro_torch.core.detector.predictor import MicroBatchTimePredictor
     from repro_torch.data.packing import pack_stats
     from repro_torch.data.synth import SyntheticPackedDataset
-    from repro_torch.kernels.packed_flash_attn import BWD_SIMT, BWD_SM90, SIMT, SM90
     from repro_torch.models.model import init_params, loss_fn
     from repro_torch.train.optimizer import tree_leaves
 
-    tcfg = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS)  # depth only: every width stays
-    L, S, B, mb = TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICROBATCHES
+    tcfg = cfg if layers is None else dataclasses.replace(cfg, n_layers=layers)  # depth only
+    L, S, B, mb = tcfg.n_layers, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICROBATCHES
     args = driver.parser().parse_args(
-        ["--steps", str(TRAIN_STEPS), "--seq-len", str(S), "--batch", str(B), "--microbatches",
+        ["--steps", str(steps), "--seq-len", str(S), "--batch", str(B), "--microbatches",
          str(mb), "--lr", "1e-3", "--seed", "0", "--device", str(device)])
     ds = SyntheticPackedDataset(tcfg, S, B, seed=args.seed)
 
@@ -764,19 +882,19 @@ def train_phase(cfg, device):
     peak = torch.cuda.max_memory_allocated()
 
     # per step: each micro-batch runs every layer's forward kernel twice
-    # (forward and remat recompute) and its backward kernel once, all bf16
-    want = {SM90.source: 2 * L * mb, SIMT.source: 0, f"backward[{BWD_SM90.source}]": L * mb,
-            f"backward[{BWD_SIMT.source}]": 0, "plain_calls": 0}
+    # (forward and remat recompute) and its backward kernel once, all bf16,
+    # of the sources for the head width
+    want = bf16_launches(tcfg.head_dim, forward=2 * L * mb, backward=L * mb)
     for i, got in enumerate(per_step):
         if got != want:
             raise AssertionError(f"train step {i}: launches {got}, expected {want}")
-    if len(per_step) != TRAIN_STEPS or total != {k: v * TRAIN_STEPS for k, v in want.items()}:
+    if len(per_step) != steps or total != {k: v * steps for k, v in want.items()}:
         raise AssertionError(f"train run: {len(per_step)} steps, launches {total}")
     if step0["leaves_with_finite_nonzero_grad"] != step0["leaves"]:
         raise AssertionError(f"step 0: only {step0['leaves_with_finite_nonzero_grad']} of "
                              f"{step0['leaves']} parameter leaves have a finite nonzero gradient")
     losses, times = result["losses"], result["times"]
-    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"train losses not finite: {losses}")
     loss0_rel = abs(losses[0] - loss0_fn) / abs(loss0_fn)
     if not loss0_rel <= 1e-3:
@@ -785,16 +903,17 @@ def train_phase(cfg, device):
     # Eq. 1 on whole-step times (forward + backward of both micro-batches),
     # after the warm-up steps the driver skips too
     obs = []
-    for it in range(TRAIN_WARMUP, TRAIN_STEPS):
+    for it in range(TRAIN_WARMUP, steps):
         stats = pack_stats(ds.batch_at(it)["segment_ids"])
         obs.append((sum(x[0] for x in stats), sum(x[1] for x in stats), times[it]))
     pred = MicroBatchTimePredictor()
-    for n_tok, l2, dt in obs[:TRAIN_FIT]:
+    for n_tok, l2, dt in obs[:fit]:
         pred.observe(n_tok, l2, dt)
     pred.fit()
-    mape = pred.mape([(n_tok, l2, 1, dt) for n_tok, l2, dt in obs[TRAIN_FIT:]])
+    mape = pred.mape([(n_tok, l2, 1, dt) for n_tok, l2, dt in obs[fit:]])
     steady = times[TRAIN_WARMUP:]
-    res = {"layers": L, "steps": TRAIN_STEPS, "seq_len": S, "batch": B, "microbatches": mb,
+    res = {"arch": cfg.arch_id, "layers": L, "steps": steps, "seq_len": S, "batch": B,
+           "microbatches": mb, "head_dim": tcfg.head_dim, "window": arch_window(tcfg),
            "params": tcfg.param_count(), "losses": losses, "step_seconds": times,
            "step_seconds_mean": sum(steady) / len(steady),
            "step_seconds_min": min(steady), "step_seconds_max": max(steady),
@@ -804,8 +923,8 @@ def train_phase(cfg, device):
            "step0_loss": losses[0], "step0_loss_fn": loss0_fn, "step0_loss_rel": loss0_rel,
            "step0_leaves": step0["leaves"],
            "eq1": {"alpha": pred.alpha, "beta": pred.beta, "gamma": pred.gamma,
-                   "mape_heldout": mape, "fit_steps": TRAIN_FIT,
-                   "heldout_steps": len(obs) - TRAIN_FIT},
+                   "mape_heldout": mape, "fit_steps": fit,
+                   "heldout_steps": len(obs) - fit},
            "detector": result["detector"], "max_memory_allocated_bytes": peak,
            "profiled_step": TRAIN_PROFILED_STEP, "profile": step0["profile"]}
     # device time over the wall time of the same step; the profiler's host
@@ -839,29 +958,35 @@ def pipeline_args(driver, steps, seq, batch, device, *extra):
          "--device", str(device), *extra])
 
 
-def pipeline_phase(cfg, device):
-    """The ResiHP runtime on the train phase's model: the port's pipeline
-    driver (`launch.train.run_pipeline`) under a dp=2, pp=2, tp=2 plan,
-    a fail-stop at step 4 and a fail-slow at step 8. Checks the
-    reconfiguration steps and plans, every step's launches, the engine's
-    loss against `loss_fn` on the same parameters and batch before the
-    update, and then the migration identity; reports step times around each
-    reconfiguration, the planning and recovery overheads and peak memory."""
+def pipeline_phase(cfg, device, spec):
+    """The ResiHP runtime: the port's pipeline driver
+    (`launch.train.run_pipeline`) on `cfg` cut to `spec["layers"]` layers
+    (None: full depth) under the spec's dp x pp x tp plan, with its fail-stop
+    and fail-slow injections. Checks the reconfiguration steps and plans,
+    every step's launches, the engine's loss against `loss_fn` on the same
+    parameters and batch before the update at the checked steps, and then,
+    with two replicas or more, the migration identity; reports step times
+    around each reconfiguration, the planning and recovery overheads and
+    peak memory."""
     import dataclasses
 
     import repro_torch.launch.train as driver
     from repro_torch.core.detector.dag_sim import ChunkId
     from repro_torch.data.synth import SyntheticPackedDataset
-    from repro_torch.kernels.packed_flash_attn import BWD_SIMT, BWD_SM90, SIMT, SM90
     from repro_torch.models.model import loss_fn
 
     from repro_torch.core.scheduler.plan import initial_plan
 
-    tcfg = dataclasses.replace(cfg, n_layers=PIPE_LAYERS)  # depth only: every width stays
-    plan_flags = [x for k, v in PIPE_PLAN.items() for x in (f"--{k}", str(v))]
-    args = pipeline_args(driver, PIPE_STEPS, PIPE_SEQ, PIPE_BATCH, device, *plan_flags,
-                         "--inject-failstop", PIPE_FAILSTOP, "--inject-failslow", PIPE_FAILSLOW)
-    ds = SyntheticPackedDataset(tcfg, PIPE_SEQ, PIPE_BATCH, seed=args.seed)
+    tcfg = cfg if spec["layers"] is None else dataclasses.replace(cfg, n_layers=spec["layers"])
+    plan = spec["plan"]
+    steps, profiled, reconfigs = spec["steps"], spec["profiled"], spec["reconfigs"]
+    batch_size = plan["dp"] * PIPE_MICROBATCHES  # 1 x 4096 a micro-batch
+    flags = [x for k, v in plan.items() for x in (f"--{k}", str(v))]
+    for name in ("failstop", "failslow"):
+        if spec[name]:
+            flags += [f"--inject-{name}", spec[name]]
+    args = pipeline_args(driver, steps, PIPE_SEQ, batch_size, device, *flags)
+    ds = SyntheticPackedDataset(tcfg, PIPE_SEQ, batch_size, seed=args.seed)
 
     def counts():
         return {**read_counts(), **{f"backward[{k}]": v for k, v in read_backward_counts().items()},
@@ -875,8 +1000,8 @@ def pipeline_phase(cfg, device):
     Engine = driver.PipelineEngine
 
     class CheckedEngine(Engine):
-        """The driver's engine, with each step's launches counted and, at
-        PIPE_CHECKED_STEPS, its loss held to loss_fn before the update."""
+        """The driver's engine, with each step's launches counted and, at the
+        checked steps, its loss held to loss_fn before the update."""
 
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
@@ -885,7 +1010,7 @@ def pipeline_phase(cfg, device):
         def run_iteration(self, batch, **kw):
             step = self.step
             ref = None
-            if step in PIPE_CHECKED_STEPS:
+            if step in spec["checked"]:
                 before = counts()
                 with torch.no_grad():  # token-weighted over rows, as the engine forms it
                     nll = ntok = 0.0
@@ -900,7 +1025,7 @@ def pipeline_phase(cfg, device):
             before = counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            if step == PIPE_PROFILED_STEP:
+            if step == profiled:
                 out = []
                 prof.update(device_profile(
                     lambda: out.append(Engine.run_iteration(self, batch, **kw)[0]), 1))
@@ -934,74 +1059,74 @@ def pipeline_phase(cfg, device):
     # per step, whatever the partition: every micro-batch of every replica
     # runs each layer's forward kernel in F (no row log-sum-exp) and in B's
     # recompute (with it), and each layer's backward kernel once in B
-    L, R, M = PIPE_LAYERS, PIPE_PLAN["dp"], PIPE_MICROBATCHES
-    want = {SM90.source: 2 * L * R * M, SIMT.source: 0, f"backward[{BWD_SM90.source}]": L * R * M,
-            f"backward[{BWD_SIMT.source}]": 0, "plain_calls": 0,
+    L, R, M = tcfg.n_layers, plan["dp"], PIPE_MICROBATCHES
+    want = {**bf16_launches(tcfg.head_dim, forward=2 * L * R * M, backward=L * R * M),
             "forward_with_lse": L * R * M, "forward_without_lse": L * R * M}
     for i, got in enumerate(per_step):
         if got != want:
             raise AssertionError(f"pipeline step {i}: launches {got}, expected {want}")
     engine_total = diff(total, check_launches)
-    if len(per_step) != PIPE_STEPS or engine_total != {k: v * PIPE_STEPS for k, v in want.items()}:
+    if len(per_step) != steps or engine_total != {k: v * steps for k, v in want.items()}:
         raise AssertionError(f"pipeline run: {len(per_step)} steps, launches {engine_total} "
                              f"(besides {check_launches} of the loss_fn checks)")
     # the engine's own step times: the driver's also hold the loss_fn checks
     losses, times = result["losses"], engine_seconds[:]  # before the migration check's runs
-    if len(losses) != PIPE_STEPS or not all(math.isfinite(x) for x in losses):
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"pipeline losses not finite: {losses}")
-    if result["reconfigs"] != PIPE_RECONFIGS:
-        raise AssertionError(f"reconfigurations at {result['reconfigs']}, expected {PIPE_RECONFIGS}")
-    initial = initial_plan(PIPE_LAYERS, **PIPE_PLAN).summary()
+    if result["reconfigs"] != reconfigs:
+        raise AssertionError(f"reconfigurations at {result['reconfigs']}, expected {reconfigs}")
+    initial = initial_plan(L, **plan).summary()
     plans = [initial] + [a["plan"] for a in result["adaptations"]]
-    if len(set(plans)) != len(plans) or [c["plan"] for c in checks] != [
-            initial, plans[1], plans[2], plans[2]]:
+    in_effect = [plans[sum(r <= c for r in reconfigs)] for c in spec["checked"]]
+    if len(set(plans)) != len(plans) or [c["plan"] for c in checks] != in_effect:
         raise AssertionError(f"the plans did not change as injected: {plans}, checks {checks}")
-    if [c["step"] for c in checks] != list(PIPE_CHECKED_STEPS) or not all(
+    if [c["step"] for c in checks] != list(spec["checked"]) or not all(
             c["rel"] <= TOL_PIPE_LOSS_REL for c in checks):
         raise AssertionError(f"engine loss vs loss_fn: {checks}")
 
     # migration identity: F and B of (mb 0, stage 1, replica 0) on replica 1,
     # optimizer off, on the final plan; the same loss
     engine = engines[0]
-    engine.optimizer = None
-    batch = to_device(ds.batch_at(PIPE_STEPS), device)
-    base = engine.run_iteration(batch)[0]
-    placement = {ChunkId("F", 0, 1, 0): (1, 1), ChunkId("B", 0, 1, 0): (1, 1)}
-    migrated = engine.run_iteration(batch, placement=placement)[0]
-    torch.cuda.synchronize()
-    if not abs(base - migrated) <= TOL_MIGRATION:
-        raise AssertionError(f"migration identity: {base} vs {migrated}")
+    migration = None
+    if R > 1:
+        engine.optimizer = None
+        batch = to_device(ds.batch_at(steps), device)
+        base = engine.run_iteration(batch)[0]
+        placement = {ChunkId("F", 0, 1, 0): (1, 1), ChunkId("B", 0, 1, 0): (1, 1)}
+        migrated = engine.run_iteration(batch, placement=placement)[0]
+        torch.cuda.synchronize()
+        if not abs(base - migrated) <= TOL_MIGRATION:
+            raise AssertionError(f"migration identity: {base} vs {migrated}")
+        migration = {"base": base, "migrated": migrated, "abs": abs(base - migrated),
+                     "tol": TOL_MIGRATION}
     del engine, engines[:]
 
-    def mean(xs):
+    def steady(lo, hi):  # step 0 warms up; the profiled step carries the profiler's host cost
+        xs = [times[i] for i in range(max(lo, 1), hi) if i != profiled]
         return sum(xs) / len(xs)
 
-    a, b = PIPE_RECONFIGS
-
-    def steady(lo, hi):  # step 0 warms up; the profiled step carries the profiler's host cost
-        return mean([times[i] for i in range(max(lo, 1), hi) if i != PIPE_PROFILED_STEP])
-
-    res = {"layers": L, "steps": PIPE_STEPS, "seq_len": PIPE_SEQ, "batch": PIPE_BATCH,
-           "microbatches": M, "plan": PIPE_PLAN, "failstop": PIPE_FAILSTOP,
-           "failslow": PIPE_FAILSLOW, "params": tcfg.param_count(), "losses": losses,
+    bounds = [0, *reconfigs, steps]
+    segments = ["before", "after_failstop", "after_failslow"][:len(bounds) - 1]
+    res = {"arch": cfg.arch_id, "layers": L, "steps": steps, "seq_len": PIPE_SEQ,
+           "batch": batch_size, "microbatches": M, "plan": plan, "failstop": spec["failstop"],
+           "failslow": spec["failslow"], "params": tcfg.param_count(), "losses": losses,
            "step_seconds": times, "driver_step_seconds": result["times"],
            "reconfigs": result["reconfigs"], "plans": plans,
-           "step_seconds_mean": {"before": steady(0, a), "after_failstop": steady(a, b),
-                                 "after_failslow": steady(b, PIPE_STEPS)},
-           "first_step_after": {"failstop": times[a], "failslow": times[b]},
+           "step_seconds_mean": {name: steady(lo, hi)
+                                 for name, lo, hi in zip(segments, bounds, bounds[1:])},
+           "first_step_after": dict(zip(segments[1:], (times[r] for r in reconfigs))),
            "adaptations": result["adaptations"],
-           "loss_checks": checks, "loss_tol_rel": TOL_PIPE_LOSS_REL,
-           "migration": {"base": base, "migrated": migrated, "abs": abs(base - migrated),
-                         "tol": TOL_MIGRATION},
+           "loss_checks": checks, "loss_tol_rel": TOL_PIPE_LOSS_REL, "migration": migration,
            "launches_per_step": want, "launches": engine_total, "check_launches": check_launches,
-           "max_memory_allocated_bytes": peak, "profiled_step": PIPE_PROFILED_STEP,
-           "profile": prof}
-    prof["busy_share"] = prof["device_seconds_per_call"] / prof["profiled_wall_seconds_per_call"]
+           "max_memory_allocated_bytes": peak, "profiled_step": profiled, "profile": prof}
+    if prof:
+        prof["busy_share"] = (prof["device_seconds_per_call"]
+                              / prof["profiled_wall_seconds_per_call"])
     for ad in result["adaptations"]:
         log(f"pipeline adaptation at step {ad['step']}: {ad['plan']}; {len(ad['moves'])} layer "
             f"moves, {ad['bytes']} bytes modelled; plan_overhead_s {ad['plan_overhead_s']:.6f}; "
             f"recover + apply_plan {ad['recover_seconds']:.6f} s")
-    log(f"pipeline step seconds: {times}")
+    log(f"pipeline {cfg.arch_id} step seconds: {times}")
     log("pipeline", json.dumps(res))
     return res
 
@@ -1095,6 +1220,115 @@ def sass_count(lib, opcode):
     return sum(opcode in line for line in sass.splitlines())
 
 
+TIMING_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err", "shape",
+               "kv_heads", "window", "dtype")
+
+
+def kernel_entries(record):
+    """The `kernels` line: one entry per kernel source, head width and GQA
+    group that a main path launched, its launches counted in those runs, its
+    times from the kernel phases at a main path's shape; other shapes of the
+    same kernel under `other_cases`."""
+    from repro_torch.kernels.packed_flash_attn import BWD_SIMT, BWD_SM90, SIMT, SM90
+
+    kern, fk, fam, fp32 = (record["kernel"], record["family_kernel"], record["family"],
+                           record["fp32_path"])
+
+    def entry(name, source, row, by_path, *, others=(), **extra):
+        return {"name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source}",
+                "replaces": "src/repro/kernels/packed_flash_attn.py:39",
+                "launches": sum(by_path.values()), "launches_by_path": by_path,
+                "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                "library_ms": row["library_ms"], "wrapper_event_ms": row["wrapper_event_ms"],
+                "shape": row["shape"], "kv_heads": row.get("kv_heads"), "dtype": row["dtype"],
+                "other_cases": {o: {k: fk[o].get(k) for k in TIMING_KEYS} for o in others},
+                **extra}
+
+    def fwd(res, source):  # forward launches of a train or pipeline run
+        return res["launches"][source]
+
+    def bwd(res, source):
+        return res["launches"][f"backward[{source}]"]
+
+    def served(res):
+        return res["main_path_launches_by_source"][SM90.source]
+
+    train_prof = record["train"]["profile"]  # the backward's device time inside the train step
+    train_bwd_ms = (train_prof["group_shares"]["attention_backward"]
+                    * train_prof["device_seconds_per_call"] * 1e3
+                    / record["train"]["launches_per_step"][f"backward[{BWD_SM90.source}]"])
+    return [
+        # bf16, head_dim 128: qwen3-8b's heads (H 32, K 8), at the serving shape
+        entry("packed_flash_attention", SM90.source, kern["serving"],
+              {"qwen3-8b serve": served(record["serve"]),
+               "qwen3-8b train": fwd(record["train"], SM90.source),
+               "qwen3-8b pipeline": fwd(record["pipeline"], SM90.source)},
+              head_dim=128, wrapper_device_ms=kern["serving"]["wrapper_device_ms"]),
+        entry("packed_flash_attention[GQA group 1]", SM90.source, fk["llama2-7b_bf16"],
+              {"llama2-7b serve": served(fam["llama2-7b_serve"]),
+               "llama2-7b pipeline": fwd(fam["llama2-7b_pipeline"], SM90.source)}, head_dim=128),
+        entry("packed_flash_attention[GQA group 7]", SM90.source, fk["qwen2.5-7b_bf16"],
+              {"qwen2.5-7b serve": served(fam["qwen2.5-7b_serve"])}, head_dim=128),
+        entry("packed_flash_attention[head_dim 256]", SM90.source, fk["gemma3-1b_bf16"],
+              {"gemma3-1b serve": served(fam["gemma3-1b_serve"]),
+               "gemma3-1b train": fwd(fam["gemma3-1b_train"], SM90.source),
+               "gemma3-1b pipeline": fwd(fam["gemma3-1b_pipeline"], SM90.source)},
+              others=("gemma3-4b_bf16",), head_dim=256),
+        entry("packed_flash_attention[head_dim 80]", SM90.source, fk["h2o-danube-1.8b_bf16"],
+              {"h2o-danube-1.8b train": fwd(fam["h2o-danube-1.8b_train"], SM90.source)},
+              head_dim=80, runs_at_head_dim=128),
+        # fp32: the parity paths, at head_dim 128, 256 and 80
+        entry("packed_flash_attention[float32]", SIMT.source, kern["fp32_parity"],
+              {"qwen3-8b parity": fp32["qwen3-8b"]["launches"][SIMT.source]
+               + fp32["qwen3-8b"]["train_step_launches"][SIMT.source]},
+              others=("llama2-7b_fp32", "qwen2.5-7b_fp32"), head_dim=128,
+              wrapper_device_ms=kern["fp32_parity"]["wrapper_device_ms"]),
+        entry("packed_flash_attention[float32, head_dim 256]", SIMT.source, fk["gemma3-1b_fp32"],
+              {"gemma3-1b parity": fp32["gemma3-1b"]["launches"][SIMT.source]
+               + fp32["gemma3-1b"]["train_step_launches"][SIMT.source]},
+              others=("gemma3-4b_fp32",), head_dim=256),
+        entry("packed_flash_attention[float32, head_dim 80]", SIMT.source,
+              fk["h2o-danube-1.8b_fp32"],
+              {"h2o-danube-1.8b parity": fp32["h2o-danube-1.8b"]["launches"][SIMT.source]
+               + fp32["h2o-danube-1.8b"]["train_step_launches"][SIMT.source]}, head_dim=80),
+        # the backward: per launch, at the train paths' micro-batches
+        entry("packed_flash_attention_backward", BWD_SM90.source,
+              per_launch(kern["train_bwd"]),
+              {"qwen3-8b train": bwd(record["train"], BWD_SM90.source),
+               "qwen3-8b pipeline": bwd(record["pipeline"], BWD_SM90.source)},
+              head_dim=128, train_step_ms_per_launch=train_bwd_ms),
+        entry("packed_flash_attention_backward[GQA group 1]", BWD_SM90.source,
+              fk["llama2-7b_bf16_bwd"],
+              {"llama2-7b pipeline": bwd(fam["llama2-7b_pipeline"], BWD_SM90.source)},
+              others=("qwen2.5-7b_bf16_bwd",), head_dim=128),
+        entry("packed_flash_attention_backward[head_dim 256]", BWD_SIMT.source,
+              fk["gemma3-1b_bf16_bwd"],
+              {"gemma3-1b train": bwd(fam["gemma3-1b_train"], BWD_SIMT.source),
+               "gemma3-1b pipeline": bwd(fam["gemma3-1b_pipeline"], BWD_SIMT.source)},
+              others=("gemma3-4b_bf16_bwd",), head_dim=256),
+        entry("packed_flash_attention_backward[head_dim 80]", BWD_SM90.source,
+              fk["h2o-danube-1.8b_bf16_bwd"],
+              {"h2o-danube-1.8b train": bwd(fam["h2o-danube-1.8b_train"], BWD_SM90.source)},
+              head_dim=80, runs_at_head_dim=128),
+        entry("packed_flash_attention_backward[float32]", BWD_SIMT.source,
+              per_launch(kern["fp32_parity_bwd"]),
+              {"qwen3-8b parity":
+               fp32["qwen3-8b"]["train_step_backward_launches"][BWD_SIMT.source]},
+              others=("llama2-7b_fp32_bwd", "qwen2.5-7b_fp32_bwd"), head_dim=128),
+        entry("packed_flash_attention_backward[float32, head_dim 256]", BWD_SIMT.source,
+              fk["gemma3-1b_fp32_bwd"],
+              {"gemma3-1b parity":
+               fp32["gemma3-1b"]["train_step_backward_launches"][BWD_SIMT.source]},
+              others=("gemma3-4b_fp32_bwd",), head_dim=256),
+        entry("packed_flash_attention_backward[float32, head_dim 80]", BWD_SIMT.source,
+              fk["h2o-danube-1.8b_fp32_bwd"],
+              {"h2o-danube-1.8b parity":
+               fp32["h2o-danube-1.8b"]["train_step_backward_launches"][BWD_SIMT.source]},
+              head_dim=80),
+    ]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the full record to this JSON file")
@@ -1108,9 +1342,15 @@ def main(argv=None):
     log(smi[0])
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.configs import get_arch
+    from repro_torch.configs.paper_models import PAPER_MODELS, PAPER_PARALLELISM
     from repro_torch.kernels import build
     from repro_torch.kernels.packed_flash_attn import BWD_SIMT, BWD_SM90, SIMT, SM90
     from repro_torch.models.model import init_params
+    from repro_torch.train.optimizer import tree_leaves
+
+    small = PAPER_PARALLELISM["small"]
+    if PIPE_SPECS["llama2-7b"]["plan"] != {k: small[k] for k in ("dp", "pp", "tp")}:
+        raise AssertionError(f"llama2-7b's plan is not the paper's small plan {small}")
 
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
@@ -1135,16 +1375,15 @@ def main(argv=None):
     cfg = get_arch("qwen3-8b")
     record["kernel"] = kernel_phase(cfg, device)
     torch.cuda.empty_cache()
-    record["fp32_path"] = fp32_phase(cfg, device)
+    record["family_kernel"] = family_kernel_phase(device)
+    torch.cuda.empty_cache()
+    record["fp32_path"] = {arch: fp32_phase(get_arch(arch), device) for arch in PARITY_ARCHS}
 
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=device)
     torch.cuda.synchronize()
-    n_params = sum(p.numel() for layer in params["layers"] for d in layer.values()
-                   for p in (d.values() if isinstance(d, dict) else [d]))
-    n_params += sum(v.numel() for k, v in params.items() if k != "layers")
-    record["params"] = n_params
-    log(f"qwen3-8b: {cfg.n_layers} layers, d_model {cfg.d_model}, {n_params} parameters, "
+    record["params"] = sum(p.numel() for p in tree_leaves(params))
+    log(f"qwen3-8b: {cfg.n_layers} layers, d_model {cfg.d_model}, {record['params']} parameters, "
         f"init {time.perf_counter() - t0:.1f} s")
 
     record["forward"] = forward_phase(cfg, params, device)
@@ -1153,50 +1392,42 @@ def main(argv=None):
     torch.cuda.empty_cache()
     record["train"] = train_phase(cfg, device)
     torch.cuda.empty_cache()
-    record["pipeline"] = pipeline_phase(cfg, device)
+    record["pipeline"] = pipeline_phase(cfg, device, PIPE_SPECS["qwen3-8b"])
     torch.cuda.empty_cache()
     record["checkpoint"] = checkpoint_phase(cfg, device)
+    torch.cuda.empty_cache()
 
-    def entry(name, kern, row, launches, **extra):
-        return {"name": name,
-                "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{kern.source}",
-                "replaces": "src/repro/kernels/packed_flash_attn.py:39", "launches": launches,
-                "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
-                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-                "library_ms": row["library_ms"], "wrapper_event_ms": row["wrapper_event_ms"],
-                "shape": row["shape"], "dtype": row["dtype"], **extra}
+    # the dense family at full width: gemma3-1b and h2o-danube-1.8b at full
+    # depth, the paper's small-scale models (Table 3) at full depth to serve
+    fam = record["family"] = {}
+    gemma = get_arch("gemma3-1b")
+    params = init_params(gemma, seed=0, dtype=torch.bfloat16, device=device)
+    fam["gemma3-1b_serve"] = serve_phase(gemma, params, device, check_last=True)
+    del params
+    torch.cuda.empty_cache()
+    fam["gemma3-1b_train"] = train_phase(gemma, device, layers=None, steps=FAMILY_TRAIN_STEPS,
+                                         fit=FAMILY_TRAIN_FIT)
+    torch.cuda.empty_cache()
+    fam["gemma3-1b_pipeline"] = pipeline_phase(gemma, device, PIPE_SPECS["gemma3-1b"])
+    torch.cuda.empty_cache()
+    fam["h2o-danube-1.8b_train"] = train_phase(get_arch("h2o-danube-1.8b"), device, layers=None,
+                                               steps=FAMILY_TRAIN_STEPS, fit=FAMILY_TRAIN_FIT)
+    torch.cuda.empty_cache()
+    for arch in PAPER_MODELS["small"]:  # llama2-7b, qwen2.5-7b
+        pcfg = get_arch(arch)
+        params = init_params(pcfg, seed=0, dtype=torch.bfloat16, device=device)
+        fam[f"{arch}_serve"] = serve_phase(pcfg, params, device, new_tokens=PAPER_NEW_TOKENS,
+                                           check_last=True)
+        del params
+        torch.cuda.empty_cache()
+    fam["llama2-7b_pipeline"] = pipeline_phase(get_arch("llama2-7b"), device,
+                                               PIPE_SPECS["llama2-7b"])
 
-    serve_launches = record["serve"]["main_path_launches_by_source"][SM90.source]
-    # the backward's device time per launch inside the profiled train step
-    prof = record["train"]["profile"]
-    train_bwd_ms = (prof["group_shares"]["attention_backward"] * prof["device_seconds_per_call"]
-                    * 1e3 / record["train"]["launches_per_step"][f"backward[{BWD_SM90.source}]"])
-    kernels = [  # bf16: the main paths (serve; train), at their shapes; fp32: the parity path
-        entry("packed_flash_attention", SM90, record["kernel"]["serving"], serve_launches,
-              wrapper_device_ms=record["kernel"]["serving"]["wrapper_device_ms"],
-              launches_by_path={"serve": serve_launches,
-                                "train": record["train"]["launches"][SM90.source],
-                                "pipeline": record["pipeline"]["launches"][SM90.source]}),
-        entry("packed_flash_attention[float32]", SIMT, record["kernel"]["fp32_parity"],
-              record["fp32_path"]["launches"][SIMT.source],
-              wrapper_device_ms=record["kernel"]["fp32_parity"]["wrapper_device_ms"]),
-        # the backward: per launch, at the train paths' micro-batches
-        entry("packed_flash_attention_backward", BWD_SM90,
-              per_launch(record["kernel"]["train_bwd"]),
-              record["train"]["launches"][f"backward[{BWD_SM90.source}]"],
-              train_step_ms_per_launch=train_bwd_ms,
-              launches_by_path={
-                  path: record[path]["launches"][f"backward[{BWD_SM90.source}]"]
-                  for path in ("train", "pipeline")}),
-        entry("packed_flash_attention_backward[float32]", BWD_SIMT,
-              per_launch(record["kernel"]["fp32_parity_bwd"]),
-              record["fp32_path"]["train_step_backward_launches"][BWD_SIMT.source]),
-    ]
-    record["kernels"] = kernels
+    record["kernels"] = kernel_entries(record)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(record, indent=1))
-    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"kernels": record["kernels"]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

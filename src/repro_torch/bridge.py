@@ -3,7 +3,8 @@
 Input trees are nested dicts, lists and tuples of numpy arrays, as a caller
 gets from the reference's `split_annotations(stacked_init(...))[0]`, its list
 layout `split_annotations(init_params(...))[0]` (what its pipeline engine
-holds), its optimizer state or its decode cache, by converting every leaf
+holds; a tied tree has no `lm_head`), its optimizer state or its decode
+cache (a sliding-window layer's cache is its ring), by converting every leaf
 with `np.asarray`; this module never imports jax. The reference's scan layout
 stacks layers per period position (a tuple: `layers[pos][...][j]` is layer
 j * P + pos); its list layout, like the port, keeps one dict per layer.

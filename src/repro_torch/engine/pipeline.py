@@ -14,16 +14,22 @@ Key properties, as the reference's:
   * stage boundaries move activations and their gradients with `Tensor.to`
     (a no-op on one card);
   * F runs the stage under `torch.no_grad()` (the forward kernel without its
-    row log-sum-exp); B recomputes the stage forward under autograd and takes
-    the gradients of the stage parameters and the boundary input with
-    `torch.autograd.grad` (the forward kernel with the log-sum-exp, then the
-    backward kernel) — activation recomputation, as the reference's
-    `jax.vjp`: only boundary activations are stored;
+    row log-sum-exp); B recomputes the stage forward under autograd and runs
+    its backward (the forward kernel with the log-sum-exp, then the backward
+    kernel) — activation recomputation, as the reference's `jax.vjp`: only
+    boundary activations are stored;
   * replicas read the same parameter tensors (they are synchronized), and
-    gradients accumulate per (replica, stage) in `grad_acc`;
+    gradients accumulate per (replica, stage) in `grad_acc`: B points each
+    stage leaf's `.grad` at that (replica, stage)'s buffer, so autograd adds
+    each leaf's gradient into it as soon as it is formed, and takes the
+    buffers back after it; a stage's gradient never exists twice;
+  * with tied embeddings the last stage reads `embed` too, and the update
+    sums the first and last stages' gradients of it;
   * the DP reduce sums the replicas' gradients in replica order on the
     device, into the first replica's buffers, scales by 1 / total tokens and
-    updates: exact averaging over every token of every replica;
+    updates: exact averaging over every token of every replica. Every sum
+    of two gradient lists checks that they pair the same leaves (count and
+    shapes) and raises otherwise, as the reference's `jax.tree.map` does;
   * micro-batch migration executes a chunk on a peer replica's stage (the
     same math, since replicas are synchronized — Fig. 6b).
 
@@ -71,6 +77,18 @@ def _like(tree, leaves):
     """`leaves` (in `tree_leaves` order) in the structure of `tree`."""
     it = iter(leaves)
     return tree_map(lambda _: next(it), tree)
+
+
+def zip_leaves(a, b, what):
+    """zip of two leaf lists that must pair the same leaves: raises unless
+    they hold as many leaves, of the same shapes in the same order."""
+    if len(a) != len(b):
+        raise ValueError(f"{what}: {len(a)} leaves against {len(b)}")
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x.shape != y.shape:
+            raise ValueError(f"{what}: leaf {i} has shape {tuple(x.shape)} against "
+                             f"{tuple(y.shape)}")
+    return zip(a, b)
 
 
 class PipelineEngine:
@@ -131,9 +149,10 @@ class PipelineEngine:
             return v if v.device == dev else v.detach().to(dev).requires_grad_(True)
 
         p = {"layers": [tree_map(place, self.params_full["layers"][l]) for l in st.layers]}
-        if s == 0:
+        last = s == self.plan.replicas[r].pp - 1
+        if s == 0 or (last and self.cfg.tie_embeddings):  # the LM head reads a tied embed
             p["embed"] = place(self.params_full["embed"])
-        if s == self.plan.replicas[r].pp - 1:
+        if last:
             p["final_norm"] = place(self.params_full["final_norm"])
             if "lm_head" in self.params_full:
                 p["lm_head"] = place(self.params_full["lm_head"])
@@ -166,19 +185,33 @@ class PipelineEngine:
         with torch.no_grad():
             return self._stage_apply(r, s, p, x, md, tokens=tokens, labels=labels)
 
-    def _bwd(self, r, s, p, x, md, g, tokens=None, labels=None):
-        """Recompute the stage under autograd; -> (param grads tree, grad of
-        the boundary input or None for stage 0)."""
+    def _bwd(self, r, s, p, x, md, g, acc, tokens=None, labels=None):
+        """Recompute the stage under autograd and add its parameter gradients
+        into `acc` (a gradient tree of the stage's structure, or None for a
+        new one) in place; -> (the gradient tree, grad of the boundary input
+        or None for stage 0). The leaves' `.grad` are the tree's buffers
+        only while the backward runs: replicas share the leaves."""
         leaves = tree_leaves(p)
-        with torch.enable_grad():
-            if x is not None:
-                x = x.detach().requires_grad_(True)
-            out = self._stage_apply(r, s, p, x, md, tokens=tokens, labels=labels)
-            if isinstance(out, tuple):  # last stage: (nll_sum, n_tokens); n_tokens is constant
-                out, g = out[0], g[0]
-            grads = torch.autograd.grad(out, leaves + ([x] if x is not None else []),
-                                        grad_outputs=g)
-        return _like(p, grads[:len(leaves)]), (grads[-1] if x is not None else None)
+        bufs = ([b for _, b in zip_leaves(leaves, tree_leaves(acc), "gradient accumulation")]
+                if acc is not None else [None] * len(leaves))
+        for leaf, buf in zip(leaves, bufs):
+            leaf.grad = buf
+        try:
+            with torch.enable_grad():
+                if x is not None:
+                    x = x.detach().requires_grad_(True)
+                out = self._stage_apply(r, s, p, x, md, tokens=tokens, labels=labels)
+                if isinstance(out, tuple):  # last stage: (nll_sum, n_tokens); n_tokens is constant
+                    out, g = out[0], g[0]
+                torch.autograd.backward(out, grad_tensors=g,
+                                        inputs=leaves + ([x] if x is not None else []))
+            grads = [leaf.grad for leaf in leaves]
+        finally:
+            for leaf in leaves:
+                leaf.grad = None
+        if any(gr is None for gr in grads):
+            raise RuntimeError(f"stage (dp{r},pp{s}): a parameter got no gradient")
+        return _like(p, grads), (x.grad if x is not None else None)
 
     # -------------------------------------------------------- interpreter
     def run_iteration(self, batch, *, placement: Optional[dict] = None):
@@ -247,17 +280,11 @@ class PipelineEngine:
                 elif cid.kind == "B":
                     if (r, m, s) not in grads_in:
                         continue
-                    p_grad, x_grad = self._bwd(
+                    grad_acc[(r, s)], x_grad = self._bwd(
                         exec_rs[0], s, params[exec_rs], acts.get((r, m, s)), md,
-                        grads_in.pop((r, m, s)),
+                        grads_in.pop((r, m, s)), grad_acc.get((r, s)),
                         tokens=mb["tokens"] if s == 0 else None,
                         labels=mb["labels"] if s == pp - 1 else None)
-                    key = (r, s)
-                    if key not in grad_acc:
-                        grad_acc[key] = p_grad
-                    else:
-                        for a, b in zip(tree_leaves(grad_acc[key]), tree_leaves(p_grad)):
-                            a.add_(b.to(a.device))
                     if s > 0:
                         grads_in[(r, m, s - 1)] = x_grad.to(self.stage_device(r, s - 1))
                     acts.pop((r, m, s), None)
@@ -274,7 +301,8 @@ class PipelineEngine:
     # ------------------------------------------------------------- update
     def _apply_grads(self, grad_acc, total_tokens):
         """DP-reduce per-stage grads on the device, scatter into the full
-        tree, update."""
+        tree (a tied embed's gradient is the sum of the first and last
+        stages'), update."""
         if self.optimizer is None:
             return
         plan = self.plan
@@ -292,7 +320,8 @@ class PipelineEngine:
                 if reduced is None:
                     reduced = g
                 else:
-                    for a, b in zip(tree_leaves(reduced), tree_leaves(g)):
+                    for a, b in zip_leaves(tree_leaves(reduced), tree_leaves(g),
+                                           f"DP reduce of stage {s}"):
                         a.add_(b.to(a.device))
             if reduced is None:
                 continue
@@ -302,7 +331,7 @@ class PipelineEngine:
                 full["layers"][l] = reduced["layers"][i]
             for k in ("embed", "final_norm", "lm_head"):
                 if k in reduced:
-                    full[k] = reduced[k]
+                    full[k] = reduced[k] if full[k] is None else full[k].add_(reduced[k])
         full = _fill(full, self.params_full)
         self.optimizer.update(full, self.opt_state, self.params_full,
                               torch.tensor(self.step, dtype=torch.int32))

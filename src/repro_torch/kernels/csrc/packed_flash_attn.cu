@@ -28,6 +28,11 @@
 //
 // Bound on an H100 SXM: compute, 4 * dh flops per visible (query, key) pair
 // and head, at the 67 TFLOP/s of fp32 outside the tensor cores.
+//
+// Head widths 16, 32, 64, 80, 128 and 256. At dh 80 a thread's output columns
+// are read from V two at a time (80 is not a multiple of 8 threads x 4); at
+// dh 256 the Q, K, V and P tiles take 214 KB of shared memory, which the
+// launch opts into.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -89,7 +94,7 @@ packed_flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          int KH, int nQ, int nK, float scale, int causal, int has_window,
                          int window) {
   constexpr int LDT = DH + PAD;
-  constexpr int VEC = DH >= 32 ? 4 : 2;  // output columns per vector load of V
+  constexpr int VEC = DH % 32 == 0 ? 4 : 2;  // output columns per vector load of V
   constexpr int NM = DH / (8 * VEC);     // vectors per thread per output row
   constexpr int DC = NM * VEC;           // output columns per thread (DH / 8)
 
@@ -288,7 +293,9 @@ cudaError_t dispatch(int head_dim, const void* q, const void* k, const void* v,
     PFA_CASE(16)
     PFA_CASE(32)
     PFA_CASE(64)
+    PFA_CASE(80)
     PFA_CASE(128)
+    PFA_CASE(256)
     default:
       return cudaErrorInvalidValue;
   }
@@ -299,9 +306,10 @@ cudaError_t dispatch(int head_dim, const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// Tile sizes, so the wrapper builds `blk_ok` at the kernel's own tiles.
-int packed_flash_attn_block_q() { return BQ; }
-int packed_flash_attn_block_k() { return BK; }
+// Tile sizes, so the wrapper builds `blk_ok` at the kernel's own tiles (the
+// same at every head width).
+int packed_flash_attn_block_q(int) { return BQ; }
+int packed_flash_attn_block_k(int) { return BK; }
 
 // fp32 q (B,Sq,H,dh), k/v (B,Sk,KH,dh), out like q. seg/pos are int32 padded
 // with zeros to (B, nQ*64) and (B, nK*64); blk_ok is (B, nQ, nK) int8 tile

@@ -20,12 +20,12 @@
 // not wait on loads.
 //
 // Design. A CTA owns 128 query rows of one (batch, head): two consumer
-// warpgroups of 64 rows, plus one producer warp whose elected thread issues
-// every copy. The producer loads the Q tile once by TMA, then streams the K
-// and V tiles of BK = 128 keys (and the tile's key segment ids and positions, by
-// bulk copy) through a ring of STAGES shared-memory stages, each with a full
-// and an empty mbarrier; it loads only tiles whose code in `blk_ok` is
-// nonzero. Each consumer warpgroup computes S = Q K^T with
+// warpgroups of 64 rows, plus one producer warp (a warpgroup at dh 256)
+// whose elected thread issues every copy. The producer loads the Q tile once
+// by TMA, then streams the K and V tiles of BK keys (and the tile's key
+// segment ids and positions, by bulk copy) through a ring of STAGES
+// shared-memory stages, each with a full and an empty mbarrier; it loads
+// only tiles whose code in `blk_ok` is nonzero. Each consumer warpgroup computes S = Q K^T with
 // wgmma m64nBKk16 (both operands from shared memory, K-major: dh contiguous),
 // masks S in registers where the tile's code is 1 (2 means every pair is
 // visible), runs the online softmax on its fp32 accumulator (each row spread
@@ -39,19 +39,39 @@
 // or queries past the sequence are zero-filled. Heavy (late, under the causal
 // mask) q-tiles are launched first. The barrier, copy and wgmma helpers are
 // in sm90_common.cuh, shared with the backward.
+//
+// Head widths. dh 16..128 run at BK = 128 keys a tile and one P V product of
+// N = dh. dh 256 (gemma3) runs at BK = 64: a 128-key stage would need 64 KB of
+// Q plus 2 x 2 x 64 KB of K and V, more than the 227 KB of an SM, while 64
+// keys need 192 KB; its 64 x 256 fp32 O accumulator (128 registers a thread)
+// is filled by two P V products of N = 128, each over two 64-column chunks
+// of the V tile. dh 80 (h2o-danube) is not compiled here: the wrapper pads
+// q, k and v with zero columns to dh 128 (exact: zero columns add nothing to
+// Q K^T and give zero output columns, which it drops; the scale stays
+// 1 / sqrt(80)).
 
 #include "sm90_common.cuh"
 
 namespace {
 
 constexpr int BQ = 128;                  // query rows per CTA
-constexpr int BK = 128;                  // keys per K/V tile
+template <int DH>
+__host__ __device__ constexpr int keys_per_tile() { return DH > 128 ? 64 : 128; }  // keys per K/V tile
 constexpr int CONSUMERS = 256;           // two warpgroups of 64 query rows each
-constexpr int THREADS = CONSUMERS + 32;  // and one producer warp
+// and one producer warp; at dh 256 a producer warpgroup, which hands its
+// registers to the consumers by setmaxnreg: ptxas gives a CTA of these
+// sizes 168 registers a thread at launch, and the 64 x 256 fp32 O
+// accumulator alone takes 128 (at 168 the products spill and serialize).
+// 2 x 232 + 40 = 3 x 168.
+template <int DH>
+__host__ __device__ constexpr int threads_of() { return CONSUMERS + (DH > 128 ? 128 : 32); }
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
 constexpr int STAGES = 2;                // K/V ring depth
 
 template <int DH>
 struct Smem {
+  static constexpr int BK = keys_per_tile<DH>();
   static constexpr int Q_BYTES = BQ * DH * 2;
   static constexpr int KV_BYTES = BK * DH * 2;      // one K (or V) tile
   static constexpr int KV = Q_BYTES;                // stage s: K, then V
@@ -64,7 +84,7 @@ struct Smem {
 };
 
 template <int DH>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(threads_of<DH>(), 1)
 packed_flash_attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                               const __grid_constant__ CUtensorMap tm_k,
                               const __grid_constant__ CUtensorMap tm_v,
@@ -75,6 +95,8 @@ packed_flash_attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                               float scale_log2, int causal, int has_window, int window) {
   using C = Chunking<DH>;
   using M = Smem<DH>;
+  constexpr int BK = M::BK;
+  constexpr int ON = DH < 128 ? DH : 128;  // N of one P V product
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -102,6 +124,7 @@ packed_flash_attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   if (tid >= CONSUMERS) {
     // producer: one thread issues every copy
+    if constexpr (DH > 128) asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
     if (tid == CONSUMERS) {
       mbar_expect_tx(bar_q, M::Q_BYTES);
 #pragma unroll
@@ -129,6 +152,7 @@ packed_flash_attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
     return;
   }
+  if constexpr (DH > 128) asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
 
   // consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63 of the q-tile; this
   // thread holds rows r0 and r0 + 8 of them
@@ -224,13 +248,18 @@ packed_flash_attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int i = 0; i < BK / 4; ++i) p[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
 
-    // O += P V: V is MN-major (dh contiguous); 16 keys per k-step
+    // O += P V: V is MN-major (dh contiguous); 16 keys per k-step. Product n
+    // fills O's columns ON n .. ON n + ON - 1: accumulator registers
+    // ON n / 2 on, from the V chunks that hold those columns.
     pin(o);
     pin(p);
     wgmma_fence();
 #pragma unroll
-    for (int t = 0; t < BK / 16; ++t)
-      Wgmma<DH>::rs(o, p + 4 * t, mnmajor_desc<DH>(v_addr, BK, t));
+    for (int n = 0; n < DH / ON; ++n)
+#pragma unroll
+      for (int t = 0; t < BK / 16; ++t)
+        Wgmma<ON>::rs(*reinterpret_cast<float(*)[ON / 2]>(o + n * ON / 2), p + 4 * t,
+                      mnmajor_desc<DH>(v_addr + n * (ON / C::CW) * BK * C::SW, BK, t));
     wgmma_commit();
     wgmma_wait_all();
     pin(o);
@@ -266,6 +295,7 @@ int launch(const void* q, const void* k, const void* v, const void* seg_q, const
            const void* pos_q, const void* pos_k, const void* blk_ok, void* out, void* lse, int B,
            int Sq, int Sk, int H, int KH, int nQ, int nK, float scale, int causal,
            int has_window, int window, cudaStream_t stream) {
+  constexpr int BK = Smem<DH>::BK;
   EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return ERR_NO_ENCODER;
   CUtensorMap tm_q, tm_k, tm_v;
@@ -277,7 +307,7 @@ int launch(const void* q, const void* k, const void* v, const void* seg_q, const
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(H, B, nQ);
-  kern<<<grid, THREADS, smem, stream>>>(
+  kern<<<grid, threads_of<DH>(), smem, stream>>>(
       tm_q, tm_k, tm_v, static_cast<const int*>(seg_q), static_cast<const int*>(seg_k),
       static_cast<const int*>(pos_q), static_cast<const int*>(pos_k),
       static_cast<const int8_t*>(blk_ok), static_cast<__nv_bfloat16*>(out),
@@ -289,12 +319,17 @@ int launch(const void* q, const void* k, const void* v, const void* seg_q, const
 
 extern "C" {
 
-// Tile sizes, so the wrapper builds `blk_ok` at the kernel's own tiles.
-int packed_flash_attn_sm90_block_q() { return BQ; }
-int packed_flash_attn_sm90_block_k() { return BK; }
+// Tile sizes at a head width, so the wrapper builds `blk_ok` at the
+// kernel's own tiles (0: the width is not compiled).
+int packed_flash_attn_sm90_block_q(int head_dim) {
+  return head_dim == 256 || head_dim <= 128 ? BQ : 0;
+}
+int packed_flash_attn_sm90_block_k(int head_dim) {
+  return head_dim == 256 ? keys_per_tile<256>() : head_dim <= 128 ? keys_per_tile<128>() : 0;
+}
 
 // bf16 q (B,Sq,H,dh), k/v (B,Sk,KH,dh), out like q. seg/pos are int32 padded
-// with zeros to (B, nQ*128) and (B, nK*128); blk_ok is (B, nQ, nK) int8
+// with zeros to (B, nQ*128) and (B, nK*BK), BK = 128 (64 at dh 256); blk_ok is (B, nQ, nK) int8
 // tile codes (0 skip, 1 mask, 2 all visible). lse, when not null, receives
 // the fp32 (B,H,Sq) row log-sum-exp of the scaled scores (+inf on rows with
 // no visible key). Returns 0, a cudaError_t, or a negative code of this file
@@ -314,6 +349,7 @@ int packed_flash_attn_sm90_fwd(int head_dim, const void* q, const void* k, const
   PFA_CASE(32)
   PFA_CASE(64)
   PFA_CASE(128)
+  PFA_CASE(256)
 #undef PFA_CASE
   return ERR_HEAD_DIM;
 }

@@ -3,13 +3,18 @@
 Counterpart of `repro.kernels.packed_flash_attn`. Two CUDA C++ kernels for
 sm_90a, built by nvcc at first use and bound with ctypes, one per input type:
 bf16 runs on the tensor cores (`csrc/packed_flash_attn_sm90.cu`: wgmma fed by
-TMA through an mbarrier ring, 128 x 128 tiles); fp32 runs on the CUDA cores
-(`csrc/packed_flash_attn.cu`, 64 x 64 tiles), since TF32 tensor cores cannot
-hold the fp32 parity tolerance. `block_metadata` gives the (B, nQ, nK) int8
-map of tiles that can hold a visible (query, key) pair; the kernels skip the
-others, so attention cost follows sum(l_i^2) of the packed documents rather
-than N^2. `tile_map` adds the tiles in which every pair is visible, which the
-bf16 kernel runs without a mask.
+TMA through an mbarrier ring, 128 x 128 tiles, 128 x 64 at head_dim 256);
+fp32 runs on the CUDA cores (`csrc/packed_flash_attn.cu`, 64 x 64 tiles),
+since TF32 tensor cores cannot hold the fp32 parity tolerance. A `Kernel` is
+chosen by (dtype, head_dim) (`kernel_for`, `backward_kernel_for`): its tiles
+may differ with the head width. bf16 at head_dim 80 runs the head_dim 128
+kernels on q, k and v padded with zero columns (`run_head_dim`), which is
+exact: the scale stays 1/sqrt(80) and the padded output columns are
+dropped. `block_metadata` gives the (B, nQ, nK) int8 map of tiles that can
+hold a visible (query, key) pair; the kernels skip the others, so attention
+cost follows sum(l_i^2) of the packed documents rather than N^2. `tile_map`
+adds the tiles in which every pair is visible, which the bf16 kernel runs
+without a mask.
 
 The forward can also return the row log-sum-exp (`return_lse=True`), which
 `packed_flash_attention_backward` takes: it computes dq, dk and dv under the
@@ -17,8 +22,11 @@ same tile skip, again one source per input type. bf16 runs on the tensor
 cores (`csrc/packed_flash_attn_bwd_sm90.cu`: wgmma fed by TMA, a dK/dV kernel
 at 64 x 128 tiles and a dQ kernel at 128 x 128, their tile maps derived from
 one map by `coarsen`); fp32 on the CUDA cores (`csrc/packed_flash_attn_bwd.cu`,
-64 x 64). The two sm_90a sources share `csrc/sm90_common.cuh`. `kernels.ops`
-wires forward and backward into autograd.
+64 x 64, 32 x 32 at head_dim 256). At head_dim 256 bf16 also takes the
+CUDA-core backward, since the tensor-core one's dK/dV accumulators do not fit
+a warpgroup's registers there. The two sm_90a sources share
+`csrc/sm90_common.cuh`. `kernels.ops` wires forward and backward into
+autograd.
 
 `packed_flash_attention.launches` and `packed_flash_attention_backward.launches`
 count launches per kernel source (dicts a caller may reset), so a run can
@@ -34,15 +42,17 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import build
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 
 
 @dataclass(frozen=True)
 class Kernel:
-    """One compiled kernel source: its file under `csrc/`, the prefix of its C
-    symbols, the tile sizes its `blk_ok` map is built at, the names of its
-    CUDA kernels as the profiler shows them, and the tiles of a backward's
-    dQ kernel where they differ (None: the same)."""
+    """One compiled kernel source at some head widths: its file under `csrc/`,
+    the prefix of its C symbols, the tile sizes its `blk_ok` map is built at,
+    the names of its CUDA kernels as the profiler shows them, the tiles of a
+    backward's dQ kernel where they differ (None: the same), and whether its
+    C entry takes a bf16 flag after the head width (a source compiled for
+    both types)."""
 
     source: str
     symbol: str
@@ -50,39 +60,56 @@ class Kernel:
     block_k: int
     names: tuple[str, ...]
     dq_tiles: tuple[int, int] | None = None
+    typed: bool = False
 
 
 SM90 = Kernel("packed_flash_attn_sm90.cu", "packed_flash_attn_sm90", 128, 128,
               ("packed_flash_attn_sm90_kernel",))
+SM90_WIDE = Kernel(SM90.source, SM90.symbol, 128, 64, SM90.names)  # head_dim 256
 SIMT = Kernel("packed_flash_attn.cu", "packed_flash_attn", 64, 64, ("packed_flash_attn_kernel",))
-KERNELS = {torch.bfloat16: SM90, torch.float32: SIMT}
 BWD_SM90 = Kernel("packed_flash_attn_bwd_sm90.cu", "packed_flash_attn_bwd_sm90", 64, 128,
                   ("bwd_sm90_delta_kernel", "bwd_sm90_dkdv_kernel", "bwd_sm90_dq_kernel"),
                   dq_tiles=(128, 128))
 BWD_SIMT = Kernel("packed_flash_attn_bwd.cu", "packed_flash_attn_bwd", 64, 64,
-                  ("bwd_delta_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel"))
-BACKWARD_KERNELS = {torch.bfloat16: BWD_SM90, torch.float32: BWD_SIMT}
+                  ("bwd_delta_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel"), typed=True)
+BWD_SIMT_WIDE = Kernel(BWD_SIMT.source, BWD_SIMT.symbol, 32, 32, BWD_SIMT.names,
+                       typed=True)  # head_dim 256, bf16 and fp32
+# head widths a dtype's kernels run zero-padded to a compiled width
+PADDED_HEAD_DIMS = {torch.bfloat16: {80: 128}}
 
 
-def _pick(table, dtype) -> Kernel:
-    if dtype not in table:
+def _checked_dims(dtype, head_dim):
+    if dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"q must be float32 or bfloat16, got {dtype}")
-    return table[dtype]
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"head_dim {head_dim} not in {HEAD_DIMS}")
 
 
-def kernel_for(dtype) -> Kernel:
-    """The forward kernel that takes inputs of `dtype`."""
-    return _pick(KERNELS, dtype)
+def run_head_dim(dtype, head_dim) -> int:
+    """The compiled head width the kernels run `head_dim` at."""
+    _checked_dims(dtype, head_dim)
+    return PADDED_HEAD_DIMS.get(dtype, {}).get(head_dim, head_dim)
 
 
-def backward_kernel_for(dtype) -> Kernel:
-    """The backward kernel that takes inputs of `dtype`."""
-    return _pick(BACKWARD_KERNELS, dtype)
+def kernel_for(dtype, head_dim) -> Kernel:
+    """The forward kernel that takes inputs of `dtype` and `head_dim`."""
+    _checked_dims(dtype, head_dim)
+    if dtype == torch.float32:
+        return SIMT
+    return SM90_WIDE if head_dim == 256 else SM90
 
 
-def tile_sizes(dtype):
-    """(block_q, block_k) of the kernel that takes `dtype`."""
-    kern = kernel_for(dtype)
+def backward_kernel_for(dtype, head_dim) -> Kernel:
+    """The backward kernel that takes inputs of `dtype` and `head_dim`."""
+    _checked_dims(dtype, head_dim)
+    if head_dim == 256:
+        return BWD_SIMT_WIDE
+    return BWD_SIMT if dtype == torch.float32 else BWD_SM90
+
+
+def tile_sizes(dtype, head_dim):
+    """(block_q, block_k) of the forward kernel that takes `dtype` and `head_dim`."""
+    kern = kernel_for(dtype, head_dim)
     return kern.block_q, kern.block_k
 
 
@@ -194,18 +221,22 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 # scale, causal, has_window, window, stream
 _FWD_ARGTYPES = [_INT] + [_PTR] * 10 + [_INT] * 7 + [ctypes.c_float] + [_INT] * 3 + [_PTR]
 _BWD_ARGTYPES = {
-    # head_dim, q, k, v, out, d_out, lse, seg_q, seg_k, pos_q, pos_k, blk_ok, delta, dq, dk, dv,
-    # B, Sq, Sk, H, KH, nQ, nK, scale, causal, has_window, window, stream
-    BWD_SIMT.source: [_INT] + [_PTR] * 15 + [_INT] * 7 + [ctypes.c_float] + [_INT] * 3 + [_PTR],
+    # head_dim, bf16, q, k, v, out, d_out, lse, seg_q, seg_k, pos_q, pos_k, blk_ok, delta, dq,
+    # dk, dv, B, Sq, Sk, H, KH, nQ, nK, scale, causal, has_window, window, stream
+    BWD_SIMT.source: [_INT] * 2 + [_PTR] * 15 + [_INT] * 7 + [ctypes.c_float] + [_INT] * 3
+    + [_PTR],
     # head_dim, q, k, v, out, d_out, lse, seg_q, seg_k, pos_q, pos_k, blk_kv, blk_dq, lse2,
     # delta, dq, dk, dv, B, Sq, Sk, H, KH, Sqp, Skp, scale, causal, has_window, window, stream
     BWD_SM90.source: [_INT] + [_PTR] * 17 + [_INT] * 7 + [ctypes.c_float] + [_INT] * 3 + [_PTR],
 }
 
 
-def _entry(kern: Kernel, name: str, argtypes):
+_tiles_checked: set = set()
+
+
+def _entry(kern: Kernel, name: str, argtypes, head_dim):
     """The C function `{symbol}_{name}` of the kernel's library, built and
-    declared at first use (tile sizes checked against `kern`)."""
+    declared at first use (tile sizes at `head_dim` checked against `kern`)."""
     lib = build.load(kern.source)
     fn = getattr(lib, f"{kern.symbol}_{name}")
     if fn.argtypes is None:
@@ -213,15 +244,30 @@ def _entry(kern: Kernel, name: str, argtypes):
         fn.argtypes = argtypes
         err = getattr(lib, f"{kern.symbol}_error_string")
         err.restype, err.argtypes = ctypes.c_char_p, [_INT]
+    if (kern, head_dim) not in _tiles_checked:
         tiles = {"block": (kern.block_q, kern.block_k)}
         if kern.dq_tiles is not None:
             tiles["dq_block"] = kern.dq_tiles
         for prefix, want in tiles.items():
-            compiled = (getattr(lib, f"{kern.symbol}_{prefix}_q")(),
-                        getattr(lib, f"{kern.symbol}_{prefix}_k")())
-            if compiled != want:
-                raise RuntimeError(f"{kern.source}: compiled {prefix} tiles {compiled} != {want}")
+            compiled = []
+            for side in "qk":
+                size = getattr(lib, f"{kern.symbol}_{prefix}_{side}")
+                size.restype, size.argtypes = _INT, [_INT]
+                compiled.append(size(head_dim))
+            if tuple(compiled) != want:
+                raise RuntimeError(f"{kern.source}: compiled {prefix} tiles {tuple(compiled)} "
+                                   f"!= {want} at head_dim {head_dim}")
+        _tiles_checked.add((kern, head_dim))
     return fn
+
+
+def _pad_head(dh, *tensors):
+    """The tensors with zero columns appended to head width `dh`."""
+    return tuple(F.pad(t, (0, dh - t.shape[-1])) if t.shape[-1] != dh else t for t in tensors)
+
+
+def _unpad_head(dh, *tensors):
+    return tuple(t[..., :dh].contiguous() if t.shape[-1] != dh else t for t in tensors)
 
 
 def _raise_on(rc, kern: Kernel, what):
@@ -237,15 +283,13 @@ def _check(q, k, v, seg_q, seg_k, pos_q, pos_k):
                     ("pos_q", pos_q), ("pos_k", pos_k)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-    kernel_for(q.dtype)
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"q and k must be 4-D, got {tuple(q.shape)}, {tuple(k.shape)}")
     B, Sq, H, dh = q.shape
     Sk, K = k.shape[1], k.shape[2]
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"head_dim {dh} not in {HEAD_DIMS}")
+    kernel_for(q.dtype, dh)
     if tuple(k.shape) != (B, Sk, K, dh) or tuple(v.shape) != (B, Sk, K, dh):
         raise ValueError(f"k/v shapes {tuple(k.shape)}, {tuple(v.shape)} do not match q {tuple(q.shape)}")
     if K == 0 or H % K:
@@ -276,7 +320,9 @@ def packed_flash_attention(q, k, v, seg_q, seg_k, pos_q, pos_k, *,
                            causal=True, window=None, scale=None, return_lse=False):
     """q (B,Sq,H,dh); k/v (B,Sk,K,dh) un-repeated -> (B,Sq,H,dh), on the card.
 
-    bf16 takes the tensor-core kernel, fp32 the CUDA-core one. With
+    bf16 takes the tensor-core kernel, fp32 the CUDA-core one, each at the
+    tiles of its head width (bf16 at head_dim 80: the head_dim 128 kernel
+    over zero-padded columns). With
     `return_lse`, also returns the fp32 (B,H,Sq) row log-sum-exp of the
     scaled scores (+inf on rows with no visible key), which the backward
     takes. Raises on a tensor the kernels do not take; never falls back. The
@@ -287,12 +333,13 @@ def packed_flash_attention(q, k, v, seg_q, seg_k, pos_q, pos_k, *,
         raise RuntimeError("packed_flash_attention has no autograd graph; call "
                            "repro_torch.kernels.ops.packed_attention to differentiate it")
     _check(q, k, v, seg_q, seg_k, pos_q, pos_k)
-    kern = kernel_for(q.dtype)
     B, Sq, H, dh = q.shape
     Sk, K = k.shape[1], k.shape[2]
+    kern, run_dh = kernel_for(q.dtype, dh), run_head_dim(q.dtype, dh)
     if scale is None:
         scale = dh ** -0.5
-    fwd = _entry(kern, "fwd", _FWD_ARGTYPES)
+    fwd = _entry(kern, "fwd", _FWD_ARGTYPES, run_dh)
+    q, k, v = _pad_head(run_dh, q, k, v)
     bq, bk = kern.block_q, kern.block_k
     padded = _pad_all(seg_q, seg_k, pos_q, pos_k, bq, bk)  # whole tiles of ids
     blk = tile_map(*padded, bq, bk, causal=causal, window=window)
@@ -301,17 +348,18 @@ def packed_flash_attention(q, k, v, seg_q, seg_k, pos_q, pos_k, *,
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) if return_lse else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        rc = fwd(dh, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        rc = fwd(run_dh, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  *(t.data_ptr() for t in padded), blk.data_ptr(), out.data_ptr(),
                  lse.data_ptr() if return_lse else None,
                  B, Sq, Sk, H, K, nq, nk, float(scale),
                  int(causal), int(window is not None), int(window or 0), stream)
     _raise_on(rc, kern, "launch")
     packed_flash_attention.launches[kern.source] += 1
+    (out,) = _unpad_head(dh, out)
     return (out, lse) if return_lse else out
 
 
-packed_flash_attention.launches = {kern.source: 0 for kern in KERNELS.values()}
+packed_flash_attention.launches = {kern.source: 0 for kern in (SM90, SIMT)}
 
 
 def packed_flash_attention_backward(q, k, v, out, lse, d_out, seg_q, seg_k, pos_q, pos_k, *,
@@ -320,10 +368,11 @@ def packed_flash_attention_backward(q, k, v, out, lse, d_out, seg_q, seg_k, pos_
 
     out and lse are the forward's (`return_lse=True`), d_out the gradient of
     out; dk and dv carry the un-repeated KV heads, summed over each GQA
-    group. bf16 takes the tensor-core backward, fp32 the CUDA-core one; both
-    accumulate in fp32, under the same mask and tile skip as the forward
-    (each kernel's tile map at its own tiles). Raises on a tensor the kernels
-    do not take; never falls back.
+    group. bf16 takes the tensor-core backward (at head_dim 80 over
+    zero-padded columns; at head_dim 256 the CUDA-core one), fp32 the
+    CUDA-core one; both accumulate in fp32, under the same mask and tile
+    skip as the forward (each kernel's tile map at its own tiles). Raises on
+    a tensor the kernels do not take; never falls back.
     """
     _check(q, k, v, seg_q, seg_k, pos_q, pos_k)
     B, Sq, H, dh = q.shape
@@ -333,8 +382,9 @@ def packed_flash_attention_backward(q, k, v, out, lse, d_out, seg_q, seg_k, pos_
     _check_like("lse", lse, q, (B, H, Sq), torch.float32)
     if scale is None:
         scale = dh ** -0.5
-    kern = backward_kernel_for(q.dtype)
-    bwd = _entry(kern, "launch", _BWD_ARGTYPES[kern.source])
+    kern, run_dh = backward_kernel_for(q.dtype, dh), run_head_dim(q.dtype, dh)
+    bwd = _entry(kern, "launch", _BWD_ARGTYPES[kern.source], run_dh)
+    q, k, v, out, d_out = _pad_head(run_dh, q, k, v, out, d_out)
     padded, (blk, blk_dq) = backward_tile_maps(kern, seg_q, seg_k, pos_q, pos_k,
                                                causal=causal, window=window)
     Sqp, Skp = padded[0].shape[1], padded[1].shape[1]
@@ -346,15 +396,16 @@ def packed_flash_attention_backward(q, k, v, out, lse, d_out, seg_q, seg_k, pos_
     else:
         bufs = (blk, torch.empty((B, H, Sq), dtype=torch.float32, device=q.device))
         dims = (blk.shape[1], blk.shape[2])
+    head = (run_dh, int(q.dtype == torch.bfloat16)) if kern.typed else (run_dh,)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        rc = bwd(dh, *(t.data_ptr() for t in (q, k, v, out, d_out, lse, *padded, *bufs,
-                                              dq, dk, dv)),
+        rc = bwd(*head, *(t.data_ptr() for t in (q, k, v, out, d_out, lse, *padded, *bufs,
+                                                 dq, dk, dv)),
                  B, Sq, Sk, H, K, *dims, float(scale),
                  int(causal), int(window is not None), int(window or 0), stream)
     _raise_on(rc, kern, "backward launch")
     packed_flash_attention_backward.launches[kern.source] += 1
-    return dq, dk, dv
+    return _unpad_head(dh, dq, dk, dv)
 
 
-packed_flash_attention_backward.launches = {kern.source: 0 for kern in BACKWARD_KERNELS.values()}
+packed_flash_attention_backward.launches = {kern.source: 0 for kern in (BWD_SM90, BWD_SIMT)}

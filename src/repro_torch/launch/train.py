@@ -19,6 +19,8 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --steps 4 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --mode pipeline \
       --dp 2 --pp 2 --tp 2 --steps 6 --seq-len 64 --inject-failstop 3:5 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --reduced --arch gemma3-1b \
+      --mode pipeline --dp 1 --pp 2 --steps 4 --seq-len 64 --device cpu
 """
 from __future__ import annotations
 
@@ -81,7 +83,7 @@ def run_spmd(cfg, args):
     """Train `args.steps` steps on `args.device`; returns {"losses", "times",
     "detector"} as the reference's spmd mode does."""
     if args.tp is not None:
-        raise NotImplementedError("--tp in spmd mode: sharding (ROADMAP Queue 1 item 7) is not "
+        raise NotImplementedError("--tp in spmd mode: sharding (ROADMAP Queue 1 item 4) is not "
                                   "ported yet; --mode pipeline reads it")
     for name in PIPELINE_ONLY:
         if getattr(args, name) is not None:
@@ -238,7 +240,9 @@ def run_pipeline(cfg, args):
 
 def parser():
     ap = argparse.ArgumentParser(description="Fault-tolerant training on one device.")
-    ap.add_argument("--arch", default="qwen3-8b")
+    ap.add_argument("--arch", default="qwen3-8b",
+                    help="any registered arch: qwen3-8b, gemma3-1b, gemma3-4b, h2o-danube-1.8b, "
+                         "and the paper's llama2-* and qwen2.5-*")
     ap.add_argument("--reduced", action="store_true", help="CPU-sized same-family config")
     ap.add_argument("--mode", choices=("spmd", "pipeline"), default="spmd")
     ap.add_argument("--steps", type=int, default=30)
@@ -266,9 +270,9 @@ def main(argv=None):
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = reduce_cfg(cfg)
-        if args.mode == "pipeline":
+        if args.mode == "pipeline":  # at least 2 layers a stage, and 4 in all
             pp = args.pp if args.pp is not None else PIPELINE_DEFAULTS["pp"]
-            cfg = reduce_cfg(get_arch(args.arch), n_layers=max(pp * len(cfg.period) * 2, 4))
+            cfg = reduce_cfg(get_arch(args.arch), n_layers=max(cfg.n_layers, 2 * pp, 4))
     print(f"[train] arch={cfg.arch_id} params={cfg.param_count()/1e6:.1f}M "
           f"mode={args.mode} device={args.device}", flush=True)
     result = run_spmd(cfg, args) if args.mode == "spmd" else run_pipeline(cfg, args)

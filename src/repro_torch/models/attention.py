@@ -51,7 +51,7 @@ def attention(cfg, spec, p, x, md, cache=None):
         'abs_positions' (B,S) for the causal test, and for decode 'lengths'
         (B,) current KV fill.
     cache: None for the packed forward and prefill, else {'k': (B,T,K,dh),
-        'v': ..., 'pos': (B,T)}, updated in place (the reference returns a
+        'v': ..., 'pos': (B,T)} (T slots: `model.cache_len`), updated in place (the reference returns a
         new array; in place saves a cache copy per layer and step).
     Returns (out (B,S,D), new_cache).
     """
@@ -78,8 +78,10 @@ def attention(cfg, spec, p, x, md, cache=None):
                                causal=causal, window=window, scale=scale)
         new_cache = {"k": k, "v": v, "pos": pos} if md.get("collect_state") else None
     else:
-        # decode: ring-buffer insert at (position % T); for full-attention
-        # layers T == max_len, so slot == position
+        # decode: ring-buffer insert at (position % T). For full-attention
+        # layers T == max_len, so slot == position; for sliding-window layers
+        # T = min(2 * window, max_len), and a slot is overwritten once its
+        # position is out of the window (the mask drops it before that)
         idx = md["lengths"]
         rows = torch.arange(B, device=x.device)
         T = cache["k"].shape[1]

@@ -162,33 +162,44 @@ def prefill_forward(cfg, params, batch, *, compute_dtype=torch.bfloat16):
 
 
 # ----------------------------------------------------------------- decode
+def cache_len(cfg, spec, max_len):
+    """Slots of a layer's decode cache: max_len for full attention; a ring of
+    min(2 * window, max_len) for a sliding-window layer (the reference's
+    `_layer_cache`), written at slot position % T."""
+    return min(2 * cfg.window, max_len) if spec.attn_kind == "swa" else max_len
+
+
 def init_cache(cfg, B, max_len, cache_dtype=torch.bfloat16, device="cuda"):
-    """Per-layer decode cache: zero K/V of length max_len, positions -1."""
+    """Per-layer decode cache: zero K/V of `cache_len` slots, positions -1."""
     K, dh = cfg.n_kv_heads, cfg.head_dim
     caches = []
     for i in range(cfg.n_layers):
         spec = cfg.layer_spec(i)
         _check_spec(spec)
-        if spec.attn_kind != "full":
-            raise NotImplementedError("sliding-window ring-buffer caches are not ported yet")
+        T = cache_len(cfg, spec, max_len)
         caches.append({"mixer": {
-            "k": torch.zeros((B, max_len, K, dh), dtype=cache_dtype, device=device),
-            "v": torch.zeros((B, max_len, K, dh), dtype=cache_dtype, device=device),
-            "pos": torch.full((B, max_len), -1, dtype=torch.int32, device=device),
+            "k": torch.zeros((B, T, K, dh), dtype=cache_dtype, device=device),
+            "v": torch.zeros((B, T, K, dh), dtype=cache_dtype, device=device),
+            "pos": torch.full((B, T), -1, dtype=torch.int32, device=device),
         }})
     return caches
 
 
 def extend_cache(cfg, prefill_caches, max_len):
-    """A max_len decode cache holding the prefill K/V in slots 0..S-1."""
+    """A max_len decode cache holding the prefill K/V: position p of a full
+    layer in slot p; of a sliding-window layer in slot p % T of its ring, of
+    which it keeps the last T positions (the ones decode can still see)."""
     first = prefill_caches[0]["mixer"]["k"]
     B, S = first.shape[:2]
     if S > max_len:
         raise ValueError(f"prompt length {S} exceeds max_len {max_len}")
     cache = init_cache(cfg, B, max_len, cache_dtype=first.dtype, device=first.device)
     for dst, src in zip(cache, prefill_caches):
+        T = dst["mixer"]["k"].shape[1]
+        keep = min(S, T)
+        slots = torch.arange(S - keep, S, device=first.device) % T
         for name in ("k", "v", "pos"):
-            dst["mixer"][name][:, :S].copy_(src["mixer"][name])
+            dst["mixer"][name][:, slots] = src["mixer"][name][:, S - keep:]
     return cache
 
 

@@ -61,7 +61,9 @@ def build_train_step(cfg, optimizer, *, microbatches=1, remat=True, clip_norm=1.
 
 
 def build_serve_step(cfg, *, sample="greedy", compute_dtype=torch.bfloat16):
-    """serve_step(params, cache, batch) -> (next_tokens, logits, cache)."""
+    """serve_step(params, cache, batch) -> (next_tokens, logits, cache). The
+    cache (`init_cache`/`extend_cache`) may mix the rings of sliding-window
+    layers with the full caches of global ones."""
     if sample != "greedy":
         raise ValueError(f"sampling '{sample}' is not supported; only 'greedy'")
 

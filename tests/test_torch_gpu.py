@@ -217,7 +217,7 @@ def _backward_case(rng, device, args, dtype, window=None):
     got = packed_flash_attention_backward(*args[:3], out, lse, d_out, *args[3:], **kw)
     torch.cuda.synchronize()
     after = packed_flash_attention_backward.launches
-    source = backward_kernel_for(TDT[dtype]).source
+    source = backward_kernel_for(TDT[dtype], args[0].shape[-1]).source
     assert {s: after[s] - before[s] for s in after} == {s: int(s == source) for s in after}
     ref = packed_attention_ref_backward(*args[:3], d_out, *args[3:], **kw)
     _check_grads(got, ref, dtype)
@@ -258,7 +258,7 @@ def test_gpu_backward_unmasked_tiles_match_masked(cuda, rng, dtype, monkeypatch)
     forced (every visible tile marked code 1)."""
     args = _args(rng, cuda, 1, 512, 4, 2, 64, dtype, doc_lens=[512])
     d_out, out, lse, kw = _backward_inputs(rng, cuda, args, dtype)
-    kern = backward_kernel_for(TDT[dtype])
+    kern = backward_kernel_for(TDT[dtype], 64)
     _, (blk, blk_dq) = pfa.backward_tile_maps(kern, *args[3:], **kw)
     assert bool((blk == 2).any()) and bool((blk_dq == 2).any())
     free = packed_flash_attention_backward(*args[:3], out, lse, d_out, *args[3:], **kw)
@@ -464,3 +464,133 @@ def test_gpu_checkpoint_restores_card_tensors_bitwise(cuda, tmp_path):
     host, _, _ = restore_checkpoint(tmp_path, shardings={"params": {"w": "cpu", "m": cuda},
                                                          "ids": None, "step": None})
     assert host["params"]["w"].device.type == "cpu" and host["params"]["m"].device.type == "cuda"
+
+
+# ------------------------------------------------- the dense family's widths
+# (head_dim, H, K, window): gemma3-1b's and gemma3-4b's heads at head_dim 256,
+# h2o-danube's at 80 (bf16: the head_dim 128 kernels over zero-padded
+# columns), llama2-7b's GQA group 1 and qwen2.5-7b's group 7 at 128
+FAMILY_CASES = [(256, 4, 1, 512), (256, 8, 4, 1024), (80, 32, 8, 4096), (128, 32, 32, None),
+                (128, 28, 4, None), (80, 8, 8, 96), (256, 7, 1, 96)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh,H,K,window", FAMILY_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_family_head_dims_forward_and_backward(cuda, rng, dh, H, K, window, dtype):
+    """Forward and backward at each new head width and GQA group, on packed
+    documents that cross tile edges, ending in padding, with the window of
+    the arch (or a short one that binds at this length): the kernel of the
+    (dtype, head_dim) against the plain version; padding rows and their
+    gradients exactly 0."""
+    S = 1100 if window is None or window >= 512 else 400
+    args = _args(rng, cuda, 1, S, H, K, dh, dtype, doc_lens=[S // 3, S // 2, S // 8])
+    seg = args[3]
+    pad = seg == 0
+    assert bool(pad.any())
+    before = _launches()
+    out = packed_flash_attention(*args, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert _launches() == before + 1
+    ref = packed_attention_ref(*args, causal=True, window=window)
+    np.testing.assert_allclose(n(out), n(ref), atol=TOL[dtype], rtol=TOL[dtype])
+    assert bool((out[pad] == 0).all())
+    grads = _backward_case(rng, cuda, args, dtype, window=window)
+    for g_, side in zip(grads, ("q", "k", "v")):
+        assert bool((g_[pad] == 0).all()), side
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_head_dim_256_ragged_and_deterministic(cuda, rng, dtype):
+    """head_dim 256 at lengths that are no multiple of the 64-key or 32-row
+    tiles: TMA zero-fills the ragged edge; two backward launches agree bit
+    for bit."""
+    args = _args(rng, cuda, 2, 333, 8, 4, 256, dtype)
+    out = packed_flash_attention(*args, causal=True)
+    np.testing.assert_allclose(n(out), n(packed_attention_ref(*args, causal=True)),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+    d_out, out, lse, kw = _backward_inputs(rng, cuda, args, dtype)
+    first = packed_flash_attention_backward(*args[:3], out, lse, d_out, *args[3:], **kw)
+    second = packed_flash_attention_backward(*args[:3], out, lse, d_out, *args[3:], **kw)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def _decode(cfg, params, device, tokens, max_len):
+    """`tokens` decoded one by one from an empty cache (teacher-forced):
+    every step's logits."""
+    from repro_torch.models.model import init_cache
+    from repro_torch.train.train_step import build_serve_step
+
+    cache = init_cache(cfg, tokens.shape[0], max_len, cache_dtype=torch.float32, device=device)
+    serve = build_serve_step(cfg, compute_dtype=torch.float32)
+    out = []
+    for i in range(tokens.shape[1]):
+        lengths = torch.full((tokens.shape[0],), i, dtype=torch.int32, device=device)
+        _, logits, cache = serve(params, cache, {"tokens": tokens[:, i:i + 1].to(device),
+                                                 "lengths": lengths})
+        out.append(n(logits[:, -1]))
+    return out
+
+
+@pytest.mark.gpu
+def test_gpu_ring_decode_and_prefill_match_cpu(cuda):
+    """gemma3-1b reduced to one period at head_dim 256 and a window of 8
+    (16-slot rings) in fp32: 24 decode steps from an empty cache on the card
+    against the CPU (the rings wrap at step 16), then a 20-token prefill on
+    the card (the fp32 kernel at head_dim 256) + `extend_cache` + 4 steps
+    against the same decode, 1e-4."""
+    from repro_torch.models.model import extend_cache, prefill_forward
+    from repro_torch.train.train_step import build_serve_step
+
+    cfg = reduced(get_arch("gemma3-1b"), n_layers=13, head_dim=256, window=8)
+    params = init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    tokens = t(np.random.default_rng(3).integers(1, cfg.vocab_size, size=(2, 24))
+               .astype(np.int32))
+    on_card = _decode(cfg, _to(params, cuda), cuda, tokens, 32)
+    on_cpu = _decode(cfg, params, "cpu", tokens, 32)
+    for a, b in zip(on_card, on_cpu):
+        np.testing.assert_allclose(a, b, atol=1e-4, rtol=1e-4)
+    P = 20
+    batch = {"tokens": tokens[:, :P].to(cuda),
+             "segment_ids": torch.ones((2, P), dtype=torch.int32, device=cuda),
+             "positions": torch.arange(P, dtype=torch.int32, device=cuda).repeat(2, 1)}
+    gp = _to(params, cuda)
+    before = _launches()
+    last, caches = prefill_forward(cfg, gp, batch, compute_dtype=torch.float32)
+    assert _launches() == before + cfg.n_layers
+    np.testing.assert_allclose(n(last[:, -1]), on_cpu[P - 1], atol=1e-4, rtol=1e-4)
+    cache = extend_cache(cfg, caches, 32)
+    serve = build_serve_step(cfg, compute_dtype=torch.float32)
+    for i in range(P, 24):
+        lengths = torch.full((2,), i, dtype=torch.int32, device=cuda)
+        _, logits, cache = serve(gp, cache, {"tokens": tokens[:, i:i + 1].to(cuda),
+                                             "lengths": lengths})
+        np.testing.assert_allclose(n(logits[:, -1]), on_cpu[i], atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_pipeline_tied_embeddings_match_cpu(cuda, dtype):
+    """gemma3-1b reduced (tied embeddings, head_dim 256) at dp1/pp2: the
+    engine's loss and gradients on the card against the CPU (fp32 1e-4;
+    bf16: the loss within 2e-3), the last stage reading the tied embed."""
+    cfg = reduced(get_arch("gemma3-1b"), n_layers=13, head_dim=256)
+    params = init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    batch = SyntheticPackedDataset(cfg, 128, 2, seed=0, mu=3.6, sigma=0.8).batch_at(0)
+    out = {}
+    for device in ("cpu", cuda):
+        eng = PipelineEngine(cfg, initial_plan(13, dp=1, pp=2, tp=1, microbatches=2),
+                             devices=[device], params=params, compute_dtype=TDT[dtype])
+        assert "embed" in eng.stage_params(0, 1)
+        loss, grads = eng.run_iteration({k: t(v).to(device) for k, v in batch.items()})
+        out[str(device)] = (loss, {k: [n(g) for g in tree_leaves(v)] for k, v in grads.items()})
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = out.values()
+    if dtype == "bfloat16":
+        assert abs(l_gpu - l_cpu) <= 2e-3
+        return
+    np.testing.assert_allclose(l_gpu, l_cpu, rtol=1e-4)
+    for key in g_cpu:
+        for a, b in zip(g_gpu[key], g_cpu[key], strict=True):
+            assert np.abs(a - b).max() <= 1e-4 * np.abs(b).max() + 1e-7

@@ -16,10 +16,12 @@ from repro.kernels.ref import packed_attention_ref as j_ref
 from repro_torch.kernels import build, ops
 from repro_torch.kernels.packed_flash_attn import (
     BWD_SIMT,
+    BWD_SIMT_WIDE,
     BWD_SM90,
     HEAD_DIMS,
     SIMT,
     SM90,
+    SM90_WIDE,
     backward_kernel_for,
     backward_tile_maps,
     block_metadata,
@@ -27,6 +29,7 @@ from repro_torch.kernels.packed_flash_attn import (
     kernel_for,
     packed_flash_attention,
     packed_flash_attention_backward,
+    run_head_dim,
     skipped_block_fraction,
     tile_map,
     tile_sizes,
@@ -266,25 +269,41 @@ def test_jax_window_skip_loses_visible_keys(rng):
 
 
 def test_kernel_choice_by_dtype():
-    """bf16 takes the tensor-core sources (forward at 128-row tiles; backward
-    with a dK/dV kernel at 64 x 128 and a dQ kernel at 128 x 128), fp32 the
-    CUDA-core sources at 64 x 64; anything else is refused. Needs no card."""
-    assert kernel_for(torch.bfloat16) is SM90
-    assert SM90.source == "packed_flash_attn_sm90.cu" and tile_sizes(torch.bfloat16) == (128, 128)
-    assert kernel_for(torch.float32) is SIMT
-    assert SIMT.source == "packed_flash_attn.cu" and tile_sizes(torch.float32) == (64, 64)
-    assert backward_kernel_for(torch.bfloat16) is BWD_SM90
+    """bf16 takes the tensor-core sources (forward at 128-row tiles, 128 x 64 at
+    head_dim 256; backward with a dK/dV kernel at 64 x 128 and a dQ kernel at
+    128 x 128, and at head_dim 256 the CUDA-core backward at 32 x 32; head_dim
+    80 runs the head_dim 128 kernels over zero-padded columns), fp32 the
+    CUDA-core sources at 64 x 64 (32 x 32 for the backward at head_dim 256);
+    any other dtype or head width is refused. Needs no card."""
+    for dh in (16, 32, 64, 80, 128):
+        assert kernel_for(torch.bfloat16, dh) is SM90
+        assert tile_sizes(torch.bfloat16, dh) == (128, 128)
+        assert backward_kernel_for(torch.bfloat16, dh) is BWD_SM90
+        assert backward_kernel_for(torch.float32, dh) is BWD_SIMT
+    assert kernel_for(torch.bfloat16, 256) is SM90_WIDE
+    assert tile_sizes(torch.bfloat16, 256) == (128, 64)
+    assert SM90.source == SM90_WIDE.source == "packed_flash_attn_sm90.cu"
+    for dh in HEAD_DIMS:
+        assert kernel_for(torch.float32, dh) is SIMT and tile_sizes(torch.float32, dh) == (64, 64)
+        assert run_head_dim(torch.float32, dh) == dh
+        assert run_head_dim(torch.bfloat16, dh) == (128 if dh == 80 else dh)
+    assert SIMT.source == "packed_flash_attn.cu"
     assert BWD_SM90.source == "packed_flash_attn_bwd_sm90.cu"
     assert (BWD_SM90.block_q, BWD_SM90.block_k, BWD_SM90.dq_tiles) == (64, 128, (128, 128))
-    assert backward_kernel_for(torch.float32) is BWD_SIMT
-    assert BWD_SIMT.source == "packed_flash_attn_bwd.cu"
+    assert BWD_SIMT.source == BWD_SIMT_WIDE.source == "packed_flash_attn_bwd.cu"
     assert (BWD_SIMT.block_q, BWD_SIMT.block_k, BWD_SIMT.dq_tiles) == (64, 64, None)
+    assert (BWD_SIMT_WIDE.block_q, BWD_SIMT_WIDE.block_k, BWD_SIMT_WIDE.dq_tiles) == (32, 32, None)
+    for dtype in (torch.bfloat16, torch.float32):
+        assert backward_kernel_for(dtype, 256) is BWD_SIMT_WIDE
+        for dh in (8, 96, 192, 512):
+            with pytest.raises(ValueError, match="head_dim"):
+                kernel_for(dtype, dh)
     for dtype in (torch.float16, torch.float64, torch.int32):
         with pytest.raises(TypeError):
-            kernel_for(dtype)
+            kernel_for(dtype, 128)
         with pytest.raises(TypeError):
-            backward_kernel_for(dtype)
-    assert HEAD_DIMS == (16, 32, 64, 128)
+            backward_kernel_for(dtype, 128)
+    assert HEAD_DIMS == (16, 32, 64, 80, 128, 256)
     assert packed_flash_attention.launches.keys() == {SM90.source, SIMT.source}
     assert packed_flash_attention_backward.launches.keys() == {BWD_SM90.source, BWD_SIMT.source}
     sources = {k.source for k in (SM90, SIMT, BWD_SM90, BWD_SIMT)}

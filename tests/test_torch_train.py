@@ -383,11 +383,11 @@ def test_run_spmd_on_cpu():
 
 def test_driver_refuses_what_is_not_ported(tmp_path):
     """What is still not ported raises: --tp in spmd mode (sharding, ROADMAP
-    Queue 1 item 7); the pipeline-only flags raise in spmd mode. What this
+    Queue 1 item 4); the pipeline-only flags raise in spmd mode. What this
     test refused before is read now: --mode pipeline trains, --ckpt-dir
     writes a committed checkpoint."""
     base = ["--reduced", "--steps", "1", "--seq-len", "64", "--batch", "4", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         t_launch.main(base + ["--tp", "2"])
     with pytest.raises(ValueError, match="--mode pipeline"):
         t_launch.main(base + ["--dp", "2"])
