@@ -5,7 +5,9 @@
 Phases, in one process; any failure exits nonzero:
   1. build   every CUDA kernel from src/repro_torch/kernels/csrc with nvcc,
              and check in the SASS that the bf16 kernels, forward and
-             backward, run on the tensor cores (HGMMA instructions);
+             backward, run on the tensor cores (HGMMA instructions), the
+             head_dim 256 backward's dK/dV and dQ kernels each on its own,
+             with no spill in their ptxas report;
   2. kernel  hold each kernel against its plain PyTorch version on the card
              (bf16 tensor-core forward: serving shape and a packed shape,
              timed also with every visible tile masked, and a windowed
@@ -60,6 +62,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -268,7 +271,7 @@ def backward_case(name, q, k, v, seg, pos, tol, *, time_it, window=None):
     """Backward kernel vs autograd through the plain version; optionally
     timed. Returns a row."""
     from repro_torch.kernels.packed_flash_attn import (
-        backward_kernel_for, backward_tile_maps, packed_flash_attention,
+        backward_kernel_for, backward_tile_maps, kv_splits, packed_flash_attention,
         packed_flash_attention_backward)
     from repro_torch.kernels.ref import attention_mask, packed_attention_ref_backward
 
@@ -296,13 +299,18 @@ def backward_case(name, q, k, v, seg, pos, tol, *, time_it, window=None):
     if pad.any() and not all(bool((x[pad] == 0).all()) for x in grads):
         raise AssertionError(f"{name}: gradients of padding rows or keys are not exactly 0")
     kern = backward_kernel_for(q.dtype, q.shape[-1])
-    _, (codes, codes_dq) = backward_tile_maps(kern, seg, seg, pos, pos, **kw)
+    padded, (codes, codes_dq) = backward_tile_maps(kern, seg, seg, pos, pos, **kw)
+    # the wrapper's split of each GQA group over dK/dV CTAs (the sum kernel runs only then)
+    H, K = q.shape[2], k.shape[2]
+    splits = kv_splits(kern, q.shape[0], H, K, padded[1].shape[1],
+                       torch.cuda.get_device_properties(q.device).multi_processor_count)
+    launched = [n for n in kern.names if splits > 1 or "kv_sum" not in n]
     row = {"case": name, "kernel": kern.source, "shape": list(q.shape), "kv_heads": k.shape[2],
            "dtype": str(q.dtype), "window": window, "head_dim": q.shape[-1],
            "max_abs_err": max(errs.values()),
            "max_abs_err_by_grad": errs, "tol_of_max_ref": tol,
            "padding_rows": int(pad.sum()), "tiles": [kern.block_q, kern.block_k],
-           "skipped_tile_fraction": float((codes == 0).float().mean())}
+           "kv_splits": splits, "skipped_tile_fraction": float((codes == 0).float().mean())}
     if kern.dq_tiles is not None:
         row.update(dq_tiles=list(kern.dq_tiles),
                    dq_skipped_tile_fraction=float((codes_dq == 0).float().mean()),
@@ -314,9 +322,13 @@ def backward_case(name, q, k, v, seg, pos, tol, *, time_it, window=None):
             q, mask, 5, 2 * nbytes(q, k, v) + nbytes(out, d_out, lse) + 4 * nbytes(seg))
         us = device_us_by_kernel(call, 10)
         by_name = {kname: sum(t for key, t in us.items() if kname in key) / 1e3 / 10
-                   for kname in kern.names}
+                   for kname in launched}
         if not all(by_name.values()):  # also when the other source's kernels ran
             raise AssertionError(f"{name}: the profiler saw no device time for {by_name}")
+        if any("kv_sum" in n for n in kern.names):  # what the split buys, at every split
+            row["ms_by_splits"] = {s: sum(by_name.values()) if s == splits else
+                                   forced_split_ms(call, kern, s)
+                                   for s in range(1, H // K + 1) if (H // K) % s == 0}
         row.update(ms=sum(by_name.values()), ms_by_kernel=by_name,
                    wrapper_event_ms=cuda_ms(call, iters=10),
                    plain_ms=device_ms(plain, 2), bound_ms=bound, bound_by=by, flops=flops,
@@ -333,6 +345,20 @@ def backward_case(name, q, k, v, seg, pos, tol, *, time_it, window=None):
         row["tflops"] = flops / row["ms"] / 1e9
     log("backward", json.dumps(row))
     return row
+
+
+def forced_split_ms(call, kern, splits):
+    """Device ms of `call` (every kernel of `kern`) with the backward's GQA
+    group split over `splits` dK/dV CTAs instead of the wrapper's choice."""
+    import repro_torch.kernels.packed_flash_attn as pfa
+
+    chosen = pfa.kv_splits
+    pfa.kv_splits = lambda *a: splits
+    try:
+        us = device_us_by_kernel(call, 10)
+    finally:
+        pfa.kv_splits = chosen
+    return sum(t for key, t in us.items() if any(n in key for n in kern.names)) / 1e3 / 10
 
 
 def parity_model(cfg):
@@ -437,7 +463,8 @@ def arch_window(cfg):
 def family_kernel_phase(device):
     """Each dense arch's attention widths (head_dim 256 and 80; GQA groups 1
     and 7 at head_dim 128) on its packed train shape: 1 x 4096 of
-    `SyntheticPackedDataset` documents, at the window of its local layers.
+    `SyntheticPackedDataset` documents, at the window of its local layers
+    (and the bf16 backward at its global layers too, where it has both).
     The forward and backward kernels, bf16 and fp32, against their plain
     versions, each timed beside its bound, the plain version and SDPA."""
     from repro_torch.configs import get_arch
@@ -461,6 +488,10 @@ def family_kernel_phase(device):
                                      time_masked=False)
             rows[f"{name}_bwd"] = backward_case(f"{name}_bwd", *inputs, seg, pos, tol,
                                                 time_it=True, window=window)
+            if tag == "bf16" and window is not None and not all(
+                    spec.attn_kind == "swa" for spec in cfg.layer_specs()):  # global layers too
+                rows[f"{name}_global_bwd"] = backward_case(f"{name}_global_bwd", *inputs, seg,
+                                                           pos, tol, time_it=True)
             del inputs
             torch.cuda.empty_cache()
     return rows
@@ -780,16 +811,17 @@ def serve_phase(cfg, params, device, *, new_tokens=NEW_TOKENS, check_last=False)
 
 def bf16_launches(head_dim, *, forward, backward):
     """Expected launch counts of a bf16 run at `head_dim`: `forward` of the
-    forward source and `backward` of the backward source for that width,
-    none of the others, no plain-version call."""
+    tensor-core forward and `backward` of the tensor-core backward, none of
+    the CUDA-core sources (at every head width, 256 included), no
+    plain-version call."""
     from repro_torch.kernels.packed_flash_attn import (
         BWD_SIMT, BWD_SM90, SIMT, SM90, backward_kernel_for, kernel_for)
 
-    want = {SM90.source: 0, SIMT.source: 0, f"backward[{BWD_SM90.source}]": 0,
+    if (kernel_for(torch.bfloat16, head_dim).source != SM90.source
+            or backward_kernel_for(torch.bfloat16, head_dim).source != BWD_SM90.source):
+        raise AssertionError(f"bf16 at head_dim {head_dim} does not take the tensor-core kernels")
+    return {SM90.source: forward, SIMT.source: 0, f"backward[{BWD_SM90.source}]": backward,
             f"backward[{BWD_SIMT.source}]": 0, "plain_calls": 0}
-    want[kernel_for(torch.bfloat16, head_dim).source] = forward
-    want[f"backward[{backward_kernel_for(torch.bfloat16, head_dim).source}]"] = backward
-    return want
 
 
 def counting_plain_calls():
@@ -1210,18 +1242,80 @@ def ckpt_leaves(tree):
     return [tree]
 
 
-def sass_count(lib, opcode):
-    """Lines of the library's SASS (cuobjdump, beside nvcc) with `opcode`."""
+def sass_by_function(lib):
+    """{mangled kernel name: its SASS lines} of a library (cuobjdump, beside nvcc)."""
     from repro_torch.kernels import build
 
     cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
                           check=True).stdout
-    return sum(opcode in line for line in sass.splitlines())
+    funcs, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            funcs[name] = []
+        elif name is not None:
+            funcs[name].append(line)
+    return funcs
+
+
+def sass_count(lib, opcode):
+    """Lines of the library's SASS with `opcode`."""
+    return sum(opcode in line for lines in sass_by_function(lib).values() for line in lines)
+
+
+def ptxas_by_function(log):
+    """{mangled kernel name: registers and spill bytes} from a `ptxas -v` log."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[name].update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m[1])
+    return out
+
+
+# the head_dim 256 backward's dK/dV and dQ kernels, each checked on its own
+WIDE_BACKWARD_KERNELS = ("bwd_sm90_dkdv_split_kernel", "bwd_sm90_dq_kernel")
+
+
+def wide_backward_build_check():
+    """HGMMA instructions in the SASS of the dh 256 instantiations of the
+    bf16 backward's dK/dV and dQ kernels, and their registers and spills from
+    ptxas; fails on no HGMMA or any spill."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.packed_flash_attn import BWD_SM90_WIDE
+
+    sass = sass_by_function(build.library_path(BWD_SM90_WIDE.source))
+    ptxas = ptxas_by_function(build.build_log(BWD_SM90_WIDE.source))
+    report = {}
+    for kname in WIDE_BACKWARD_KERNELS:
+        found = [f for f in sass if kname in f and "ILi256E" in f]  # template argument 256
+        if len(found) != 1 or found[0] not in ptxas:
+            raise AssertionError(f"{kname}<256>: {len(found)} functions in the SASS ({found}), "
+                                 f"in the ptxas report: {[f in ptxas for f in found]}")
+        res = ptxas[found[0]]
+        row = {"function": found[0], "hgmma": sum("HGMMA" in line for line in sass[found[0]]),
+               **res}
+        if row["hgmma"] == 0:
+            raise AssertionError(f"{kname}<256>: no HGMMA instruction in its SASS")
+        if res.get("spill_stores", 1) or res.get("spill_loads", 1):
+            raise AssertionError(f"{kname}<256>: ptxas reports spills {res}")
+        report[kname] = row
+    return report
 
 
 TIMING_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err", "shape",
-               "kv_heads", "window", "dtype")
+               "kv_heads", "window", "dtype", "kv_splits", "ms_by_splits")
 
 
 def kernel_entries(record):
@@ -1302,11 +1396,14 @@ def kernel_entries(record):
               fk["llama2-7b_bf16_bwd"],
               {"llama2-7b pipeline": bwd(fam["llama2-7b_pipeline"], BWD_SM90.source)},
               others=("qwen2.5-7b_bf16_bwd",), head_dim=128),
-        entry("packed_flash_attention_backward[head_dim 256]", BWD_SIMT.source,
+        entry("packed_flash_attention_backward[head_dim 256]", BWD_SM90.source,
               fk["gemma3-1b_bf16_bwd"],
-              {"gemma3-1b train": bwd(fam["gemma3-1b_train"], BWD_SIMT.source),
-               "gemma3-1b pipeline": bwd(fam["gemma3-1b_pipeline"], BWD_SIMT.source)},
-              others=("gemma3-4b_bf16_bwd",), head_dim=256),
+              {"gemma3-1b train": bwd(fam["gemma3-1b_train"], BWD_SM90.source),
+               "gemma3-1b pipeline": bwd(fam["gemma3-1b_pipeline"], BWD_SM90.source)},
+              others=("gemma3-1b_bf16_global_bwd", "gemma3-4b_bf16_bwd",
+                      "gemma3-4b_bf16_global_bwd"), head_dim=256,
+              **{key: fk["gemma3-1b_bf16_bwd"].get(key) for key in
+                 ("tiles", "dq_tiles", "ms_by_kernel", "kv_splits", "ms_by_splits")}),
         entry("packed_flash_attention_backward[head_dim 80]", BWD_SM90.source,
               fk["h2o-danube-1.8b_bf16_bwd"],
               {"h2o-danube-1.8b train": bwd(fam["h2o-danube-1.8b_train"], BWD_SM90.source)},
@@ -1371,6 +1468,8 @@ def main(argv=None):
     for kern in (SM90, BWD_SM90):
         if record["hgmma_instructions"][kern.source] == 0:
             raise AssertionError(f"{kern.source}: no HGMMA instruction in its SASS")
+    record["head_dim_256_backward_build"] = wide_backward_build_check()
+    log(f"build: head_dim 256 backward {json.dumps(record['head_dim_256_backward_build'])}")
 
     cfg = get_arch("qwen3-8b")
     record["kernel"] = kernel_phase(cfg, device)

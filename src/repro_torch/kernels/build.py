@@ -4,8 +4,8 @@ Each source under `csrc/` compiles on its own into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds), named by a
 hash of the source and of every header it includes from `csrc/` (quoted
 includes, followed recursively), so that an edit of either triggers a
-rebuild. Libraries go to `kernels/_build/`, which git ignores. Nothing here
-runs at import.
+rebuild. Libraries go to `kernels/_build/`, which git ignores, each beside
+the log of its build. Nothing here runs at import.
 """
 from __future__ import annotations
 
@@ -95,7 +95,17 @@ def finish(build: Build | None) -> None:
     if build.proc.returncode != 0:
         Path(build.tmp).unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed on {build.source}:\n{log}")
+    build.out.with_suffix(".log").write_text(log)
     os.replace(build.tmp, build.out)  # atomic: concurrent builders agree
+
+
+def build_log(source: str) -> str:
+    """The nvcc/ptxas output (registers, spills per kernel) of the build of
+    `source`'s current library, whichever process built it; "" if none."""
+    if source in build_logs:
+        return build_logs[source]
+    path = library_path(source).with_suffix(".log")
+    return path.read_text() if path.exists() else ""
 
 
 def build_all(sources=None) -> None:

@@ -1,15 +1,12 @@
-// Packed (segment-aware) flash attention, backward, fp32 (and bf16 at dh 256),
-// for Hopper (sm_90a), on the CUDA cores.
+// Packed (segment-aware) flash attention, backward, fp32, for Hopper
+// (sm_90a), on the CUDA cores.
 //
 // The gradient of the Pallas TPU kernel `_attn_kernel`, launched by
 // `packed_flash_attention` in src/repro/kernels/packed_flash_attn.py, for
 // fp32 inputs: the fp32 parity path's backward. bf16 inputs take the
-// tensor-core backward in packed_flash_attn_bwd_sm90.cu, except at dh 256
-// (gemma3), where its dK and dV accumulators (2 x 64 x 256 fp32 a
-// warpgroup, 256 registers a thread) do not fit: bf16 at dh 256 runs here,
-// its tiles read as bf16 and held in fp32, its gradients rounded to bf16 at
-// the store. TF32 tensor cores cannot hold the fp32 path's 1e-4 tolerance, so
-// fp32 stays on the CUDA cores. The JAX package has no backward kernel (it trains through its jnp
+// tensor-core backward in packed_flash_attn_bwd_sm90.cu. TF32 tensor cores
+// cannot hold the fp32 path's 1e-4 tolerance, so fp32 stays on the CUDA
+// cores. The JAX package has no backward kernel (it trains through its jnp
 // attention, which XLA differentiates); this one computes the same gradient
 // under the forward kernels' tile skip, so that a training micro-batch costs
 // sum(l_i^2) rather than N^2 in its backward too. The mask is the forward's
@@ -53,7 +50,6 @@
 // Rows and keys beyond the sequence are zero-filled and carry segment id 0
 // (the wrapper pads seg/pos).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -74,28 +70,6 @@ __device__ __forceinline__ void unpack(const uint4& raw, float* o) {
   o[2] = __uint_as_float(raw.z); o[3] = __uint_as_float(raw.w);
 }
 
-// 16 bytes of bf16 -> 8 floats (a bf16 is the high half of its float)
-__device__ __forceinline__ void unpack_bf16(const uint4& raw, float* o) {
-  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    o[2 * i] = __uint_as_float(w[i] << 16);
-    o[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 template <int N>
 __device__ __forceinline__ void lds(const float* p, float* o) {
   if constexpr (N == 4) {
@@ -111,33 +85,19 @@ __device__ __forceinline__ void lds(const float* p, float* o) {
 
 // Copy rows [row0, row0 + TB) of one head into a padded fp32 shared tile;
 // rows at or past `limit` become zeros.
-template <typename T, int DH>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int row0, int limit,
+template <int DH>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, int row0, int limit,
                                           size_t row_stride) {
   constexpr int TB = tile_rows<DH>();
   constexpr int LDT = DH + PAD;
-  constexpr int CH = 16 / sizeof(T);  // elements per 16-byte chunk
-  constexpr int CPR = DH / CH;        // chunks per row
+  constexpr int CPR = DH / 4;  // 16-byte chunks per row
   for (int idx = threadIdx.x; idx < TB * CPR; idx += THREADS) {
     const int r = idx / CPR;
-    const int c = (idx % CPR) * CH;
+    const int c = (idx % CPR) * 4;
     const int s = row0 + r;
-    float vals[CH];
-    if (s < limit) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(src + (size_t)s * row_stride + c);
-      if constexpr (sizeof(T) == 4) {
-        unpack(raw, vals);
-      } else {
-        unpack_bf16(raw, vals);
-      }
-    } else {
-#pragma unroll
-      for (int e = 0; e < CH; ++e) vals[e] = 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < CH; e += 4)
-      *reinterpret_cast<float4*>(dst + r * LDT + c + e) =
-          make_float4(vals[e], vals[e + 1], vals[e + 2], vals[e + 3]);
+    float vals[4] = {0.f, 0.f, 0.f, 0.f};
+    if (s < limit) unpack(*reinterpret_cast<const uint4*>(src + (size_t)s * row_stride + c), vals);
+    *reinterpret_cast<float4*>(dst + r * LDT + c) = make_float4(vals[0], vals[1], vals[2], vals[3]);
   }
 }
 
@@ -209,9 +169,9 @@ struct Rows {  // per-row metadata of the current query tile, in shared memory
 
 // Load the query-side tiles of (batch b, head h, query tile qt): Q, dO, and
 // the rows' segment ids, positions, lse and delta.
-template <typename T, int DH>
-__device__ __forceinline__ void load_query_side(float* Qs, float* dOs, Rows rows, const T* q,
-                                                const T* d_out, const float* lse,
+template <int DH>
+__device__ __forceinline__ void load_query_side(float* Qs, float* dOs, Rows rows, const float* q,
+                                                const float* d_out, const float* lse,
                                                 const float* delta, const int* seg_q,
                                                 const int* pos_q, int b, int h, int qt, int Sq,
                                                 int H, int nQ) {
@@ -219,8 +179,8 @@ __device__ __forceinline__ void load_query_side(float* Qs, float* dOs, Rows rows
   const size_t stride = (size_t)H * DH;
   const size_t base = (size_t)b * Sq * stride + (size_t)h * DH;
   const int q0 = qt * TB;
-  load_tile<T, DH>(Qs, q + base, q0, Sq, stride);
-  load_tile<T, DH>(dOs, d_out + base, q0, Sq, stride);
+  load_tile<DH>(Qs, q + base, q0, Sq, stride);
+  load_tile<DH>(dOs, d_out + base, q0, Sq, stride);
   for (int r = threadIdx.x; r < TB; r += THREADS) {
     const size_t i = (size_t)b * nQ * TB + q0 + r;  // seg/pos padded with zeros
     rows.seg[r] = seg_q[i];
@@ -232,16 +192,17 @@ __device__ __forceinline__ void load_query_side(float* Qs, float* dOs, Rows rows
   }
 }
 
-template <typename T, int DH>
-__device__ __forceinline__ void load_key_side(float* Ks, float* Vs, int* sk, int* pk, const T* k,
-                                              const T* v, const int* seg_k, const int* pos_k,
-                                              int b, int kh, int kt, int Sk, int KH, int nK) {
+template <int DH>
+__device__ __forceinline__ void load_key_side(float* Ks, float* Vs, int* sk, int* pk,
+                                              const float* k, const float* v, const int* seg_k,
+                                              const int* pos_k, int b, int kh, int kt, int Sk,
+                                              int KH, int nK) {
   constexpr int TB = tile_rows<DH>();
   const size_t stride = (size_t)KH * DH;
   const size_t base = (size_t)b * Sk * stride + (size_t)kh * DH;
   const int k0 = kt * TB;
-  load_tile<T, DH>(Ks, k + base, k0, Sk, stride);
-  load_tile<T, DH>(Vs, v + base, k0, Sk, stride);
+  load_tile<DH>(Ks, k + base, k0, Sk, stride);
+  load_tile<DH>(Vs, v + base, k0, Sk, stride);
   for (int r = threadIdx.x; r < TB; r += THREADS) {
     const size_t i = (size_t)b * nK * TB + k0 + r;
     sk[r] = seg_k[i];
@@ -281,17 +242,17 @@ __device__ __forceinline__ void probs_and_dscores(const float* Qs, const float* 
 }
 
 // (a) delta[b, h, s] = sum_d dO[b, s, h, d] * O[b, s, h, d]: one warp per row
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(DELTA_WARPS * 32)
-bwd_delta_kernel(const T* __restrict__ out, const T* __restrict__ d_out,
+bwd_delta_kernel(const float* __restrict__ out, const float* __restrict__ d_out,
                  float* __restrict__ delta, int Sq, int H, long long rows) {
   const long long row = (long long)blockIdx.x * DELTA_WARPS + (threadIdx.x >> 5);
   if (row >= rows) return;  // uniform over the warp
   const int lane = threadIdx.x & 31;
-  const T* o = out + row * DH;
-  const T* g = d_out + row * DH;
+  const float* o = out + row * DH;
+  const float* g = d_out + row * DH;
   float acc = 0.f;
-  for (int d = lane; d < DH; d += 32) acc = fmaf(to_float(o[d]), to_float(g[d]), acc);
+  for (int d = lane; d < DH; d += 32) acc = fmaf(o[d], g[d], acc);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) {
@@ -304,15 +265,16 @@ bwd_delta_kernel(const T* __restrict__ out, const T* __restrict__ d_out,
 }
 
 // (b) dK, dV of one key tile of one KV head
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(THREADS, 1)
-bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                const T* __restrict__ d_out, const float* __restrict__ lse,
+bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ d_out,
+                const float* __restrict__ lse,
                 const float* __restrict__ delta, const int* __restrict__ seg_q,
                 const int* __restrict__ seg_k, const int* __restrict__ pos_q,
                 const int* __restrict__ pos_k, const int8_t* __restrict__ blk_ok,
-                T* __restrict__ dk, T* __restrict__ dv, int Sq, int Sk, int H, int KH, int nQ,
-                int nK, float scale, int causal, int has_window, int window) {
+                float* __restrict__ dk, float* __restrict__ dv, int Sq, int Sk, int H, int KH,
+                int nQ, int nK, float scale, int causal, int has_window, int window) {
   using M = Smem<DH>;
   constexpr int TB = M::TB, R = M::R, LDS = M::LDS, LDT = M::LDT;
   constexpr int DC = M::DC, VEC = M::VEC, NM = M::NM;
@@ -326,7 +288,7 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 
   const int kt = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, rk = tid >> 4, cc = tid & 15;
-  load_key_side<T, DH>(Ks, Vs, sk, pk, k, v, seg_k, pos_k, b, kh, kt, Sk, KH, nK);
+  load_key_side<DH>(Ks, Vs, sk, pk, k, v, seg_k, pos_k, b, kh, kt, Sk, KH, nK);
 
   float dk_acc[R][DC], dv_acc[R][DC];
 #pragma unroll
@@ -340,8 +302,8 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
       const int code = blk_ok[((size_t)b * nQ + qt) * nK + kt];
       if (!code) continue;  // uniform over the CTA
       __syncthreads();      // the previous pair's reads of Qs, dOs, Ps, dSs are done
-      load_query_side<T, DH>(Qs, dOs, rows, q, d_out, lse, delta, seg_q, pos_q, b, h, qt, Sq,
-                             H, nQ);
+      load_query_side<DH>(Qs, dOs, rows, q, d_out, lse, delta, seg_q, pos_q, b, h, qt, Sq, H,
+                          nQ);
       __syncthreads();
       probs_and_dscores<DH>(Qs, dOs, Ks, Vs, rows, sk, pk, Ps, dSs, code, scale, causal,
                             has_window, window);
@@ -383,21 +345,22 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 #pragma unroll
       for (int e = 0; e < VEC; ++e) {
         const int c = cc * VEC + 16 * VEC * mm + e;
-        dk[row + c] = from_float<T>(dk_acc[i][mm * VEC + e] * scale);
-        dv[row + c] = from_float<T>(dv_acc[i][mm * VEC + e]);
+        dk[row + c] = dk_acc[i][mm * VEC + e] * scale;
+        dv[row + c] = dv_acc[i][mm * VEC + e];
       }
   }
 }
 
 // (c) dQ of one query tile of one head
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(THREADS, 1)
-bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-              const T* __restrict__ d_out, const float* __restrict__ lse,
+bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const float* __restrict__ d_out,
+              const float* __restrict__ lse,
               const float* __restrict__ delta, const int* __restrict__ seg_q,
               const int* __restrict__ seg_k, const int* __restrict__ pos_q,
               const int* __restrict__ pos_k, const int8_t* __restrict__ blk_ok,
-              T* __restrict__ dq, int Sq, int Sk, int H, int KH, int nQ, int nK, float scale,
+              float* __restrict__ dq, int Sq, int Sk, int H, int KH, int nQ, int nK, float scale,
               int causal, int has_window, int window) {
   using M = Smem<DH>;
   constexpr int TB = M::TB, R = M::R, LDS = M::LDS, LDT = M::LDT;
@@ -413,7 +376,7 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int kh = h * KH / H;
   const int tid = threadIdx.x, rq = tid >> 4, cc = tid & 15;
-  load_query_side<T, DH>(Qs, dOs, rows, q, d_out, lse, delta, seg_q, pos_q, b, h, qt, Sq, H, nQ);
+  load_query_side<DH>(Qs, dOs, rows, q, d_out, lse, delta, seg_q, pos_q, b, h, qt, Sq, H, nQ);
 
   float acc[R][DC];
 #pragma unroll
@@ -426,7 +389,7 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     const int code = codes[kt];
     if (!code) continue;
     __syncthreads();  // the previous pair's reads of Ks, Vs, dSs are done
-    load_key_side<T, DH>(Ks, Vs, sk, pk, k, v, seg_k, pos_k, b, kh, kt, Sk, KH, nK);
+    load_key_side<DH>(Ks, Vs, sk, pk, k, v, seg_k, pos_k, b, kh, kt, Sk, KH, nK);
     __syncthreads();
     probs_and_dscores<DH>(Qs, dOs, Ks, Vs, rows, sk, pk, nullptr, dSs, code, scale, causal,
                           has_window, window);
@@ -460,19 +423,19 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     for (int mm = 0; mm < NM; ++mm)
 #pragma unroll
       for (int e = 0; e < VEC; ++e)
-        dq[row + cc * VEC + 16 * VEC * mm + e] = from_float<T>(acc[i][mm * VEC + e] * scale);
+        dq[row + cc * VEC + 16 * VEC * mm + e] = acc[i][mm * VEC + e] * scale;
   }
 }
 
-template <typename T, int DH>
+template <int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* out,
                    const void* d_out, const void* lse, const void* seg_q, const void* seg_k,
                    const void* pos_q, const void* pos_k, const void* blk_ok, void* delta,
                    void* dq, void* dk, void* dv, int B, int Sq, int Sk, int H, int KH, int nQ,
                    int nK, float scale, int causal, int has_window, int window,
                    cudaStream_t stream) {
-  const T *qp = static_cast<const T*>(q), *kp = static_cast<const T*>(k),
-          *vp = static_cast<const T*>(v), *gp = static_cast<const T*>(d_out);
+  const float *qp = static_cast<const float*>(q), *kp = static_cast<const float*>(k),
+              *vp = static_cast<const float*>(v), *gp = static_cast<const float*>(d_out);
   const float* lp = static_cast<const float*>(lse);
   float* dp = static_cast<float*>(delta);
   const int *sq = static_cast<const int*>(seg_q), *sk = static_cast<const int*>(seg_k),
@@ -480,52 +443,47 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* out,
   const int8_t* codes = static_cast<const int8_t*>(blk_ok);
 
   const long long rows = (long long)B * Sq * H;
-  bwd_delta_kernel<T, DH><<<(unsigned)((rows + DELTA_WARPS - 1) / DELTA_WARPS),
-                            DELTA_WARPS * 32, 0, stream>>>(static_cast<const T*>(out), gp, dp,
-                                                           Sq, H, rows);
+  bwd_delta_kernel<DH><<<(unsigned)((rows + DELTA_WARPS - 1) / DELTA_WARPS), DELTA_WARPS * 32, 0,
+                         stream>>>(static_cast<const float*>(out), gp, dp, Sq, H, rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   constexpr size_t smem = Smem<DH>::BYTES;
-  auto dkdv = bwd_dkdv_kernel<T, DH>;
+  auto dkdv = bwd_dkdv_kernel<DH>;
   err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dkdv<<<dim3(nK, KH, B), THREADS, smem, stream>>>(
-      qp, kp, vp, gp, lp, dp, sq, sk, pq, pk, codes, static_cast<T*>(dk), static_cast<T*>(dv),
-      Sq, Sk, H, KH, nQ, nK, scale, causal, has_window, window);
+      qp, kp, vp, gp, lp, dp, sq, sk, pq, pk, codes, static_cast<float*>(dk),
+      static_cast<float*>(dv), Sq, Sk, H, KH, nQ, nK, scale, causal, has_window, window);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  auto dqk = bwd_dq_kernel<T, DH>;
+  auto dqk = bwd_dq_kernel<DH>;
   err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dqk<<<dim3(nQ, H, B), THREADS, smem, stream>>>(qp, kp, vp, gp, lp, dp, sq, sk, pq, pk, codes,
-                                                 static_cast<T*>(dq), Sq, Sk, H, KH, nQ, nK,
+                                                 static_cast<float*>(dq), Sq, Sk, H, KH, nQ, nK,
                                                  scale, causal, has_window, window);
   return cudaGetLastError();
 }
 
-cudaError_t dispatch(int head_dim, int bf16, const void* q, const void* k, const void* v,
+cudaError_t dispatch(int head_dim, const void* q, const void* k, const void* v,
                      const void* out, const void* d_out, const void* lse, const void* seg_q,
                      const void* seg_k, const void* pos_q, const void* pos_k, const void* blk_ok,
                      void* delta, void* dq, void* dk, void* dv, int B, int Sq, int Sk, int H,
                      int KH, int nQ, int nK, float scale, int causal, int has_window, int window,
                      cudaStream_t stream) {
-#define PFA_CASE(T, DH)                                                                      \
+#define PFA_CASE(DH)                                                                         \
   if (head_dim == DH)                                                                        \
-    return launch<T, DH>(q, k, v, out, d_out, lse, seg_q, seg_k, pos_q, pos_k, blk_ok, delta, \
-                         dq, dk, dv, B, Sq, Sk, H, KH, nQ, nK, scale, causal, has_window,     \
-                         window, stream);
-  if (bf16) {  // the widths the tensor-core backward does not take
-    PFA_CASE(__nv_bfloat16, 256)
-  } else {
-    PFA_CASE(float, 16)
-    PFA_CASE(float, 32)
-    PFA_CASE(float, 64)
-    PFA_CASE(float, 80)
-    PFA_CASE(float, 128)
-    PFA_CASE(float, 256)
-  }
+    return launch<DH>(q, k, v, out, d_out, lse, seg_q, seg_k, pos_q, pos_k, blk_ok, delta,    \
+                      dq, dk, dv, B, Sq, Sk, H, KH, nQ, nK, scale, causal, has_window,        \
+                      window, stream);
+  PFA_CASE(16)
+  PFA_CASE(32)
+  PFA_CASE(64)
+  PFA_CASE(80)
+  PFA_CASE(128)
+  PFA_CASE(256)
 #undef PFA_CASE
   return cudaErrorInvalidValue;
 }
@@ -541,21 +499,21 @@ extern "C" {
 int packed_flash_attn_bwd_block_q(int head_dim) { return tile_rows_at(head_dim); }
 int packed_flash_attn_bwd_block_k(int head_dim) { return tile_rows_at(head_dim); }
 
-// q, out, d_out, dq (B,Sq,H,dh); k, v, dk, dv (B,Sk,KH,dh): fp32, or bf16
-// (`bf16` nonzero, dh 256 only). lse and delta (scratch, written here) are
-// fp32 (B,H,Sq); lse is the forward's row log-sum-exp of the scaled scores,
+// fp32 q, out, d_out, dq (B,Sq,H,dh); k, v, dk, dv (B,Sk,KH,dh). lse and
+// delta (scratch, written here) are fp32 (B,H,Sq); lse is the forward's row
+// log-sum-exp of the scaled scores,
 // +inf on rows with no visible key. seg/pos are int32 padded with zeros to
 // (B, nQ*TB) and (B, nK*TB); blk_ok is (B, nQ, nK) int8 tile codes (0 skip,
 // 1 mask, 2 all visible). Launches three kernels on `stream`; returns the
 // first cudaError_t that is not success.
-int packed_flash_attn_bwd_launch(int head_dim, int bf16, const void* q, const void* k,
-                                 const void* v, const void* out, const void* d_out, const void* lse,
+int packed_flash_attn_bwd_launch(int head_dim, const void* q, const void* k, const void* v,
+                                 const void* out, const void* d_out, const void* lse,
                                  const void* seg_q, const void* seg_k, const void* pos_q,
                                  const void* pos_k, const void* blk_ok, void* delta, void* dq,
                                  void* dk, void* dv, int B, int Sq, int Sk, int H, int KH,
                                  int nQ, int nK, float scale, int causal, int has_window,
                                  int window, void* stream) {
-  return (int)dispatch(head_dim, bf16, q, k, v, out, d_out, lse, seg_q, seg_k, pos_q, pos_k,
+  return (int)dispatch(head_dim, q, k, v, out, d_out, lse, seg_q, seg_k, pos_q, pos_k,
                        blk_ok, delta, dq, dk, dv, B, Sq, Sk, H, KH, nQ, nK, scale, causal,
                        has_window, window, static_cast<cudaStream_t>(stream));
 }

@@ -64,16 +64,48 @@
 // forward's chunked swizzled layout (sm90_common.cuh); TMA maps are 4-D over
 // (dh, heads, S, B), so rows and keys past the sequence are zero-filled. Tile
 // codes: 0 skip, 1 mask per element, 2 every pair visible (no mask).
+//
+// Head width 256 (gemma3) has its own tiles (`Tiles<256>`) and dK/dV kernel,
+// because a warpgroup cannot hold 64 x 256 fp32 dK and dV at once (256
+// registers a thread against the 232 that setmaxnreg gives a consumer):
+//   (b') dK/dV: a CTA owns 64 keys (wgmma's least M), and its two consumer
+//       warpgroups split the products rather than the keys. Warpgroup 0
+//       computes S^T = K Q^T, forms P^T, and owns dV += P^T dO; warpgroup 1
+//       computes dP^T = V dO^T and owns dK += dS^T Q, taking P^T (fp32, 16
+//       KB, in the accumulator order both share) from warpgroup 0 through
+//       shared memory under two named barriers (full, empty). Each holds one
+//       128-register accumulator plus a 64 x 64 score tile, and the CTA still
+//       runs 4 products a visible pair: splitting dh instead would recompute
+//       S^T and dP^T in both warpgroups (6). K and V take 64 KB, a stage of
+//       64-row Q and dO 65 KB, two stages and P^T 210 KB. Where KV heads x
+//       key tiles leave SMs idle (gemma3-1b: one KV head, 64 CTAs on 132
+//       SMs), the wrapper splits each GQA group's query heads over
+//       `splits` CTAs, which store fp32 parts of dK and dV; (d) sums them in
+//       split order and rounds to bf16, so the result stays deterministic.
+//   (c') dQ: 128-row CTAs as at the other widths, Q and dO resident (128
+//       KB), so K and V stream in 32-key stages (33 KB, two stages); S and dP
+//       are m64n32 products and dQ += dS K two m64n128 products over the
+//       halves of dh, as the forward fills its O at this width.
+// The dK/dV kernel's map is at 64 x 64 tiles and the dQ kernel's at 128 x 32;
+// the wrapper derives both from one map at 64 x 32 by `coarsen`.
 
 #include "sm90_common.cuh"
 
 namespace {
 
-constexpr int KV_BQ = 64;                 // dK/dV: query rows per streamed tile
-constexpr int KV_BK = 128;                // dK/dV: keys per CTA
-constexpr int DQ_BQ = 128;                // dQ: query rows per CTA
-constexpr int DQ_BK = 128;                // dQ: keys per streamed tile
-constexpr int PAD = 128;                  // row padding of lse2, delta, seg, pos
+// Tiles of a head width: dK/dV (query rows per streamed tile, keys per CTA),
+// dQ (query rows per CTA, keys per streamed tile), and the multiples the
+// wrapper pads the query and key ids (and lse2, delta) to.
+template <int DH>
+struct Tiles {
+  static constexpr int KV_BQ = 64, KV_BK = 128, DQ_BQ = 128, DQ_BK = 128;
+  static constexpr int PAD_Q = 128, PAD_K = 128;
+};
+template <>
+struct Tiles<256> {
+  static constexpr int KV_BQ = 64, KV_BK = 64, DQ_BQ = 128, DQ_BK = 32;
+  static constexpr int PAD_Q = 128, PAD_K = 64;
+};
 constexpr int CONSUMERS = 256;            // two warpgroups of 64 rows each
 constexpr int THREADS = CONSUMERS + 128;  // and one producer warpgroup
 constexpr int STAGES = 2;                 // ring depth
@@ -84,37 +116,54 @@ constexpr int DELTA_THREADS = 256;
 // the consumers. 2 x 232 + 40 = 3 x 168.
 constexpr int PRODUCER_REGS = 40;
 constexpr int CONSUMER_REGS = 232;
-static_assert(PAD % KV_BQ == 0 && PAD % KV_BK == 0 && PAD % DQ_BQ == 0 && PAD % DQ_BK == 0,
+// named barriers of the dh 256 dK/dV kernel's P^T hand-over (0 is __syncthreads)
+constexpr int BAR_P_FULL = 1, BAR_P_EMPTY = 2;
+
+template <int DH>
+__host__ __device__ constexpr bool tiles_divide_padding() {
+  using T = Tiles<DH>;
+  return T::PAD_Q % T::KV_BQ == 0 && T::PAD_Q % T::DQ_BQ == 0 && T::PAD_K % T::KV_BK == 0 &&
+         T::PAD_K % T::DQ_BK == 0;
+}
+static_assert(tiles_divide_padding<128>() && tiles_divide_padding<256>(),
               "every tile divides the padding");
 
 // dK/dV shared memory: K and V tiles, then per stage the Q and dO tiles and
-// the rows' lse2, delta, segment ids and positions; then the barriers.
+// the rows' lse2, delta, segment ids and positions; at dh 256 then the fp32
+// P^T tile the two warpgroups hand over; then the barriers.
 template <int DH>
 struct KvSmem {
-  static constexpr int KT_BYTES = KV_BK * DH * 2;
-  static constexpr int QT_BYTES = KV_BQ * DH * 2;
-  static constexpr int META_BYTES = 4 * KV_BQ * 4;
+  using T = Tiles<DH>;
+  static constexpr int KT_BYTES = T::KV_BK * DH * 2;
+  static constexpr int QT_BYTES = T::KV_BQ * DH * 2;
+  static constexpr int META_BYTES = 4 * T::KV_BQ * 4;
   static constexpr int STAGE_BYTES = 2 * QT_BYTES + META_BYTES;
   static constexpr int STAGE0 = 2 * KT_BYTES;
-  static constexpr int BAR = STAGE0 + STAGES * STAGE_BYTES;  // kv, full[STAGES], empty[STAGES]
+  static constexpr int PT = STAGE0 + STAGES * STAGE_BYTES;
+  static constexpr int PT_BYTES = DH > 128 ? T::KV_BK * T::KV_BQ * 4 : 0;
+  static constexpr int BAR = PT + PT_BYTES;  // kv, full[STAGES], empty[STAGES]
   static constexpr int ALLOC = BAR + (1 + 2 * STAGES) * 8 + 1024;  // + slack to align to 1024
   static_assert(KT_BYTES % 1024 == 0 && QT_BYTES % 1024 == 0 && META_BYTES % 1024 == 0,
                 "swizzle atoms need 1024-byte alignment");
+  static_assert(ALLOC <= 232448, "more shared memory than a CTA can have");
 };
 
 // dQ shared memory: Q and dO tiles, then per stage the K and V tiles and the
-// keys' segment ids and positions; then the barriers.
+// keys' segment ids and positions (padded to 1 KB); then the barriers.
 template <int DH>
 struct DqSmem {
-  static constexpr int QT_BYTES = DQ_BQ * DH * 2;
-  static constexpr int KT_BYTES = DQ_BK * DH * 2;
-  static constexpr int META_BYTES = 2 * DQ_BK * 4;
+  using T = Tiles<DH>;
+  static constexpr int QT_BYTES = T::DQ_BQ * DH * 2;
+  static constexpr int KT_BYTES = T::DQ_BK * DH * 2;
+  static constexpr int META_BYTES = (2 * T::DQ_BK * 4 + 1023) / 1024 * 1024;
   static constexpr int STAGE_BYTES = 2 * KT_BYTES + META_BYTES;
+  static constexpr int LOAD_BYTES = 2 * KT_BYTES + 2 * T::DQ_BK * 4;  // what a stage's copies bring
   static constexpr int STAGE0 = 2 * QT_BYTES;
   static constexpr int BAR = STAGE0 + STAGES * STAGE_BYTES;  // q, full[STAGES], empty[STAGES]
   static constexpr int ALLOC = BAR + (1 + 2 * STAGES) * 8 + 1024;
   static_assert(QT_BYTES % 1024 == 0 && KT_BYTES % 1024 == 0 && META_BYTES % 1024 == 0,
                 "swizzle atoms need 1024-byte alignment");
+  static_assert(ALLOC <= 232448, "more shared memory than a CTA can have");
 };
 
 __device__ __forceinline__ bool visible(int sq, int pq, int sk, int pk, int causal,
@@ -170,7 +219,7 @@ bwd_sm90_delta_kernel(const __nv_bfloat16* __restrict__ out, const __nv_bfloat16
   }
 }
 
-// (b) dK, dV of 128 keys of one KV head
+// (b) dK, dV of KV_BK (128) keys of one KV head, dh <= 128
 template <int DH>
 __global__ void __launch_bounds__(THREADS, 1)
 bwd_sm90_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -185,6 +234,7 @@ bwd_sm90_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
                      int has_window, int window) {
   using C = Chunking<DH>;
   using M = KvSmem<DH>;
+  constexpr int KV_BQ = Tiles<DH>::KV_BQ, KV_BK = Tiles<DH>::KV_BK;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -360,7 +410,299 @@ bwd_sm90_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// (c) dQ of 128 query rows of one head
+// (b') dK, dV of 64 keys of one KV head at dh 256: warpgroup 0 computes
+// S^T and P^T and owns dV, warpgroup 1 computes dP^T and owns dK, P^T
+// passing from 0 to 1 through shared memory
+template <int DH>
+__global__ void __launch_bounds__(THREADS, 1)
+bwd_sm90_dkdv_split_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_do,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const float* __restrict__ lse2, const float* __restrict__ delta,
+                           const int* __restrict__ seg_q, const int* __restrict__ seg_k,
+                           const int* __restrict__ pos_q, const int* __restrict__ pos_k,
+                           const int8_t* __restrict__ blk, __nv_bfloat16* __restrict__ dk,
+                           __nv_bfloat16* __restrict__ dv, int Sk, int Sqp, int Skp, int H,
+                           int KH, float scale, float scale_log2, int causal, int has_window,
+                           int window, int splits, float* __restrict__ part) {
+  using C = Chunking<DH>;
+  using M = KvSmem<DH>;
+  constexpr int KV_BQ = Tiles<DH>::KV_BQ, KV_BK = Tiles<DH>::KV_BK;
+  constexpr int ON = 128;  // N of one dV or dK product: two over the halves of dh
+  static_assert(KV_BK == 64 && DH % ON == 0, "one warpgroup's M per CTA, dh in halves");
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t bar_kv = base + M::BAR;
+  auto bar_full = [&](int s) { return bar_kv + 8u * (1 + s); };
+  auto bar_empty = [&](int s) { return bar_kv + 8u * (1 + STAGES + s); };
+
+  // blockIdx.x: KV head kh, split sp of its GQA group; early (heavy) key tiles first
+  const int kh = blockIdx.x / splits, sp = blockIdx.x % splits, b = blockIdx.y, kt = blockIdx.z;
+  const int nQ = Sqp / KV_BQ, nK = Skp / KV_BK, heads = H / KH / splits;
+  const int h0 = kh * H / KH + sp * heads, h1 = h0 + heads;  // this CTA's query heads
+  const int8_t* codes = blk + (size_t)b * nQ * nK + kt;  // this key tile's column: codes[qt * nK]
+  const int tid = threadIdx.x;
+
+  if (tid == 0) init_ring(bar_kv);
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {
+    // producer warpgroup: one thread issues every copy, as in (b)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (tid == CONSUMERS) {
+      mbar_expect_tx(bar_kv, 2 * M::KT_BYTES);
+#pragma unroll
+      for (int c = 0; c < C::NCH; ++c) {
+        tma_load_4d(base + c * KV_BK * C::SW, &tm_k, bar_kv, c * C::CW, kh, kt * KV_BK, b);
+        tma_load_4d(base + M::KT_BYTES + c * KV_BK * C::SW, &tm_v, bar_kv, c * C::CW, kh,
+                    kt * KV_BK, b);
+      }
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int h = h0; h < h1; ++h) {
+        for (int qt = 0; qt < nQ; ++qt) {
+          if (!codes[(size_t)qt * nK]) continue;
+          mbar_wait(bar_empty(stage), phase ^ 1u);
+          const uint32_t full = bar_full(stage);
+          mbar_expect_tx(full, M::STAGE_BYTES);
+          const uint32_t dst = base + M::STAGE0 + stage * M::STAGE_BYTES;
+#pragma unroll
+          for (int c = 0; c < C::NCH; ++c) {
+            tma_load_4d(dst + c * KV_BQ * C::SW, &tm_q, full, c * C::CW, h, qt * KV_BQ, b);
+            tma_load_4d(dst + M::QT_BYTES + c * KV_BQ * C::SW, &tm_do, full, c * C::CW, h,
+                        qt * KV_BQ, b);
+          }
+          const uint32_t meta = dst + 2 * M::QT_BYTES;
+          const size_t stat = ((size_t)b * H + h) * Sqp + (size_t)qt * KV_BQ;
+          const size_t ids = (size_t)b * Sqp + (size_t)qt * KV_BQ;
+          bulk_load(meta, lse2 + stat, KV_BQ * 4, full);
+          bulk_load(meta + KV_BQ * 4, delta + stat, KV_BQ * 4, full);
+          bulk_load(meta + 2 * KV_BQ * 4, seg_q + ids, KV_BQ * 4, full);
+          bulk_load(meta + 3 * KV_BQ * 4, pos_q + ids, KV_BQ * 4, full);
+          if (++stage == STAGES) { stage = 0; phase ^= 1u; }
+        }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+
+  // consumers: both warpgroups cover the CTA's 64 keys; this thread holds
+  // keys r0 and r0 + 8 (the rows of S^T, dP^T) and queries 8i + cq (+1) of
+  // each streamed tile (the columns), in the same places in both warpgroups
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31, t128 = tid & 127;
+  const int r0 = 16 * warp + (lane >> 2);
+  const int cq = 2 * (lane & 3);
+  float4* pt = reinterpret_cast<float4*>(smem + M::PT);  // P^T, [KV_BQ / 8][128 threads]
+  const uint32_t k_addr = base, v_addr = base + M::KT_BYTES;
+  // warpgroup 0: dV = P^T dO; warpgroup 1: dK = dS^T Q (scaled at the store)
+  float acc[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+
+  mbar_wait(bar_kv, 0);
+  int stage = 0, tiles = 0;
+  uint32_t phase = 0;
+  if (wg == 0) {
+    int sk[2], pk[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const size_t i = (size_t)b * Skp + (size_t)kt * KV_BK + r0 + 8 * j;  // padded: in range
+      sk[j] = seg_k[i];
+      pk[j] = pos_k[i];
+    }
+    for (int h = h0; h < h1; ++h) {
+      for (int qt = 0; qt < nQ; ++qt) {
+        const int code = codes[(size_t)qt * nK];
+        if (!code) continue;
+        mbar_wait(bar_full(stage), phase);
+        const uint32_t q_addr = base + M::STAGE0 + stage * M::STAGE_BYTES;
+        const uint32_t do_addr = q_addr + M::QT_BYTES;
+
+        // S^T = K Q^T: m64 keys x n64 queries, dh / 16 k-steps
+        float s[KV_BQ / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DH / 16; ++kk)
+          Wgmma<KV_BQ>::ss(s, kmajor_desc<DH>(k_addr, KV_BK, kk),
+                           kmajor_desc<DH>(q_addr, KV_BQ, kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait_all();
+        pin(s);
+
+        // P^T = exp2(S^T scale log2e - lse2) where visible, else 0
+        const float* row_lse = reinterpret_cast<const float*>(
+            smem + M::STAGE0 + stage * M::STAGE_BYTES + 2 * M::QT_BYTES);
+        const int* row_seg = reinterpret_cast<const int*>(row_lse + 2 * KV_BQ);
+        const int* row_pos = row_seg + KV_BQ;
+#pragma unroll
+        for (int i = 0; i < KV_BQ / 8; ++i) {
+          const int c = 8 * i + cq;
+          const float2 l2 = *reinterpret_cast<const float2*>(row_lse + c);
+          const int2 sq = *reinterpret_cast<const int2*>(row_seg + c);
+          const int2 pq = *reinterpret_cast<const int2*>(row_pos + c);
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const bool v0 = code == 2 || visible(sq.x, pq.x, sk[j], pk[j], causal, has_window, window);
+            const bool v1 = code == 2 || visible(sq.y, pq.y, sk[j], pk[j], causal, has_window, window);
+            const int e = 4 * i + 2 * j;
+            s[e] = v0 ? exp2f(fmaf(s[e], scale_log2, -l2.x)) : 0.f;
+            s[e + 1] = v1 ? exp2f(fmaf(s[e + 1], scale_log2, -l2.y)) : 0.f;
+          }
+        }
+        // hand P^T (fp32) to warpgroup 1, once it has read the last one
+        if (tiles > 0) named_bar_sync(BAR_P_EMPTY, CONSUMERS);
+#pragma unroll
+        for (int i = 0; i < KV_BQ / 8; ++i)
+          pt[i * 128 + t128] = make_float4(s[4 * i], s[4 * i + 1], s[4 * i + 2], s[4 * i + 3]);
+        named_bar_arrive(BAR_P_FULL, CONSUMERS);
+        uint32_t pa[KV_BQ / 4];
+#pragma unroll
+        for (int i = 0; i < KV_BQ / 4; ++i) pa[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+
+        // dV += P^T dO: 16 queries per k-step, dO MN-major, two halves of dh
+        pin(acc);
+        pin(pa);
+        wgmma_fence();
+#pragma unroll
+        for (int n = 0; n < DH / ON; ++n)
+#pragma unroll
+          for (int t = 0; t < KV_BQ / 16; ++t)
+            Wgmma<ON>::rs(*reinterpret_cast<float(*)[ON / 2]>(acc + n * ON / 2), pa + 4 * t,
+                          mnmajor_desc<DH>(do_addr + n * (ON / C::CW) * KV_BQ * C::SW, KV_BQ, t));
+        wgmma_commit();
+        wgmma_wait_all();
+        pin(acc);
+        if (lane == 0) mbar_arrive(bar_empty(stage));
+        if (++stage == STAGES) { stage = 0; phase ^= 1u; }
+        ++tiles;
+      }
+    }
+    // balance warpgroup 1's arrival after it read the last P^T
+    if (tiles > 0) named_bar_sync(BAR_P_EMPTY, CONSUMERS);
+  } else {
+    for (int h = h0; h < h1; ++h) {
+      for (int qt = 0; qt < nQ; ++qt) {
+        if (!codes[(size_t)qt * nK]) continue;
+        mbar_wait(bar_full(stage), phase);
+        const uint32_t q_addr = base + M::STAGE0 + stage * M::STAGE_BYTES;
+        const uint32_t do_addr = q_addr + M::QT_BYTES;
+
+        // dP^T = V dO^T: m64 keys x n64 queries
+        float dp[KV_BQ / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DH / 16; ++kk)
+          Wgmma<KV_BQ>::ss(dp, kmajor_desc<DH>(v_addr, KV_BK, kk),
+                           kmajor_desc<DH>(do_addr, KV_BQ, kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait_all();
+        pin(dp);
+
+        // dS^T = P^T o (dP^T - delta), P^T from warpgroup 0 (0 where not
+        // visible, so no mask here); delta of column (query) c
+        named_bar_sync(BAR_P_FULL, CONSUMERS);
+        float p[KV_BQ / 2];
+#pragma unroll
+        for (int i = 0; i < KV_BQ / 8; ++i) {
+          const float4 v = pt[i * 128 + t128];
+          p[4 * i] = v.x;
+          p[4 * i + 1] = v.y;
+          p[4 * i + 2] = v.z;
+          p[4 * i + 3] = v.w;
+        }
+        named_bar_arrive(BAR_P_EMPTY, CONSUMERS);
+        const float* row_delta = reinterpret_cast<const float*>(
+            smem + M::STAGE0 + stage * M::STAGE_BYTES + 2 * M::QT_BYTES) + KV_BQ;
+#pragma unroll
+        for (int i = 0; i < KV_BQ / 8; ++i) {
+          const float2 dl = *reinterpret_cast<const float2*>(row_delta + 8 * i + cq);
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int e = 4 * i + 2 * j;
+            dp[e] = p[e] * (dp[e] - dl.x);
+            dp[e + 1] = p[e + 1] * (dp[e + 1] - dl.y);
+          }
+        }
+        uint32_t dsa[KV_BQ / 4];
+#pragma unroll
+        for (int i = 0; i < KV_BQ / 4; ++i) dsa[i] = pack_bf16(dp[2 * i], dp[2 * i + 1]);
+
+        // dK += dS^T Q: Q MN-major, two halves of dh
+        pin(acc);
+        pin(dsa);
+        wgmma_fence();
+#pragma unroll
+        for (int n = 0; n < DH / ON; ++n)
+#pragma unroll
+          for (int t = 0; t < KV_BQ / 16; ++t)
+            Wgmma<ON>::rs(*reinterpret_cast<float(*)[ON / 2]>(acc + n * ON / 2), dsa + 4 * t,
+                          mnmajor_desc<DH>(q_addr + n * (ON / C::CW) * KV_BQ * C::SW, KV_BQ, t));
+        wgmma_commit();
+        wgmma_wait_all();
+        pin(acc);
+        if (lane == 0) mbar_arrive(bar_empty(stage));
+        if (++stage == STAGES) { stage = 0; phase ^= 1u; }
+      }
+    }
+  }
+
+  // epilogue: warpgroup 0 stores dV, 1 stores scale dK, in bf16, or, when
+  // the group is split, as this split's fp32 part (summed by (d)); keys past
+  // Sk are not stored; a key no query sees stores 0
+  const float mul = wg == 0 ? 1.f : scale;
+  const size_t n = (size_t)gridDim.y * Sk * KH * DH;  // elements of dk (and of dv)
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int key = kt * KV_BK + r0 + 8 * j;
+    if (key < Sk) {
+      const size_t at = (((size_t)b * Sk + key) * KH + kh) * DH + cq;
+      if (splits == 1) {
+        __nv_bfloat16* out = wg == 0 ? dv : dk;
+#pragma unroll
+        for (int i = 0; i < DH / 8; ++i)
+          *reinterpret_cast<__nv_bfloat162*>(out + at + 8 * i) =
+              __floats2bfloat162_rn(acc[4 * i + 2 * j] * mul, acc[4 * i + 2 * j + 1] * mul);
+      } else {
+        float* out = part + (size_t)(2 * sp + (wg == 0 ? 1 : 0)) * n + at;  // (split, dk|dv)
+#pragma unroll
+        for (int i = 0; i < DH / 8; ++i)
+          *reinterpret_cast<float2*>(out + 8 * i) =
+              make_float2(acc[4 * i + 2 * j] * mul, acc[4 * i + 2 * j + 1] * mul);
+      }
+    }
+  }
+}
+
+// (d) dk and dv of a split GQA group: the splits' fp32 parts summed in split
+// order (deterministic), rounded to bf16; n elements each, n % 4 == 0
+__global__ void __launch_bounds__(DELTA_THREADS)
+bwd_sm90_kv_sum_kernel(const float* __restrict__ part, __nv_bfloat16* __restrict__ dk,
+                       __nv_bfloat16* __restrict__ dv, long long n, int splits) {
+  const long long quads = 2 * n / 4;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < quads;
+       i += (long long)gridDim.x * blockDim.x) {
+    const long long e = 4 * i;  // element of (dk | dv)
+    const int which = e >= n;    // 0: dk, 1: dv
+    const long long at = e - which * n;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int sp = 0; sp < splits; ++sp) {
+      const float4 v = *reinterpret_cast<const float4*>(part + (2 * sp + which) * n + at);
+      acc.x += v.x;
+      acc.y += v.y;
+      acc.z += v.z;
+      acc.w += v.w;
+    }
+    __nv_bfloat16* out = (which ? dv : dk) + at;
+    *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(acc.x, acc.y);
+    *reinterpret_cast<__nv_bfloat162*>(out + 2) = __floats2bfloat162_rn(acc.z, acc.w);
+  }
+}
+
+// (c) dQ of DQ_BQ (128) query rows of one head
 template <int DH>
 __global__ void __launch_bounds__(THREADS, 1)
 bwd_sm90_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -374,6 +716,8 @@ bwd_sm90_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                    float scale, float scale_log2, int causal, int has_window, int window) {
   using C = Chunking<DH>;
   using M = DqSmem<DH>;
+  constexpr int DQ_BQ = Tiles<DH>::DQ_BQ, DQ_BK = Tiles<DH>::DQ_BK;
+  constexpr int ON = DH < 128 ? DH : 128;  // N of one dQ += dS K product
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -408,7 +752,7 @@ bwd_sm90_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
         if (!codes[kt]) continue;
         mbar_wait(bar_empty(stage), phase ^ 1u);
         const uint32_t full = bar_full(stage);
-        mbar_expect_tx(full, M::STAGE_BYTES);
+        mbar_expect_tx(full, M::LOAD_BYTES);
         const uint32_t dst = base + M::STAGE0 + stage * M::STAGE_BYTES;
 #pragma unroll
         for (int c = 0; c < C::NCH; ++c) {
@@ -457,7 +801,7 @@ bwd_sm90_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
     const uint32_t k_addr = base + M::STAGE0 + stage * M::STAGE_BYTES;
     const uint32_t v_addr = k_addr + M::KT_BYTES;
 
-    // S = Q K^T and dP = dO V^T: m64 rows x n128 keys
+    // S = Q K^T and dP = dO V^T: m64 rows x n{DQ_BK} keys
     float s[DQ_BK / 2], dp[DQ_BK / 2];
     wgmma_fence();
 #pragma unroll
@@ -496,13 +840,17 @@ bwd_sm90_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int i = 0; i < DQ_BK / 4; ++i) dsa[i] = pack_bf16(dp[2 * i], dp[2 * i + 1]);
 
-    // dQ += dS K: 16 keys per k-step, K MN-major
+    // dQ += dS K: 16 keys per k-step, K MN-major; product n fills dQ's
+    // columns ON n .. ON n + ON - 1 from the K chunks that hold them
     pin(dq_acc);
     pin(dsa);
     wgmma_fence();
 #pragma unroll
-    for (int t = 0; t < DQ_BK / 16; ++t)
-      Wgmma<DH>::rs(dq_acc, dsa + 4 * t, mnmajor_desc<DH>(k_addr, DQ_BK, t));
+    for (int n = 0; n < DH / ON; ++n)
+#pragma unroll
+      for (int t = 0; t < DQ_BK / 16; ++t)
+        Wgmma<ON>::rs(*reinterpret_cast<float(*)[ON / 2]>(dq_acc + n * ON / 2), dsa + 4 * t,
+                      mnmajor_desc<DH>(k_addr + n * (ON / C::CW) * DQ_BK * C::SW, DQ_BK, t));
     wgmma_commit();
     wgmma_wait_all();
     pin(dq_acc);
@@ -528,18 +876,32 @@ int launch(const void* q, const void* k, const void* v, const void* out, const v
            const void* lse, const void* seg_q, const void* seg_k, const void* pos_q,
            const void* pos_k, const void* blk_kv, const void* blk_dq, void* lse2, void* delta,
            void* dq, void* dk, void* dv, int B, int Sq, int Sk, int H, int KH, int Sqp, int Skp,
-           float scale, int causal, int has_window, int window, cudaStream_t stream) {
+           float scale, int causal, int has_window, int window, int splits, void* part,
+           cudaStream_t stream) {
+  using T = Tiles<DH>;
+  if (Sqp % T::PAD_Q || Skp % T::PAD_K) return (int)cudaErrorInvalidValue;
+  // the GQA group splits over dK/dV CTAs only at dh 256, into fp32 parts
+  if (splits < 1 || (H / KH) % splits || (splits > 1 && (DH <= 128 || part == nullptr)))
+    return (int)cudaErrorInvalidValue;
   EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return ERR_NO_ENCODER;
-  CUtensorMap tm_q64, tm_do64, tm_q128, tm_do128, tm_k, tm_v;
-  static_assert(KV_BK == DQ_BK, "one K/V map serves both kernels");
-  if (!make_map<DH>(enc, &tm_q64, q, B, Sq, H, KV_BQ) ||
-      !make_map<DH>(enc, &tm_do64, d_out, B, Sq, H, KV_BQ) ||
-      !make_map<DH>(enc, &tm_q128, q, B, Sq, H, DQ_BQ) ||
-      !make_map<DH>(enc, &tm_do128, d_out, B, Sq, H, DQ_BQ) ||
-      !make_map<DH>(enc, &tm_k, k, B, Sk, KH, KV_BK) ||
-      !make_map<DH>(enc, &tm_v, v, B, Sk, KH, KV_BK))
+  // boxes of each kernel's tiles: dK/dV streams Q, dO and holds K, V; dQ the
+  // other way round (one K/V map serves both where their key tiles agree)
+  CUtensorMap tm_q_kv, tm_do_kv, tm_q_dq, tm_do_dq, tm_k_kv, tm_v_kv, tm_k_dq, tm_v_dq;
+  if (!make_map<DH>(enc, &tm_q_kv, q, B, Sq, H, T::KV_BQ) ||
+      !make_map<DH>(enc, &tm_do_kv, d_out, B, Sq, H, T::KV_BQ) ||
+      !make_map<DH>(enc, &tm_q_dq, q, B, Sq, H, T::DQ_BQ) ||
+      !make_map<DH>(enc, &tm_do_dq, d_out, B, Sq, H, T::DQ_BQ) ||
+      !make_map<DH>(enc, &tm_k_kv, k, B, Sk, KH, T::KV_BK) ||
+      !make_map<DH>(enc, &tm_v_kv, v, B, Sk, KH, T::KV_BK))
     return ERR_ENCODE;
+  if constexpr (T::KV_BK == T::DQ_BK) {
+    tm_k_dq = tm_k_kv;
+    tm_v_dq = tm_v_kv;
+  } else if (!make_map<DH>(enc, &tm_k_dq, k, B, Sk, KH, T::DQ_BK) ||
+             !make_map<DH>(enc, &tm_v_dq, v, B, Sk, KH, T::DQ_BK)) {
+    return ERR_ENCODE;
+  }
   const float* l2 = static_cast<const float*>(lse2);
   const float* dl = static_cast<const float*>(delta);
   const int *sq = static_cast<const int*>(seg_q), *sk = static_cast<const int*>(seg_k),
@@ -556,14 +918,33 @@ int launch(const void* q, const void* k, const void* v, const void* out, const v
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  auto dkdv = bwd_sm90_dkdv_kernel<DH>;
   constexpr int kv_smem = KvSmem<DH>::ALLOC;
-  err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, kv_smem);
-  if (err != cudaSuccess) return (int)err;
-  dkdv<<<dim3(KH, B, Skp / KV_BK), THREADS, kv_smem, stream>>>(
-      tm_q64, tm_do64, tm_k, tm_v, l2, dl, sq, sk, pq, pk, static_cast<const int8_t*>(blk_kv),
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), Sk, Sqp, Skp, H, KH,
-      scale, scale_log2, causal, has_window, window);
+  const int8_t* bkv = static_cast<const int8_t*>(blk_kv);
+  __nv_bfloat16 *dk16 = static_cast<__nv_bfloat16*>(dk), *dv16 = static_cast<__nv_bfloat16*>(dv);
+  if constexpr (DH > 128) {
+    auto dkdv = bwd_sm90_dkdv_split_kernel<DH>;
+    err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, kv_smem);
+    if (err != cudaSuccess) return (int)err;
+    float* parts = static_cast<float*>(part);
+    dkdv<<<dim3(KH * splits, B, Skp / T::KV_BK), THREADS, kv_smem, stream>>>(
+        tm_q_kv, tm_do_kv, tm_k_kv, tm_v_kv, l2, dl, sq, sk, pq, pk, bkv, dk16, dv16, Sk, Sqp,
+        Skp, H, KH, scale, scale_log2, causal, has_window, window, splits, parts);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    if (splits > 1) {
+      const long long n = (long long)B * Sk * KH * DH;
+      const long long blocks = (2 * n / 4 + DELTA_THREADS - 1) / DELTA_THREADS;
+      bwd_sm90_kv_sum_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), DELTA_THREADS, 0,
+                               stream>>>(parts, dk16, dv16, n, splits);
+    }
+  } else {
+    auto dkdv = bwd_sm90_dkdv_kernel<DH>;
+    err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, kv_smem);
+    if (err != cudaSuccess) return (int)err;
+    dkdv<<<dim3(KH, B, Skp / T::KV_BK), THREADS, kv_smem, stream>>>(
+        tm_q_kv, tm_do_kv, tm_k_kv, tm_v_kv, l2, dl, sq, sk, pq, pk, bkv, dk16, dv16, Sk, Sqp,
+        Skp, H, KH, scale, scale_log2, causal, has_window, window);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
@@ -571,10 +952,10 @@ int launch(const void* q, const void* k, const void* v, const void* out, const v
   constexpr int q_smem = DqSmem<DH>::ALLOC;
   err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, q_smem);
   if (err != cudaSuccess) return (int)err;
-  dqk<<<dim3(H, B, Sqp / DQ_BQ), THREADS, q_smem, stream>>>(
-      tm_q128, tm_do128, tm_k, tm_v, l2, dl, sq, sk, pq, pk, static_cast<const int8_t*>(blk_dq),
-      static_cast<__nv_bfloat16*>(dq), Sq, Sqp, Skp, H, KH, scale, scale_log2, causal,
-      has_window, window);
+  dqk<<<dim3(H, B, Sqp / T::DQ_BQ), THREADS, q_smem, stream>>>(
+      tm_q_dq, tm_do_dq, tm_k_dq, tm_v_dq, l2, dl, sq, sk, pq, pk,
+      static_cast<const int8_t*>(blk_dq), static_cast<__nv_bfloat16*>(dq), Sq, Sqp, Skp, H, KH,
+      scale, scale_log2, causal, has_window, window);
   return (int)cudaGetLastError();
 }
 
@@ -582,22 +963,32 @@ int launch(const void* q, const void* k, const void* v, const void* out, const v
 
 extern "C" {
 
-// Tile sizes, so the wrapper builds each kernel's tile map at its own tiles:
-// dK/dV (query rows streamed, keys per CTA), then dQ (rows per CTA, keys
-// streamed). Sequences are padded to multiples of 128.
-int packed_flash_attn_bwd_sm90_block_q() { return KV_BQ; }
-int packed_flash_attn_bwd_sm90_block_k() { return KV_BK; }
-int packed_flash_attn_bwd_sm90_dq_block_q() { return DQ_BQ; }
-int packed_flash_attn_bwd_sm90_dq_block_k() { return DQ_BK; }
+// Tile sizes at a head width, so the wrapper builds each kernel's tile map
+// at its own tiles: dK/dV (query rows streamed, keys per CTA), then dQ (rows
+// per CTA, keys streamed).
+#define PFA_TILE(NAME, FIELD)                                                 \
+  int packed_flash_attn_bwd_sm90_##NAME(int head_dim) {                      \
+    return head_dim == 256 ? Tiles<256>::FIELD : Tiles<128>::FIELD;           \
+  }
+PFA_TILE(block_q, KV_BQ)
+PFA_TILE(block_k, KV_BK)
+PFA_TILE(dq_block_q, DQ_BQ)
+PFA_TILE(dq_block_k, DQ_BK)
+#undef PFA_TILE
 
 // bf16 q, out, d_out, dq (B,Sq,H,dh); k, v, dk, dv (B,Sk,KH,dh). lse is the
 // forward's fp32 (B,H,Sq) row log-sum-exp of the scaled scores, +inf on rows
 // with no visible key. seg/pos are int32 padded with zeros to (B, Sqp) and
-// (B, Skp), multiples of 128. blk_kv is the (B, Sqp/64, Skp/128) and blk_dq the
-// (B, Sqp/128, Skp/128) int8 tile map (0 skip, 1 mask, 2 all visible).
-// lse2 and delta are fp32 (B,H,Sqp) scratch, written here. Launches three
-// kernels on `stream`; returns 0, a cudaError_t, or a negative code of this
-// file (see the error string).
+// (B, Skp), multiples of 128 (Skp of 64 at dh 256). blk_kv is the int8 tile
+// map at the dK/dV tiles, (B, Sqp/64, Skp/128) (Skp/64 at dh 256), and
+// blk_dq the map at the dQ tiles, (B, Sqp/128, Skp/128) (Skp/32 at dh 256):
+// 0 skip, 1 mask, 2 all visible.
+// lse2 and delta are fp32 (B,H,Sqp) scratch, written here. kv_splits (1 below
+// dh 256) divides the GQA group H / KH over that many dK/dV CTAs; when it is
+// more than 1, kv_part is fp32 (kv_splits, 2, B, Sk, KH, dh) scratch for their
+// parts of dk and dv. Launches three kernels on `stream` (four with splits);
+// returns 0, a cudaError_t, or a negative code of this file (see the error
+// string).
 int packed_flash_attn_bwd_sm90_launch(int head_dim, const void* q, const void* k, const void* v,
                                       const void* out, const void* d_out, const void* lse,
                                       const void* seg_q, const void* seg_k, const void* pos_q,
@@ -605,18 +996,18 @@ int packed_flash_attn_bwd_sm90_launch(int head_dim, const void* q, const void* k
                                       void* lse2, void* delta, void* dq, void* dk, void* dv,
                                       int B, int Sq, int Sk, int H, int KH, int Sqp, int Skp,
                                       float scale, int causal, int has_window, int window,
-                                      void* stream) {
+                                      int kv_splits, void* kv_part, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (Sqp % PAD || Skp % PAD) return (int)cudaErrorInvalidValue;
 #define PFA_CASE(DH)                                                                           \
   if (head_dim == DH)                                                                          \
     return launch<DH>(q, k, v, out, d_out, lse, seg_q, seg_k, pos_q, pos_k, blk_kv, blk_dq,   \
                       lse2, delta, dq, dk, dv, B, Sq, Sk, H, KH, Sqp, Skp, scale, causal,      \
-                      has_window, window, st);
+                      has_window, window, kv_splits, kv_part, st);
   PFA_CASE(16)
   PFA_CASE(32)
   PFA_CASE(64)
   PFA_CASE(128)
+  PFA_CASE(256)
 #undef PFA_CASE
   return ERR_HEAD_DIM;
 }

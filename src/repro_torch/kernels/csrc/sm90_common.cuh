@@ -44,6 +44,16 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
 
+// Named barrier `id` (1..15; 0 is __syncthreads) over `threads` threads:
+// arrive releases this thread's earlier shared-memory writes (and reads) to
+// the threads that sync on it; sync waits for all `threads` arrivals.
+__device__ __forceinline__ void named_bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 __device__ __forceinline__ uint64_t global_ns() {
   uint64_t t;
   asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
@@ -171,6 +181,19 @@ template <> struct Wgmma<16> {
 };
 
 template <> struct Wgmma<32> {
+  // D[16] (+)= A[smem, K-major] * B[smem, K-major]
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
   // D[16] += A[registers] * B[smem, MN-major]
   static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t* a, uint64_t db) {
     asm volatile(

@@ -20,13 +20,13 @@ The forward can also return the row log-sum-exp (`return_lse=True`), which
 `packed_flash_attention_backward` takes: it computes dq, dk and dv under the
 same tile skip, again one source per input type. bf16 runs on the tensor
 cores (`csrc/packed_flash_attn_bwd_sm90.cu`: wgmma fed by TMA, a dK/dV kernel
-at 64 x 128 tiles and a dQ kernel at 128 x 128, their tile maps derived from
-one map by `coarsen`); fp32 on the CUDA cores (`csrc/packed_flash_attn_bwd.cu`,
-64 x 64, 32 x 32 at head_dim 256). At head_dim 256 bf16 also takes the
-CUDA-core backward, since the tensor-core one's dK/dV accumulators do not fit
-a warpgroup's registers there. The two sm_90a sources share
-`csrc/sm90_common.cuh`. `kernels.ops` wires forward and backward into
-autograd.
+at 64 x 128 tiles and a dQ kernel at 128 x 128; at head_dim 256 a dK/dV
+kernel at 64 x 64 whose two warpgroups split the products, its GQA group
+split over CTAs where the grid would leave SMs idle (`kv_splits`), and the
+dQ kernel at 128 x 32; both tile maps derived from one map by `coarsen`); fp32
+on the CUDA cores (`csrc/packed_flash_attn_bwd.cu`, 64 x 64, 32 x 32 at
+head_dim 256). The two sm_90a sources share `csrc/sm90_common.cuh`.
+`kernels.ops` wires forward and backward into autograd.
 
 `packed_flash_attention.launches` and `packed_flash_attention_backward.launches`
 count launches per kernel source (dicts a caller may reset), so a run can
@@ -35,6 +35,7 @@ show which kernels its main path went through.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -49,10 +50,8 @@ HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 class Kernel:
     """One compiled kernel source at some head widths: its file under `csrc/`,
     the prefix of its C symbols, the tile sizes its `blk_ok` map is built at,
-    the names of its CUDA kernels as the profiler shows them, the tiles of a
-    backward's dQ kernel where they differ (None: the same), and whether its
-    C entry takes a bf16 flag after the head width (a source compiled for
-    both types)."""
+    the names of its CUDA kernels as the profiler shows them, and the tiles
+    of a backward's dQ kernel where they differ (None: the same)."""
 
     source: str
     symbol: str
@@ -60,7 +59,6 @@ class Kernel:
     block_k: int
     names: tuple[str, ...]
     dq_tiles: tuple[int, int] | None = None
-    typed: bool = False
 
 
 SM90 = Kernel("packed_flash_attn_sm90.cu", "packed_flash_attn_sm90", 128, 128,
@@ -70,10 +68,13 @@ SIMT = Kernel("packed_flash_attn.cu", "packed_flash_attn", 64, 64, ("packed_flas
 BWD_SM90 = Kernel("packed_flash_attn_bwd_sm90.cu", "packed_flash_attn_bwd_sm90", 64, 128,
                   ("bwd_sm90_delta_kernel", "bwd_sm90_dkdv_kernel", "bwd_sm90_dq_kernel"),
                   dq_tiles=(128, 128))
+BWD_SM90_WIDE = Kernel(BWD_SM90.source, BWD_SM90.symbol, 64, 64,
+                       ("bwd_sm90_delta_kernel", "bwd_sm90_dkdv_split_kernel",
+                        "bwd_sm90_dq_kernel", "bwd_sm90_kv_sum_kernel"),
+                       dq_tiles=(128, 32))  # head_dim 256; the sum runs only with splits
 BWD_SIMT = Kernel("packed_flash_attn_bwd.cu", "packed_flash_attn_bwd", 64, 64,
-                  ("bwd_delta_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel"), typed=True)
-BWD_SIMT_WIDE = Kernel(BWD_SIMT.source, BWD_SIMT.symbol, 32, 32, BWD_SIMT.names,
-                       typed=True)  # head_dim 256, bf16 and fp32
+                  ("bwd_delta_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel"))
+BWD_SIMT_WIDE = Kernel(BWD_SIMT.source, BWD_SIMT.symbol, 32, 32, BWD_SIMT.names)  # head_dim 256
 # head widths a dtype's kernels run zero-padded to a compiled width
 PADDED_HEAD_DIMS = {torch.bfloat16: {80: 128}}
 
@@ -102,9 +103,9 @@ def kernel_for(dtype, head_dim) -> Kernel:
 def backward_kernel_for(dtype, head_dim) -> Kernel:
     """The backward kernel that takes inputs of `dtype` and `head_dim`."""
     _checked_dims(dtype, head_dim)
-    if head_dim == 256:
-        return BWD_SIMT_WIDE
-    return BWD_SIMT if dtype == torch.float32 else BWD_SM90
+    if dtype == torch.float32:
+        return BWD_SIMT_WIDE if head_dim == 256 else BWD_SIMT
+    return BWD_SM90_WIDE if head_dim == 256 else BWD_SM90
 
 
 def tile_sizes(dtype, head_dim):
@@ -206,14 +207,37 @@ def coarsen(codes, fq, fk):
 def backward_tile_maps(kern: Kernel, seg_q, seg_k, pos_q, pos_k, *, causal, window):
     """The backward kernel's ids, padded to whole tiles of every kernel it
     launches, and its tile maps: (padded, (blk, blk_dq)). `tile_map` runs
-    once, at (block_q, block_k); the dQ kernel's map, where its tiles are
-    larger, is derived from it by `coarsen`."""
+    once, at the smaller of the two kernels' tiles on each side (tiles are
+    powers of two, so it divides the larger); each kernel's map is derived
+    from it by `coarsen` where its tiles are larger."""
     bq, bk = kern.dq_tiles or (kern.block_q, kern.block_k)
     padded = _pad_all(seg_q, seg_k, pos_q, pos_k, max(bq, kern.block_q), max(bk, kern.block_k))
-    blk = tile_map(*padded, kern.block_q, kern.block_k, causal=causal, window=window)
-    if kern.dq_tiles is None:
-        return padded, (blk, blk)
-    return padded, (blk, coarsen(blk, bq // kern.block_q, bk // kern.block_k))
+    fq, fk = min(bq, kern.block_q), min(bk, kern.block_k)
+    fine = tile_map(*padded, fq, fk, causal=causal, window=window)
+
+    def at(tq, tk):
+        return fine if (tq, tk) == (fq, fk) else coarsen(fine, tq // fq, tk // fk)
+    blk = at(kern.block_q, kern.block_k)
+    return padded, (blk, blk if kern.dq_tiles is None else at(bq, bk))
+
+
+def kv_splits(kern: Kernel, B, H, K, Skp, sms) -> int:
+    """How many dK/dV CTAs share the query heads of one GQA group (H / K of
+    them) at batch B and Skp padded keys: 1, except in the head_dim 256
+    backward, whose grid of K x B x Skp / 64 CTAs can leave SMs idle
+    (gemma3-1b at 1 x 4096: 64 on 132): there the most that divide the group
+    and keep the grid within one wave of `sms` SMs. The CTAs of a split
+    store fp32 parts, which a second kernel sums."""
+    if kern is not BWD_SM90_WIDE:
+        return 1
+    group, ctas = H // K, K * B * (Skp // kern.block_k)
+    wave = max(sms, ctas)
+    return max(s for s in range(1, group + 1) if group % s == 0 and ctas * s <= wave)
+
+
+@functools.cache
+def _sm_count(index) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
@@ -221,13 +245,14 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 # scale, causal, has_window, window, stream
 _FWD_ARGTYPES = [_INT] + [_PTR] * 10 + [_INT] * 7 + [ctypes.c_float] + [_INT] * 3 + [_PTR]
 _BWD_ARGTYPES = {
-    # head_dim, bf16, q, k, v, out, d_out, lse, seg_q, seg_k, pos_q, pos_k, blk_ok, delta, dq,
-    # dk, dv, B, Sq, Sk, H, KH, nQ, nK, scale, causal, has_window, window, stream
-    BWD_SIMT.source: [_INT] * 2 + [_PTR] * 15 + [_INT] * 7 + [ctypes.c_float] + [_INT] * 3
-    + [_PTR],
+    # head_dim, q, k, v, out, d_out, lse, seg_q, seg_k, pos_q, pos_k, blk_ok, delta, dq, dk,
+    # dv, B, Sq, Sk, H, KH, nQ, nK, scale, causal, has_window, window, stream
+    BWD_SIMT.source: [_INT] + [_PTR] * 15 + [_INT] * 7 + [ctypes.c_float] + [_INT] * 3 + [_PTR],
     # head_dim, q, k, v, out, d_out, lse, seg_q, seg_k, pos_q, pos_k, blk_kv, blk_dq, lse2,
-    # delta, dq, dk, dv, B, Sq, Sk, H, KH, Sqp, Skp, scale, causal, has_window, window, stream
-    BWD_SM90.source: [_INT] + [_PTR] * 17 + [_INT] * 7 + [ctypes.c_float] + [_INT] * 3 + [_PTR],
+    # delta, dq, dk, dv, B, Sq, Sk, H, KH, Sqp, Skp, scale, causal, has_window, window,
+    # kv_splits, kv_part, stream
+    BWD_SM90.source: [_INT] + [_PTR] * 17 + [_INT] * 7 + [ctypes.c_float] + [_INT] * 4
+    + [_PTR] * 2,
 }
 
 
@@ -369,10 +394,10 @@ def packed_flash_attention_backward(q, k, v, out, lse, d_out, seg_q, seg_k, pos_
     out and lse are the forward's (`return_lse=True`), d_out the gradient of
     out; dk and dv carry the un-repeated KV heads, summed over each GQA
     group. bf16 takes the tensor-core backward (at head_dim 80 over
-    zero-padded columns; at head_dim 256 the CUDA-core one), fp32 the
-    CUDA-core one; both accumulate in fp32, under the same mask and tile
-    skip as the forward (each kernel's tile map at its own tiles). Raises on
-    a tensor the kernels do not take; never falls back.
+    zero-padded columns), fp32 the CUDA-core one; both accumulate in fp32,
+    under the same mask and tile skip as the forward (each kernel's tile map
+    at its own tiles). Raises on a tensor the kernels do not take; never
+    falls back.
     """
     _check(q, k, v, seg_q, seg_k, pos_q, pos_k)
     B, Sq, H, dh = q.shape
@@ -389,20 +414,24 @@ def packed_flash_attention_backward(q, k, v, out, lse, d_out, seg_q, seg_k, pos_
                                                causal=causal, window=window)
     Sqp, Skp = padded[0].shape[1], padded[1].shape[1]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    if kern is BWD_SM90:  # lse in log2 units and delta, padded to whole tiles
+    if kern.source == BWD_SM90.source:  # lse in log2 units and delta, padded to whole tiles
         stats = torch.empty((2, B, H, Sqp), dtype=torch.float32, device=q.device)
         bufs = (blk, blk_dq, stats[0], stats[1])
         dims = (Sqp, Skp)
+        splits = kv_splits(kern, B, H, K, Skp, _sm_count(q.device.index))
+        part = (torch.empty((splits, 2, B, Sk, K, run_dh), dtype=torch.float32, device=q.device)
+                if splits > 1 else None)
+        tail = (splits, part.data_ptr() if part is not None else None)
     else:
         bufs = (blk, torch.empty((B, H, Sq), dtype=torch.float32, device=q.device))
         dims = (blk.shape[1], blk.shape[2])
-    head = (run_dh, int(q.dtype == torch.bfloat16)) if kern.typed else (run_dh,)
+        tail = ()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        rc = bwd(*head, *(t.data_ptr() for t in (q, k, v, out, d_out, lse, *padded, *bufs,
+        rc = bwd(run_dh, *(t.data_ptr() for t in (q, k, v, out, d_out, lse, *padded, *bufs,
                                                  dq, dk, dv)),
                  B, Sq, Sk, H, K, *dims, float(scale),
-                 int(causal), int(window is not None), int(window or 0), stream)
+                 int(causal), int(window is not None), int(window or 0), *tail, stream)
     _raise_on(rc, kern, "backward launch")
     packed_flash_attention_backward.launches[kern.source] += 1
     return _unpad_head(dh, dq, dk, dv)

@@ -23,6 +23,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.packed_flash_attn import (
     BWD_SIMT,
     BWD_SM90,
+    BWD_SM90_WIDE,
     SIMT,
     SM90,
     backward_kernel_for,
@@ -515,6 +516,91 @@ def test_gpu_head_dim_256_ragged_and_deterministic(cuda, rng, dtype):
     second = packed_flash_attention_backward(*args[:3], out, lse, d_out, *args[3:], **kw)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+def _gemma3_args(rng, device, dtype, S=1000, H=4, K=1):
+    """gemma3-1b's heads (4 query heads on one KV head, head_dim 256) over
+    packed documents whose positions restart, ending in 90 padding rows."""
+    q, k, v, *_ = _args(rng, device, 1, S, H, K, 256, dtype)
+    seg = torch.ones((1, S), dtype=torch.int32, device=device)
+    pos = torch.arange(S, dtype=torch.int32, device=device)[None].clone()
+    for start, doc in ((300, 2), (620, 3)):
+        seg[:, start:] = doc
+        pos[:, start:] = torch.arange(S - start, dtype=torch.int32, device=device)
+    seg[:, S - 90:] = 0
+    pos[:, S - 90:] = 0
+    return q, k, v, seg, seg, pos, pos
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [512, 96, None])
+def test_gpu_head_dim_256_bf16_backward_on_tensor_cores(cuda, rng, window):
+    """bf16 at head_dim 256 (gemma3-1b's heads, its window 512, a short
+    window and none) launches the tensor-core source once and the CUDA-core
+    source never, matches the plain version, and gives padding rows and keys
+    gradients of exactly 0."""
+    assert backward_kernel_for(torch.bfloat16, 256) is BWD_SM90_WIDE
+    args = _gemma3_args(rng, cuda, "bfloat16")
+    before = dict(packed_flash_attention_backward.launches)
+    grads = _backward_case(rng, cuda, args, "bfloat16", window=window)
+    after = packed_flash_attention_backward.launches
+    assert after[BWD_SM90.source] - before[BWD_SM90.source] == 1
+    assert after[BWD_SIMT.source] == before[BWD_SIMT.source]
+    pad = args[3] == 0
+    for g_, side in zip(grads, ("q", "k", "v")):
+        assert bool((g_[pad] == 0).all()), side
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_head_dim_256_backward_unmasked_tiles_match_masked(cuda, rng, dtype, monkeypatch):
+    """At head_dim 256, tiles whose every pair is visible (code 2) run
+    without the mask and give the same gradients, bit for bit, as with the
+    mask forced on every visible tile (code 1)."""
+    args = _args(rng, cuda, 1, 512, 8, 4, 256, dtype, doc_lens=[512])
+    d_out, out, lse, kw = _backward_inputs(rng, cuda, args, dtype)
+    _, (blk, blk_dq) = pfa.backward_tile_maps(backward_kernel_for(TDT[dtype], 256), *args[3:],
+                                              **kw)
+    assert bool((blk == 2).any()) and bool((blk_dq == 2).any())
+    free = packed_flash_attention_backward(*args[:3], out, lse, d_out, *args[3:], **kw)
+    tile_map = pfa.tile_map
+    monkeypatch.setattr(pfa, "tile_map", lambda *a, **k: tile_map(*a, **k).clamp_(max=1))
+    masked = packed_flash_attention_backward(*args[:3], out, lse, d_out, *args[3:], **kw)
+    for a, b in zip(free, masked):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,K,window", [(4, 1, 512), (8, 4, 1024)])
+def test_gpu_head_dim_256_bf16_backward_is_deterministic(cuda, rng, H, K, window):
+    """gemma3-1b's and gemma3-4b's heads at their windows: two bf16 backward
+    launches give bitwise-equal dq, dk and dv (no atomics; P^T passes
+    between the dK/dV kernel's warpgroups in a fixed order)."""
+    args = _gemma3_args(rng, cuda, "bfloat16", S=1500, H=H, K=K)
+    d_out, out, lse, kw = _backward_inputs(rng, cuda, args, "bfloat16", window)
+    first = packed_flash_attention_backward(*args[:3], out, lse, d_out, *args[3:], **kw)
+    second = packed_flash_attention_backward(*args[:3], out, lse, d_out, *args[3:], **kw)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("splits", [1, 2, 4])
+def test_gpu_head_dim_256_backward_gqa_splits(cuda, rng, splits, monkeypatch):
+    """gemma3-1b's GQA group (4 query heads) over 1, 2 or 4 dK/dV CTAs, whose
+    fp32 parts a second kernel sums: each matches the plain version, and two
+    launches agree bit for bit."""
+    monkeypatch.setattr(pfa, "kv_splits", lambda *a: splits)
+    args = _gemma3_args(rng, cuda, "bfloat16")
+    d_out, out, lse, kw = _backward_inputs(rng, cuda, args, "bfloat16", 512)
+    first = packed_flash_attention_backward(*args[:3], out, lse, d_out, *args[3:], **kw)
+    second = packed_flash_attention_backward(*args[:3], out, lse, d_out, *args[3:], **kw)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    _check_grads(first, packed_attention_ref_backward(*args[:3], d_out, *args[3:], **kw),
+                 "bfloat16")
+    pad = args[3] == 0
+    assert all(bool((g_[pad] == 0).all()) for g_ in first)
 
 
 def _decode(cfg, params, device, tokens, max_len):

@@ -18,6 +18,7 @@ from repro_torch.kernels.packed_flash_attn import (
     BWD_SIMT,
     BWD_SIMT_WIDE,
     BWD_SM90,
+    BWD_SM90_WIDE,
     HEAD_DIMS,
     SIMT,
     SM90,
@@ -27,6 +28,7 @@ from repro_torch.kernels.packed_flash_attn import (
     block_metadata,
     coarsen,
     kernel_for,
+    kv_splits,
     packed_flash_attention,
     packed_flash_attention_backward,
     run_head_dim,
@@ -271,10 +273,10 @@ def test_jax_window_skip_loses_visible_keys(rng):
 def test_kernel_choice_by_dtype():
     """bf16 takes the tensor-core sources (forward at 128-row tiles, 128 x 64 at
     head_dim 256; backward with a dK/dV kernel at 64 x 128 and a dQ kernel at
-    128 x 128, and at head_dim 256 the CUDA-core backward at 32 x 32; head_dim
-    80 runs the head_dim 128 kernels over zero-padded columns), fp32 the
-    CUDA-core sources at 64 x 64 (32 x 32 for the backward at head_dim 256);
-    any other dtype or head width is refused. Needs no card."""
+    128 x 128, at head_dim 256 64 x 64 and 128 x 32; head_dim 80 runs the
+    head_dim 128 kernels over zero-padded columns), fp32 the CUDA-core
+    sources at 64 x 64 (32 x 32 for the backward at head_dim 256); any other
+    dtype or head width is refused. Needs no card."""
     for dh in (16, 32, 64, 80, 128):
         assert kernel_for(torch.bfloat16, dh) is SM90
         assert tile_sizes(torch.bfloat16, dh) == (128, 128)
@@ -293,8 +295,13 @@ def test_kernel_choice_by_dtype():
     assert BWD_SIMT.source == BWD_SIMT_WIDE.source == "packed_flash_attn_bwd.cu"
     assert (BWD_SIMT.block_q, BWD_SIMT.block_k, BWD_SIMT.dq_tiles) == (64, 64, None)
     assert (BWD_SIMT_WIDE.block_q, BWD_SIMT_WIDE.block_k, BWD_SIMT_WIDE.dq_tiles) == (32, 32, None)
+    assert backward_kernel_for(torch.bfloat16, 256) is BWD_SM90_WIDE
+    assert BWD_SM90_WIDE.source == BWD_SM90.source and BWD_SM90_WIDE.symbol == BWD_SM90.symbol
+    assert (BWD_SM90_WIDE.block_q, BWD_SM90_WIDE.block_k, BWD_SM90_WIDE.dq_tiles) == (
+        64, 64, (128, 32))
+    assert "bwd_sm90_dkdv_split_kernel" in BWD_SM90_WIDE.names
+    assert backward_kernel_for(torch.float32, 256) is BWD_SIMT_WIDE
     for dtype in (torch.bfloat16, torch.float32):
-        assert backward_kernel_for(dtype, 256) is BWD_SIMT_WIDE
         for dh in (8, 96, 192, 512):
             with pytest.raises(ValueError, match="head_dim"):
                 kernel_for(dtype, dh)
@@ -368,6 +375,53 @@ def test_coarsened_tile_map_can_skip_more():
     _coarse_relation(blk, coarse, attention_mask(ts, ts, tp, tp, **kw), 2, 1)
 
 
+@pytest.mark.parametrize("window", [512, None])
+@pytest.mark.parametrize("doc_lens,pad", [([700, 300, 1100], 150), ([64, 1900], 0),
+                                          ([129, 31, 1000, 33], 77)])
+def test_wide_backward_tile_maps_keep_visible_pairs(window, doc_lens, pad):
+    """The head_dim 256 backward (`BWD_SM90_WIDE`): ids padded to 128 queries
+    and 64 keys; its dK/dV map at 64 x 64 and its dQ map at 128 x 32, both
+    coarsened from one `tile_map` at 64 x 32, against the dense mask at
+    gemma3-1b's window 512 (and without one), over position resets and
+    padding rows: never 0 on a tile that holds a visible pair, 2 exactly
+    where every pair is visible, and nonzero only where `tile_map` at the
+    kernel's own tiles is."""
+    S = sum(doc_lens) + pad - 5  # no multiple of any tile
+    seg, pos = make_packed(np.random.default_rng(S), 1, S, doc_lens=doc_lens)
+    if pad:
+        seg[:, S - pad:] = 0
+        pos[:, S - pad:] = 0
+    ts, tp = t(seg), t(pos)
+    kw = {"causal": True, "window": window}
+    padded, (blk, blk_dq) = backward_tile_maps(BWD_SM90_WIDE, ts, ts, tp, tp, **kw)
+    Sqp, Skp = padded[0].shape[1], padded[1].shape[1]
+    assert Sqp % 128 == 0 and Sqp - S < 128 and Skp % 64 == 0 and Skp - S < 64
+    assert blk.shape == (1, Sqp // 64, Skp // 64) and blk_dq.shape == (1, Sqp // 128, Skp // 32)
+    mask = attention_mask(*padded, **kw)
+    fine = tile_map(*padded, 64, 32, **kw)
+    for got, (bq, bk) in ((blk, (64, 64)), (blk_dq, (128, 32))):
+        derived = _coarse_relation(fine, tile_map(*padded, bq, bk, **kw), mask, bq // 64, bk // 32)
+        np.testing.assert_array_equal(got.numpy(), derived.numpy())
+        tiles = mask.reshape(1, Sqp // bq, bq, Skp // bk, bk)
+        assert not bool((tiles.any(4).any(2) & (got == 0)).any())
+    assert bool((blk == 0).any()) and bool((blk == 2).any()) and bool((blk_dq == 2).any())
+
+
+def test_kv_splits_fill_one_wave():
+    """The head_dim 256 backward splits a GQA group's query heads over the
+    most dK/dV CTAs that divide the group and keep the grid (KV heads x
+    batch x 64-key tiles) in one wave of SMs; every other backward never
+    splits."""
+    assert kv_splits(BWD_SM90_WIDE, 1, 4, 1, 4096, 132) == 2   # gemma3-1b: 64 -> 128 CTAs
+    assert kv_splits(BWD_SM90_WIDE, 1, 8, 4, 4096, 132) == 1   # gemma3-4b: 256 CTAs already
+    assert kv_splits(BWD_SM90_WIDE, 2, 4, 1, 512, 132) == 4    # 16 -> 64 CTAs
+    assert kv_splits(BWD_SM90_WIDE, 1, 7, 1, 1024, 132) == 7   # 16 -> 112 CTAs
+    assert kv_splits(BWD_SM90_WIDE, 1, 7, 1, 1280, 132) == 1   # 140 CTAs would overflow the wave
+    assert kv_splits(BWD_SM90_WIDE, 1, 4, 4, 512, 132) == 1    # no GQA group to split
+    for kern in (BWD_SM90, BWD_SIMT, BWD_SIMT_WIDE):
+        assert kv_splits(kern, 1, 4, 1, 1024, 132) == 1
+
+
 def test_backward_tile_maps_shapes():
     """Ids are padded to whole 128-row tiles (segment 0, position 0); the
     fp32 backward's two maps are its one 64 x 64 map."""
@@ -380,6 +434,12 @@ def test_backward_tile_maps_shapes():
     padded, (blk, blk_dq) = backward_tile_maps(BWD_SIMT, ts, ts, tp, tp, causal=True, window=None)
     assert [x.shape for x in padded] == [(2, 256)] * 4 and blk.shape == (2, 4, 4)
     assert blk_dq is blk
+    seg, pos = make_packed(np.random.default_rng(1), 2, 130)
+    ts, tp = t(seg), t(pos)
+    padded, (blk, blk_dq) = backward_tile_maps(BWD_SM90_WIDE, ts, ts, tp, tp, causal=True,
+                                               window=None)
+    assert [x.shape for x in padded] == [(2, 256), (2, 192), (2, 256), (2, 192)]
+    assert blk.shape == (2, 4, 3) and blk_dq.shape == (2, 2, 6)
 
 
 def test_library_name_hashes_included_headers(tmp_path, monkeypatch):
