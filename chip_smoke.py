@@ -7,13 +7,17 @@ Phases, in one process; any failure exits nonzero:
              and check in the SASS that the bf16 kernels, forward and
              backward, run on the tensor cores (HGMMA instructions), the
              head_dim 256 backward's dK/dV and dQ kernels each on its own,
-             with no spill in their ptxas report;
+             and that the fp32 backward's dK/dV and dQ kernels run TF32
+             tensor-core products (HMMA ... TF32) at head_dim 80, 128 and
+             256, each with no spill in its ptxas report;
   2. kernel  hold each kernel against its plain PyTorch version on the card
              (bf16 tensor-core forward: serving shape and a packed shape,
              timed also with every visible tile masked, and a windowed
              shape with padding rows; fp32 CUDA-core forward: a ragged
              shape and the parity path's shape; the backward kernels,
-             bf16 tensor-core and fp32 CUDA-core, at the same shapes and
+             bf16 tensor-core and fp32 3xTF32 tensor-core (there also at
+             every split of its two loops, and in turn with SDPA's
+             backward over 10 rounds), at the same shapes and
              at the shape of each micro-batch the train paths launch them
              on) and time it beside
              its bound, the plain version and one PyTorch library call;
@@ -23,8 +27,8 @@ Phases, in one process; any failure exits nonzero:
              packed documents at each arch's window;
   4. fp32    the fp32 parity paths: reduced qwen3-8b, gemma3-1b and
              h2o-danube-1.8b at their real head widths in fp32 on the card
-             (the CUDA-core forward, one launch per layer, and the backward
-             kernel in one train step) against the CPU;
+             (the CUDA-core forward, one launch per layer, and the 3xTF32
+             backward in one train step) against the CPU;
   5. forward full-width, 36-layer qwen3-8b (random bf16 weights from a seed):
              packed forward + loss over synthetic batches, one kernel launch
              per layer, and the Eq. 1 micro-batch predictor fit on the times;
@@ -60,6 +64,7 @@ and nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import re
@@ -74,6 +79,7 @@ import torch.nn.functional as F
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
 PEAK_FP32_FLOPS = 67e12    # H100 SXM fp32 outside the tensor cores
+PEAK_3XTF32_FLOPS = 495e12 / 3  # fp32 products as three TF32 tensor-core products
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 SERVE_B, PROMPT, NEW_TOKENS = 4, 2048, 64
 FORWARD_BATCHES, FIT_BATCHES = 12, 8
@@ -118,6 +124,8 @@ CKPT_STEPS, CKPT_INTERVAL, TOL_RESTART = 6, 3, 1e-5
 # the fp32 parity path: reduced qwen3-8b at the real head width
 PARITY_SEQ, PARITY_BATCH, PARITY_MICROBATCHES = 256, 2, 2
 TOL_BF16, TOL_FP32 = 2e-2, 1e-4
+# the fp32 backward and SDPA's, timed in turn at the parity and ragged shapes
+INTERLEAVE_ROUNDS, INTERLEAVE_ITERS = 10, 20
 # bf16 end to end, 36 layers: prefill vs the packed forward differ only in
 # the LM-head product's shape; the first decode step takes the dense cache
 # path (bf16 scores) instead of the kernel (fp32 scores)
@@ -267,11 +275,13 @@ def kernel_case(name, q, k, v, seg, pos, tol, *, time_it, window=None, time_mask
     return row
 
 
-def backward_case(name, q, k, v, seg, pos, tol, *, time_it, window=None):
+def backward_case(name, q, k, v, seg, pos, tol, *, time_it, window=None, time_splits=False):
     """Backward kernel vs autograd through the plain version; optionally
-    timed. Returns a row."""
+    timed (with `time_splits`, the fp32 backward also at every split of its
+    two loops, and in turn with SDPA's backward, round by round, for their
+    spread). Returns a row."""
     from repro_torch.kernels.packed_flash_attn import (
-        backward_kernel_for, backward_tile_maps, kv_splits, packed_flash_attention,
+        backward_kernel_for, backward_tile_maps, packed_flash_attention,
         packed_flash_attention_backward)
     from repro_torch.kernels.ref import attention_mask, packed_attention_ref_backward
 
@@ -287,30 +297,25 @@ def backward_case(name, q, k, v, seg, pos, tol, *, time_it, window=None):
     plain = lambda: packed_attention_ref_backward(  # noqa: E731
         q, k, v, d_out, seg, seg, pos, pos, **kw)
     ref = plain()
-    errs = {}
-    for gname, a, b in zip(("dq", "dk", "dv"), grads, ref):
-        err = float((a.float() - b.float()).abs().max())
-        limit = tol * float(b.float().abs().max())
-        if not err <= limit:  # also fails on NaN
-            raise AssertionError(f"{name}: {gname} max abs err {err} > {limit} "
-                                 f"({tol} of max |ref|)")
-        errs[gname] = err
+    errs = {gname: grad_error(name, gname, a, b, tol)
+            for gname, a, b in zip(("dq", "dk", "dv"), grads, ref)}
     pad = seg == 0
     if pad.any() and not all(bool((x[pad] == 0).all()) for x in grads):
         raise AssertionError(f"{name}: gradients of padding rows or keys are not exactly 0")
     kern = backward_kernel_for(q.dtype, q.shape[-1])
     padded, (codes, codes_dq) = backward_tile_maps(kern, seg, seg, pos, pos, **kw)
-    # the wrapper's split of each GQA group over dK/dV CTAs (the sum kernel runs only then)
-    H, K = q.shape[2], k.shape[2]
-    splits = kv_splits(kern, q.shape[0], H, K, padded[1].shape[1],
-                       torch.cuda.get_device_properties(q.device).multi_processor_count)
-    launched = [n for n in kern.names if splits > 1 or "kv_sum" not in n]
+    # the wrapper's split of each loop over CTAs (the sum kernels run only then)
+    B, H, K = q.shape[0], q.shape[2], k.shape[2]
+    Sqp, Skp = padded[0].shape[1], padded[1].shape[1]
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    splits = kern.splits(B, H, K, Sqp, Skp, sms)
+    launched = [n for n in kern.names if max(splits) > 1 or "_sum_" not in n]
     row = {"case": name, "kernel": kern.source, "shape": list(q.shape), "kv_heads": k.shape[2],
            "dtype": str(q.dtype), "window": window, "head_dim": q.shape[-1],
            "max_abs_err": max(errs.values()),
            "max_abs_err_by_grad": errs, "tol_of_max_ref": tol,
            "padding_rows": int(pad.sum()), "tiles": [kern.block_q, kern.block_k],
-           "kv_splits": splits, "skipped_tile_fraction": float((codes == 0).float().mean())}
+           "splits": splits, "skipped_tile_fraction": float((codes == 0).float().mean())}
     if kern.dq_tiles is not None:
         row.update(dq_tiles=list(kern.dq_tiles),
                    dq_skipped_tile_fraction=float((codes_dq == 0).float().mean()),
@@ -325,40 +330,106 @@ def backward_case(name, q, k, v, seg, pos, tol, *, time_it, window=None):
                    for kname in launched}
         if not all(by_name.values()):  # also when the other source's kernels ran
             raise AssertionError(f"{name}: the profiler saw no device time for {by_name}")
-        if any("kv_sum" in n for n in kern.names):  # what the split buys, at every split
-            row["ms_by_splits"] = {s: sum(by_name.values()) if s == splits else
-                                   forced_split_ms(call, kern, s)
+        if kern.split_rule == "kv":  # what the split buys, at every split
+            row["ms_by_splits"] = {s: sum(by_name.values()) if s == splits[0] else
+                                   forced_split_ms(call, kern, "kv_splits", s)
                                    for s in range(1, H // K + 1) if (H // K) % s == 0}
+        if kern.split_rule == "tf32" and time_splits:
+            row["ms_by_splits"] = tf32_split_ms(call, kern, splits, H // K * Sqp // kern.block_q,
+                                                Skp // kern.dq_tiles[1], tol, ref)
         row.update(ms=sum(by_name.values()), ms_by_kernel=by_name,
                    wrapper_event_ms=cuda_ms(call, iters=10),
                    plain_ms=device_ms(plain, 2), bound_ms=bound, bound_by=by, flops=flops,
                    bytes=moved)
-        # yardstick only: SDPA's backward on the same bool mask, out.backward(dO) alone
+        if q.dtype == torch.float32:  # the ceiling this design answers to: 3xTF32
+            ops_3x = flops / PEAK_3XTF32_FLOPS * 1e3
+            row.update(bound_3xtf32_ms=max(ops_3x, moved / PEAK_BYTES * 1e3),
+                       bound_3xtf32_share=max(ops_3x, moved / PEAK_BYTES * 1e3) / row["ms"])
+        # yardstick only: SDPA's backward on the same bool mask, its gradients of
+        # q, k and v alone (torch.autograd.grad: none is added into a .grad)
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
         o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask[:, None], enable_gqa=True)
         dot = d_out.transpose(1, 2)
-        row["library_ms"] = device_ms(lambda: o.backward(dot, retain_graph=True), 5)
+        library = lambda: torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True)  # noqa: E731
+        row["library_ms"] = device_ms(library, 10)
         row["library_call"] = ("torch.nn.functional.scaled_dot_product_attention(bool mask, "
-                               "enable_gqa) backward")
-        del o, qt, kt, vt
+                               "enable_gqa) backward by torch.autograd.grad")
+        if time_splits:  # the kernel and SDPA in turn, each round's time: their spread
+            rounds = interleaved_ms({"kernel": (call, launched), "library": (library, None)})
+            row["interleaved_rounds"] = rounds
+            row["interleaved"] = {name: {"min": min(ts), "median": float(np.median(ts)),
+                                         "max": max(ts)} for name, ts in rounds.items()}
+            row["interleaved_ratio"] = (row["interleaved"]["kernel"]["median"]
+                                        / row["interleaved"]["library"]["median"])
+        del o, qt, kt, vt, library
         row["bound_share"] = row["bound_ms"] / row["ms"]
         row["tflops"] = flops / row["ms"] / 1e9
     log("backward", json.dumps(row))
     return row
 
 
-def forced_split_ms(call, kern, splits):
-    """Device ms of `call` (every kernel of `kern`) with the backward's GQA
-    group split over `splits` dK/dV CTAs instead of the wrapper's choice."""
+def interleaved_ms(calls, rounds=INTERLEAVE_ROUNDS, iters=INTERLEAVE_ITERS):
+    """Device ms per call of each of `calls` (name -> (fn, the kernel names
+    that count, or None for every kernel)), timed in turn, `iters` calls a
+    round: each call's time in every round."""
+    times = {name: [] for name in calls}
+    for _ in range(rounds):
+        for name, (fn, knames) in calls.items():
+            us = device_us_by_kernel(fn, iters)
+            times[name].append(sum(t for key, t in us.items()
+                                   if knames is None or any(n in key for n in knames))
+                               / 1e3 / iters)
+    return times
+
+
+def grad_error(name, gname, got, ref, tol):
+    """Max abs error of one gradient; fails above `tol` of max |ref| (or on NaN)."""
+    err = float((got.float() - ref.float()).abs().max())
+    limit = tol * float(ref.float().abs().max())
+    if not err <= limit:
+        raise AssertionError(f"{name}: {gname} max abs err {err} > {limit} ({tol} of max |ref|)")
+    return err
+
+
+@contextlib.contextmanager
+def forced(rule, splits):
+    """The split rule `rule` of `repro_torch.kernels.packed_flash_attn`
+    returning `splits`, inside the block."""
     import repro_torch.kernels.packed_flash_attn as pfa
 
-    chosen = pfa.kv_splits
-    pfa.kv_splits = lambda *a: splits
+    chosen = getattr(pfa, rule)
+    setattr(pfa, rule, lambda *a: splits)
     try:
-        us = device_us_by_kernel(call, 10)
+        yield
     finally:
-        pfa.kv_splits = chosen
+        setattr(pfa, rule, chosen)
+
+
+def forced_split_ms(call, kern, rule, splits):
+    """Device ms of `call` (every kernel of `kern`) with `rule` forced to
+    return `splits`."""
+    with forced(rule, splits):
+        us = device_us_by_kernel(call, 10)
     return sum(t for key, t in us.items() if any(n in key for n in kern.names)) / 1e3 / 10
+
+
+def tf32_split_ms(call, kern, chosen, kv_iters, dq_iters, tol, ref):
+    """The fp32 backward's device ms at every power-of-two split of its dK/dV
+    loop (the dQ split at the wrapper's choice) and of its dQ loop (the dK/dV
+    split at its choice), up to each loop's iterations; each forced split's
+    gradients are held to the plain version too."""
+    def pows(n, c):
+        return sorted({2 ** i for i in range(n.bit_length()) if 2 ** i <= n} | {c})
+    res = {"kv": {}, "dq": {}}
+    for side, values in (("kv", pows(kv_iters, chosen[0])), ("dq", pows(dq_iters, chosen[1]))):
+        for s in values:
+            splits = (s, chosen[1]) if side == "kv" else (chosen[0], s)
+            res[side][s] = forced_split_ms(call, kern, "tf32_splits", splits)
+            with forced("tf32_splits", splits):
+                grads = call()
+            for gname, a, b in zip(("dq", "dk", "dv"), grads, ref):
+                grad_error(f"split {splits}", gname, a, b, tol)
+    return res
 
 
 def parity_model(cfg):
@@ -371,23 +442,38 @@ def parity_model(cfg):
                                          sigma=0.8).batch_at(0)
 
 
-def microbatch_cases(name, inputs, seg, pos, microbatches, tol):
+def microbatch_cases(name, inputs, seg, pos, microbatches, tol, *, time_splits=False):
     """The backward kernel timed at each micro-batch of a packed batch: the
     launches a train step makes."""
     n = seg.shape[0] // microbatches
     return [backward_case(f"{name}{i}", *(x[i * n:(i + 1) * n] for x in (*inputs, seg, pos)),
-                          tol, time_it=True) for i in range(microbatches)]
+                          tol, time_it=True, time_splits=time_splits)
+            for i in range(microbatches)]
 
 
 def per_launch(rows):
     """One row for the launches of `rows` (one per micro-batch): the mean
-    of each time and bound, the largest error."""
-    mean = {k: sum(r[k] for r in rows) / len(rows)
-            for k in ("ms", "plain_ms", "bound_ms", "library_ms", "wrapper_event_ms")}
-    return {**mean, "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "bound_by": max(rows, key=lambda r: r["bound_ms"])["bound_by"],
-            "shape": rows[0]["shape"], "dtype": rows[0]["dtype"],
-            "microbatch_ms": [r["ms"] for r in rows]}
+    of each time and bound (and of each kernel's time), the largest error,
+    each micro-batch's times at every split where they were taken."""
+    def mean(key):
+        return sum(r[key] for r in rows) / len(rows)
+    res = {k: mean(k) for k in ("ms", "plain_ms", "bound_ms", "library_ms", "wrapper_event_ms")
+           if k in rows[0]}
+    res.update(max_abs_err=max(r["max_abs_err"] for r in rows),
+               bound_by=max(rows, key=lambda r: r["bound_ms"])["bound_by"],
+               shape=rows[0]["shape"], dtype=rows[0]["dtype"],
+               microbatch_ms=[r["ms"] for r in rows],
+               ms_by_kernel={n: sum(r["ms_by_kernel"][n] for r in rows) / len(rows)
+                             for n in rows[0]["ms_by_kernel"]},
+               splits=[r["splits"] for r in rows], tiles=rows[0].get("tiles"),
+               dq_tiles=rows[0].get("dq_tiles"))
+    if "bound_3xtf32_ms" in rows[0]:
+        res.update(bound_3xtf32_ms=mean("bound_3xtf32_ms"),
+                   bound_3xtf32_share=mean("bound_3xtf32_ms") / res["ms"])
+    for key in ("ms_by_splits", "interleaved", "interleaved_ratio"):
+        if key in rows[0]:
+            res[key] = [r[key] for r in rows]
+    return res
 
 
 def kernel_phase(cfg, device):
@@ -442,7 +528,7 @@ def kernel_phase(cfg, device):
     inputs = qkv(2, 777, torch.float32)
     rows["fp32_ragged"] = kernel_case("fp32_ragged", *inputs, seg, pos, TOL_FP32, time_it=True)
     rows["fp32_ragged_bwd"] = backward_case("fp32_ragged_bwd", *inputs, seg, pos, TOL_FP32,
-                                            time_it=True)
+                                            time_it=True, time_splits=True)
     # the parity path's shapes: its forward's batch, its train step's micro-batches
     small, batch = parity_model(cfg)
     seg = torch.from_numpy(batch["segment_ids"]).to(device)
@@ -451,7 +537,7 @@ def kernel_phase(cfg, device):
                  (small.n_heads, small.n_kv_heads, small.n_kv_heads))
     rows["fp32_parity"] = kernel_case("fp32_parity", *inputs, seg, pos, TOL_FP32, time_it=True)
     rows["fp32_parity_bwd"] = microbatch_cases("fp32_parity_bwd_microbatch", inputs, seg, pos,
-                                               PARITY_MICROBATCHES, TOL_FP32)
+                                               PARITY_MICROBATCHES, TOL_FP32, time_splits=True)
     return rows
 
 
@@ -522,10 +608,10 @@ def read_backward_counts():
 
 def fp32_phase(cfg, device):
     """The fp32 parity path: a reduced qwen3-8b (real head width) in fp32 on
-    the card, through the CUDA-core kernel, against the same model on the
+    the card, through the fp32 kernels, against the same model on the
     CPU: the packed forward's logits, then one train step (2 micro-batches,
     remat, AdamW) through the forward and backward kernels."""
-    from repro_torch.kernels.packed_flash_attn import BWD_SIMT, BWD_SM90, SIMT, SM90
+    from repro_torch.kernels.packed_flash_attn import BWD_SM90, BWD_TF32, SIMT, SM90
     from repro_torch.models.model import forward_train, init_params
     from repro_torch.train.optimizer import make_optimizer, tree_leaves
     from repro_torch.train.train_step import build_train_step
@@ -567,7 +653,7 @@ def fp32_phase(cfg, device):
                         [x.detach().cpu() for x in tree_leaves(p)])
     # per micro-batch and layer: forward + remat recompute, one backward
     want = {SIMT.source: 2 * PARITY_MICROBATCHES * small.n_layers, SM90.source: 0}
-    want_bwd = {BWD_SIMT.source: PARITY_MICROBATCHES * small.n_layers, BWD_SM90.source: 0}
+    want_bwd = {BWD_TF32.source: PARITY_MICROBATCHES * small.n_layers, BWD_SM90.source: 0}
     if train_counts != want or bwd_counts != want_bwd:
         raise AssertionError(f"fp32 train step launches {train_counts} {bwd_counts}, "
                              f"expected {want} and {want_bwd}")
@@ -812,16 +898,16 @@ def serve_phase(cfg, params, device, *, new_tokens=NEW_TOKENS, check_last=False)
 def bf16_launches(head_dim, *, forward, backward):
     """Expected launch counts of a bf16 run at `head_dim`: `forward` of the
     tensor-core forward and `backward` of the tensor-core backward, none of
-    the CUDA-core sources (at every head width, 256 included), no
+    the fp32 sources (at every head width, 256 included), no
     plain-version call."""
     from repro_torch.kernels.packed_flash_attn import (
-        BWD_SIMT, BWD_SM90, SIMT, SM90, backward_kernel_for, kernel_for)
+        BWD_SM90, BWD_TF32, SIMT, SM90, backward_kernel_for, kernel_for)
 
     if (kernel_for(torch.bfloat16, head_dim).source != SM90.source
             or backward_kernel_for(torch.bfloat16, head_dim).source != BWD_SM90.source):
         raise AssertionError(f"bf16 at head_dim {head_dim} does not take the tensor-core kernels")
     return {SM90.source: forward, SIMT.source: 0, f"backward[{BWD_SM90.source}]": backward,
-            f"backward[{BWD_SIMT.source}]": 0, "plain_calls": 0}
+            f"backward[{BWD_TF32.source}]": 0, "plain_calls": 0}
 
 
 def counting_plain_calls():
@@ -1284,38 +1370,62 @@ def ptxas_by_function(log):
     return out
 
 
-# the head_dim 256 backward's dK/dV and dQ kernels, each checked on its own
-WIDE_BACKWARD_KERNELS = ("bwd_sm90_dkdv_split_kernel", "bwd_sm90_dq_kernel")
+# per-kernel build gates: (what, kernel source's record, kernels, head widths,
+# the SASS opcode every one of them must show): the bf16 head_dim 256
+# backward's dK/dV and dQ kernels on wgmma, and the fp32 backward's dK/dV and
+# dQ kernels on TF32 tensor-core products at every width its paths run
+BUILD_GATES = (
+    ("head_dim_256_backward_build", "BWD_SM90_WIDE",
+     ("bwd_sm90_dkdv_split_kernel", "bwd_sm90_dq_kernel"), (256,), ("HGMMA",)),
+    ("fp32_backward_build", "BWD_TF32", ("bwd_tf32_dkdv_kernel", "bwd_tf32_dq_kernel"),
+     (80, 128, 256), ("HMMA", "TF32")),
+)
 
 
-def wide_backward_build_check():
-    """HGMMA instructions in the SASS of the dh 256 instantiations of the
-    bf16 backward's dK/dV and dQ kernels, and their registers and spills from
-    ptxas; fails on no HGMMA or any spill."""
+def kernel_build_check(record_name, knames, head_dims, opcode):
+    """Each kernel's instantiation at each head width: the SASS lines that
+    hold every word of `opcode`, and its registers and spills from ptxas;
+    fails where there is no such line or any spill."""
     from repro_torch.kernels import build
-    from repro_torch.kernels.packed_flash_attn import BWD_SM90_WIDE
+    import repro_torch.kernels.packed_flash_attn as pfa
 
-    sass = sass_by_function(build.library_path(BWD_SM90_WIDE.source))
-    ptxas = ptxas_by_function(build.build_log(BWD_SM90_WIDE.source))
+    source = getattr(pfa, record_name).source
+    sass = sass_by_function(build.library_path(source))
+    ptxas = ptxas_by_function(build.build_log(source))
     report = {}
-    for kname in WIDE_BACKWARD_KERNELS:
-        found = [f for f in sass if kname in f and "ILi256E" in f]  # template argument 256
-        if len(found) != 1 or found[0] not in ptxas:
-            raise AssertionError(f"{kname}<256>: {len(found)} functions in the SASS ({found}), "
-                                 f"in the ptxas report: {[f in ptxas for f in found]}")
-        res = ptxas[found[0]]
-        row = {"function": found[0], "hgmma": sum("HGMMA" in line for line in sass[found[0]]),
-               **res}
-        if row["hgmma"] == 0:
-            raise AssertionError(f"{kname}<256>: no HGMMA instruction in its SASS")
-        if res.get("spill_stores", 1) or res.get("spill_loads", 1):
-            raise AssertionError(f"{kname}<256>: ptxas reports spills {res}")
-        report[kname] = row
+    for kname in knames:
+        for dh in head_dims:
+            label = f"{kname}<{dh}>"
+            found = [f for f in sass if kname in f and f"ILi{dh}E" in f]  # template argument
+            if len(found) != 1 or found[0] not in ptxas:
+                raise AssertionError(f"{label}: {len(found)} functions in the SASS ({found}), "
+                                     f"in the ptxas report: {[f in ptxas for f in found]}")
+            res = ptxas[found[0]]
+            row = {"function": found[0], "opcode": " ".join(opcode),
+                   "instructions": sum(all(w in line for w in opcode) for line in sass[found[0]]),
+                   **res}
+            if row["instructions"] == 0:
+                raise AssertionError(f"{label}: no {' '.join(opcode)} instruction in its SASS")
+            if res.get("spill_stores", 1) or res.get("spill_loads", 1):
+                raise AssertionError(f"{label}: ptxas reports spills {res}")
+            report[label] = row
     return report
 
 
 TIMING_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err", "shape",
-               "kv_heads", "window", "dtype", "kv_splits", "ms_by_splits")
+               "kv_heads", "window", "dtype", "splits", "ms_by_splits", "ms_by_kernel",
+               "bound_3xtf32_ms", "bound_3xtf32_share")
+
+
+def fp32_bwd_extra(row, full=False):
+    """The fp32 backward's own fields of a `kernels` entry: tiles, time by
+    kernel, splits (and times at every split), the 3xTF32 bound; with
+    `full`, the case's times too."""
+    keys = ("tiles", "dq_tiles", "ms_by_kernel", "splits", "ms_by_splits",
+            "bound_3xtf32_ms", "bound_3xtf32_share", "interleaved", "interleaved_ratio")
+    if full:
+        keys += ("shape", "kv_heads", "ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")
+    return {key: row.get(key) for key in keys}
 
 
 def kernel_entries(record):
@@ -1323,7 +1433,7 @@ def kernel_entries(record):
     group that a main path launched, its launches counted in those runs, its
     times from the kernel phases at a main path's shape; other shapes of the
     same kernel under `other_cases`."""
-    from repro_torch.kernels.packed_flash_attn import BWD_SIMT, BWD_SM90, SIMT, SM90
+    from repro_torch.kernels.packed_flash_attn import BWD_SM90, BWD_TF32, SIMT, SM90
 
     kern, fk, fam, fp32 = (record["kernel"], record["family_kernel"], record["family"],
                            record["fp32_path"])
@@ -1403,26 +1513,29 @@ def kernel_entries(record):
               others=("gemma3-1b_bf16_global_bwd", "gemma3-4b_bf16_bwd",
                       "gemma3-4b_bf16_global_bwd"), head_dim=256,
               **{key: fk["gemma3-1b_bf16_bwd"].get(key) for key in
-                 ("tiles", "dq_tiles", "ms_by_kernel", "kv_splits", "ms_by_splits")}),
+                 ("tiles", "dq_tiles", "ms_by_kernel", "splits", "ms_by_splits")}),
         entry("packed_flash_attention_backward[head_dim 80]", BWD_SM90.source,
               fk["h2o-danube-1.8b_bf16_bwd"],
               {"h2o-danube-1.8b train": bwd(fam["h2o-danube-1.8b_train"], BWD_SM90.source)},
               head_dim=80, runs_at_head_dim=128),
-        entry("packed_flash_attention_backward[float32]", BWD_SIMT.source,
+        entry("packed_flash_attention_backward[float32]", BWD_TF32.source,
               per_launch(kern["fp32_parity_bwd"]),
               {"qwen3-8b parity":
-               fp32["qwen3-8b"]["train_step_backward_launches"][BWD_SIMT.source]},
-              others=("llama2-7b_fp32_bwd", "qwen2.5-7b_fp32_bwd"), head_dim=128),
-        entry("packed_flash_attention_backward[float32, head_dim 256]", BWD_SIMT.source,
+               fp32["qwen3-8b"]["train_step_backward_launches"][BWD_TF32.source]},
+              others=("llama2-7b_fp32_bwd", "qwen2.5-7b_fp32_bwd"), head_dim=128,
+              **fp32_bwd_extra(per_launch(kern["fp32_parity_bwd"])),
+              ragged=fp32_bwd_extra(kern["fp32_ragged_bwd"], full=True)),
+        entry("packed_flash_attention_backward[float32, head_dim 256]", BWD_TF32.source,
               fk["gemma3-1b_fp32_bwd"],
               {"gemma3-1b parity":
-               fp32["gemma3-1b"]["train_step_backward_launches"][BWD_SIMT.source]},
-              others=("gemma3-4b_fp32_bwd",), head_dim=256),
-        entry("packed_flash_attention_backward[float32, head_dim 80]", BWD_SIMT.source,
+               fp32["gemma3-1b"]["train_step_backward_launches"][BWD_TF32.source]},
+              others=("gemma3-4b_fp32_bwd",), head_dim=256,
+              **fp32_bwd_extra(fk["gemma3-1b_fp32_bwd"])),
+        entry("packed_flash_attention_backward[float32, head_dim 80]", BWD_TF32.source,
               fk["h2o-danube-1.8b_fp32_bwd"],
               {"h2o-danube-1.8b parity":
-               fp32["h2o-danube-1.8b"]["train_step_backward_launches"][BWD_SIMT.source]},
-              head_dim=80),
+               fp32["h2o-danube-1.8b"]["train_step_backward_launches"][BWD_TF32.source]},
+              head_dim=80, **fp32_bwd_extra(fk["h2o-danube-1.8b_fp32_bwd"])),
     ]
 
 
@@ -1441,7 +1554,7 @@ def main(argv=None):
     from repro_torch.configs import get_arch
     from repro_torch.configs.paper_models import PAPER_MODELS, PAPER_PARALLELISM
     from repro_torch.kernels import build
-    from repro_torch.kernels.packed_flash_attn import BWD_SIMT, BWD_SM90, SIMT, SM90
+    from repro_torch.kernels.packed_flash_attn import BWD_SM90, BWD_TF32, SIMT, SM90
     from repro_torch.models.model import init_params
     from repro_torch.train.optimizer import tree_leaves
 
@@ -1458,18 +1571,20 @@ def main(argv=None):
     record["build_seconds"] = time.perf_counter() - t0
     for src, text in build.build_logs.items():
         for line in text.splitlines():
-            if any(w in line for w in ("registers", "spill", "warning", "wgmma")):
+            if any(w in line for w in ("entry function", "registers", "spill", "warning",
+                                       "wgmma")):
                 log(f"ptxas {src}: {line.strip()}")
     log(f"build: {record['build_seconds']:.1f} s")
     # the bf16 kernels must run on the tensor cores: HGMMA in their SASS
     record["hgmma_instructions"] = {k.source: sass_count(build.library_path(k.source), "HGMMA")
-                                    for k in (SM90, SIMT, BWD_SM90, BWD_SIMT)}
+                                    for k in (SM90, SIMT, BWD_SM90, BWD_TF32)}
     log(f"sass: HGMMA instructions {record['hgmma_instructions']}")
     for kern in (SM90, BWD_SM90):
         if record["hgmma_instructions"][kern.source] == 0:
             raise AssertionError(f"{kern.source}: no HGMMA instruction in its SASS")
-    record["head_dim_256_backward_build"] = wide_backward_build_check()
-    log(f"build: head_dim 256 backward {json.dumps(record['head_dim_256_backward_build'])}")
+    for name, kern, knames, dims, opcode in BUILD_GATES:
+        record[name] = kernel_build_check(kern, knames, dims, opcode)
+        log(f"build: {name} {json.dumps(record[name])}")
 
     cfg = get_arch("qwen3-8b")
     record["kernel"] = kernel_phase(cfg, device)

@@ -3,7 +3,7 @@
 //
 // The gradient of the Pallas TPU kernel `_attn_kernel`
 // (src/repro/kernels/packed_flash_attn.py:39, launched by
-// `packed_flash_attention`), for bf16 inputs; fp32 inputs take the CUDA-core
+// `packed_flash_attention`), for bf16 inputs; fp32 inputs take the 3xTF32
 // backward in packed_flash_attn_bwd.cu. The JAX package has no backward
 // kernel (it trains through its jnp attention, which XLA differentiates);
 // this one computes the same gradient under the forward's tile skip, so a

@@ -1,9 +1,10 @@
 // Pieces shared by the Hopper (sm_90a) packed flash attention kernels, forward
-// (packed_flash_attn_sm90.cu) and backward (packed_flash_attn_bwd_sm90.cu):
-// mbarrier waits with a watchdog, TMA and bulk copies, wgmma descriptors and
-// products, the swizzled shared-memory tile layout of a head width, and the
-// 4-D TMA maps over (dh, heads, S, B). `kernels/build.py` hashes this header
-// into the name of every library whose source includes it.
+// (packed_flash_attn_sm90.cu) and backward (packed_flash_attn_bwd_sm90.cu,
+// and the fp32 backward packed_flash_attn_bwd.cu): mbarrier waits with a
+// watchdog, TMA, bulk and cp.async copies, wgmma descriptors and products,
+// 3xTF32 products by mma.sync, the swizzled shared-memory tile layout of a
+// head width, and the 4-D TMA maps over (dh, heads, S, B). `kernels/build.py`
+// hashes this header into the name of every library whose source includes it.
 #pragma once
 
 #include <cuda.h>
@@ -298,6 +299,54 @@ template <> struct Wgmma<128> {
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
   }
 };
+
+// 16-byte asynchronous copy global -> shared (cp.async, L2 only); `valid`
+// false copies no bytes and zero-fills the 16 bytes.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 3xTF32: an fp32 value x splits into hi, x with its low 13 mantissa bits
+// cleared (the bits a TF32 product reads), and lo = x - hi, exact in fp32;
+// a * b is then alo bhi + ahi blo + ahi bhi, each a TF32 tensor-core product
+// summed in fp32, which drops only alo blo (2^-22 of |a b|) and lo's own
+// low bits. One TF32 product alone keeps about 2^-11 of |a b|.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  const uint32_t h = __float_as_uint(x) & 0xffffe000u;
+  hi = h;
+  lo = __float_as_uint(x - __uint_as_float(h));
+}
+
+// mma.sync m16n8k8, f32 += tf32 * tf32. Lane l (g = l / 4, t = l % 4) holds
+// A (16 x 8, row-major) a[0] = A[g][t], a[1] = A[g+8][t], a[2] = A[g][t+4],
+// a[3] = A[g+8][t+4]; B (8 x 8, k x n) b0 = B[t][g], b1 = B[t+4][g]; the
+// accumulator d[0..1] = D[g][2t, 2t+1], d[2..3] = D[g+8][2t, 2t+1].
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b in 3xTF32 (the small cross terms first), from split fragments
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ahi)[4],
+                                           const uint32_t (&alo)[4], const uint32_t (&bhi)[2],
+                                           const uint32_t (&blo)[2]) {
+  mma_tf32(d, alo, bhi[0], bhi[1]);
+  mma_tf32(d, ahi, blo[0], blo[1]);
+  mma_tf32(d, ahi, bhi[0], bhi[1]);
+}
 
 // cuTensorMapEncodeTiled, looked up at run time so that the library needs
 // no -lcuda.

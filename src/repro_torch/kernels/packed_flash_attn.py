@@ -4,10 +4,9 @@ Counterpart of `repro.kernels.packed_flash_attn`. Two CUDA C++ kernels for
 sm_90a, built by nvcc at first use and bound with ctypes, one per input type:
 bf16 runs on the tensor cores (`csrc/packed_flash_attn_sm90.cu`: wgmma fed by
 TMA through an mbarrier ring, 128 x 128 tiles, 128 x 64 at head_dim 256);
-fp32 runs on the CUDA cores (`csrc/packed_flash_attn.cu`, 64 x 64 tiles),
-since TF32 tensor cores cannot hold the fp32 parity tolerance. A `Kernel` is
-chosen by (dtype, head_dim) (`kernel_for`, `backward_kernel_for`): its tiles
-may differ with the head width. bf16 at head_dim 80 runs the head_dim 128
+fp32 runs on the CUDA cores (`csrc/packed_flash_attn.cu`, 64 x 64 tiles).
+A `Kernel` is chosen by (dtype, head_dim) (`kernel_for`,
+`backward_kernel_for`): its tiles may differ with the head width. bf16 at head_dim 80 runs the head_dim 128
 kernels on q, k and v padded with zero columns (`run_head_dim`), which is
 exact: the scale stays 1/sqrt(80) and the padded output columns are
 dropped. `block_metadata` gives the (B, nQ, nK) int8 map of tiles that can
@@ -24,8 +23,13 @@ at 64 x 128 tiles and a dQ kernel at 128 x 128; at head_dim 256 a dK/dV
 kernel at 64 x 64 whose two warpgroups split the products, its GQA group
 split over CTAs where the grid would leave SMs idle (`kv_splits`), and the
 dQ kernel at 128 x 32; both tile maps derived from one map by `coarsen`); fp32
-on the CUDA cores (`csrc/packed_flash_attn_bwd.cu`, 64 x 64, 32 x 32 at
-head_dim 256). The two sm_90a sources share `csrc/sm90_common.cuh`.
+on the tensor cores too (`csrc/packed_flash_attn_bwd.cu`: every product in
+3xTF32 by mma.sync, each fp32 operand split into two TF32 parts, which holds
+the fp32 parity tolerance where one TF32 product does not; a dK/dV kernel
+at 32 x 64 tiles (16 x 64 at head_dim 256) and a dQ kernel at 64 x 16,
+tiles copied ahead by cp.async, each loop split over CTAs where its grid
+would leave SMs idle, `tf32_splits`). The sm_90a sources share
+`csrc/sm90_common.cuh`.
 `kernels.ops` wires forward and backward into autograd.
 
 `packed_flash_attention.launches` and `packed_flash_attention_backward.launches`
@@ -50,8 +54,10 @@ HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 class Kernel:
     """One compiled kernel source at some head widths: its file under `csrc/`,
     the prefix of its C symbols, the tile sizes its `blk_ok` map is built at,
-    the names of its CUDA kernels as the profiler shows them, and the tiles
-    of a backward's dQ kernel where they differ (None: the same)."""
+    the names of its CUDA kernels as the profiler shows them, the tiles of a
+    backward's dQ kernel where they differ (None: the same), and the rule
+    that splits a backward's loops over CTAs where its grid would leave SMs
+    idle ("kv": `kv_splits`, "tf32": `tf32_splits`, None: no split)."""
 
     source: str
     symbol: str
@@ -59,6 +65,16 @@ class Kernel:
     block_k: int
     names: tuple[str, ...]
     dq_tiles: tuple[int, int] | None = None
+    split_rule: str | None = None
+
+    def splits(self, B, H, K, Sqp, Skp, sms) -> tuple[int, int]:
+        """(dK/dV splits, dQ splits) of this backward at batch B, Sqp and Skp
+        padded queries and keys, on `sms` SMs, by its split rule."""
+        if self.split_rule == "kv":
+            return kv_splits(self, B, H, K, Skp, sms), 1
+        if self.split_rule == "tf32":
+            return tf32_splits(self, B, H, K, Sqp, Skp, sms)
+        return 1, 1
 
 
 SM90 = Kernel("packed_flash_attn_sm90.cu", "packed_flash_attn_sm90", 128, 128,
@@ -68,13 +84,17 @@ SIMT = Kernel("packed_flash_attn.cu", "packed_flash_attn", 64, 64, ("packed_flas
 BWD_SM90 = Kernel("packed_flash_attn_bwd_sm90.cu", "packed_flash_attn_bwd_sm90", 64, 128,
                   ("bwd_sm90_delta_kernel", "bwd_sm90_dkdv_kernel", "bwd_sm90_dq_kernel"),
                   dq_tiles=(128, 128))
+# head_dim 256; the sum runs only with splits
 BWD_SM90_WIDE = Kernel(BWD_SM90.source, BWD_SM90.symbol, 64, 64,
                        ("bwd_sm90_delta_kernel", "bwd_sm90_dkdv_split_kernel",
                         "bwd_sm90_dq_kernel", "bwd_sm90_kv_sum_kernel"),
-                       dq_tiles=(128, 32))  # head_dim 256; the sum runs only with splits
-BWD_SIMT = Kernel("packed_flash_attn_bwd.cu", "packed_flash_attn_bwd", 64, 64,
-                  ("bwd_delta_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel"))
-BWD_SIMT_WIDE = Kernel(BWD_SIMT.source, BWD_SIMT.symbol, 32, 32, BWD_SIMT.names)  # head_dim 256
+                       dq_tiles=(128, 32), split_rule="kv")
+BWD_TF32 = Kernel("packed_flash_attn_bwd.cu", "packed_flash_attn_bwd", 32, 64,
+                  ("bwd_tf32_delta_kernel", "bwd_tf32_dkdv_kernel", "bwd_tf32_dq_kernel",
+                   "bwd_tf32_sum_kernel"),
+                  dq_tiles=(64, 16), split_rule="tf32")  # the sum runs only with splits
+BWD_TF32_WIDE = Kernel(BWD_TF32.source, BWD_TF32.symbol, 16, 64, BWD_TF32.names,
+                       dq_tiles=(64, 16), split_rule="tf32")  # head_dim 256
 # head widths a dtype's kernels run zero-padded to a compiled width
 PADDED_HEAD_DIMS = {torch.bfloat16: {80: 128}}
 
@@ -104,7 +124,7 @@ def backward_kernel_for(dtype, head_dim) -> Kernel:
     """The backward kernel that takes inputs of `dtype` and `head_dim`."""
     _checked_dims(dtype, head_dim)
     if dtype == torch.float32:
-        return BWD_SIMT_WIDE if head_dim == 256 else BWD_SIMT
+        return BWD_TF32_WIDE if head_dim == 256 else BWD_TF32
     return BWD_SM90_WIDE if head_dim == 256 else BWD_SM90
 
 
@@ -227,12 +247,42 @@ def kv_splits(kern: Kernel, B, H, K, Skp, sms) -> int:
     backward, whose grid of K x B x Skp / 64 CTAs can leave SMs idle
     (gemma3-1b at 1 x 4096: 64 on 132): there the most that divide the group
     and keep the grid within one wave of `sms` SMs. The CTAs of a split
-    store fp32 parts, which a second kernel sums."""
-    if kern is not BWD_SM90_WIDE:
+    store fp32 parts, which a second kernel sums. 1 for a kernel whose rule
+    is not "kv"."""
+    if kern.split_rule != "kv":
         return 1
     group, ctas = H // K, K * B * (Skp // kern.block_k)
     wave = max(sms, ctas)
     return max(s for s in range(1, group + 1) if group % s == 0 and ctas * s <= wave)
+
+
+MIN_SPLIT_PAIRS = 2048  # (query, key) pairs of a split loop's CTA, at the least
+
+
+def tf32_splits(kern: Kernel, B, H, K, Sqp, Skp, sms) -> tuple[int, int]:
+    """(dK/dV splits, dQ splits) of the fp32 backward at batch B, Sqp and Skp
+    padded queries and keys, on `sms` SMs. A dK/dV CTA loops over its GQA
+    group's (head, query tile) pairs, H / K x Sqp / block_q of them; a dQ
+    CTA over Skp / block_k key tiles. Each loop is split over CTAs until its
+    grid holds about four waves of `sms` CTAs (the power of two at or below
+    4 sms / CTAs), but leaves each CTA at least `MIN_SPLIT_PAIRS` (query,
+    key) pairs of its loop, since a CTA's fixed cost of copies in and parts
+    out outweighs a smaller share: one 32 x 64 stage of a dK/dV CTA, two
+    64 x 16 stages of a dQ CTA. Its CTAs run one an SM at head_dim 80 and
+    above, and the key tiles that open a packed document see several times
+    the mean work, so a grid of one or two waves waits on its longest CTAs.
+    Each split CTA stores fp32 parts, which a second kernel sums in order.
+    (1, 1) for a kernel whose rule is not "tf32"."""
+    if kern.split_rule != "tf32":
+        return 1, 1
+    bq, bk = kern.dq_tiles
+
+    def split(ctas, iters, pairs):  # pairs: (query, key) pairs an iteration
+        most = min(4 * sms // ctas, iters * pairs // MIN_SPLIT_PAIRS)
+        return 1 << (max(1, most).bit_length() - 1)
+    return (split(K * B * (Skp // kern.block_k), H // K * (Sqp // kern.block_q),
+                  kern.block_q * kern.block_k),
+            split(H * B * (Sqp // bq), Skp // bk, bq * bk))
 
 
 @functools.cache
@@ -245,9 +295,11 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 # scale, causal, has_window, window, stream
 _FWD_ARGTYPES = [_INT] + [_PTR] * 10 + [_INT] * 7 + [ctypes.c_float] + [_INT] * 3 + [_PTR]
 _BWD_ARGTYPES = {
-    # head_dim, q, k, v, out, d_out, lse, seg_q, seg_k, pos_q, pos_k, blk_ok, delta, dq, dk,
-    # dv, B, Sq, Sk, H, KH, nQ, nK, scale, causal, has_window, window, stream
-    BWD_SIMT.source: [_INT] + [_PTR] * 15 + [_INT] * 7 + [ctypes.c_float] + [_INT] * 3 + [_PTR],
+    # head_dim, q, k, v, out, d_out, lse, seg_q, seg_k, pos_q, pos_k, blk_kv, blk_dq, stats,
+    # dq, dk, dv, B, Sq, Sk, H, KH, Sqp, Skp, scale, causal, has_window, window, kv_splits,
+    # kv_part, q_splits, q_part, stream
+    BWD_TF32.source: [_INT] + [_PTR] * 16 + [_INT] * 7 + [ctypes.c_float] + [_INT] * 4
+    + [_PTR, _INT, _PTR, _PTR],
     # head_dim, q, k, v, out, d_out, lse, seg_q, seg_k, pos_q, pos_k, blk_kv, blk_dq, lse2,
     # delta, dq, dk, dv, B, Sq, Sk, H, KH, Sqp, Skp, scale, causal, has_window, window,
     # kv_splits, kv_part, stream
@@ -393,8 +445,8 @@ def packed_flash_attention_backward(q, k, v, out, lse, d_out, seg_q, seg_k, pos_
 
     out and lse are the forward's (`return_lse=True`), d_out the gradient of
     out; dk and dv carry the un-repeated KV heads, summed over each GQA
-    group. bf16 takes the tensor-core backward (at head_dim 80 over
-    zero-padded columns), fp32 the CUDA-core one; both accumulate in fp32,
+    group. bf16 takes the bf16 tensor-core backward (at head_dim 80 over
+    zero-padded columns), fp32 the 3xTF32 one; both accumulate in fp32,
     under the same mask and tile skip as the forward (each kernel's tile map
     at its own tiles). Raises on a tensor the kernels do not take; never
     falls back.
@@ -414,27 +466,33 @@ def packed_flash_attention_backward(q, k, v, out, lse, d_out, seg_q, seg_k, pos_
                                                causal=causal, window=window)
     Sqp, Skp = padded[0].shape[1], padded[1].shape[1]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    if kern.source == BWD_SM90.source:  # lse in log2 units and delta, padded to whole tiles
-        stats = torch.empty((2, B, H, Sqp), dtype=torch.float32, device=q.device)
+    sms = _sm_count(q.device.index)
+
+    scratch = []  # held until the launch: fp32 buffers the kernels write and read
+
+    def fp32(*shape):
+        scratch.append(torch.empty(shape, dtype=torch.float32, device=q.device))
+        return scratch[-1]
+
+    def part(splits, *shape):  # a split loop's fp32 parts
+        return splits, fp32(splits, *shape).data_ptr() if splits > 1 else None
+    stats = fp32(2, B, H, Sqp)  # lse and delta, padded to whole tiles
+    s_kv, s_q = kern.splits(B, H, K, Sqp, Skp, sms)
+    tail = part(s_kv, 2, B, Sk, K, run_dh)
+    if kern.source == BWD_SM90.source:  # lse there in log2 units; its dQ is never split
         bufs = (blk, blk_dq, stats[0], stats[1])
-        dims = (Sqp, Skp)
-        splits = kv_splits(kern, B, H, K, Skp, _sm_count(q.device.index))
-        part = (torch.empty((splits, 2, B, Sk, K, run_dh), dtype=torch.float32, device=q.device)
-                if splits > 1 else None)
-        tail = (splits, part.data_ptr() if part is not None else None)
     else:
-        bufs = (blk, torch.empty((B, H, Sq), dtype=torch.float32, device=q.device))
-        dims = (blk.shape[1], blk.shape[2])
-        tail = ()
+        bufs = (blk, blk_dq, stats)
+        tail += part(s_q, B, Sq, H, run_dh)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         rc = bwd(run_dh, *(t.data_ptr() for t in (q, k, v, out, d_out, lse, *padded, *bufs,
                                                  dq, dk, dv)),
-                 B, Sq, Sk, H, K, *dims, float(scale),
+                 B, Sq, Sk, H, K, Sqp, Skp, float(scale),
                  int(causal), int(window is not None), int(window or 0), *tail, stream)
     _raise_on(rc, kern, "backward launch")
     packed_flash_attention_backward.launches[kern.source] += 1
     return _unpad_head(dh, dq, dk, dv)
 
 
-packed_flash_attention_backward.launches = {kern.source: 0 for kern in (BWD_SM90, BWD_SIMT)}
+packed_flash_attention_backward.launches = {kern.source: 0 for kern in (BWD_SM90, BWD_TF32)}

@@ -1,6 +1,6 @@
 """On the card: the Hopper packed flash attention kernels (bf16 on the tensor
 cores, fp32 on the CUDA cores; the forward's row log-sum-exp; the backward
-kernels, bf16 on the tensor cores and fp32 on the CUDA cores) against their
+kernels, bf16 on the tensor cores and fp32 in 3xTF32 on them) against their
 plain PyTorch versions, the port's reduced model, train step and pipeline
 engine on the card against themselves on the CPU, and a checkpoint of card
 tensors restored onto the card. Every case is
@@ -21,7 +21,7 @@ from repro_torch.data.synth import SyntheticPackedDataset
 import repro_torch.kernels.packed_flash_attn as pfa
 from repro_torch.kernels import ops
 from repro_torch.kernels.packed_flash_attn import (
-    BWD_SIMT,
+    BWD_TF32,
     BWD_SM90,
     BWD_SM90_WIDE,
     SIMT,
@@ -233,7 +233,7 @@ def _backward_case(rng, device, args, dtype, window=None):
 def test_gpu_backward_matches_plain(cuda, rng, S, dh, group, dtype):
     """Ragged lengths (no multiple of 64 or 128), several documents per row,
     every head width and GQA group: bf16 through the tensor-core backward,
-    fp32 through the CUDA-core one."""
+    fp32 through the 3xTF32 one."""
     K = 2
     _backward_case(rng, cuda, _args(rng, cuda, 2, S, K * group, K, dh, dtype), dtype)
 
@@ -272,10 +272,10 @@ def test_gpu_backward_unmasked_tiles_match_masked(cuda, rng, dtype, monkeypatch)
 
 @pytest.mark.gpu
 def test_gpu_backward_launch_counts_by_source(cuda, rng):
-    """A bf16 backward launches the tensor-core source once and never the
-    CUDA-core one; an fp32 backward the CUDA-core source once."""
-    assert packed_flash_attention_backward.launches.keys() == {BWD_SM90.source, BWD_SIMT.source}
-    for dtype, kern in (("bfloat16", BWD_SM90), ("float32", BWD_SIMT)):
+    """A bf16 backward launches the bf16 source once and never the fp32 one;
+    an fp32 backward the fp32 (3xTF32) source once."""
+    assert packed_flash_attention_backward.launches.keys() == {BWD_SM90.source, BWD_TF32.source}
+    for dtype, kern in (("bfloat16", BWD_SM90), ("float32", BWD_TF32)):
         args = _args(rng, cuda, 1, 256, 4, 2, 64, dtype)
         d_out, out, lse, kw = _backward_inputs(rng, cuda, args, dtype)
         before = dict(packed_flash_attention_backward.launches)
@@ -372,8 +372,8 @@ def test_gpu_reduced_train_step_matches_cpu(cuda):
         results[str(device)] = (metrics, [n(p.grad) for p in tree_leaves(params)],
                                 [n(p) for p in tree_leaves(params)], launches)
     (m_cpu, g_cpu, p_cpu, l_cpu), (m_gpu, g_gpu, p_gpu, l_gpu) = results.values()
-    assert l_cpu == {BWD_SM90.source: 0, BWD_SIMT.source: 0}
-    assert l_gpu == {BWD_SM90.source: 0, BWD_SIMT.source: cfg.n_layers * 2}
+    assert l_cpu == {BWD_SM90.source: 0, BWD_TF32.source: 0}
+    assert l_gpu == {BWD_SM90.source: 0, BWD_TF32.source: cfg.n_layers * 2}
     np.testing.assert_allclose(float(m_gpu["loss"]), float(m_cpu["loss"]), rtol=1e-4)
     np.testing.assert_allclose(float(m_gpu["grad_norm"]), float(m_cpu["grad_norm"]), rtol=1e-4)
     for a, b in zip(g_gpu, g_cpu):
@@ -438,11 +438,11 @@ def test_gpu_pipeline_launch_counts(cuda, dtype):
     finally:
         ops.packed_attention_ref = plain
     L, R, M = 4, 2, 2
-    kern, bkern = (SM90, BWD_SM90) if dtype == "bfloat16" else (SIMT, BWD_SIMT)
+    kern, bkern = (SM90, BWD_SM90) if dtype == "bfloat16" else (SIMT, BWD_TF32)
     got = {s: c - fwd[s] for s, c in packed_flash_attention.launches.items()}
     got_bwd = {s: c - bwd[s] for s, c in packed_flash_attention_backward.launches.items()}
     assert got == {SM90.source: 0, SIMT.source: 0, kern.source: 2 * L * R * M}
-    assert got_bwd == {BWD_SM90.source: 0, BWD_SIMT.source: 0, bkern.source: L * R * M}
+    assert got_bwd == {BWD_SM90.source: 0, BWD_TF32.source: 0, bkern.source: L * R * M}
     assert not calls
 
 
@@ -536,7 +536,7 @@ def _gemma3_args(rng, device, dtype, S=1000, H=4, K=1):
 @pytest.mark.parametrize("window", [512, 96, None])
 def test_gpu_head_dim_256_bf16_backward_on_tensor_cores(cuda, rng, window):
     """bf16 at head_dim 256 (gemma3-1b's heads, its window 512, a short
-    window and none) launches the tensor-core source once and the CUDA-core
+    window and none) launches the bf16 tensor-core source once and the fp32
     source never, matches the plain version, and gives padding rows and keys
     gradients of exactly 0."""
     assert backward_kernel_for(torch.bfloat16, 256) is BWD_SM90_WIDE
@@ -545,7 +545,7 @@ def test_gpu_head_dim_256_bf16_backward_on_tensor_cores(cuda, rng, window):
     grads = _backward_case(rng, cuda, args, "bfloat16", window=window)
     after = packed_flash_attention_backward.launches
     assert after[BWD_SM90.source] - before[BWD_SM90.source] == 1
-    assert after[BWD_SIMT.source] == before[BWD_SIMT.source]
+    assert after[BWD_TF32.source] == before[BWD_TF32.source]
     pad = args[3] == 0
     for g_, side in zip(grads, ("q", "k", "v")):
         assert bool((g_[pad] == 0).all()), side
@@ -601,6 +601,49 @@ def test_gpu_head_dim_256_backward_gqa_splits(cuda, rng, splits, monkeypatch):
                  "bfloat16")
     pad = args[3] == 0
     assert all(bool((g_[pad] == 0).all()) for g_ in first)
+
+
+def _fp32_split_values(args, kw):
+    """Every split of the fp32 backward's two loops, as (dK/dV, dQ): powers
+    of two up to each loop's iterations, and the wrapper's own choice."""
+    kern = backward_kernel_for(torch.float32, args[0].shape[-1])
+    padded, _ = pfa.backward_tile_maps(kern, *args[3:], **kw)
+    B, _, H, _ = args[0].shape
+    K = args[1].shape[2]
+    Sqp, Skp = padded[0].shape[1], padded[1].shape[1]
+    iters = (H // K * Sqp // kern.block_q, Skp // kern.dq_tiles[1])
+    chosen = pfa.tf32_splits(kern, B, H, K, Sqp, Skp,
+                             torch.cuda.get_device_properties(args[0].device).multi_processor_count)
+    pows = [sorted({2 ** i for i in range(n.bit_length()) if 2 ** i <= n} | {c})
+            for n, c in zip(iters, chosen)]
+    return [(s, chosen[1]) for s in pows[0]] + [(chosen[0], s) for s in pows[1] if s != chosen[1]]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["parity", "ragged", "gemma3"])
+def test_gpu_fp32_backward_forced_splits(cuda, rng, shape, monkeypatch):
+    """The fp32 backward's dK/dV loop (GQA heads x query tiles) and dQ loop
+    (key tiles), each split over every power of two of CTAs up to its
+    iterations: every split matches the plain version within 1e-4 of max
+    |ref|, two launches agree bit for bit, and padding rows and keys get
+    gradients of exactly 0."""
+    if shape == "parity":  # the parity path's micro-batch: 2 x 256, 4 / 2 heads
+        args = _args(rng, cuda, 2, 256, 4, 2, 128, "float32", doc_lens=[100, 80, 40])
+    elif shape == "ragged":
+        args = _args(rng, cuda, 2, 333, 8, 2, 80, "float32", doc_lens=[200, 100])
+    else:
+        args = _gemma3_args(rng, cuda, "float32", S=700)
+    d_out, out, lse, kw = _backward_inputs(rng, cuda, args, "float32")
+    ref = packed_attention_ref_backward(*args[:3], d_out, *args[3:], **kw)
+    pad = args[3] == 0
+    for splits in _fp32_split_values(args, kw):
+        monkeypatch.setattr(pfa, "tf32_splits", lambda *a, s=splits: s)
+        first = packed_flash_attention_backward(*args[:3], out, lse, d_out, *args[3:], **kw)
+        second = packed_flash_attention_backward(*args[:3], out, lse, d_out, *args[3:], **kw)
+        for a, b in zip(first, second):
+            assert torch.equal(a, b), splits
+        _check_grads(first, ref, "float32")
+        assert all(bool((g_[pad] == 0).all()) for g_ in first), splits
 
 
 def _decode(cfg, params, device, tokens, max_len):

@@ -15,10 +15,10 @@ from repro.kernels.packed_flash_attn import packed_flash_attention as j_packed_f
 from repro.kernels.ref import packed_attention_ref as j_ref
 from repro_torch.kernels import build, ops
 from repro_torch.kernels.packed_flash_attn import (
-    BWD_SIMT,
-    BWD_SIMT_WIDE,
     BWD_SM90,
     BWD_SM90_WIDE,
+    BWD_TF32,
+    BWD_TF32_WIDE,
     HEAD_DIMS,
     SIMT,
     SM90,
@@ -33,6 +33,7 @@ from repro_torch.kernels.packed_flash_attn import (
     packed_flash_attention_backward,
     run_head_dim,
     skipped_block_fraction,
+    tf32_splits,
     tile_map,
     tile_sizes,
 )
@@ -275,32 +276,36 @@ def test_kernel_choice_by_dtype():
     head_dim 256; backward with a dK/dV kernel at 64 x 128 and a dQ kernel at
     128 x 128, at head_dim 256 64 x 64 and 128 x 32; head_dim 80 runs the
     head_dim 128 kernels over zero-padded columns), fp32 the CUDA-core
-    sources at 64 x 64 (32 x 32 for the backward at head_dim 256); any other
-    dtype or head width is refused. Needs no card."""
+    forward at 64 x 64 and the 3xTF32 backward, a dK/dV kernel at 32 x 64
+    (16 x 64 at head_dim 256) and a dQ kernel at 64 x 16; any other dtype or
+    head width is refused. Needs no card."""
     for dh in (16, 32, 64, 80, 128):
         assert kernel_for(torch.bfloat16, dh) is SM90
         assert tile_sizes(torch.bfloat16, dh) == (128, 128)
         assert backward_kernel_for(torch.bfloat16, dh) is BWD_SM90
-        assert backward_kernel_for(torch.float32, dh) is BWD_SIMT
     assert kernel_for(torch.bfloat16, 256) is SM90_WIDE
     assert tile_sizes(torch.bfloat16, 256) == (128, 64)
     assert SM90.source == SM90_WIDE.source == "packed_flash_attn_sm90.cu"
     for dh in HEAD_DIMS:
         assert kernel_for(torch.float32, dh) is SIMT and tile_sizes(torch.float32, dh) == (64, 64)
         assert run_head_dim(torch.float32, dh) == dh
+        assert backward_kernel_for(torch.float32, dh) is (BWD_TF32_WIDE if dh == 256 else BWD_TF32)
         assert run_head_dim(torch.bfloat16, dh) == (128 if dh == 80 else dh)
     assert SIMT.source == "packed_flash_attn.cu"
     assert BWD_SM90.source == "packed_flash_attn_bwd_sm90.cu"
     assert (BWD_SM90.block_q, BWD_SM90.block_k, BWD_SM90.dq_tiles) == (64, 128, (128, 128))
-    assert BWD_SIMT.source == BWD_SIMT_WIDE.source == "packed_flash_attn_bwd.cu"
-    assert (BWD_SIMT.block_q, BWD_SIMT.block_k, BWD_SIMT.dq_tiles) == (64, 64, None)
-    assert (BWD_SIMT_WIDE.block_q, BWD_SIMT_WIDE.block_k, BWD_SIMT_WIDE.dq_tiles) == (32, 32, None)
+    assert BWD_TF32.source == BWD_TF32_WIDE.source == "packed_flash_attn_bwd.cu"
+    assert BWD_TF32_WIDE.symbol == BWD_TF32.symbol and BWD_TF32_WIDE.names == BWD_TF32.names
+    assert (BWD_TF32.block_q, BWD_TF32.block_k, BWD_TF32.dq_tiles) == (32, 64, (64, 16))
+    assert (BWD_TF32_WIDE.block_q, BWD_TF32_WIDE.block_k, BWD_TF32_WIDE.dq_tiles) == (
+        16, 64, (64, 16))
+    assert BWD_TF32.names == ("bwd_tf32_delta_kernel", "bwd_tf32_dkdv_kernel",
+                              "bwd_tf32_dq_kernel", "bwd_tf32_sum_kernel")
     assert backward_kernel_for(torch.bfloat16, 256) is BWD_SM90_WIDE
     assert BWD_SM90_WIDE.source == BWD_SM90.source and BWD_SM90_WIDE.symbol == BWD_SM90.symbol
     assert (BWD_SM90_WIDE.block_q, BWD_SM90_WIDE.block_k, BWD_SM90_WIDE.dq_tiles) == (
         64, 64, (128, 32))
     assert "bwd_sm90_dkdv_split_kernel" in BWD_SM90_WIDE.names
-    assert backward_kernel_for(torch.float32, 256) is BWD_SIMT_WIDE
     for dtype in (torch.bfloat16, torch.float32):
         for dh in (8, 96, 192, 512):
             with pytest.raises(ValueError, match="head_dim"):
@@ -312,8 +317,8 @@ def test_kernel_choice_by_dtype():
             backward_kernel_for(dtype, 128)
     assert HEAD_DIMS == (16, 32, 64, 80, 128, 256)
     assert packed_flash_attention.launches.keys() == {SM90.source, SIMT.source}
-    assert packed_flash_attention_backward.launches.keys() == {BWD_SM90.source, BWD_SIMT.source}
-    sources = {k.source for k in (SM90, SIMT, BWD_SM90, BWD_SIMT)}
+    assert packed_flash_attention_backward.launches.keys() == {BWD_SM90.source, BWD_TF32.source}
+    sources = {k.source for k in (SM90, SIMT, BWD_SM90, BWD_TF32)}
     assert sources == {p.name for p in build.CSRC.glob("*.cu")}
 
 
@@ -418,22 +423,100 @@ def test_kv_splits_fill_one_wave():
     assert kv_splits(BWD_SM90_WIDE, 1, 7, 1, 1024, 132) == 7   # 16 -> 112 CTAs
     assert kv_splits(BWD_SM90_WIDE, 1, 7, 1, 1280, 132) == 1   # 140 CTAs would overflow the wave
     assert kv_splits(BWD_SM90_WIDE, 1, 4, 4, 512, 132) == 1    # no GQA group to split
-    for kern in (BWD_SM90, BWD_SIMT, BWD_SIMT_WIDE):
+    for kern in (BWD_SM90, BWD_TF32, BWD_TF32_WIDE):
         assert kv_splits(kern, 1, 4, 1, 1024, 132) == 1
 
 
+def test_tf32_splits_fill_four_waves():
+    """The fp32 backward splits its dK/dV loop (GQA heads x query tiles) and
+    its dQ loop (16-key tiles) over the power of two of CTAs at or below
+    4 x 132 / CTAs that leaves each CTA 2048 (query, key) pairs or more of
+    its loop; grids of four waves or more never split, and no other
+    backward takes this rule."""
+    # the parity path's micro-batch, 1 x 256 at reduced qwen3-8b's 4 / 2 heads:
+    # 8 dK/dV CTAs (16 iterations of 32 x 64 pairs) -> 16 splits, 16 dQ CTAs
+    # (16 iterations of 64 x 16) -> 8
+    assert tf32_splits(BWD_TF32, 1, 4, 2, 256, 256, 132) == (16, 8)
+    assert tf32_splits(BWD_TF32, 2, 32, 8, 832, 832, 132) == (2, 1)   # ragged 2 x 777: 208, 832
+    assert tf32_splits(BWD_TF32_WIDE, 1, 4, 1, 4096, 4096, 132) == (8, 2)  # gemma3-1b: 64, 256
+    assert tf32_splits(BWD_TF32_WIDE, 1, 8, 4, 4096, 4096, 132) == (2, 1)  # gemma3-4b: 256, 512
+    assert tf32_splits(BWD_TF32, 1, 28, 4, 4096, 4096, 132) == (2, 1)      # qwen2.5: 256, 1792
+    for H, K in ((32, 8), (32, 32)):  # h2o-danube, llama2: 512 and 2048 CTAs
+        assert tf32_splits(BWD_TF32, 1, H, K, 4096, 4096, 132) == (1, 1)
+    assert tf32_splits(BWD_TF32, 1, 1, 1, 64, 64, 132) == (2, 2)  # capped by the pairs
+    assert tf32_splits(BWD_TF32_WIDE, 1, 1, 1, 64, 64, 132) == (2, 2)  # 4 stages of 16 x 64
+    for kern in (BWD_SM90, BWD_SM90_WIDE):
+        assert tf32_splits(kern, 1, 4, 2, 256, 256, 132) == (1, 1)
+
+
+@pytest.mark.parametrize("shape", [(1, 4, 1, 4096, 4096), (1, 4, 2, 256, 256),
+                                   (2, 32, 8, 832, 832), (2, 4, 1, 512, 512)])
+def test_backward_splits_follow_the_record_rule(shape):
+    """`Kernel.splits` gives (dK/dV, dQ) splits by the record's own rule:
+    `kv_splits` for the head_dim 256 bf16 backward (its dQ never split),
+    `tf32_splits` for both fp32 records, none for the other backwards and
+    the forwards; the wrapper and the smoke script read only this."""
+    B, H, K, Sqp, Skp = shape
+    assert BWD_SM90_WIDE.split_rule == "kv"
+    assert BWD_SM90_WIDE.splits(*shape, 132) == (kv_splits(BWD_SM90_WIDE, B, H, K, Skp, 132), 1)
+    for kern in (BWD_TF32, BWD_TF32_WIDE):
+        assert kern.split_rule == "tf32"
+        assert kern.splits(*shape, 132) == tf32_splits(kern, *shape, 132)
+    for kern in (BWD_SM90, SM90, SM90_WIDE, SIMT):
+        assert kern.split_rule is None and kern.splits(*shape, 132) == (1, 1)
+
+
+@pytest.mark.parametrize("kern", ["BWD_TF32", "BWD_TF32_WIDE"])
+@pytest.mark.parametrize("window", [None, 96, 1024])
+@pytest.mark.parametrize("doc_lens,pad", [([100, 80, 40], 36), ([500, 277], 0),
+                                          ([129, 31, 1000, 33], 77)])
+def test_tf32_backward_tile_maps_match_tile_map(kern, window, doc_lens, pad):
+    """The fp32 backward (`BWD_TF32`, `BWD_TF32_WIDE` at head_dim 256): ids
+    padded to 64 queries and keys; its dK/dV map at 32 x 64 (16 x 64) and
+    its dQ map at 64 x 16, both coarsened from one `tile_map` at 32 x 16
+    (16 x 16), against `tile_map` computed directly at each kernel's tiles
+    and the dense mask, over position resets and padding rows: 2 exactly
+    where every pair is visible, never 0 on a tile that holds a visible
+    pair, nonzero only where `tile_map` is."""
+    kern = {"BWD_TF32": BWD_TF32, "BWD_TF32_WIDE": BWD_TF32_WIDE}[kern]
+    S = sum(doc_lens) + pad - 3  # no multiple of any tile
+    seg, pos = make_packed(np.random.default_rng(S), 1, S, doc_lens=doc_lens)
+    if pad:
+        seg[:, S - pad:] = 0
+        pos[:, S - pad:] = 0
+    ts, tp = t(seg), t(pos)
+    kw = {"causal": True, "window": window}
+    padded, (blk, blk_dq) = backward_tile_maps(kern, ts, ts, tp, tp, **kw)
+    Sqp, Skp = padded[0].shape[1], padded[1].shape[1]
+    kq = kern.block_q
+    assert Sqp == Skp and Sqp % 64 == 0 and Sqp - S < 64
+    assert blk.shape == (1, Sqp // kq, Skp // 64) and blk_dq.shape == (1, Sqp // 64, Skp // 16)
+    mask = attention_mask(*padded, **kw)
+    fine = tile_map(*padded, kq, 16, **kw)
+    for got, (bq, bk) in ((blk, (kq, 64)), (blk_dq, (64, 16))):
+        direct = tile_map(*padded, bq, bk, **kw)
+        derived = _coarse_relation(fine, direct, mask, bq // kq, bk // 16)
+        np.testing.assert_array_equal(got.numpy(), derived.numpy())
+        assert not bool(((got != 0) & (direct == 0)).any())
+        tiles = mask.reshape(1, Sqp // bq, bq, Skp // bk, bk)
+        assert not bool((tiles.any(4).any(2) & (got == 0)).any())
+    assert bool((blk == 0).any()) and bool((blk == 2).any())
+    assert bool((blk_dq == 2).any()) == (max(doc_lens) >= 128)  # a whole 64 x 16 tile
+
+
 def test_backward_tile_maps_shapes():
-    """Ids are padded to whole 128-row tiles (segment 0, position 0); the
-    fp32 backward's two maps are its one 64 x 64 map."""
+    """Ids are padded to whole 128-row tiles (segment 0, position 0) for the
+    bf16 backward and 64-row tiles for the fp32 one, whose dK/dV map is at
+    32 x 64 and its dQ map at 64 x 16."""
     seg, pos = make_packed(np.random.default_rng(1), 2, 200)
     ts, tp = t(seg), t(pos)
     padded, (blk, blk_dq) = backward_tile_maps(BWD_SM90, ts, ts, tp, tp, causal=True, window=None)
     assert [x.shape for x in padded] == [(2, 256)] * 4
     assert bool((padded[0][:, 200:] == 0).all()) and bool((padded[2][:, 200:] == 0).all())
     assert blk.shape == (2, 4, 2) and blk_dq.shape == (2, 2, 2)
-    padded, (blk, blk_dq) = backward_tile_maps(BWD_SIMT, ts, ts, tp, tp, causal=True, window=None)
-    assert [x.shape for x in padded] == [(2, 256)] * 4 and blk.shape == (2, 4, 4)
-    assert blk_dq is blk
+    padded, (blk, blk_dq) = backward_tile_maps(BWD_TF32, ts, ts, tp, tp, causal=True, window=None)
+    assert [x.shape for x in padded] == [(2, 256)] * 4
+    assert blk.shape == (2, 8, 4) and blk_dq.shape == (2, 4, 16)
     seg, pos = make_packed(np.random.default_rng(1), 2, 130)
     ts, tp = t(seg), t(pos)
     padded, (blk, blk_dq) = backward_tile_maps(BWD_SM90_WIDE, ts, ts, tp, tp, causal=True,
@@ -452,7 +535,7 @@ def test_library_name_hashes_included_headers(tmp_path, monkeypatch):
     assert [p.name for p in build.sources_of("packed_flash_attn_sm90.cu")] == [
         "packed_flash_attn_sm90.cu", "sm90_common.cuh"]
     assert [p.name for p in build.sources_of("packed_flash_attn_bwd.cu")] == [
-        "packed_flash_attn_bwd.cu"]
+        "packed_flash_attn_bwd.cu", "sm90_common.cuh"]
     monkeypatch.setattr(build, "CSRC", tmp_path)
     (tmp_path / "k.cu").write_text('#include <cuda.h>\n#include "a.cuh"\nint f() { return A; }\n')
     (tmp_path / "a.cuh").write_text('#pragma once\n  #  include "b.cuh"\n#define A B\n')
