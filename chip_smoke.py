@@ -6,10 +6,11 @@ Phases, in one process; any failure exits nonzero:
   1. build   every CUDA kernel from src/repro_torch/kernels/csrc with nvcc,
              and check in the SASS that the bf16 kernels, forward and
              backward, run on the tensor cores (HGMMA instructions), the
-             head_dim 256 backward's dK/dV and dQ kernels each on its own,
-             and that the fp32 backward's dK/dV and dQ kernels run TF32
-             tensor-core products (HMMA ... TF32) at head_dim 80, 128 and
-             256, each with no spill in its ptxas report;
+             head_dim 256 backward's dK/dV and dQ kernels and the head_dim
+             80 forward, dK/dV and dQ kernels each on its own, and that the
+             fp32 backward's dK/dV and dQ kernels run TF32 tensor-core
+             products (HMMA ... TF32) at head_dim 80, 128 and 256, each
+             with no spill in its ptxas report;
   2. kernel  hold each kernel against its plain PyTorch version on the card
              (bf16 tensor-core forward: serving shape and a packed shape,
              timed also with every visible tile masked, and a windowed
@@ -21,6 +22,7 @@ Phases, in one process; any failure exits nonzero:
              at the shape of each micro-batch the train paths launch them
              on) and time it beside
              its bound, the plain version and one PyTorch library call;
+             every backward is also run twice and held bit for bit;
   3. family  the same, forward and backward, bf16 and fp32, at the heads of
              gemma3-1b and gemma3-4b (head_dim 256), h2o-danube-1.8b (80),
              llama2-7b (GQA group 1) and qwen2.5-7b (group 7), on 1 x 4096
@@ -227,7 +229,7 @@ def kernel_case(name, q, k, v, seg, pos, tol, *, time_it, window=None, time_mask
     bf16 kernel with `time_masked`, timed again with every tile masked).
     Returns a row."""
     from repro_torch.kernels.packed_flash_attn import (
-        SM90, kernel_for, packed_flash_attention, run_head_dim, tile_map, tile_sizes)
+        SM90, kernel_for, packed_flash_attention, tile_map, tile_sizes)
     from repro_torch.kernels.ref import attention_mask, packed_attention_ref
 
     args = (q, k, v, seg, seg, pos, pos)
@@ -240,7 +242,7 @@ def kernel_case(name, q, k, v, seg, pos, tol, *, time_it, window=None, time_mask
     codes = tile_map(seg, seg, pos, pos, *tile_sizes(q.dtype, dh), **kw)
     row = {"case": name, "kernel": kern.source, "shape": list(q.shape),
            "kv_heads": k.shape[2], "dtype": str(q.dtype), "window": window,
-           "head_dim": dh, "runs_at_head_dim": run_head_dim(q.dtype, dh),
+           "head_dim": dh,
            "max_abs_err": check_case(name, out, ref, tol, seg), "tol": tol,
            "padding_rows": int((seg == 0).sum()), "tiles": list(tile_sizes(q.dtype, dh)),
            "skipped_tile_fraction": float((codes == 0).float().mean()),
@@ -293,7 +295,11 @@ def backward_case(name, q, k, v, seg, pos, tol, *, time_it, window=None, time_sp
     call = lambda: packed_flash_attention_backward(  # noqa: E731
         q, k, v, out, lse, d_out, seg, seg, pos, pos, **kw)
     grads = call()
+    again = call()
     torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+        raise AssertionError(f"{name}: a second backward launch differs bit for bit")
+    del again
     plain = lambda: packed_attention_ref_backward(  # noqa: E731
         q, k, v, d_out, seg, seg, pos, pos, **kw)
     ref = plain()
@@ -1372,11 +1378,16 @@ def ptxas_by_function(log):
 
 # per-kernel build gates: (what, kernel source's record, kernels, head widths,
 # the SASS opcode every one of them must show): the bf16 head_dim 256
-# backward's dK/dV and dQ kernels on wgmma, and the fp32 backward's dK/dV and
-# dQ kernels on TF32 tensor-core products at every width its paths run
+# backward's dK/dV and dQ kernels on wgmma, the bf16 head_dim 80 forward,
+# dK/dV and dQ kernels (five 16-column chunks under the 32-byte swizzle) on
+# wgmma, and the fp32 backward's dK/dV and dQ kernels on TF32 tensor-core
+# products at every width its paths run
 BUILD_GATES = (
     ("head_dim_256_backward_build", "BWD_SM90_WIDE",
      ("bwd_sm90_dkdv_split_kernel", "bwd_sm90_dq_kernel"), (256,), ("HGMMA",)),
+    ("head_dim_80_forward_build", "SM90", ("packed_flash_attn_sm90_kernel",), (80,), ("HGMMA",)),
+    ("head_dim_80_backward_build", "BWD_SM90", ("bwd_sm90_dkdv_kernel", "bwd_sm90_dq_kernel"),
+     (80,), ("HGMMA",)),
     ("fp32_backward_build", "BWD_TF32", ("bwd_tf32_dkdv_kernel", "bwd_tf32_dq_kernel"),
      (80, 128, 256), ("HMMA", "TF32")),
 )
@@ -1481,7 +1492,7 @@ def kernel_entries(record):
               others=("gemma3-4b_bf16",), head_dim=256),
         entry("packed_flash_attention[head_dim 80]", SM90.source, fk["h2o-danube-1.8b_bf16"],
               {"h2o-danube-1.8b train": fwd(fam["h2o-danube-1.8b_train"], SM90.source)},
-              head_dim=80, runs_at_head_dim=128),
+              head_dim=80),
         # fp32: the parity paths, at head_dim 128, 256 and 80
         entry("packed_flash_attention[float32]", SIMT.source, kern["fp32_parity"],
               {"qwen3-8b parity": fp32["qwen3-8b"]["launches"][SIMT.source]
@@ -1517,7 +1528,8 @@ def kernel_entries(record):
         entry("packed_flash_attention_backward[head_dim 80]", BWD_SM90.source,
               fk["h2o-danube-1.8b_bf16_bwd"],
               {"h2o-danube-1.8b train": bwd(fam["h2o-danube-1.8b_train"], BWD_SM90.source)},
-              head_dim=80, runs_at_head_dim=128),
+              head_dim=80, **{key: fk["h2o-danube-1.8b_bf16_bwd"].get(key) for key in
+                              ("tiles", "dq_tiles", "ms_by_kernel")}),
         entry("packed_flash_attention_backward[float32]", BWD_TF32.source,
               per_launch(kern["fp32_parity_bwd"]),
               {"qwen3-8b parity":

@@ -32,9 +32,10 @@
 // product runs on the tensor cores and no tile waits on a synchronous load.
 //
 // Design. Three kernels, deterministic, no atomics:
-//   (a) delta: rowsum(dO o O) over 16-byte loads, a group of dh / 8 lanes per
-//       row; it also writes the forward's lse in units of log2 (+inf on
-//       padding rows) and delta (0 there) to (B, H, Sqp) buffers padded to
+//   (a) delta: rowsum(dO o O) over 16-byte loads, a group of lanes per row
+//       (dh / 8 rounded up to a power of two, `delta_lanes`); it also
+//       writes the forward's lse in units of log2 (+inf on padding rows)
+//       and delta (0 there) to (B, H, Sqp) buffers padded to
 //       whole 128-row tiles, so that the other kernels copy whole rows of
 //       them by bulk copy and need no bounds test.
 //   (b) dK/dV: a CTA owns 128 keys of one (batch, KV head), two consumer
@@ -88,6 +89,12 @@
 //       halves of dh, as the forward fills its O at this width.
 // The dK/dV kernel's map is at 64 x 64 tiles and the dQ kernel's at 128 x 32;
 // the wrapper derives both from one map at 64 x 32 by `coarsen`.
+//
+// Head width 80 (h2o-danube) runs (a)-(c) at the dh <= 128 tiles on its own
+// width: five 16-column chunks under the 32-byte swizzle (sm90_common.cuh),
+// Q K^T-type products over 5 k-steps, dV, dK and dQ each one m64n80k16
+// product a k-step (40 accumulator registers a thread each), and the delta
+// pass at 16 lanes a row, 10 of them loading.
 
 #include "sm90_common.cuh"
 
@@ -125,7 +132,8 @@ __host__ __device__ constexpr bool tiles_divide_padding() {
   return T::PAD_Q % T::KV_BQ == 0 && T::PAD_Q % T::DQ_BQ == 0 && T::PAD_K % T::KV_BK == 0 &&
          T::PAD_K % T::DQ_BK == 0;
 }
-static_assert(tiles_divide_padding<128>() && tiles_divide_padding<256>(),
+static_assert(tiles_divide_padding<80>() && tiles_divide_padding<128>() &&
+                  tiles_divide_padding<256>(),
               "every tile divides the padding");
 
 // dK/dV shared memory: K and V tiles, then per stage the Q and dO tiles and
@@ -184,6 +192,20 @@ __device__ __forceinline__ void init_ring(uint32_t first) {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
+// Lanes of the delta kernel per row: the dh / 8 lanes that load 8 bf16 (16
+// bytes) each, rounded up to a power of two, so that a row's lanes sit in one
+// warp and its xor tree mixes no other row's; the spare lanes add 0 (dh 80:
+// 10 of 16). Every other width is a power of two, dh / 8 lanes exactly.
+template <int DH>
+__host__ __device__ constexpr int delta_lanes() {
+  int lanes = 1;
+  while (lanes < DH / 8) lanes *= 2;
+  return lanes;
+}
+static_assert(delta_lanes<16>() == 2 && delta_lanes<64>() == 8 && delta_lanes<80>() == 16 &&
+                  delta_lanes<128>() == 16 && delta_lanes<256>() == 32,
+              "a row's lanes divide a warp");
+
 // (a) delta[b, h, s] = sum_d dO[b, s, h, d] O[b, s, h, d] and
 // lse2[b, h, s] = lse[b, h, s] * log2(e), over s < Sqp: 0 and +inf past Sq.
 template <int DH>
@@ -191,14 +213,14 @@ __global__ void __launch_bounds__(DELTA_THREADS)
 bwd_sm90_delta_kernel(const __nv_bfloat16* __restrict__ out, const __nv_bfloat16* __restrict__ d_out,
                       const float* __restrict__ lse, float* __restrict__ lse2,
                       float* __restrict__ delta, int Sq, int Sqp, int H, long long rows) {
-  constexpr int LPR = DH / 8;  // lanes per row, 8 bf16 (16 bytes) each
+  constexpr int LPR = delta_lanes<DH>();
   const long long row = (long long)blockIdx.x * (DELTA_THREADS / LPR) + threadIdx.x / LPR;
   const int part = threadIdx.x % LPR;
   const int s = (int)(row % Sqp);
   const long long bh = row / Sqp;  // b * H + h
   const bool valid = row < rows && s < Sq;
   float acc = 0.f;
-  if (valid) {
+  if (valid && part < DH / 8) {
     const size_t at = (((size_t)(bh / H) * Sq + s) * H + (size_t)(bh % H)) * DH + part * 8;
     const uint4 o = *reinterpret_cast<const uint4*>(out + at);
     const uint4 g = *reinterpret_cast<const uint4*>(d_out + at);
@@ -909,7 +931,7 @@ int launch(const void* q, const void* k, const void* v, const void* out, const v
   const float scale_log2 = scale * LOG2E;
 
   const long long rows = (long long)B * H * Sqp;
-  constexpr int rows_per_block = DELTA_THREADS / (DH / 8);
+  constexpr int rows_per_block = DELTA_THREADS / delta_lanes<DH>();
   bwd_sm90_delta_kernel<DH><<<(unsigned)((rows + rows_per_block - 1) / rows_per_block),
                               DELTA_THREADS, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(out), static_cast<const __nv_bfloat16*>(d_out),
@@ -1006,6 +1028,7 @@ int packed_flash_attn_bwd_sm90_launch(int head_dim, const void* q, const void* k
   PFA_CASE(16)
   PFA_CASE(32)
   PFA_CASE(64)
+  PFA_CASE(80)
   PFA_CASE(128)
   PFA_CASE(256)
 #undef PFA_CASE

@@ -32,9 +32,9 @@
 // over the 4 threads of a quad), converts P to bf16 in registers and
 // accumulates O += P V with wgmma m64n{dh}k16, P as the register A operand
 // and V from shared memory as an MN-major B operand. Then it frees the stage.
-// Shared tiles are stored in chunks of min(dh, 64) columns under the TMA
-// swizzle of the chunk's row width (32, 64 or 128 bytes); the wgmma
-// descriptors name the same swizzle. TMA maps are 4-D over
+// Shared tiles are stored in chunks of the widest of 64, 32 or 16 columns
+// that divides dh, under the TMA swizzle of the chunk's row width (128, 64
+// or 32 bytes); the wgmma descriptors name the same swizzle. TMA maps are 4-D over
 // (dh, heads, S, B), so a box never crosses into the next batch row and keys
 // or queries past the sequence are zero-filled. Heavy (late, under the causal
 // mask) q-tiles are launched first. The barrier, copy and wgmma helpers are
@@ -45,10 +45,11 @@
 // Q plus 2 x 2 x 64 KB of K and V, more than the 227 KB of an SM, while 64
 // keys need 192 KB; its 64 x 256 fp32 O accumulator (128 registers a thread)
 // is filled by two P V products of N = 128, each over two 64-column chunks
-// of the V tile. dh 80 (h2o-danube) is not compiled here: the wrapper pads
-// q, k and v with zero columns to dh 128 (exact: zero columns add nothing to
-// Q K^T and give zero output columns, which it drops; the scale stays
-// 1 / sqrt(80)).
+// of the V tile. dh 80 (h2o-danube) runs at its own width: its 160-byte rows
+// are five 16-column chunks under the 32-byte swizzle (a TMA copy per chunk,
+// 20 KB tiles), Q K^T takes 5 k-steps, one from each chunk, and P V is one
+// m64n80k16 product a k-step over all five chunks of the V tile (40
+// accumulator registers a thread).
 
 #include "sm90_common.cuh"
 
@@ -348,6 +349,7 @@ int packed_flash_attn_sm90_fwd(int head_dim, const void* q, const void* k, const
   PFA_CASE(16)
   PFA_CASE(32)
   PFA_CASE(64)
+  PFA_CASE(80)
   PFA_CASE(128)
   PFA_CASE(256)
 #undef PFA_CASE

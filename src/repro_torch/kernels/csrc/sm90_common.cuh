@@ -18,15 +18,27 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
 // Shared-memory tile layout of a head width: chunks of CW columns, each a
-// dense (rows x SW bytes) block under the SW-byte swizzle.
+// dense (rows x SW bytes) block under the SW-byte swizzle. SW is the widest
+// swizzle (128, 64 or 32 bytes) whose chunk of SW / 2 bf16 columns divides
+// the head width: dh 80 (h2o-danube) takes five 16-column chunks under the
+// 32-byte swizzle.
 template <int DH>
 struct Chunking {
-  static constexpr int SW = DH * 2 < 128 ? DH * 2 : 128;  // bytes per chunk row
-  static constexpr int CW = SW / 2;                        // columns per chunk
-  static constexpr int NCH = DH / CW;                      // chunks per row
+  static constexpr int SW = DH % 64 == 0 ? 128 : DH % 32 == 0 ? 64 : 32;  // bytes per chunk row
+  static constexpr int CW = SW / 2;                                      // columns per chunk
+  static_assert(DH % CW == 0, "the chunks tile the head width");
+  static constexpr int NCH = DH / CW;                                    // chunks per row
   // wgmma descriptor layout type: 1 = 128B, 2 = 64B, 3 = 32B swizzle
   static constexpr uint64_t DESC_LAYOUT = SW == 128 ? 1 : SW == 64 ? 2 : 3;
 };
+template <int DH, int SW, int NCH>
+constexpr bool chunked_as() {
+  return Chunking<DH>::SW == SW && Chunking<DH>::CW == SW / 2 && Chunking<DH>::NCH == NCH;
+}
+static_assert(chunked_as<16, 32, 1>() && chunked_as<32, 64, 1>() && chunked_as<64, 128, 1>() &&
+                  chunked_as<80, 32, 5>() && chunked_as<128, 128, 2>() &&
+                  chunked_as<256, 128, 4>(),
+              "each head width keeps its chunk layout");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -123,7 +135,9 @@ __device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int rows, int kk)
 
 // Descriptor of an MN-major B operand (the reduction runs over the tile's
 // rows, dh contiguous) at k-step t: rows 16 t .. 16 t + 15 of a tile whose
-// chunks hold `rows` rows each.
+// chunks hold `rows` rows each. The leading byte offset steps N from one
+// chunk of CW columns to the next (rows x SW bytes: dh 128's two chunks,
+// dh 80's five), the stride byte offset K from one 8-row group to the next.
 template <int DH>
 __device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int rows, int t) {
   using C = Chunking<DH>;
@@ -243,6 +257,28 @@ template <> struct Wgmma<64> {
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
+template <> struct Wgmma<80> {
+  // D[40] += A[registers] * B[smem, MN-major] (dh 80: P V, dK, dV, dQ)
+  static __device__ __forceinline__ void rs(float (&d)[40], const uint32_t* a, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39"
+        "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
   }
 };

@@ -6,11 +6,12 @@ bf16 runs on the tensor cores (`csrc/packed_flash_attn_sm90.cu`: wgmma fed by
 TMA through an mbarrier ring, 128 x 128 tiles, 128 x 64 at head_dim 256);
 fp32 runs on the CUDA cores (`csrc/packed_flash_attn.cu`, 64 x 64 tiles).
 A `Kernel` is chosen by (dtype, head_dim) (`kernel_for`,
-`backward_kernel_for`): its tiles may differ with the head width. bf16 at head_dim 80 runs the head_dim 128
-kernels on q, k and v padded with zero columns (`run_head_dim`), which is
-exact: the scale stays 1/sqrt(80) and the padded output columns are
-dropped. `block_metadata` gives the (B, nQ, nK) int8 map of tiles that can
-hold a visible (query, key) pair; the kernels skip the others, so attention
+`backward_kernel_for`): its tiles may differ with the head width. Every
+width in `HEAD_DIMS` is compiled as it is, in both dtypes: bf16 at head_dim
+80 (h2o-danube) runs kernels of its own, whose 160-byte rows sit in shared
+memory as five 16-column chunks under the 32-byte swizzle.
+`block_metadata` gives the (B, nQ, nK) int8 map of tiles that can hold a
+visible (query, key) pair; the kernels skip the others, so attention
 cost follows sum(l_i^2) of the packed documents rather than N^2. `tile_map`
 adds the tiles in which every pair is visible, which the bf16 kernel runs
 without a mask.
@@ -95,21 +96,12 @@ BWD_TF32 = Kernel("packed_flash_attn_bwd.cu", "packed_flash_attn_bwd", 32, 64,
                   dq_tiles=(64, 16), split_rule="tf32")  # the sum runs only with splits
 BWD_TF32_WIDE = Kernel(BWD_TF32.source, BWD_TF32.symbol, 16, 64, BWD_TF32.names,
                        dq_tiles=(64, 16), split_rule="tf32")  # head_dim 256
-# head widths a dtype's kernels run zero-padded to a compiled width
-PADDED_HEAD_DIMS = {torch.bfloat16: {80: 128}}
-
 
 def _checked_dims(dtype, head_dim):
     if dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"q must be float32 or bfloat16, got {dtype}")
     if head_dim not in HEAD_DIMS:
         raise ValueError(f"head_dim {head_dim} not in {HEAD_DIMS}")
-
-
-def run_head_dim(dtype, head_dim) -> int:
-    """The compiled head width the kernels run `head_dim` at."""
-    _checked_dims(dtype, head_dim)
-    return PADDED_HEAD_DIMS.get(dtype, {}).get(head_dim, head_dim)
 
 
 def kernel_for(dtype, head_dim) -> Kernel:
@@ -338,15 +330,6 @@ def _entry(kern: Kernel, name: str, argtypes, head_dim):
     return fn
 
 
-def _pad_head(dh, *tensors):
-    """The tensors with zero columns appended to head width `dh`."""
-    return tuple(F.pad(t, (0, dh - t.shape[-1])) if t.shape[-1] != dh else t for t in tensors)
-
-
-def _unpad_head(dh, *tensors):
-    return tuple(t[..., :dh].contiguous() if t.shape[-1] != dh else t for t in tensors)
-
-
 def _raise_on(rc, kern: Kernel, what):
     if rc != 0:
         msg = getattr(build.load(kern.source), f"{kern.symbol}_error_string")(rc).decode()
@@ -397,12 +380,10 @@ def packed_flash_attention(q, k, v, seg_q, seg_k, pos_q, pos_k, *,
                            causal=True, window=None, scale=None, return_lse=False):
     """q (B,Sq,H,dh); k/v (B,Sk,K,dh) un-repeated -> (B,Sq,H,dh), on the card.
 
-    bf16 takes the tensor-core kernel, fp32 the CUDA-core one, each at the
-    tiles of its head width (bf16 at head_dim 80: the head_dim 128 kernel
-    over zero-padded columns). With
-    `return_lse`, also returns the fp32 (B,H,Sq) row log-sum-exp of the
-    scaled scores (+inf on rows with no visible key), which the backward
-    takes. Raises on a tensor the kernels do not take; never falls back. The
+    bf16 takes the tensor-core kernel, fp32 the CUDA-core one, each
+    compiled at the head width and run at its tiles. With `return_lse`,
+    also returns the fp32 (B,H,Sq) row log-sum-exp of the scaled scores
+    (+inf on rows with no visible key), which the backward takes. Raises on a tensor the kernels do not take; never falls back. The
     output has no gradient: it raises when autograd would need one, so a
     caller that trains goes through `kernels.ops.packed_attention`.
     """
@@ -412,11 +393,10 @@ def packed_flash_attention(q, k, v, seg_q, seg_k, pos_q, pos_k, *,
     _check(q, k, v, seg_q, seg_k, pos_q, pos_k)
     B, Sq, H, dh = q.shape
     Sk, K = k.shape[1], k.shape[2]
-    kern, run_dh = kernel_for(q.dtype, dh), run_head_dim(q.dtype, dh)
+    kern = kernel_for(q.dtype, dh)
     if scale is None:
         scale = dh ** -0.5
-    fwd = _entry(kern, "fwd", _FWD_ARGTYPES, run_dh)
-    q, k, v = _pad_head(run_dh, q, k, v)
+    fwd = _entry(kern, "fwd", _FWD_ARGTYPES, dh)
     bq, bk = kern.block_q, kern.block_k
     padded = _pad_all(seg_q, seg_k, pos_q, pos_k, bq, bk)  # whole tiles of ids
     blk = tile_map(*padded, bq, bk, causal=causal, window=window)
@@ -425,14 +405,13 @@ def packed_flash_attention(q, k, v, seg_q, seg_k, pos_q, pos_k, *,
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) if return_lse else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        rc = fwd(run_dh, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        rc = fwd(dh, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  *(t.data_ptr() for t in padded), blk.data_ptr(), out.data_ptr(),
                  lse.data_ptr() if return_lse else None,
                  B, Sq, Sk, H, K, nq, nk, float(scale),
                  int(causal), int(window is not None), int(window or 0), stream)
     _raise_on(rc, kern, "launch")
     packed_flash_attention.launches[kern.source] += 1
-    (out,) = _unpad_head(dh, out)
     return (out, lse) if return_lse else out
 
 
@@ -445,11 +424,11 @@ def packed_flash_attention_backward(q, k, v, out, lse, d_out, seg_q, seg_k, pos_
 
     out and lse are the forward's (`return_lse=True`), d_out the gradient of
     out; dk and dv carry the un-repeated KV heads, summed over each GQA
-    group. bf16 takes the bf16 tensor-core backward (at head_dim 80 over
-    zero-padded columns), fp32 the 3xTF32 one; both accumulate in fp32,
-    under the same mask and tile skip as the forward (each kernel's tile map
-    at its own tiles). Raises on a tensor the kernels do not take; never
-    falls back.
+    group. bf16 takes the bf16 tensor-core backward, fp32 the 3xTF32 one,
+    each compiled at the head width; both accumulate in fp32, under the
+    same mask and tile skip as the forward (each kernel's tile map at its
+    own tiles). Raises on a tensor the kernels do not take; never falls
+    back.
     """
     _check(q, k, v, seg_q, seg_k, pos_q, pos_k)
     B, Sq, H, dh = q.shape
@@ -459,9 +438,8 @@ def packed_flash_attention_backward(q, k, v, out, lse, d_out, seg_q, seg_k, pos_
     _check_like("lse", lse, q, (B, H, Sq), torch.float32)
     if scale is None:
         scale = dh ** -0.5
-    kern, run_dh = backward_kernel_for(q.dtype, dh), run_head_dim(q.dtype, dh)
-    bwd = _entry(kern, "launch", _BWD_ARGTYPES[kern.source], run_dh)
-    q, k, v, out, d_out = _pad_head(run_dh, q, k, v, out, d_out)
+    kern = backward_kernel_for(q.dtype, dh)
+    bwd = _entry(kern, "launch", _BWD_ARGTYPES[kern.source], dh)
     padded, (blk, blk_dq) = backward_tile_maps(kern, seg_q, seg_k, pos_q, pos_k,
                                                causal=causal, window=window)
     Sqp, Skp = padded[0].shape[1], padded[1].shape[1]
@@ -478,21 +456,21 @@ def packed_flash_attention_backward(q, k, v, out, lse, d_out, seg_q, seg_k, pos_
         return splits, fp32(splits, *shape).data_ptr() if splits > 1 else None
     stats = fp32(2, B, H, Sqp)  # lse and delta, padded to whole tiles
     s_kv, s_q = kern.splits(B, H, K, Sqp, Skp, sms)
-    tail = part(s_kv, 2, B, Sk, K, run_dh)
+    tail = part(s_kv, 2, B, Sk, K, dh)
     if kern.source == BWD_SM90.source:  # lse there in log2 units; its dQ is never split
         bufs = (blk, blk_dq, stats[0], stats[1])
     else:
         bufs = (blk, blk_dq, stats)
-        tail += part(s_q, B, Sq, H, run_dh)
+        tail += part(s_q, B, Sq, H, dh)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        rc = bwd(run_dh, *(t.data_ptr() for t in (q, k, v, out, d_out, lse, *padded, *bufs,
-                                                 dq, dk, dv)),
+        rc = bwd(dh, *(t.data_ptr() for t in (q, k, v, out, d_out, lse, *padded, *bufs,
+                                             dq, dk, dv)),
                  B, Sq, Sk, H, K, Sqp, Skp, float(scale),
                  int(causal), int(window is not None), int(window or 0), *tail, stream)
     _raise_on(rc, kern, "backward launch")
     packed_flash_attention_backward.launches[kern.source] += 1
-    return _unpad_head(dh, dq, dk, dv)
+    return dq, dk, dv
 
 
 packed_flash_attention_backward.launches = {kern.source: 0 for kern in (BWD_SM90, BWD_TF32)}

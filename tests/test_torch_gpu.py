@@ -128,7 +128,7 @@ def test_gpu_kernel_qwen3_shape_bf16(cuda, rng, doc_lens):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("S", [200, 333])
-@pytest.mark.parametrize("dh", [32, 128])
+@pytest.mark.parametrize("dh", [32, 80, 128])
 def test_gpu_kernel_ragged_bf16(cuda, rng, S, dh):
     """Lengths that are no tile multiple: TMA zero-fills the ragged edge of
     the tensor-core kernel's tiles."""
@@ -227,7 +227,7 @@ def _backward_case(rng, device, args, dtype, window=None):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("S", [200, 333])
-@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("dh", [16, 32, 64, 80, 128])
 @pytest.mark.parametrize("group", [1, 2, 4])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_gpu_backward_matches_plain(cuda, rng, S, dh, group, dtype):
@@ -469,8 +469,8 @@ def test_gpu_checkpoint_restores_card_tensors_bitwise(cuda, tmp_path):
 
 # ------------------------------------------------- the dense family's widths
 # (head_dim, H, K, window): gemma3-1b's and gemma3-4b's heads at head_dim 256,
-# h2o-danube's at 80 (bf16: the head_dim 128 kernels over zero-padded
-# columns), llama2-7b's GQA group 1 and qwen2.5-7b's group 7 at 128
+# h2o-danube's at 80 (bf16: kernels of its own width, five 16-column chunks
+# in shared memory), llama2-7b's GQA group 1 and qwen2.5-7b's group 7 at 128
 FAMILY_CASES = [(256, 4, 1, 512), (256, 8, 4, 1024), (80, 32, 8, 4096), (128, 32, 32, None),
                 (128, 28, 4, None), (80, 8, 8, 96), (256, 7, 1, 96)]
 
@@ -502,12 +502,14 @@ def test_gpu_family_head_dims_forward_and_backward(cuda, rng, dh, H, K, window, 
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dh", [80, 256])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_gpu_head_dim_256_ragged_and_deterministic(cuda, rng, dtype):
-    """head_dim 256 at lengths that are no multiple of the 64-key or 32-row
-    tiles: TMA zero-fills the ragged edge; two backward launches agree bit
-    for bit."""
-    args = _args(rng, cuda, 2, 333, 8, 4, 256, dtype)
+def test_gpu_head_dim_256_ragged_and_deterministic(cuda, rng, dh, dtype):
+    """head_dim 256, and h2o-danube's 80, at lengths that are no multiple of
+    the tiles (64 or 128 keys, 32 or 128 rows): TMA zero-fills the ragged
+    edge; forward and backward match the plain version, and two backward
+    launches agree bit for bit."""
+    args = _args(rng, cuda, 2, 333, 8, 4, dh, dtype)
     out = packed_flash_attention(*args, causal=True)
     np.testing.assert_allclose(n(out), n(packed_attention_ref(*args, causal=True)),
                                atol=TOL[dtype], rtol=TOL[dtype])
@@ -516,6 +518,34 @@ def test_gpu_head_dim_256_ragged_and_deterministic(cuda, rng, dtype):
     second = packed_flash_attention_backward(*args[:3], out, lse, d_out, *args[3:], **kw)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+    _check_grads(first, packed_attention_ref_backward(*args[:3], d_out, *args[3:], **kw), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_head_dim_80_columns_keep_their_chunks(cuda, rng, dtype):
+    """At head_dim 80 the bf16 kernels hold a row as five 16-column chunks
+    (TMA boxes, wgmma descriptors under the 32-byte swizzle). q and k are
+    scaled by another factor on each chunk and v more on each later one,
+    columns 64-79 the most, so that a chunk read from or written to another
+    chunk's place moves the scores, the output columns or a gradient away
+    from the plain version; padding rows stay exactly 0."""
+    q, k, v, seg, _, pos, _ = _args(rng, cuda, 2, 333, 8, 2, 80, dtype,
+                                    doc_lens=[100, 150, 50])
+    chunk = torch.arange(80, device=cuda) // 16
+    qk_scale = torch.tensor([0.5, 1.0, 1.5, 0.75, 2.5], device=cuda)[chunk]
+    v_scale = torch.tensor([1.0, 2.0, 3.0, 4.0, 8.0], device=cuda)[chunk]
+    q, k = ((x.float() * qk_scale).to(x.dtype) for x in (q, k))
+    v = (v.float() * v_scale).to(v.dtype)
+    args = (q, k, v, seg, seg, pos, pos)
+    out = packed_flash_attention(*args, causal=True)
+    np.testing.assert_allclose(n(out), n(packed_attention_ref(*args, causal=True)),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+    pad = seg == 0
+    assert bool(pad.any()) and bool((out[pad] == 0).all())
+    grads = _backward_case(rng, cuda, args, dtype)
+    for g_, side in zip(grads, ("q", "k", "v")):
+        assert bool((g_[pad] == 0).all()), side
 
 
 def _gemma3_args(rng, device, dtype, S=1000, H=4, K=1):

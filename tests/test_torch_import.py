@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of `repro_torch` loads neither
-jax nor any module of the JAX package, `chip_smoke.py` imports neither, and
-without a card the smoke script exits nonzero and prints no result."""
+jax nor any module of the JAX package, `chip_smoke.py` and `chip_compare.py`
+import neither, and without a card each script exits nonzero and prints no
+result."""
 import ast
 import os
 import subprocess
@@ -73,3 +74,23 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
                        capture_output=True, text=True, timeout=120)
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
+
+
+def test_chip_compare_imports_neither_jax_nor_reference_and_needs_a_card(tmp_path):
+    """`chip_compare.py` (one arch's kernels and train step in several trees,
+    in turn) imports no JAX, and without a card exits nonzero, running none
+    of its trees."""
+    script = ROOT / "chip_compare.py"
+    mods = _imported_modules(script)
+    worker = ast.parse(next(n.value.value for n in ast.parse(script.read_text()).body
+                            if isinstance(n, ast.Assign) and n.targets[0].id == "WORKER"))
+    mods |= {a.name for n in ast.walk(worker) if isinstance(n, ast.Import) for a in n.names}
+    mods |= {n.module for n in ast.walk(worker) if isinstance(n, ast.ImportFrom)}
+    assert not [m for m in mods if m.split(".")[0] in ("jax", "jaxlib", "repro")], mods
+    assert "chip_smoke" in mods
+    env = _env()
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    r = subprocess.run([sys.executable, str(script), "--trees", str(ROOT)], env=env,
+                       cwd=tmp_path, capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert '"runs"' not in r.stdout

@@ -3,6 +3,8 @@ its jnp oracle, case for case with tests/test_kernels.py, at its tolerances
 (2e-5 float32, 2e-2 bfloat16). On the CPU the port runs the plain version;
 tests/test_torch_gpu.py holds the Hopper kernel against it on the card.
 """
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -31,7 +33,6 @@ from repro_torch.kernels.packed_flash_attn import (
     kv_splits,
     packed_flash_attention,
     packed_flash_attention_backward,
-    run_head_dim,
     skipped_block_fraction,
     tf32_splits,
     tile_map,
@@ -54,6 +55,7 @@ SWEEP = [
     (128, 4, 4, 32, 32, 64),    # bq != bk
     (256, 4, 2, 64, 128, 128),  # the bf16 Hopper kernel's tiles
     (384, 4, 4, 32, 128, 64),   # 128-row tiles, bq != bk, odd tile count
+    (192, 4, 2, 80, 64, 64),    # h2o-danube's head width, GQA, padding
 ]
 
 
@@ -274,23 +276,28 @@ def test_jax_window_skip_loses_visible_keys(rng):
 def test_kernel_choice_by_dtype():
     """bf16 takes the tensor-core sources (forward at 128-row tiles, 128 x 64 at
     head_dim 256; backward with a dK/dV kernel at 64 x 128 and a dQ kernel at
-    128 x 128, at head_dim 256 64 x 64 and 128 x 32; head_dim 80 runs the
-    head_dim 128 kernels over zero-padded columns), fp32 the CUDA-core
-    forward at 64 x 64 and the 3xTF32 backward, a dK/dV kernel at 32 x 64
-    (16 x 64 at head_dim 256) and a dQ kernel at 64 x 16; any other dtype or
-    head width is refused. Needs no card."""
+    128 x 128, at head_dim 256 64 x 64 and 128 x 32), each compiled at every
+    head width, head_dim 80 included, with no path that pads the width;
+    fp32 the CUDA-core forward at 64 x 64 and the 3xTF32 backward, a dK/dV
+    kernel at 32 x 64 (16 x 64 at head_dim 256) and a dQ kernel at 64 x 16;
+    any other dtype or head width is refused. Needs no card."""
+    import repro_torch.kernels.packed_flash_attn as pfa
+
     for dh in (16, 32, 64, 80, 128):
         assert kernel_for(torch.bfloat16, dh) is SM90
         assert tile_sizes(torch.bfloat16, dh) == (128, 128)
         assert backward_kernel_for(torch.bfloat16, dh) is BWD_SM90
+    for name in ("PADDED_HEAD_DIMS", "run_head_dim", "_pad_head", "_unpad_head"):
+        assert not hasattr(pfa, name), name
+    for kern in (SM90, BWD_SM90):  # the C entry dispatches every width to its own instance
+        text = (build.CSRC / kern.source).read_text()
+        assert tuple(int(w) for w in re.findall(r"^\s*PFA_CASE\((\d+)\)", text, re.M)) == HEAD_DIMS
     assert kernel_for(torch.bfloat16, 256) is SM90_WIDE
     assert tile_sizes(torch.bfloat16, 256) == (128, 64)
     assert SM90.source == SM90_WIDE.source == "packed_flash_attn_sm90.cu"
     for dh in HEAD_DIMS:
         assert kernel_for(torch.float32, dh) is SIMT and tile_sizes(torch.float32, dh) == (64, 64)
-        assert run_head_dim(torch.float32, dh) == dh
         assert backward_kernel_for(torch.float32, dh) is (BWD_TF32_WIDE if dh == 256 else BWD_TF32)
-        assert run_head_dim(torch.bfloat16, dh) == (128 if dh == 80 else dh)
     assert SIMT.source == "packed_flash_attn.cu"
     assert BWD_SM90.source == "packed_flash_attn_bwd_sm90.cu"
     assert (BWD_SM90.block_q, BWD_SM90.block_k, BWD_SM90.dq_tiles) == (64, 128, (128, 128))
