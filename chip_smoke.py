@@ -8,20 +8,22 @@ Phases, in one process; any failure exits nonzero:
              backward, run on the tensor cores (HGMMA instructions), the
              head_dim 256 backward's dK/dV and dQ kernels and the head_dim
              80 forward, dK/dV and dQ kernels each on its own, and that the
-             fp32 backward's dK/dV and dQ kernels run TF32 tensor-core
-             products (HMMA ... TF32) at head_dim 80, 128 and 256, each
-             with no spill in its ptxas report;
+             fp32 forward (at every head width) and the fp32 backward's
+             dK/dV and dQ kernels (at head_dim 80, 128 and 256) run TF32
+             tensor-core products (HMMA ... TF32), each with no spill in
+             its ptxas report;
   2. kernel  hold each kernel against its plain PyTorch version on the card
              (bf16 tensor-core forward: serving shape and a packed shape,
              timed also with every visible tile masked, and a windowed
-             shape with padding rows; fp32 CUDA-core forward: a ragged
-             shape and the parity path's shape; the backward kernels,
+             shape with padding rows; fp32 3xTF32 tensor-core forward: a
+             ragged shape; the backward kernels,
              bf16 tensor-core and fp32 3xTF32 tensor-core (there also at
              every split of its two loops, and in turn with SDPA's
              backward over 10 rounds), at the same shapes and
              at the shape of each micro-batch the train paths launch them
              on) and time it beside
-             its bound, the plain version and one PyTorch library call;
+             its bound (fp32 also against 3xTF32), the plain version and
+             one PyTorch library call;
              every backward is also run twice and held bit for bit;
   3. family  the same, forward and backward, bf16 and fp32, at the heads of
              gemma3-1b and gemma3-4b (head_dim 256), h2o-danube-1.8b (80),
@@ -29,8 +31,9 @@ Phases, in one process; any failure exits nonzero:
              packed documents at each arch's window;
   4. fp32    the fp32 parity paths: reduced qwen3-8b, gemma3-1b and
              h2o-danube-1.8b at their real head widths in fp32 on the card
-             (the CUDA-core forward, one launch per layer, and the 3xTF32
-             backward in one train step) against the CPU;
+             (the 3xTF32 forward, timed at each path's 2 x 256 batch, one
+             launch per layer, and the 3xTF32 backward in one train step)
+             against the CPU;
   5. forward full-width, 36-layer qwen3-8b (random bf16 weights from a seed):
              packed forward + loss over synthetic batches, one kernel launch
              per layer, and the Eq. 1 micro-batch predictor fit on the times;
@@ -152,30 +155,37 @@ def cuda_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def device_us_by_kernel(fn, iters):
+def device_us_by_kernel(fn, iters, attempts=3):
     """Device time in us of each kernel name over `iters` calls of fn (after
     one warm-up call), from torch.profiler. Host time between launches does
-    not count."""
+    not count. A trace with no device event at all, which the profiler
+    returns now and then (after its warning that it "clears events at the
+    end of each cycle"), is taken again, `attempts` times in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA}
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = {e.key: e.self_device_time_total for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA}
+        if us:
+            break
+    return us
 
 
-def device_ms(fn, iters, name=None):
-    """Device time per call of fn() in ms: the kernels whose name contains
-    `name`, or every kernel the call launches. Unlike `cuda_ms`, host time
-    between launches does not count."""
-    us = sum(t for key, t in device_us_by_kernel(fn, iters).items() if name is None or name in key)
+def device_ms(fn, iters, names=()):
+    """Device time per call of fn() in ms: the kernels whose names contain
+    any of `names`, or every kernel the call launches. Unlike `cuda_ms`,
+    host time between launches does not count."""
+    us = sum(t for key, t in device_us_by_kernel(fn, iters).items()
+             if not names or any(n in key for n in names))
     if us <= 0:
-        raise AssertionError(f"the profiler saw no device time{f' for {name}' if name else ''}")
+        raise AssertionError(f"the profiler saw no device time{f' for {names}' if names else ''}")
     return us / 1e3 / iters
 
 
@@ -192,6 +202,13 @@ def attention_bound(q, mask, products, moved_bytes):
     peak = PEAK_BF16_FLOPS if q.dtype == torch.bfloat16 else PEAK_FP32_FLOPS
     t_ops, t_bytes = flops / peak * 1e3, moved_bytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, moved_bytes
+
+
+def bound_3xtf32(flops, moved_bytes, ms):
+    """An fp32 kernel's bound against 495 / 3 TFLOP/s (its products as
+    3xTF32 on the tensor cores) or the bytes, and its share of `ms`."""
+    bound = max(flops / PEAK_3XTF32_FLOPS, moved_bytes / PEAK_BYTES) * 1e3
+    return {"bound_3xtf32_ms": bound, "bound_3xtf32_share": bound / ms}
 
 
 def nbytes(*tensors):
@@ -224,12 +241,15 @@ def all_tiles_masked(fn):
     return run
 
 
-def kernel_case(name, q, k, v, seg, pos, tol, *, time_it, window=None, time_masked=True):
+def kernel_case(name, q, k, v, seg, pos, tol, *, time_it, window=None, time_masked=True,
+                time_splits=False):
     """Kernel vs plain version on one input; optionally timed (and, for the
-    bf16 kernel with `time_masked`, timed again with every tile masked).
-    Returns a row."""
+    bf16 kernel with `time_masked`, timed again with every tile masked; for
+    the fp32 kernel with `time_splits`, held to the plain version and timed
+    at every split of its key walk up to 16). Returns a row."""
     from repro_torch.kernels.packed_flash_attn import (
-        SM90, kernel_for, packed_flash_attention, tile_map, tile_sizes)
+        FWD_TF32, SM90, _sm_count, fwd_splits, kernel_for, packed_flash_attention, tile_map,
+        tile_sizes)
     from repro_torch.kernels.ref import attention_mask, packed_attention_ref
 
     args = (q, k, v, seg, seg, pos, pos)
@@ -252,11 +272,10 @@ def kernel_case(name, q, k, v, seg, pos, tol, *, time_it, window=None, time_mask
         # q, k, v and the int32 seg/pos of both sides read, out written
         bound, by, flops, moved = attention_bound(q, mask, 2,
                                                   nbytes(q, k, v, out) + 4 * nbytes(seg))
-        # ms: the kernel's own device time; wrapper_*: the whole call (tile
+        # ms: the kernels' own device time; wrapper_*: the whole call (tile
         # map + launch), on the device and on CUDA events (host gaps count)
         call = lambda: packed_flash_attention(*args, **kw)  # noqa: E731
-        kname = kern.names[0]
-        row.update(ms=device_ms(call, 20, kname), wrapper_device_ms=device_ms(call, 20),
+        row.update(ms=device_ms(call, 20, kern.names), wrapper_device_ms=device_ms(call, 20),
                    wrapper_event_ms=cuda_ms(call, iters=20),
                    plain_ms=device_ms(lambda: packed_attention_ref(*args, **kw), 3),
                    bound_ms=bound, bound_by=by, flops=flops, bytes=moved)
@@ -268,10 +287,22 @@ def kernel_case(name, q, k, v, seg, pos, tol, *, time_it, window=None, time_mask
         row["library_call"] = "torch.nn.functional.scaled_dot_product_attention(bool mask, enable_gqa)"
         row["bound_share"] = row["bound_ms"] / row["ms"]
         row["tflops"] = flops / row["ms"] / 1e9
+        if q.dtype == torch.float32:  # the ceiling this design answers to: 3xTF32
+            row.update(bound_3xtf32(flops, moved, row["ms"]))
+        if kern.source == FWD_TF32.source:  # the split of its key walk, chosen and forced
+            B, H = q.shape[0], q.shape[2]
+            Sqp, Skp = codes.shape[1] * kern.block_q, codes.shape[2] * kern.block_k
+            row["splits"] = fwd_splits(kern, B, H, Sqp, Skp, _sm_count(q.device.index))
+            if time_splits:
+                row["ms_by_splits"] = {}
+                for s in (1, 2, 4, 8, 16):
+                    with forced("fwd_splits", s):
+                        check_case(f"{name} split {s}", call(), ref, tol, seg)
+                        row["ms_by_splits"][s] = device_ms(call, 20, kern.names)
         if kern.source == SM90.source and time_masked:  # what the unmasked tiles (code 2) save
             masked = all_tiles_masked(call)
             check_case(f"{name} all tiles masked", masked(), ref, tol, seg)
-            row["all_masked_ms"] = device_ms(masked, 20, kname)
+            row["all_masked_ms"] = device_ms(masked, 20, kern.names)
             row["all_masked_wrapper_event_ms"] = cuda_ms(masked, iters=20)
     log("kernel", json.dumps(row))
     return row
@@ -348,9 +379,7 @@ def backward_case(name, q, k, v, seg, pos, tol, *, time_it, window=None, time_sp
                    plain_ms=device_ms(plain, 2), bound_ms=bound, bound_by=by, flops=flops,
                    bytes=moved)
         if q.dtype == torch.float32:  # the ceiling this design answers to: 3xTF32
-            ops_3x = flops / PEAK_3XTF32_FLOPS * 1e3
-            row.update(bound_3xtf32_ms=max(ops_3x, moved / PEAK_BYTES * 1e3),
-                       bound_3xtf32_share=max(ops_3x, moved / PEAK_BYTES * 1e3) / row["ms"])
+            row.update(bound_3xtf32(flops, moved, row["ms"]))
         # yardstick only: SDPA's backward on the same bool mask, its gradients of
         # q, k and v alone (torch.autograd.grad: none is added into a .grad)
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
@@ -541,7 +570,6 @@ def kernel_phase(cfg, device):
     pos = torch.arange(PARITY_SEQ, dtype=torch.int32, device=device).repeat(PARITY_BATCH, 1)
     inputs = qkv(PARITY_BATCH, PARITY_SEQ, torch.float32,
                  (small.n_heads, small.n_kv_heads, small.n_kv_heads))
-    rows["fp32_parity"] = kernel_case("fp32_parity", *inputs, seg, pos, TOL_FP32, time_it=True)
     rows["fp32_parity_bwd"] = microbatch_cases("fp32_parity_bwd_microbatch", inputs, seg, pos,
                                                PARITY_MICROBATCHES, TOL_FP32, time_splits=True)
     return rows
@@ -613,16 +641,35 @@ def read_backward_counts():
 
 
 def fp32_phase(cfg, device):
-    """The fp32 parity path: a reduced qwen3-8b (real head width) in fp32 on
+    """The fp32 parity path: a reduced `cfg` (real head width) in fp32 on
     the card, through the fp32 kernels, against the same model on the
-    CPU: the packed forward's logits, then one train step (2 micro-batches,
-    remat, AdamW) through the forward and backward kernels."""
-    from repro_torch.kernels.packed_flash_attn import BWD_SM90, BWD_TF32, SIMT, SM90
+    CPU: the forward kernel alone at the path's 2 x 256 batch and heads
+    (timed), the packed forward's logits, then one train step (2
+    micro-batches, remat, AdamW) through the forward and backward kernels."""
+    from repro_torch.kernels.packed_flash_attn import BWD_SM90, BWD_TF32, FWD_TF32, SM90
     from repro_torch.models.model import forward_train, init_params
     from repro_torch.train.optimizer import make_optimizer, tree_leaves
     from repro_torch.train.train_step import build_train_step
 
     small, batch = parity_model(cfg)
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's fp32 einsums
+    g = torch.Generator(device=device)
+    g.manual_seed(1234)
+    qkv = tuple(torch.randn((PARITY_BATCH, PARITY_SEQ, h, small.head_dim), generator=g,
+                            device=device) for h in (small.n_heads, small.n_kv_heads,
+                                                     small.n_kv_heads))
+    seg = torch.from_numpy(batch["segment_ids"]).to(device)
+    pos = torch.arange(PARITY_SEQ, dtype=torch.int32, device=device).repeat(PARITY_BATCH, 1)
+    kernel_row = kernel_case(f"{cfg.arch_id} fp32 parity", *qkv, seg, pos, TOL_FP32,
+                             time_it=True, window=arch_window(small), time_splits=True)
+    n = PARITY_BATCH // PARITY_MICROBATCHES  # and at the train step's micro-batches
+    kernel_row["microbatches"] = [
+        {key: row[key] for key in ("ms", "splits", "bound_ms", "max_abs_err", "library_ms")}
+        for row in (kernel_case(f"{cfg.arch_id} fp32 parity microbatch {i}",
+                                *(x[i * n:(i + 1) * n] for x in (*qkv, seg, pos)), TOL_FP32,
+                                time_it=True, window=arch_window(small))
+                    for i in range(PARITY_MICROBATCHES))]
+    del qkv
     params = init_params(small, seed=0, dtype=torch.float32, device="cpu")
     cpu_b = {k: torch.from_numpy(v) for k, v in batch.items()}
     gpu_b = to_device(batch, device)
@@ -633,7 +680,7 @@ def fp32_phase(cfg, device):
         torch.cuda.synchronize()
         counts = read_counts()
         logits_cpu, _ = forward_train(small, params, cpu_b, compute_dtype=torch.float32)
-    if counts[SIMT.source] != small.n_layers or counts[SM90.source] != 0:
+    if counts[FWD_TF32.source] != small.n_layers or counts[SM90.source] != 0:
         raise AssertionError(f"fp32 path launches {counts}, expected {small.n_layers} fp32 only")
     valid = torch.from_numpy(batch["segment_ids"] != 0)
     err = float((logits_gpu.cpu()[valid] - logits_cpu[valid]).abs().max())
@@ -658,7 +705,7 @@ def fp32_phase(cfg, device):
                         [x.grad.detach().cpu() for x in tree_leaves(p)],
                         [x.detach().cpu() for x in tree_leaves(p)])
     # per micro-batch and layer: forward + remat recompute, one backward
-    want = {SIMT.source: 2 * PARITY_MICROBATCHES * small.n_layers, SM90.source: 0}
+    want = {FWD_TF32.source: 2 * PARITY_MICROBATCHES * small.n_layers, SM90.source: 0}
     want_bwd = {BWD_TF32.source: PARITY_MICROBATCHES * small.n_layers, BWD_SM90.source: 0}
     if train_counts != want or bwd_counts != want_bwd:
         raise AssertionError(f"fp32 train step launches {train_counts} {bwd_counts}, "
@@ -690,7 +737,8 @@ def fp32_phase(cfg, device):
     res = {"arch": cfg.arch_id, "layers": small.n_layers, "head_dim": small.head_dim,
            "window": arch_window(small), "launches": counts,
            "max_abs_err": err, "tol": TOL_FP32, "train_step_launches": train_counts,
-           "train_step_backward_launches": bwd_counts, "train_step_err": step_err}
+           "train_step_backward_launches": bwd_counts, "train_step_err": step_err,
+           "kernel": kernel_row}
     log("fp32", json.dumps(res))
     return res
 
@@ -907,12 +955,12 @@ def bf16_launches(head_dim, *, forward, backward):
     the fp32 sources (at every head width, 256 included), no
     plain-version call."""
     from repro_torch.kernels.packed_flash_attn import (
-        BWD_SM90, BWD_TF32, SIMT, SM90, backward_kernel_for, kernel_for)
+        BWD_SM90, BWD_TF32, FWD_TF32, SM90, backward_kernel_for, kernel_for)
 
     if (kernel_for(torch.bfloat16, head_dim).source != SM90.source
             or backward_kernel_for(torch.bfloat16, head_dim).source != BWD_SM90.source):
         raise AssertionError(f"bf16 at head_dim {head_dim} does not take the tensor-core kernels")
-    return {SM90.source: forward, SIMT.source: 0, f"backward[{BWD_SM90.source}]": backward,
+    return {SM90.source: forward, FWD_TF32.source: 0, f"backward[{BWD_SM90.source}]": backward,
             f"backward[{BWD_TF32.source}]": 0, "plain_calls": 0}
 
 
@@ -1380,14 +1428,16 @@ def ptxas_by_function(log):
 # the SASS opcode every one of them must show): the bf16 head_dim 256
 # backward's dK/dV and dQ kernels on wgmma, the bf16 head_dim 80 forward,
 # dK/dV and dQ kernels (five 16-column chunks under the 32-byte swizzle) on
-# wgmma, and the fp32 backward's dK/dV and dQ kernels on TF32 tensor-core
-# products at every width its paths run
+# wgmma, the fp32 forward on TF32 tensor-core products at every head width,
+# and the fp32 backward's dK/dV and dQ kernels at every width its paths run
 BUILD_GATES = (
     ("head_dim_256_backward_build", "BWD_SM90_WIDE",
      ("bwd_sm90_dkdv_split_kernel", "bwd_sm90_dq_kernel"), (256,), ("HGMMA",)),
     ("head_dim_80_forward_build", "SM90", ("packed_flash_attn_sm90_kernel",), (80,), ("HGMMA",)),
     ("head_dim_80_backward_build", "BWD_SM90", ("bwd_sm90_dkdv_kernel", "bwd_sm90_dq_kernel"),
      (80,), ("HGMMA",)),
+    ("fp32_forward_build", "FWD_TF32", ("packed_flash_attn_tf32_kernel",),
+     (16, 32, 64, 80, 128, 256), ("HMMA", "TF32")),
     ("fp32_backward_build", "BWD_TF32", ("bwd_tf32_dkdv_kernel", "bwd_tf32_dq_kernel"),
      (80, 128, 256), ("HMMA", "TF32")),
 )
@@ -1444,7 +1494,7 @@ def kernel_entries(record):
     group that a main path launched, its launches counted in those runs, its
     times from the kernel phases at a main path's shape; other shapes of the
     same kernel under `other_cases`."""
-    from repro_torch.kernels.packed_flash_attn import BWD_SM90, BWD_TF32, SIMT, SM90
+    from repro_torch.kernels.packed_flash_attn import BWD_SM90, BWD_TF32, FWD_TF32, SM90
 
     kern, fk, fam, fp32 = (record["kernel"], record["family_kernel"], record["family"],
                            record["fp32_path"])
@@ -1493,20 +1543,21 @@ def kernel_entries(record):
         entry("packed_flash_attention[head_dim 80]", SM90.source, fk["h2o-danube-1.8b_bf16"],
               {"h2o-danube-1.8b train": fwd(fam["h2o-danube-1.8b_train"], SM90.source)},
               head_dim=80),
-        # fp32: the parity paths, at head_dim 128, 256 and 80
-        entry("packed_flash_attention[float32]", SIMT.source, kern["fp32_parity"],
-              {"qwen3-8b parity": fp32["qwen3-8b"]["launches"][SIMT.source]
-               + fp32["qwen3-8b"]["train_step_launches"][SIMT.source]},
-              others=("llama2-7b_fp32", "qwen2.5-7b_fp32"), head_dim=128,
-              wrapper_device_ms=kern["fp32_parity"]["wrapper_device_ms"]),
-        entry("packed_flash_attention[float32, head_dim 256]", SIMT.source, fk["gemma3-1b_fp32"],
-              {"gemma3-1b parity": fp32["gemma3-1b"]["launches"][SIMT.source]
-               + fp32["gemma3-1b"]["train_step_launches"][SIMT.source]},
-              others=("gemma3-4b_fp32",), head_dim=256),
-        entry("packed_flash_attention[float32, head_dim 80]", SIMT.source,
-              fk["h2o-danube-1.8b_fp32"],
-              {"h2o-danube-1.8b parity": fp32["h2o-danube-1.8b"]["launches"][SIMT.source]
-               + fp32["h2o-danube-1.8b"]["train_step_launches"][SIMT.source]}, head_dim=80),
+        # fp32: the parity paths, at head_dim 128, 256 and 80, each at its 2 x 256 batch
+        *(entry(f"packed_flash_attention[float32{tag}]", FWD_TF32.source, fp32[arch]["kernel"],
+                {f"{arch} parity": fp32[arch]["launches"][FWD_TF32.source]
+                 + fp32[arch]["train_step_launches"][FWD_TF32.source]},
+                others=others, head_dim=fp32[arch]["head_dim"],
+                wrapper_device_ms=fp32[arch]["kernel"]["wrapper_device_ms"],
+                **{key: fp32[arch]["kernel"][key] for key in (
+                    "bound_3xtf32_ms", "bound_3xtf32_share", "splits", "ms_by_splits",
+                    "microbatches")},
+                **({"ragged": {key: kern["fp32_ragged"].get(key) for key in TIMING_KEYS}}
+                   if arch == "qwen3-8b" else {}))
+          for arch, tag, others in (
+              ("qwen3-8b", "", ("llama2-7b_fp32", "qwen2.5-7b_fp32")),
+              ("gemma3-1b", ", head_dim 256", ("gemma3-1b_fp32", "gemma3-4b_fp32")),
+              ("h2o-danube-1.8b", ", head_dim 80", ("h2o-danube-1.8b_fp32",)))),
         # the backward: per launch, at the train paths' micro-batches
         entry("packed_flash_attention_backward", BWD_SM90.source,
               per_launch(kern["train_bwd"]),
@@ -1566,7 +1617,7 @@ def main(argv=None):
     from repro_torch.configs import get_arch
     from repro_torch.configs.paper_models import PAPER_MODELS, PAPER_PARALLELISM
     from repro_torch.kernels import build
-    from repro_torch.kernels.packed_flash_attn import BWD_SM90, BWD_TF32, SIMT, SM90
+    from repro_torch.kernels.packed_flash_attn import BWD_SM90, BWD_TF32, FWD_TF32, SM90
     from repro_torch.models.model import init_params
     from repro_torch.train.optimizer import tree_leaves
 
@@ -1589,7 +1640,7 @@ def main(argv=None):
     log(f"build: {record['build_seconds']:.1f} s")
     # the bf16 kernels must run on the tensor cores: HGMMA in their SASS
     record["hgmma_instructions"] = {k.source: sass_count(build.library_path(k.source), "HGMMA")
-                                    for k in (SM90, SIMT, BWD_SM90, BWD_TF32)}
+                                    for k in (SM90, FWD_TF32, BWD_SM90, BWD_TF32)}
     log(f"sass: HGMMA instructions {record['hgmma_instructions']}")
     for kern in (SM90, BWD_SM90):
         if record["hgmma_instructions"][kern.source] == 0:

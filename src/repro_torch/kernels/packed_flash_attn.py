@@ -1,10 +1,13 @@
 """Segment-aware (packed) flash attention: Hopper kernel wrappers and their tile map.
 
 Counterpart of `repro.kernels.packed_flash_attn`. Two CUDA C++ kernels for
-sm_90a, built by nvcc at first use and bound with ctypes, one per input type:
-bf16 runs on the tensor cores (`csrc/packed_flash_attn_sm90.cu`: wgmma fed by
-TMA through an mbarrier ring, 128 x 128 tiles, 128 x 64 at head_dim 256);
-fp32 runs on the CUDA cores (`csrc/packed_flash_attn.cu`, 64 x 64 tiles).
+sm_90a, built by nvcc at first use and bound with ctypes, one per input type,
+both on the tensor cores: bf16 in `csrc/packed_flash_attn_sm90.cu` (wgmma fed
+by TMA through an mbarrier ring, 128 x 128 tiles, 128 x 64 at head_dim 256);
+fp32 in `csrc/packed_flash_attn.cu` (every product in 3xTF32 by mma.sync, 64
+query rows a CTA over 16-key stages copied ahead by cp.async, its tile map at
+64 x 16, walked as the fp32 backward's dQ kernel walks the same map; the walk
+split over CTAs where the grid would leave SMs idle, `fwd_splits`).
 A `Kernel` is chosen by (dtype, head_dim) (`kernel_for`,
 `backward_kernel_for`): its tiles may differ with the head width. Every
 width in `HEAD_DIMS` is compiled as it is, in both dtypes: bf16 at head_dim
@@ -30,7 +33,8 @@ the fp32 parity tolerance where one TF32 product does not; a dK/dV kernel
 at 32 x 64 tiles (16 x 64 at head_dim 256) and a dQ kernel at 64 x 16,
 tiles copied ahead by cp.async, each loop split over CTAs where its grid
 would leave SMs idle, `tf32_splits`). The sm_90a sources share
-`csrc/sm90_common.cuh`.
+`csrc/sm90_common.cuh`; the two fp32 sources also `csrc/tf32_common.cuh`
+(fragments, copies and the tile walk).
 `kernels.ops` wires forward and backward into autograd.
 
 `packed_flash_attention.launches` and `packed_flash_attention_backward.launches`
@@ -81,7 +85,9 @@ class Kernel:
 SM90 = Kernel("packed_flash_attn_sm90.cu", "packed_flash_attn_sm90", 128, 128,
               ("packed_flash_attn_sm90_kernel",))
 SM90_WIDE = Kernel(SM90.source, SM90.symbol, 128, 64, SM90.names)  # head_dim 256
-SIMT = Kernel("packed_flash_attn.cu", "packed_flash_attn", 64, 64, ("packed_flash_attn_kernel",))
+FWD_TF32 = Kernel("packed_flash_attn.cu", "packed_flash_attn", 64, 16,
+                  ("packed_flash_attn_tf32_kernel", "packed_flash_attn_tf32_merge_kernel"))
+# (the merge runs only where `fwd_splits` splits the key walk)
 BWD_SM90 = Kernel("packed_flash_attn_bwd_sm90.cu", "packed_flash_attn_bwd_sm90", 64, 128,
                   ("bwd_sm90_delta_kernel", "bwd_sm90_dkdv_kernel", "bwd_sm90_dq_kernel"),
                   dq_tiles=(128, 128))
@@ -108,7 +114,7 @@ def kernel_for(dtype, head_dim) -> Kernel:
     """The forward kernel that takes inputs of `dtype` and `head_dim`."""
     _checked_dims(dtype, head_dim)
     if dtype == torch.float32:
-        return SIMT
+        return FWD_TF32
     return SM90_WIDE if head_dim == 256 else SM90
 
 
@@ -277,6 +283,24 @@ def tf32_splits(kern: Kernel, B, H, K, Sqp, Skp, sms) -> tuple[int, int]:
             split(H * B * (Sqp // bq), Skp // bk, bq * bk))
 
 
+def fwd_splits(kern: Kernel, B, H, Sqp, Skp, sms) -> int:
+    """How many CTAs share the key walk of one (batch, head, query tile) of
+    the fp32 forward at batch B, Sqp and Skp padded queries and keys, on
+    `sms` SMs: until the grid fills one wave of the SMs (the power of two at
+    or below sms / CTAs), leaving each CTA at least `MIN_SPLIT_PAIRS`
+    (query, key) pairs of its walk. The fp32 parity paths' 2 x 256 batches
+    make 32 CTAs of 4 heads, whose longest walk sets the time: 4 splits
+    there, the best of 1 to 16 at head_dim 80, 128 and 256 (PERF.md: 8
+    cost gemma3's dh 256, one CTA an SM, 50% more). Each part stores its
+    unnormalised output and its rows' max and sum, which a second kernel
+    merges in order. 1 for another kernel."""
+    if kern.source != FWD_TF32.source:
+        return 1
+    ctas = H * B * (Sqp // kern.block_q)
+    most = min(sms // ctas, Skp * kern.block_q // MIN_SPLIT_PAIRS)
+    return 1 << (max(1, most).bit_length() - 1)
+
+
 @functools.cache
 def _sm_count(index) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -284,8 +308,9 @@ def _sm_count(index) -> int:
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 # head_dim, q, k, v, seg_q, seg_k, pos_q, pos_k, blk_ok, out, lse, B, Sq, Sk, H, KH, nQ, nK,
-# scale, causal, has_window, window, stream
-_FWD_ARGTYPES = [_INT] + [_PTR] * 10 + [_INT] * 7 + [ctypes.c_float] + [_INT] * 3 + [_PTR]
+# scale, causal, has_window, window, then (fp32 only) splits, part, then stream
+_FWD_HEAD = [_INT] + [_PTR] * 10 + [_INT] * 7 + [ctypes.c_float] + [_INT] * 3
+_FWD_ARGTYPES = {SM90.source: _FWD_HEAD + [_PTR], FWD_TF32.source: _FWD_HEAD + [_INT, _PTR, _PTR]}
 _BWD_ARGTYPES = {
     # head_dim, q, k, v, out, d_out, lse, seg_q, seg_k, pos_q, pos_k, blk_kv, blk_dq, stats,
     # dq, dk, dv, B, Sq, Sk, H, KH, Sqp, Skp, scale, causal, has_window, window, kv_splits,
@@ -380,8 +405,8 @@ def packed_flash_attention(q, k, v, seg_q, seg_k, pos_q, pos_k, *,
                            causal=True, window=None, scale=None, return_lse=False):
     """q (B,Sq,H,dh); k/v (B,Sk,K,dh) un-repeated -> (B,Sq,H,dh), on the card.
 
-    bf16 takes the tensor-core kernel, fp32 the CUDA-core one, each
-    compiled at the head width and run at its tiles. With `return_lse`,
+    bf16 takes the wgmma kernel, fp32 the 3xTF32 one, each compiled at the
+    head width and run at its tiles. With `return_lse`,
     also returns the fp32 (B,H,Sq) row log-sum-exp of the scaled scores
     (+inf on rows with no visible key), which the backward takes. Raises on a tensor the kernels do not take; never falls back. The
     output has no gradient: it raises when autograd would need one, so a
@@ -396,26 +421,33 @@ def packed_flash_attention(q, k, v, seg_q, seg_k, pos_q, pos_k, *,
     kern = kernel_for(q.dtype, dh)
     if scale is None:
         scale = dh ** -0.5
-    fwd = _entry(kern, "fwd", _FWD_ARGTYPES, dh)
+    fwd = _entry(kern, "fwd", _FWD_ARGTYPES[kern.source], dh)
     bq, bk = kern.block_q, kern.block_k
     padded = _pad_all(seg_q, seg_k, pos_q, pos_k, bq, bk)  # whole tiles of ids
     blk = tile_map(*padded, bq, bk, causal=causal, window=window)
     nq, nk = blk.shape[1], blk.shape[2]
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) if return_lse else None
+    tail, part = (), None  # the fp32 kernel's split walk, and its parts
+    if kern.source == FWD_TF32.source:
+        splits = fwd_splits(kern, B, H, nq * bq, nk * bk, _sm_count(q.device.index))
+        if splits > 1:  # outputs, then each row's max and sum
+            part = torch.empty(splits * (q.numel() + 2 * B * H * Sq), dtype=torch.float32,
+                               device=q.device)
+        tail = (splits, part.data_ptr() if part is not None else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         rc = fwd(dh, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  *(t.data_ptr() for t in padded), blk.data_ptr(), out.data_ptr(),
                  lse.data_ptr() if return_lse else None,
                  B, Sq, Sk, H, K, nq, nk, float(scale),
-                 int(causal), int(window is not None), int(window or 0), stream)
+                 int(causal), int(window is not None), int(window or 0), *tail, stream)
     _raise_on(rc, kern, "launch")
     packed_flash_attention.launches[kern.source] += 1
     return (out, lse) if return_lse else out
 
 
-packed_flash_attention.launches = {kern.source: 0 for kern in (SM90, SIMT)}
+packed_flash_attention.launches = {kern.source: 0 for kern in (SM90, FWD_TF32)}
 
 
 def packed_flash_attention_backward(q, k, v, out, lse, d_out, seg_q, seg_k, pos_q, pos_k, *,

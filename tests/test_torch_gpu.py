@@ -1,6 +1,6 @@
 """On the card: the Hopper packed flash attention kernels (bf16 on the tensor
-cores, fp32 on the CUDA cores; the forward's row log-sum-exp; the backward
-kernels, bf16 on the tensor cores and fp32 in 3xTF32 on them) against their
+cores, fp32 in 3xTF32 on them; the forward's row log-sum-exp; the backward
+kernels, bf16 and fp32 alike) against their
 plain PyTorch versions, the port's reduced model, train step and pipeline
 engine on the card against themselves on the CPU, and a checkpoint of card
 tensors restored onto the card. Every case is
@@ -24,7 +24,7 @@ from repro_torch.kernels.packed_flash_attn import (
     BWD_TF32,
     BWD_SM90,
     BWD_SM90_WIDE,
-    SIMT,
+    FWD_TF32,
     SM90,
     backward_kernel_for,
     packed_flash_attention,
@@ -140,9 +140,9 @@ def test_gpu_kernel_ragged_bf16(cuda, rng, S, dh):
 
 @pytest.mark.gpu
 def test_gpu_launch_counts_by_dtype(cuda, rng):
-    """A bf16 call launches the tensor-core kernel once, an fp32 call the
-    CUDA-core kernel once; each raises its own source's count by one."""
-    for dtype, kern in (("bfloat16", SM90), ("float32", SIMT)):
+    """A bf16 call launches the wgmma kernel once, an fp32 call the 3xTF32
+    kernel once; each raises its own source's count by one."""
+    for dtype, kern in (("bfloat16", SM90), ("float32", FWD_TF32)):
         args = _args(rng, cuda, 1, 128, 4, 2, 64, dtype)
         before = dict(packed_flash_attention.launches)
         packed_flash_attention(*args, causal=True)
@@ -438,10 +438,10 @@ def test_gpu_pipeline_launch_counts(cuda, dtype):
     finally:
         ops.packed_attention_ref = plain
     L, R, M = 4, 2, 2
-    kern, bkern = (SM90, BWD_SM90) if dtype == "bfloat16" else (SIMT, BWD_TF32)
+    kern, bkern = (SM90, BWD_SM90) if dtype == "bfloat16" else (FWD_TF32, BWD_TF32)
     got = {s: c - fwd[s] for s, c in packed_flash_attention.launches.items()}
     got_bwd = {s: c - bwd[s] for s, c in packed_flash_attention_backward.launches.items()}
-    assert got == {SM90.source: 0, SIMT.source: 0, kern.source: 2 * L * R * M}
+    assert got == {SM90.source: 0, FWD_TF32.source: 0, kern.source: 2 * L * R * M}
     assert got_bwd == {BWD_SM90.source: 0, BWD_TF32.source: 0, bkern.source: L * R * M}
     assert not calls
 
@@ -753,3 +753,114 @@ def test_gpu_pipeline_tied_embeddings_match_cpu(cuda, dtype):
     for key in g_cpu:
         for a, b in zip(g_gpu[key], g_cpu[key], strict=True):
             assert np.abs(a - b).max() <= 1e-4 * np.abs(b).max() + 1e-7
+
+
+# ----------------------------------------- the fp32 forward in 3xTF32 on the tensor cores
+# (head_dim, H, K, window, arch whose packed documents a case takes)
+FP32_LONG_CASES = [(128, 4, 2, None, "qwen3-8b"), (80, 4, 2, 4096, "h2o-danube-1.8b"),
+                   (256, 4, 1, 512, "gemma3-1b")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh,H,K,window,arch", FP32_LONG_CASES)
+@pytest.mark.parametrize("docs", ["one", "family"])
+def test_gpu_fp32_forward_at_4096_keys(cuda, rng, dh, H, K, window, arch, docs):
+    """The fp32 forward at 1 x 4096, one document or the arch's packed
+    training documents (their own positions), at head_dim 128, 80 and 256:
+    within the fp32 tolerance of the plain version, though each output row
+    sums up to 4096 keys over 256 stages."""
+    S = 4096
+    q, k, v, *_ = _args(rng, cuda, 1, S, H, K, dh, "float32")
+    if docs == "one":
+        seg = torch.ones((1, S), dtype=torch.int32, device=cuda)
+        pos = torch.arange(S, dtype=torch.int32, device=cuda)[None]
+    else:
+        batch = SyntheticPackedDataset(get_arch(arch), S, 1, seed=0).batch_at(0)
+        seg, pos = (t(batch[key]).to(cuda) for key in ("segment_ids", "positions"))
+        assert int(seg.max()) > 3
+    args = (q, k, v, seg, seg, pos, pos)
+    before = dict(packed_flash_attention.launches)
+    out = packed_flash_attention(*args, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert packed_flash_attention.launches[FWD_TF32.source] == before[FWD_TF32.source] + 1
+    ref = packed_attention_ref(*args, causal=True, window=window)
+    np.testing.assert_allclose(n(out), n(ref), atol=TOL["float32"], rtol=TOL["float32"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [80, 256])
+def test_gpu_fp32_forward_columns_keep_their_places(cuda, rng, dh):
+    """q and k scaled by another factor on each 16 columns and v more on
+    each later 16 (from 0.5 to 2, so that the output keeps the unit scale
+    its absolute tolerance is stated for), so that a column read from or
+    written to another place (a fragment, a warp's half of the width at
+    head_dim 256, the P V n-tiles) moves the scores or the output away from
+    the plain version."""
+    q, k, v, seg, _, pos, _ = _args(rng, cuda, 2, 333, 8, 2, dh, "float32",
+                                    doc_lens=[100, 150, 50])
+    chunk = torch.arange(dh, device=cuda) // 16
+    qk_scale = torch.tensor([0.5, 1.0, 1.5, 0.75, 1.25, 0.6, 1.1, 0.9] * 2, device=cuda)[chunk]
+    v_scale = 0.5 + 1.5 * chunk.float() / (dh // 16 - 1)
+    q, k, v = q * qk_scale, k * qk_scale, v * v_scale
+    args = (q, k, v, seg, seg, pos, pos)
+    out = packed_flash_attention(*args, causal=True)
+    np.testing.assert_allclose(n(out), n(packed_attention_ref(*args, causal=True)),
+                               atol=TOL["float32"], rtol=TOL["float32"])
+    assert bool((out[seg == 0] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [80, 128, 256])
+@pytest.mark.parametrize("window", [None, 40])
+def test_gpu_fp32_forward_lse_and_empty_rows(cuda, rng, dh, window):
+    """lse is the log-sum-exp of the scaled scores (1e-4); a row with no
+    visible key, a padding row or a query of a segment that no key carries,
+    gives exactly 0 and lse = +inf; a second launch gives the same bits."""
+    B, S, H, K = 2, 300, 4, 2
+    q, k, v, seg, _, pos, _ = _args(rng, cuda, B, S, H, K, dh, "float32",
+                                    doc_lens=[120, 100, 50])
+    seg_q = seg.clone()
+    seg_q[:, 120:220] = 7  # no key carries segment 7
+    args = (q, k, v, seg_q, seg, pos, pos)
+    out, lse = packed_flash_attention(*args, causal=True, window=window, return_lse=True)
+    again, lse2 = packed_flash_attention(*args, causal=True, window=window, return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again) and torch.equal(lse, lse2)
+    np.testing.assert_allclose(n(out), n(packed_attention_ref(*args, causal=True, window=window)),
+                               atol=TOL["float32"], rtol=TOL["float32"])
+    mask = attention_mask(seg_q, seg, pos, pos, causal=True, window=window)[:, None]
+    kr = k.repeat_interleave(H // K, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, kr) * dh ** -0.5
+    ref = torch.logsumexp(s.masked_fill(~mask, float("-inf")), dim=-1)
+    visible = mask.any(-1).expand_as(ref)
+    empty = ~mask.any(-1)[:, 0]  # (B, S) rows
+    assert int(empty.sum()) == B * (100 + 30) and bool((out[empty] == 0).all())
+    assert bool(torch.isposinf(lse[~visible]).all())
+    np.testing.assert_allclose(n(lse[visible]), n(ref[visible]), atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [80, 128, 256])
+def test_gpu_fp32_forward_forced_splits(cuda, rng, dh, monkeypatch):
+    """The fp32 forward's key walk split over 1 to 16 CTAs (`fwd_splits`
+    forced), parts merged by a second kernel: out and lse match the plain
+    version at every split, rows with no visible key stay exactly 0 with
+    lse = +inf, and each split gives the same bits on a second launch."""
+    args = _args(rng, cuda, 2, 333, 4, 2, dh, "float32", doc_lens=[150, 100, 50])
+    seg, pos = args[3], args[5]
+    ref = packed_attention_ref(*args, causal=True, window=64)
+    mask = attention_mask(seg, seg, pos, pos, causal=True, window=64)[:, None]
+    s = torch.einsum("bqhd,bkhd->bhqk", args[0], args[1].repeat_interleave(2, dim=2)) * dh ** -0.5
+    want = torch.logsumexp(s.masked_fill(~mask, float("-inf")), dim=-1)
+    visible = mask.any(-1).expand_as(want)
+    for splits in (1, 2, 4, 16):
+        monkeypatch.setattr(pfa, "fwd_splits", lambda *a, s=splits: s)
+        before = dict(packed_flash_attention.launches)
+        out, lse = packed_flash_attention(*args, causal=True, window=64, return_lse=True)
+        again, lse2 = packed_flash_attention(*args, causal=True, window=64, return_lse=True)
+        torch.cuda.synchronize()
+        assert packed_flash_attention.launches[FWD_TF32.source] == before[FWD_TF32.source] + 2
+        assert torch.equal(out, again) and torch.equal(lse, lse2), splits
+        np.testing.assert_allclose(n(out), n(ref), atol=TOL["float32"], rtol=TOL["float32"])
+        assert bool((out[seg == 0] == 0).all()) and bool(torch.isposinf(lse[~visible]).all())
+        np.testing.assert_allclose(n(lse[visible]), n(want[visible]), atol=1e-4, rtol=1e-5)

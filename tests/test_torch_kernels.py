@@ -21,14 +21,16 @@ from repro_torch.kernels.packed_flash_attn import (
     BWD_SM90_WIDE,
     BWD_TF32,
     BWD_TF32_WIDE,
+    FWD_TF32,
     HEAD_DIMS,
-    SIMT,
     SM90,
     SM90_WIDE,
+    _pad_all,
     backward_kernel_for,
     backward_tile_maps,
     block_metadata,
     coarsen,
+    fwd_splits,
     kernel_for,
     kv_splits,
     packed_flash_attention,
@@ -278,9 +280,10 @@ def test_kernel_choice_by_dtype():
     head_dim 256; backward with a dK/dV kernel at 64 x 128 and a dQ kernel at
     128 x 128, at head_dim 256 64 x 64 and 128 x 32), each compiled at every
     head width, head_dim 80 included, with no path that pads the width;
-    fp32 the CUDA-core forward at 64 x 64 and the 3xTF32 backward, a dK/dV
-    kernel at 32 x 64 (16 x 64 at head_dim 256) and a dQ kernel at 64 x 16;
-    any other dtype or head width is refused. Needs no card."""
+    fp32 the 3xTF32 forward at 64 x 16 (the tiles of the fp32 backward's dQ
+    kernel, whose walk it shares) and the 3xTF32 backward, a dK/dV kernel
+    at 32 x 64 (16 x 64 at head_dim 256) and a dQ kernel at 64 x 16; any
+    other dtype or head width is refused. Needs no card."""
     import repro_torch.kernels.packed_flash_attn as pfa
 
     for dh in (16, 32, 64, 80, 128):
@@ -289,16 +292,22 @@ def test_kernel_choice_by_dtype():
         assert backward_kernel_for(torch.bfloat16, dh) is BWD_SM90
     for name in ("PADDED_HEAD_DIMS", "run_head_dim", "_pad_head", "_unpad_head"):
         assert not hasattr(pfa, name), name
-    for kern in (SM90, BWD_SM90):  # the C entry dispatches every width to its own instance
+    # the C entry dispatches every width to its own instance
+    for kern in (SM90, BWD_SM90, FWD_TF32):
         text = (build.CSRC / kern.source).read_text()
         assert tuple(int(w) for w in re.findall(r"^\s*PFA_CASE\((\d+)\)", text, re.M)) == HEAD_DIMS
     assert kernel_for(torch.bfloat16, 256) is SM90_WIDE
     assert tile_sizes(torch.bfloat16, 256) == (128, 64)
     assert SM90.source == SM90_WIDE.source == "packed_flash_attn_sm90.cu"
     for dh in HEAD_DIMS:
-        assert kernel_for(torch.float32, dh) is SIMT and tile_sizes(torch.float32, dh) == (64, 64)
+        assert kernel_for(torch.float32, dh) is FWD_TF32
+        assert tile_sizes(torch.float32, dh) == (64, 16)
         assert backward_kernel_for(torch.float32, dh) is (BWD_TF32_WIDE if dh == 256 else BWD_TF32)
-    assert SIMT.source == "packed_flash_attn.cu"
+    assert FWD_TF32.source == "packed_flash_attn.cu"
+    assert FWD_TF32.names == ("packed_flash_attn_tf32_kernel",
+                              "packed_flash_attn_tf32_merge_kernel")
+    assert (FWD_TF32.block_q, FWD_TF32.block_k) == BWD_TF32.dq_tiles
+    assert not hasattr(pfa, "SIMT")  # the CUDA-core forward is gone, with every path to it
     assert BWD_SM90.source == "packed_flash_attn_bwd_sm90.cu"
     assert (BWD_SM90.block_q, BWD_SM90.block_k, BWD_SM90.dq_tiles) == (64, 128, (128, 128))
     assert BWD_TF32.source == BWD_TF32_WIDE.source == "packed_flash_attn_bwd.cu"
@@ -323,9 +332,9 @@ def test_kernel_choice_by_dtype():
         with pytest.raises(TypeError):
             backward_kernel_for(dtype, 128)
     assert HEAD_DIMS == (16, 32, 64, 80, 128, 256)
-    assert packed_flash_attention.launches.keys() == {SM90.source, SIMT.source}
+    assert packed_flash_attention.launches.keys() == {SM90.source, FWD_TF32.source}
     assert packed_flash_attention_backward.launches.keys() == {BWD_SM90.source, BWD_TF32.source}
-    sources = {k.source for k in (SM90, SIMT, BWD_SM90, BWD_TF32)}
+    sources = {k.source for k in (SM90, FWD_TF32, BWD_SM90, BWD_TF32)}
     assert sources == {p.name for p in build.CSRC.glob("*.cu")}
 
 
@@ -456,20 +465,38 @@ def test_tf32_splits_fill_four_waves():
         assert tf32_splits(kern, 1, 4, 2, 256, 256, 132) == (1, 1)
 
 
+def test_fwd_splits_fill_one_wave():
+    """The fp32 forward splits its key walk (16-key tiles) over the power of
+    two of CTAs at or below 132 / CTAs that leaves each CTA 2048 (query,
+    key) pairs or more of its walk; grids of a wave or more never split,
+    and no other forward takes this rule."""
+    # the parity paths' 2 x 256 batches at 4 heads: 32 CTAs of 16 key tiles
+    assert fwd_splits(FWD_TF32, 2, 4, 256, 256, 132) == 4
+    assert fwd_splits(FWD_TF32, 1, 4, 256, 256, 132) == 8  # one micro-batch of the train step
+    assert fwd_splits(FWD_TF32, 2, 32, 832, 784, 132) == 1   # ragged 2 x 777: 832 CTAs
+    for H in (4, 8, 28, 32):  # the family's 1 x 4096: 256 CTAs or more
+        assert fwd_splits(FWD_TF32, 1, H, 4096, 4096, 132) == 1
+    assert fwd_splits(FWD_TF32, 1, 1, 64, 64, 132) == 2  # capped by the pairs: 4 key tiles
+    assert fwd_splits(FWD_TF32, 1, 1, 64, 16, 132) == 1
+    for kern in (SM90, SM90_WIDE):
+        assert fwd_splits(kern, 2, 4, 256, 256, 132) == 1
+
+
 @pytest.mark.parametrize("shape", [(1, 4, 1, 4096, 4096), (1, 4, 2, 256, 256),
                                    (2, 32, 8, 832, 832), (2, 4, 1, 512, 512)])
 def test_backward_splits_follow_the_record_rule(shape):
     """`Kernel.splits` gives (dK/dV, dQ) splits by the record's own rule:
     `kv_splits` for the head_dim 256 bf16 backward (its dQ never split),
     `tf32_splits` for both fp32 records, none for the other backwards and
-    the forwards; the wrapper and the smoke script read only this."""
+    the forwards (the fp32 forward splits its key walk by `fwd_splits`);
+    the wrapper and the smoke script read only this."""
     B, H, K, Sqp, Skp = shape
     assert BWD_SM90_WIDE.split_rule == "kv"
     assert BWD_SM90_WIDE.splits(*shape, 132) == (kv_splits(BWD_SM90_WIDE, B, H, K, Skp, 132), 1)
     for kern in (BWD_TF32, BWD_TF32_WIDE):
         assert kern.split_rule == "tf32"
         assert kern.splits(*shape, 132) == tf32_splits(kern, *shape, 132)
-    for kern in (BWD_SM90, SM90, SM90_WIDE, SIMT):
+    for kern in (BWD_SM90, SM90, SM90_WIDE, FWD_TF32):
         assert kern.split_rule is None and kern.splits(*shape, 132) == (1, 1)
 
 
@@ -541,8 +568,9 @@ def test_library_name_hashes_included_headers(tmp_path, monkeypatch):
         "packed_flash_attn_bwd_sm90.cu", "sm90_common.cuh"]
     assert [p.name for p in build.sources_of("packed_flash_attn_sm90.cu")] == [
         "packed_flash_attn_sm90.cu", "sm90_common.cuh"]
-    assert [p.name for p in build.sources_of("packed_flash_attn_bwd.cu")] == [
-        "packed_flash_attn_bwd.cu", "sm90_common.cuh"]
+    for source in ("packed_flash_attn_bwd.cu", "packed_flash_attn.cu"):  # the fp32 pair
+        assert [p.name for p in build.sources_of(source)] == [
+            source, "tf32_common.cuh", "sm90_common.cuh"]
     monkeypatch.setattr(build, "CSRC", tmp_path)
     (tmp_path / "k.cu").write_text('#include <cuda.h>\n#include "a.cuh"\nint f() { return A; }\n')
     (tmp_path / "a.cuh").write_text('#pragma once\n  #  include "b.cuh"\n#define A B\n')
@@ -602,3 +630,236 @@ def test_kernel_wrapper_refuses_cpu_tensors(rng):
     q, k, v, seg, pos = _inputs(rng, 1, 64, 2, 2, 16, "float32")
     with pytest.raises(ValueError, match="CUDA"):
         packed_flash_attention(t(q), t(k), t(v), t(seg), t(seg), t(pos), t(pos))
+
+
+# ----------------------------------------- the fp32 forward's arithmetic, 3xTF32
+# A numpy model of `csrc/packed_flash_attn.cu`: every operand split into TF32
+# hi and lo parts (`split_tf32`: hi is x with its low 13 mantissa bits
+# cleared, lo = x - hi, of which the tensor cores read the top 10 mantissa
+# bits too), each m16n8k8 product's sum truncated toward zero once, the
+# products in the kernel's order (k-steps of 8; alo bhi, ahi blo, ahi bhi);
+# S over all of dh (at dh 256 over two halves, added in fp32), each in two
+# accumulators, the even and the odd k-steps, added in fp32; then 16-key
+# stages with the online softmax in fp32, each stage's P V from zero on the
+# tensor cores and joined by out = out * corr + part (one rounding, the fma).
+# Stages a CTA skips change nothing (their p are 0 and their corr 1), so the
+# model runs every stage, and a walk split over CTAs merges parts that the
+# 2e-5 tolerance covers (the card's tests hold every split).
+
+def _tf32(x):
+    """The TF32 value a tensor-core product reads: x with its low 13 mantissa bits cleared."""
+    return (np.asarray(x, np.float32).view(np.uint32) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split(x):
+    x = np.asarray(x, np.float32)
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _rz(x):
+    """float64 -> float32, rounded toward zero."""
+    f = x.astype(np.float32)
+    return np.where(np.abs(f.astype(np.float64)) > np.abs(x), np.nextafter(f, np.float32(0)), f)
+
+
+def _mma3(a, b, d, k_steps=None):
+    """d + a @ b in 3xTF32 over k-steps of 8 (`k_steps`: those of them),
+    each product's sum truncated toward zero; a (..., M, K), b (..., K, N),
+    d float32 (..., M, N)."""
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    for k0 in k_steps or range(0, a.shape[-1], 8):
+        ks = slice(k0, k0 + 8)
+        for x, y in ((al, bh), (ah, bl), (ah, bh)):
+            d = _rz(d.astype(np.float64) + np.matmul(x[..., ks].astype(np.float64),
+                                                    y[..., ks, :].astype(np.float64)))
+    return d
+
+
+def _fwd_model(q, k, v, seg_q, seg_k, pos_q, pos_k, *, window=None, in_place=False):
+    """(out (B,Sq,H,dh), lse (B,H,Sq)) of the fp32 forward kernel's
+    arithmetic on float32 numpy inputs, causal; with `in_place` the output
+    accumulates on the tensor cores across stages instead of by parts."""
+    B, Sq, H, dh = q.shape
+    K, Sk = k.shape[2], k.shape[1]
+    pad = (-Sk) % 16  # the kernel's stages: keys past Sk are zeros of segment 0
+    k, v = (np.pad(x, ((0, 0), (0, pad), (0, 0), (0, 0))) for x in (k, v))
+    seg_k, pos_k = (np.pad(x, ((0, 0), (0, pad))) for x in (seg_k, pos_k))
+    Q = q.transpose(0, 2, 1, 3)
+    Kr, Vr = (x.repeat(H // K, axis=2).transpose(0, 2, 1, 3) for x in (k, v))
+    mask = attention_mask(t(seg_q), t(seg_k), t(pos_q), t(pos_k), causal=True,
+                          window=window).numpy()[:, None]
+    halves = 2 if dh > 128 else 1  # at dh 256 a warp pair adds its halves of S
+    w = dh // halves
+    zeros = np.zeros((B, H, Sq, Sk + pad), np.float32)
+
+    def scores(x, y):  # the even and the odd k-steps, then their sum
+        even, odd = (_mma3(x, y, zeros, range(first, w, 16)) for first in (0, 8))
+        return even + odd
+    parts = [scores(Q[..., i * w:(i + 1) * w], Kr[..., i * w:(i + 1) * w].swapaxes(-1, -2))
+             for i in range(halves)]
+    S = parts[0] if halves == 1 else parts[0] + parts[1]
+    scale = np.float32(dh ** -0.5)
+    m = np.full((B, H, Sq, 1), -np.inf, np.float32)
+    l = np.zeros((B, H, Sq, 1), np.float32)
+    acc = np.zeros((B, H, Sq, dh), np.float32)
+    for k0 in range(0, Sk + pad, 16):
+        ks = slice(k0, k0 + 16)
+        s = np.where(mask[..., ks], S[..., ks] * scale, np.float32(-np.inf))
+        m_new = np.maximum(m, s.max(-1, keepdims=True))
+        m_use = np.where(m_new == -np.inf, np.float32(0), m_new)
+        p = np.exp(s - m_use).astype(np.float32)
+        corr = np.exp(m - m_use).astype(np.float32)
+        l = (l * corr + p.sum(-1, keepdims=True, dtype=np.float32)).astype(np.float32)
+        m = m_new
+        scaled = (acc.astype(np.float64) * corr).astype(np.float32)
+        if in_place:
+            acc = _mma3(p, Vr[..., ks, :], scaled)
+        else:
+            part = _mma3(p, Vr[..., ks, :], np.zeros_like(acc))
+            acc = (acc.astype(np.float64) * corr + part).astype(np.float32)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        out = np.where(l > 0, acc / l, np.float32(0)).astype(np.float32)
+        lse = np.where(l > 0, m + np.log(l), np.float32(np.inf))[..., 0]
+    return out.transpose(0, 2, 1, 3), lse
+
+
+@pytest.mark.parametrize("dh", [80, 128, 256])
+def test_fp32_forward_model_matches_jax_kernel(rng, dh):
+    """The fp32 forward's 3xTF32 arithmetic (the numpy model above) against
+    the JAX Pallas kernel in interpret mode and its jnp oracle, on packed
+    causal documents with padding rows, GQA and a sliding window that binds
+    inside each document, at h2o-danube's, qwen3's and gemma3's head widths:
+    within the fp32 tolerance, 2e-5. Documents are shorter than the window
+    plus two tiles, so the JAX map's window test keeps every visible pair
+    (ROADMAP Queue 3). Padding rows give exactly 0 and lse = +inf; lse is the
+    log-sum-exp of the scaled scores."""
+    S, window = 256, 48
+    q, k, v, seg, pos = _inputs(rng, 2, S, 4, 2, dh, "float32", doc_lens=[100, 90, 40])
+    assert (seg == 0).sum() == 2 * 26
+    out, lse = _fwd_model(q, k, v, seg, seg, pos, pos, window=window)
+    kern = _jax(j_packed_flash_attention, q, k, v, seg, pos, "float32", causal=True,
+                window=window, block_q=64, block_k=64, interpret=True)
+    ref = _jax(j_ref, q, k, v, seg, pos, "float32", causal=True, window=window)
+    np.testing.assert_allclose(kern, ref, atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(out, kern, atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(out, ref, atol=2e-5, rtol=2e-5)
+    pad = seg == 0
+    assert np.all(out[pad] == 0) and np.all(np.isposinf(lse.transpose(0, 2, 1)[pad]))
+    mask = attention_mask(t(seg), t(seg), t(pos), t(pos), causal=True, window=window)[:, None]
+    kr = t(k).repeat_interleave(2, dim=2).double()
+    scores = torch.einsum("bqhd,bkhd->bhqk", t(q).double(), kr) * dh ** -0.5
+    want = torch.logsumexp(scores.masked_fill(~mask, float("-inf")), -1).numpy()
+    np.testing.assert_allclose(lse[~np.isinf(want)], want[~np.isinf(want)], atol=1e-5, rtol=1e-6)
+
+
+def test_fp32_forward_parts_hold_at_4096_keys():
+    """Why the kernel adds each stage's P V as a part: at one 4096-key
+    document (32 query rows at its end, dh 128), the chosen accumulation
+    stays under 1e-4 of max |ref| (the fp32 gate) by far, and under the
+    error of accumulating the output in place on the tensor cores, whose
+    truncated sums drift over the 256 stages."""
+    rng = np.random.default_rng(7)
+    S, rows, dh = 4096, 32, 128
+    q = rng.standard_normal((1, rows, 1, dh)).astype(np.float32)
+    k, v = (rng.standard_normal((1, S, 1, dh)).astype(np.float32) for _ in range(2))
+    seg_k, pos_k = np.ones((1, S), np.int32), np.arange(S, dtype=np.int32)[None]
+    seg_q, pos_q = seg_k[:, :rows], pos_k[:, S - rows:]
+    s = np.einsum("bqhd,bkhd->bhqk", q.astype(np.float64), k.astype(np.float64)) * dh ** -0.5
+    s = np.where(pos_q[:, None, :, None] >= pos_k[:, None, None, :], s, -np.inf)
+    p = np.exp(s - s.max(-1, keepdims=True))
+    ref = np.einsum("bhqk,bkhd->bqhd", p / p.sum(-1, keepdims=True), v.astype(np.float64))
+    top = np.abs(ref).max()
+    errs = {mode: np.abs(_fwd_model(q, k, v, seg_q, seg_k, pos_q, pos_k, in_place=mode)[0]
+                         - ref).max() / top for mode in (False, True)}
+    assert errs[False] < 1e-4 / 4, errs
+    assert errs[False] < errs[True], errs
+
+
+# ------------------------------------------------ the fp32 kernels' tile walk
+# A plain counterpart of `Walk::keep` with `summarise` and `Walk::sees`
+# (csrc/tf32_common.cuh): a code-2 tile is kept; a code-1 tile only where some
+# streamed row of it (nonzero segment) can see a resident row of the CTA's
+# summary, per segment the least and greatest position of its resident rows,
+# at most NSEG segments (more, or a negative id: no summary, every tile kept).
+
+NSEG = 4
+
+
+def _summary(seg, pos):
+    if (seg < 0).any():
+        return None
+    ids = sorted(set(seg[seg != 0].tolist()))
+    if len(ids) > NSEG:
+        return None
+    return [(s, int(pos[seg == s].min()), int(pos[seg == s].max())) for s in ids]
+
+
+def _walk_keeps(code, summary, seg, pos, *, stream_q, causal, window):
+    if code != 1 or summary is None:
+        return code != 0
+    for s, p in zip(seg.tolist(), pos.tolist()):
+        for sid, lo, hi in summary:
+            if s == 0 or s != sid:
+                continue
+            # a streamed query at p sees a resident key in [lo, hi], or a streamed key at p
+            # a resident query in [lo, hi]
+            c_ok = not causal or (lo <= p if stream_q else hi >= p)
+            w_ok = window is None or (hi > p - window if stream_q else lo < p + window)
+            if c_ok and w_ok:
+                return True
+    return False
+
+
+def _walk_drops(seg, pos, window, rows):
+    """Tiles of the map that the walk drops, over one packed row, with
+    queries resident (the forward and the dQ kernel, 64 x 16 tiles) or keys
+    (the dK/dV kernel, 32 x 64); fails where it drops a visible pair or
+    keeps a tile the map skips."""
+    bq, bk = (64, 16) if rows == "queries" else (32, 64)
+    padded = _pad_all(t(seg), t(seg), t(pos), t(pos), 64, 64)
+    codes = tile_map(*padded, bq, bk, causal=True, window=window)[0].numpy()
+    mask = attention_mask(*padded, causal=True, window=window)[0].numpy()
+    sq, sk, pq, pk = (x[0].numpy() for x in padded)
+    dropped = 0
+    for i in range(codes.shape[0]):
+        for j in range(codes.shape[1]):
+            qs, ks = slice(i * bq, (i + 1) * bq), slice(j * bk, (j + 1) * bk)
+            if rows == "queries":
+                kept = _walk_keeps(codes[i, j], _summary(sq[qs], pq[qs]), sk[ks], pk[ks],
+                                   stream_q=False, causal=True, window=window)
+            else:
+                kept = _walk_keeps(codes[i, j], _summary(sk[ks], pk[ks]), sq[qs], pq[qs],
+                                   stream_q=True, causal=True, window=window)
+            assert kept or not mask[qs, ks].any(), (i, j)
+            assert not kept or codes[i, j] != 0, (i, j)
+            dropped += int(codes[i, j] != 0 and not kept)
+    return dropped
+
+
+@settings(max_examples=10, deadline=None)
+@given(
+    doc_split=st.lists(st.integers(1, 200), min_size=1, max_size=9),
+    S=st.integers(40, 600),
+    window=st.sampled_from([None, 5, 40, 300]),
+    pad=st.integers(0, 70),
+    rows=st.sampled_from(["queries", "keys"]),
+)
+def test_walk_keep_rule_never_drops_a_visible_pair(doc_split, S, window, pad, rows):
+    """The tile walk both fp32 kernels share drops a tile of the map only
+    where no pair in it is visible, and keeps none the map skips, with
+    queries or keys resident, over random packings with padding rows and
+    windows."""
+    seg, pos = make_packed(np.random.default_rng(S), 1, S, doc_lens=doc_split)
+    seg[:, S - pad:] = 0
+    pos[:, S - pad:] = 0
+    _walk_drops(seg, pos, window, rows)
+
+
+@pytest.mark.parametrize("rows", ["queries", "keys"])
+def test_walk_drops_tiles_at_document_starts(rows):
+    """What the walk is for: a key tile that holds a document's end and the
+    next one's start passes the map's range tests for every query tile of
+    both documents, and the walk drops those that see neither part."""
+    seg, pos = make_packed(np.random.default_rng(0), 1, 256, doc_lens=[100, 156])
+    assert _walk_drops(seg, pos, None, rows) > 0
