@@ -27,8 +27,9 @@ Phases, in one process; any failure exits nonzero:
              every backward is also run twice and held bit for bit;
   3. family  the same, forward and backward, bf16 and fp32, at the heads of
              gemma3-1b and gemma3-4b (head_dim 256), h2o-danube-1.8b (80),
-             llama2-7b (GQA group 1) and qwen2.5-7b (group 7), on 1 x 4096
-             packed documents at each arch's window;
+             llama2-7b (GQA group 1), qwen2.5-7b (group 7),
+             qwen3-moe-30b-a3b (group 8) and grok-1-314b (group 6), on
+             1 x 4096 packed documents at each arch's window;
   4. fp32    the fp32 parity paths: reduced qwen3-8b, gemma3-1b and
              h2o-danube-1.8b at their real head widths in fp32 on the card
              (the 3xTF32 forward, timed at each path's 2 x 256 batch, one
@@ -61,7 +62,22 @@ Phases, in one process; any failure exits nonzero:
              (24 layers, head_dim 80) trains 10 steps; llama2-7b and
              qwen2.5-7b (full depth) serve 4 x 2048 + 16 steps; llama2-7b
              cut to 8 layers runs phase 8's faults under the paper's small
-             plan (tp4 dp2 pp2, 16 plan devices).
+             plan (tp4 dp2 pp2, 16 plan devices);
+ 11. MoE     the fp32 parity path of reduced qwen3-moe-30b-a3b (head_dim 128,
+             4 experts, top-2) with the full config's Adafactor (bf16
+             momentum, the spmd trainer's stacks), routes equal on the card
+             and the CPU; one full-width MoE layer run twice, bit for bit;
+             qwen3-moe-30b-a3b at full depth (48 layers, 30.53 B) serves
+             4 x 2048 + 16 greedy steps (exactly 48 launches, prefill held
+             to a packed forward on the same batch, so the same drops; a
+             first decode step from a prefill that drops nothing held to a
+             packed forward that drops nothing, whose fed token takes the
+             decode step's experts, their route agreement gated; the main
+             path's first decode step held to that one on the rows its
+             prefill dropped nothing of; decode ms beside its
+             weight-streaming bound), trains cut to 3 layers (10 steps)
+             and runs phase 8's faults cut to 3 layers; grok-1-314b at
+             full width cut to 4 layers serves the same.
 Prints the card's name and power limit first, a `kernels` JSON line before
 the last, and as the last line {"ok": true, "device": {...}}. Imports no JAX
 and nothing of the JAX package.
@@ -70,6 +86,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import math
 import re
@@ -117,10 +134,16 @@ PIPE_SPECS = {
                   "failstop": "4:9", "failslow": "8:1@0.3", "reconfigs": [4, 8],
                   "checked": (0, 4, 8, 11), "profiled": 2},
 }
+# the MoE family: qwen3-moe-30b-a3b (30.53 B) at 3 layers (2.49 B) under
+# qwen3-8b's plan and faults (the fail-stop's repartition 2/1 -> 1/2, the
+# fail-slow's TP 2 -> 1; at 4 layers it peaked at 83.13 GB of the card's
+# 85.5e9 bytes); the engine trains on NLL alone, as the reference's
+PIPE_SPECS["qwen3-moe-30b-a3b"] = {**PIPE_SPECS["qwen3-8b"], "layers": 3}
 PIPE_PLAN = PIPE_SPECS["qwen3-8b"]["plan"]  # the checkpoint phase's plan
 TOL_PIPE_LOSS_REL, TOL_MIGRATION = 1e-3, 1e-5
 # the dense family: each arch's attention widths on its packed train shape
-FAMILY_KERNEL_ARCHS = ("gemma3-1b", "gemma3-4b", "h2o-danube-1.8b", "llama2-7b", "qwen2.5-7b")
+FAMILY_KERNEL_ARCHS = ("gemma3-1b", "gemma3-4b", "h2o-danube-1.8b", "llama2-7b", "qwen2.5-7b",
+                       "qwen3-moe-30b-a3b", "grok-1-314b")  # MoE: GQA groups 8 and 6
 FAMILY_SEQ = 4096
 FAMILY_TRAIN_STEPS, FAMILY_TRAIN_FIT = 10, 6
 PAPER_NEW_TOKENS = 16
@@ -131,10 +154,20 @@ PARITY_SEQ, PARITY_BATCH, PARITY_MICROBATCHES = 256, 2, 2
 TOL_BF16, TOL_FP32 = 2e-2, 1e-4
 # the fp32 backward and SDPA's, timed in turn at the parity and ragged shapes
 INTERLEAVE_ROUNDS, INTERLEAVE_ITERS = 10, 20
+# the MoE family: qwen3-moe-30b-a3b serves at full depth (48 layers, 61.1 GB
+# of bf16 weights) and trains cut to 3 layers (2.49 B: AdamW, which
+# `optimizer_for` picks for the cut config); grok-1-314b serves at full
+# width cut to 4 layers (21.29 B, 42.6 GB); its training waits for sharding
+MOE_TRAIN_LAYERS, GROK_LAYERS = 3, 4
 # bf16 end to end, 36 layers: prefill vs the packed forward differ only in
 # the LM-head product's shape; the first decode step takes the dense cache
 # path (bf16 scores) instead of the kernel (fp32 scores)
 TOL_PREFILL_REL, TOL_DECODE_REL = 2e-2, 5e-2
+# the least share of the fed token's experts (every MoE layer) on which a
+# decode step and the packed forward agree: bf16 near-ties swap a few
+# (qwen3-moe 0.986); a decode step routing by another rule would agree on
+# about k / E of them
+MOE_ROUTE_AGREEMENT_FLOOR = 0.9
 
 
 def log(*args):
@@ -640,19 +673,28 @@ def read_backward_counts():
     return dict(packed_flash_attention_backward.launches)
 
 
-def fp32_phase(cfg, device):
+def fp32_phase(cfg, device, *, optimizer="adamw", time_kernel=True):
     """The fp32 parity path: a reduced `cfg` (real head width) in fp32 on
     the card, through the fp32 kernels, against the same model on the
     CPU: the forward kernel alone at the path's 2 x 256 batch and heads
-    (timed), the packed forward's logits, then one train step (2
-    micro-batches, remat, AdamW) through the forward and backward kernels."""
-    from repro_torch.kernels.packed_flash_attn import BWD_SM90, BWD_TF32, FWD_TF32, SM90
-    from repro_torch.models.model import forward_train, init_params
-    from repro_torch.train.optimizer import make_optimizer, tree_leaves
-    from repro_torch.train.train_step import build_train_step
-
+    (timed, with `time_kernel`), the packed forward's logits, then one train
+    step (2 micro-batches, remat, `optimizer`: Adafactor with bf16 momentum
+    over the spmd trainer's stacks, as `optimizer_for` gives a full MoE
+    config) through the forward and backward kernels. With MoE, each
+    layer's routes on the card equal the CPU's (no near-tie flips)."""
     small, batch = parity_model(cfg)
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's fp32 einsums
+    kernel_row = fp32_kernel_row(cfg, small, batch, device) if time_kernel else None
+    res = {"arch": cfg.arch_id, "layers": small.n_layers, "head_dim": small.head_dim,
+           "window": arch_window(small), "optimizer": optimizer,
+           **fp32_model_parity(small, batch, device, optimizer), "kernel": kernel_row}
+    log("fp32", json.dumps(res))
+    return res
+
+
+def fp32_kernel_row(cfg, small, batch, device):
+    """The fp32 forward kernel alone at the parity path's batch and heads,
+    and at its train step's micro-batches, timed."""
     g = torch.Generator(device=device)
     g.manual_seed(1234)
     qkv = tuple(torch.randn((PARITY_BATCH, PARITY_SEQ, h, small.head_dim), generator=g,
@@ -669,17 +711,35 @@ def fp32_phase(cfg, device):
                                 *(x[i * n:(i + 1) * n] for x in (*qkv, seg, pos)), TOL_FP32,
                                 time_it=True, window=arch_window(small))
                     for i in range(PARITY_MICROBATCHES))]
-    del qkv
+    return kernel_row
+
+
+def fp32_model_parity(small, batch, device, optimizer):
+    """The parity model's forward and one train step on the card against the
+    CPU (`fp32_phase`)."""
+    from repro_torch.kernels.packed_flash_attn import BWD_SM90, BWD_TF32, FWD_TF32, SM90
+    from repro_torch.models.model import forward_train, init_params
+    from repro_torch.train.optimizer import make_optimizer, tree_leaves
+    from repro_torch.train.train_step import build_train_step
+
     params = init_params(small, seed=0, dtype=torch.float32, device="cpu")
     cpu_b = {k: torch.from_numpy(v) for k, v in batch.items()}
     gpu_b = to_device(batch, device)
     gpu_p = to_tree(params, device)
+    moe = bool(small.n_experts)
+    routes = {}
     with torch.inference_mode():
         reset_counts()
-        logits_gpu, _ = forward_train(small, gpu_p, gpu_b, compute_dtype=torch.float32)
+        with recording_routes(routes, "card") if moe else contextlib.nullcontext():
+            logits_gpu, _ = forward_train(small, gpu_p, gpu_b, compute_dtype=torch.float32)
         torch.cuda.synchronize()
         counts = read_counts()
-        logits_cpu, _ = forward_train(small, params, cpu_b, compute_dtype=torch.float32)
+        with recording_routes(routes, "cpu") if moe else contextlib.nullcontext():
+            logits_cpu, _ = forward_train(small, params, cpu_b, compute_dtype=torch.float32)
+    if moe and not all(torch.equal(a[k].cpu(), b[k]) for a, b in zip(routes["card"],
+                                                                      routes["cpu"])
+                       for k in ("experts", "kept")):
+        raise AssertionError("fp32 MoE path: the card routes a token otherwise than the CPU")
     if counts[FWD_TF32.source] != small.n_layers or counts[SM90.source] != 0:
         raise AssertionError(f"fp32 path launches {counts}, expected {small.n_layers} fp32 only")
     valid = torch.from_numpy(batch["segment_ids"] != 0)
@@ -688,20 +748,21 @@ def fp32_phase(cfg, device):
         raise AssertionError(f"fp32 path: card vs CPU logits differ by {err}")
 
     stepped, lr = {}, 1e-3
-    for dev, p, b in (("cpu", params, cpu_b), ("cuda", gpu_p, gpu_b)):
+    for where, dev, p, b in (("cpu", "cpu", params, cpu_b), ("card", device, gpu_p, gpu_b)):
         for leaf in tree_leaves(p):
             leaf.requires_grad_(True)
-        opt = make_optimizer("adamw", lr=lr)
-        state = {"params": p, "opt": opt.init(p),
+        opt = make_optimizer(optimizer, lr=lr, momentum_dtype=(
+            torch.bfloat16 if optimizer == "adafactor" else torch.float32))
+        state = {"params": p, "opt": opt.init(p, period=len(small.period)),
                  "step": torch.zeros((), dtype=torch.int32, device=dev)}
         step = build_train_step(small, opt, microbatches=PARITY_MICROBATCHES,
                                 compute_dtype=torch.float32)
         reset_counts()
         state, metrics = step(state, b)
-        if dev == "cuda":
+        if where == "card":
             torch.cuda.synchronize()
             train_counts, bwd_counts = read_counts(), read_backward_counts()
-        stepped[dev] = (float(metrics["loss"]), float(metrics["grad_norm"]),
+        stepped[where] = (float(metrics["loss"]), float(metrics["grad_norm"]),
                         [x.grad.detach().cpu() for x in tree_leaves(p)],
                         [x.detach().cpu() for x in tree_leaves(p)])
     # per micro-batch and layer: forward + remat recompute, one backward
@@ -710,7 +771,7 @@ def fp32_phase(cfg, device):
     if train_counts != want or bwd_counts != want_bwd:
         raise AssertionError(f"fp32 train step launches {train_counts} {bwd_counts}, "
                              f"expected {want} and {want_bwd}")
-    (l_cpu, n_cpu, g_cpu, p_cpu), (l_gpu, n_gpu, g_gpu, p_gpu) = stepped["cpu"], stepped["cuda"]
+    (l_cpu, n_cpu, g_cpu, p_cpu), (l_gpu, n_gpu, g_gpu, p_gpu) = stepped["cpu"], stepped["card"]
     step_err = {"loss_rel": abs(l_gpu - l_cpu) / abs(l_cpu),
                 "grad_norm_rel": abs(n_gpu - n_cpu) / abs(n_cpu),
                 "grad_max_rel": max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
@@ -718,9 +779,10 @@ def fp32_phase(cfg, device):
                 "param_max_abs": max(float((a - b).abs().max()) for a, b in zip(p_gpu, p_cpu))}
     grads_ok = all(float((a - b).abs().max()) <= TOL_FP32 * float(b.abs().max()) + 1e-7
                    for a, b in zip(g_gpu, g_cpu))
-    # AdamW's step m / (sqrt(v) + eps) follows the rounding noise of a
-    # gradient within the gradient tolerance of 0 (0 < |g| <= 1e-4 max|g| of
-    # its leaf), which can move it anywhere in [-1, 1]: such elements are held
+    # AdamW's step m / (sqrt(v) + eps) (and Adafactor's g / sqrt(v) on a
+    # leaf it does not factor) follows the rounding noise of a gradient
+    # within the gradient tolerance of 0 (0 < |g| <= 1e-4 max|g| of its
+    # leaf), which can move it anywhere in [-1, 1]: such elements are held
     # to 2 lr and may be at most 0.1% of all (0.051% on the card); every
     # other parameter to 1e-4
     params_ok, exempt = True, 0
@@ -734,12 +796,42 @@ def fp32_phase(cfg, device):
     if not (step_err["loss_rel"] <= TOL_FP32 and step_err["grad_norm_rel"] <= TOL_FP32
             and grads_ok and params_ok and step_err["exempt_fraction"] <= 1e-3):
         raise AssertionError(f"fp32 train step: card vs CPU differ: {step_err}")
-    res = {"arch": cfg.arch_id, "layers": small.n_layers, "head_dim": small.head_dim,
-           "window": arch_window(small), "launches": counts,
-           "max_abs_err": err, "tol": TOL_FP32, "train_step_launches": train_counts,
-           "train_step_backward_launches": bwd_counts, "train_step_err": step_err,
-           "kernel": kernel_row}
-    log("fp32", json.dumps(res))
+    return {"launches": counts, "max_abs_err": err, "tol": TOL_FP32,
+            "train_step_launches": train_counts, "train_step_backward_launches": bwd_counts,
+            "train_step_err": step_err,
+            "routes_equal": moe or None,
+            "dropped_assignments": [int((~r["kept"]).sum()) for r in routes.get("cpu", [])]}
+
+
+def moe_layer_phase(cfg, device):
+    """One MoE layer of `cfg` at full width, bf16, on the train phase's
+    micro-batch (1 x TRAIN_SEQ positions), run twice on the same input: the
+    outputs and routes equal bit for bit (remat recomputes each layer in the
+    backward, and a token routed otherwise there would leave its gradients
+    wrong without an error); and its time a call (CUDA events) beside its
+    expert products' time at the card's bf16 rate."""
+    from repro_torch.models.moe import _capacity, init_moe, moe_ffn
+
+    g = torch.Generator(device=device)
+    g.manual_seed(5)
+    p = init_moe(g, cfg, dtype=torch.bfloat16, device=device)
+    x = torch.randn((1, TRAIN_SEQ, cfg.d_model), generator=g, device=device).to(torch.bfloat16)
+    a, b = {}, {}
+    with torch.inference_mode():
+        for run in (a, b):
+            with recording_routes(run, "r"):
+                run["out"] = moe_ffn(cfg, p, x)
+        ms = cuda_ms(lambda: moe_ffn(cfg, p, x), iters=10)
+    equal = torch.equal(a["out"], b["out"]) and all(
+        torch.equal(ra[k], rb[k]) for ra, rb in zip(a["r"], b["r"]) for k in ("experts", "kept"))
+    if not equal:
+        raise AssertionError(f"{cfg.arch_id}: a second run of an MoE layer differs")
+    C = _capacity(cfg, TRAIN_SEQ)
+    flops = 3 * 2.0 * cfg.n_experts * C * cfg.d_model * cfg.moe_d_ff
+    res = {"arch": cfg.arch_id, "tokens": TRAIN_SEQ, "capacity": C, "bit_equal": equal,
+           "dropped_assignments": int((~a["r"][0]["kept"]).sum()), "event_ms": ms,
+           "expert_products_bound_ms": flops / PEAK_BF16_FLOPS * 1e3}
+    log("moe layer", json.dumps(res))
     return res
 
 
@@ -802,9 +894,18 @@ def forward_phase(cfg, params, device):
     return {"batches": [{"N": a, "sum_l2": b, "seconds": c} for a, b, c in obs], "eq1": fit}
 
 
-# kernel names by what they compute, for the shares of a device profile
+# kernel names by what they compute, for the shares of a device profile;
+# "dispatch": top-k, sorts, scans, gathers and scatters (the MoE dispatch and
+# combine, and the embedding lookup); "other": the rest, elementwise ops and
+# copies
 KERNEL_GROUPS = {"attention_forward": ("packed_flash_attn",), "attention_backward": ("bwd_",),
-                 "gemm": ("gemm", "nvjet")}
+                 "gemm": ("gemm", "nvjet"),
+                 "dispatch": ("topk", "Topk", "TopK", "adix", "sort", "Sort", "scan", "Scan",
+                              "index", "scatter", "gather")}
+# operators whose device time a profile also reports: aten::bmm is the MoE
+# experts' batched products in a train step (the dense model's products are
+# aten::mm; decode attention's einsums are bmm too)
+PROFILED_OPS = ("aten::bmm",)
 
 
 def device_profile(fn, steps):
@@ -820,16 +921,22 @@ def device_profile(fn, steps):
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     total_us = max(sum(e.self_device_time_total for e in kernels), 1e-6)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    groups = {g: sum(e.self_device_time_total for e in kernels
+                     if any(w in e.key for w in words)) / total_us
+              for g, words in KERNEL_GROUPS.items()}
+    groups["other"] = 1.0 - sum(groups.values())
     return {"device_seconds_per_call": total_us / 1e6 / steps,
             "profiled_wall_seconds_per_call": wall / steps,
             "top_kernels": [{"name": e.key[:90], "share": e.self_device_time_total / total_us,
                              "count_per_call": e.count / steps} for e in top],
-            "group_shares": {g: sum(e.self_device_time_total for e in kernels
-                                    if any(w in e.key for w in words)) / total_us
-                             for g, words in KERNEL_GROUPS.items()}}
+            "group_shares": groups,
+            "op_shares": {op: sum(e.device_time_total for e in events
+                                  if e.key == op and e.device_type != DeviceType.CUDA) / total_us
+                          for op in PROFILED_OPS}}
 
 
 def rel_err(a, b):
@@ -837,11 +944,164 @@ def rel_err(a, b):
     return float((a - b).abs().max() / b.abs().max())
 
 
+def decode_bound(cfg, params, cache):
+    """Least ms of a decode step: the bytes it must read (every weight once,
+    of the embedding only the batch's rows unless the LM head reads it too,
+    and every cache slot's K, V and position, which the dense decode
+    attention reads) over the card's memory rate. With MoE every expert
+    counts: the reference's dispatch runs all E experts' products at C = B."""
+    from repro_torch.train.optimizer import tree_leaves
+
+    embed = params["embed"]
+    weights = nbytes(*tree_leaves(params)) - nbytes(embed)
+    weights += nbytes(embed) if cfg.tie_embeddings else SERVE_B * embed[0].numel() * embed.element_size()
+    caches = nbytes(*tree_leaves(cache))
+    return {"bound_ms": (weights + caches) / PEAK_BYTES * 1e3, "weight_bytes": weights,
+            "cache_bytes": caches}
+
+
+def moe_decode_check(cfg, params, batch, device):
+    """The first decode step of an MoE model held to the packed forward, like
+    with like. A prefill (T = 4 x 2048, C = 640 for qwen3-moe) and a packed
+    forward over the prompt and the fed token (4 x 2049) rank a row's tokens
+    after the earlier rows', so their drops differ, and a decode step
+    (T = 4, C = 4) drops nothing: so this check runs both passes with the
+    capacity factor at E / k (C = T: nothing dropped, asserted), fills a
+    cache by that prefill, decodes one step, and holds its logits to the
+    forward's, whose fed token takes the decode step's experts
+    (`forcing_last_routes`): a near-tie that bf16 rounds the other way would
+    swap an expert. The fed token's route agreement (each layer's experts,
+    decode step against the forward's own choice) must reach
+    MOE_ROUTE_AGREEMENT_FLOOR; the largest probability mass a swap cost (the
+    forward's top-k mass less that of the decode step's experts, over the
+    top-k mass) and the argmax agreement are reported. -> (record, the
+    decode step's logits)."""
+    from repro_torch.models.model import extend_cache, forward_train
+    from repro_torch.train.train_step import build_prefill_step, build_serve_step
+
+    nodrop = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.moe_top_k)
+    routes = {}
+    with recording_routes(routes, "prefill"):
+        last, caches = build_prefill_step(nodrop)(params, batch)
+    cache = extend_cache(nodrop, caches, PROMPT + 1)
+    del caches
+    tok = last[:, -1].argmax(-1).to(torch.int32)
+    lengths = torch.full((SERVE_B,), PROMPT, dtype=torch.int32, device=device)
+    with recording_routes(routes, "decode"):
+        first = build_serve_step(nodrop)(params, cache, {"tokens": tok[:, None],
+                                                         "lengths": lengths})[1][:, 0]
+    del cache
+    ext = {k: torch.cat([v, tok[:, None] if k == "tokens" else
+                         (v[:, -1:] + 1 if k == "positions" else v[:, -1:])], 1)
+           for k, v in batch.items()}
+    with recording_routes(routes, "forward"), forcing_last_routes(routes["decode"],
+                                                                  PROMPT + 1) as natural:
+        ref = forward_train(nodrop, params, ext)[0][:, PROMPT]
+    dropped = sum(int((~r["kept"]).sum()) for key in ("prefill", "forward") for r in routes[key])
+    if dropped:
+        raise AssertionError(f"{dropped} assignments dropped at capacity factor "
+                             f"{nodrop.capacity_factor}")
+
+    def multi_hot(experts):
+        return torch.zeros(experts.shape[0], cfg.n_experts, device=experts.device).scatter_(
+            1, experts, 1.0)
+
+    shared = [float((multi_hot(d["experts"][:, 0]) * multi_hot(f["experts"])).sum()
+                    / d["experts"][:, 0].numel()) for d, f in zip(routes["decode"], natural)]
+    agreement = sum(shared) / len(shared)
+    if not agreement >= MOE_ROUTE_AGREEMENT_FLOOR:
+        raise AssertionError(f"the decode step's experts agree with the forward's on {agreement} "
+                             f"of the fed token's assignments, under {MOE_ROUTE_AGREEMENT_FLOOR}")
+    return {"capacity_factor": nodrop.capacity_factor, "decode_rel_err": rel_err(first, ref),
+            "argmax_agreement": float((first.argmax(-1) == ref.argmax(-1)).float().mean()),
+            "route_agreement": agreement, "route_agreement_floor": MOE_ROUTE_AGREEMENT_FLOOR,
+            "route_agreement_by_layer": shared,
+            "swap_mass_gap_max": max(float(f["mass_gap"].max()) for f in natural)}, first
+
+
+def dropped_rows(routes):
+    """(B,) True where a row had an assignment dropped at any layer of the
+    recorded `routes` (`moe_ffn.routes` entries)."""
+    return torch.stack([(~r["kept"]).flatten(1).any(1) for r in routes]).any(0)
+
+
+def main_first_check(first, nodrop_first, prefill_routes):
+    """The main path's first decode logits `first` (after a prefill at the
+    config's capacity factor, whose routes are `prefill_routes`) against the
+    drop-free decode step's `nodrop_first` (`moe_decode_check`), on the rows
+    that neither pass dropped an assignment of (a decode step drops nothing:
+    C = T): within TOL_DECODE_REL of the held rows' max |logit|, and the same
+    argmax on each held row whose top-2 margin exceeds twice that. At 48
+    random-weight layers every row may drop; then the main path is held only
+    to finite logits and the drop-free check stands for the step's math."""
+    held = ~dropped_rows(prefill_routes)
+    res = {"main_first_rows_held": int(held.sum()), "main_first_rel_err": None,
+           "main_first_argmax_agreement": None, "main_first_held": True}
+    if bool(held.any()):
+        a, b = first[held].float(), nodrop_first[held].float()
+        err = rel_err(a, b)
+        top2 = b.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 2 * TOL_DECODE_REL * float(b.abs().max())
+        same = a.argmax(-1) == b.argmax(-1)
+        res.update(main_first_rel_err=err,
+                   main_first_argmax_agreement=float(same.float().mean()),
+                   main_first_held=err <= TOL_DECODE_REL and bool(same[clear].all()))
+    return res
+
+
+@contextlib.contextmanager
+def forcing_last_routes(decode_routes, S):
+    """`moe.route` for a packed forward over rows of S positions whose last
+    position is the decode step's token: that token takes, at each MoE
+    layer, the experts the decode step chose (`decode_routes`), its gates
+    its own probabilities of them renormalised, as `route` forms them. The
+    yielded list collects, per layer, the experts it would have taken and
+    the share of their probability mass that the forced ones lack."""
+    import repro_torch.models.moe as moe_mod
+
+    route, natural = moe_mod.route, []
+
+    def forced(cfg, router, xt):
+        gates, experts = route(cfg, router, xt)
+        last = torch.arange(S - 1, xt.shape[0], S, device=xt.device)
+        want = decode_routes[len(natural)]["experts"][:, 0]
+        probs = torch.softmax(xt[last].float() @ router.float(), dim=-1)
+        own = probs.gather(1, experts[last]).sum(-1)
+        natural.append({"experts": experts[last].clone(),
+                        "mass_gap": (own - probs.gather(1, want).sum(-1)) / own})
+        probs = probs.gather(1, want)
+        gates, experts = gates.clone(), experts.clone()
+        gates[last] = probs / probs.sum(-1, keepdim=True).clamp_min(1e-9)
+        experts[last] = want
+        return gates, experts
+
+    moe_mod.route = forced
+    try:
+        yield natural
+    finally:
+        moe_mod.route = route
+
+
+@contextlib.contextmanager
+def recording_routes(into, key):
+    """`moe_ffn.routes` recording into `into[key]` inside the block."""
+    from repro_torch.models.moe import moe_ffn
+
+    into[key] = moe_ffn.routes = []
+    try:
+        yield
+    finally:
+        moe_ffn.routes = None
+
+
 def serve_phase(cfg, params, device, *, new_tokens=NEW_TOKENS, check_last=False):
     """The main path: prefill through the kernel, then greedy decode (over
     ring caches for sliding-window layers). The first decode step is held to
-    the packed forward; with `check_last`, the last step too, to a
-    teacher-forced packed forward over the prompt and the fed tokens."""
+    the packed forward (with MoE, by `moe_decode_check`, and the main
+    path's on the rows its prefill dropped nothing of to that check's decode
+    step, which drops nothing: like with like); with `check_last`, the last
+    step too, to a teacher-forced packed forward over the prompt and the fed
+    tokens. No plain attention call on the path."""
     from repro_torch.kernels.packed_flash_attn import kernel_for
     from repro_torch.models.model import cache_len, extend_cache, forward_train
     from repro_torch.train.train_step import build_prefill_step, build_serve_step
@@ -854,11 +1114,15 @@ def serve_phase(cfg, params, device, *, new_tokens=NEW_TOKENS, check_last=False)
     prefill_step, serve_step = build_prefill_step(cfg), build_serve_step(cfg)
     max_len = PROMPT + new_tokens
     kern = kernel_for(torch.bfloat16, cfg.head_dim)
+    moe = bool(cfg.n_experts)
+    routes = {}
     with torch.inference_mode():
-        prefill_step(params, batch)  # warm-up (allocator, cuBLAS handles)
+        with recording_routes(routes, "prefill") if moe else contextlib.nullcontext():
+            prefill_step(params, batch)  # warm-up (allocator, cuBLAS handles); the routes
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
+        plain, undo_plain = counting_plain_calls()
         t0 = time.perf_counter()
         last_logits, caches = prefill_step(params, batch)
         torch.cuda.synchronize()
@@ -877,15 +1141,18 @@ def serve_phase(cfg, params, device, *, new_tokens=NEW_TOKENS, check_last=False)
             generated.append(tok)
         torch.cuda.synchronize()
         t_decode = time.perf_counter() - t0
+        undo_plain()
         last_logits_decode = logits[:, 0].clone()
         by_source = read_counts()
         launches = sum(by_source.values())
         peak = torch.cuda.max_memory_allocated()
-        if by_source[kern.source] != cfg.n_layers or launches != cfg.n_layers:
-            raise AssertionError(f"main path launches {by_source}, expected {cfg.n_layers} of "
-                                 f"{kern.source} only")
+        if (by_source[kern.source] != cfg.n_layers or launches != cfg.n_layers
+                or plain["plain_calls"]):
+            raise AssertionError(f"main path launches {by_source} and {plain}, expected "
+                                 f"{cfg.n_layers} of {kern.source} only")
         out = torch.stack(generated, 1)
-        if out.shape != (SERVE_B, new_tokens + 1) or not bool(torch.isfinite(logits.float()).all()):
+        if out.shape != (SERVE_B, new_tokens + 1) or not all(
+                bool(torch.isfinite(x.float()).all()) for x in (first_logits, logits)):
             raise AssertionError("decode output has the wrong shape or non-finite logits")
         slots = sorted({cache_len(cfg, spec, max_len) for spec in cfg.layer_specs()})
         ring_pos = [c["mixer"]["pos"] for c in cache if c["mixer"]["pos"].shape[1] < max_len]
@@ -896,14 +1163,26 @@ def serve_phase(cfg, params, device, *, new_tokens=NEW_TOKENS, check_last=False)
         full, _ = forward_train(cfg, params, batch)
         e_prefill = rel_err(last_logits[:, 0], full[:, -1])
         del full
-        ext = {k: torch.cat([v, first_tok[:, None] if k == "tokens" else
-                             (v[:, -1:] + 1 if k == "positions" else v[:, -1:])], 1)
-               for k, v in batch.items()}
-        full, _ = forward_train(cfg, params, ext)
-        ref_first = full[:, PROMPT]
-        e_decode = rel_err(first_logits, ref_first)
-        agree = float((first_logits.argmax(-1) == ref_first.argmax(-1)).float().mean())
-        del full
+        step_batch = {"tokens": first_tok[:, None],
+                      "lengths": torch.full((SERVE_B,), PROMPT, dtype=torch.int32, device=device)}
+        moe_res = None
+        if moe:  # the main path's drops; the decode check without them
+            check, nodrop_first = moe_decode_check(cfg, params, batch, device)
+            moe_res = {"prefill_dropped_by_layer": [int((~r["kept"]).sum())
+                                                    for r in routes["prefill"]],
+                       "prefill_assignments_per_layer": routes["prefill"][0]["kept"].numel(),
+                       **check, **main_first_check(first_logits, nodrop_first,
+                                                   routes["prefill"])}
+            e_decode, agree = moe_res["decode_rel_err"], moe_res["argmax_agreement"]
+        else:
+            ext = {k: torch.cat([v, first_tok[:, None] if k == "tokens" else
+                                 (v[:, -1:] + 1 if k == "positions" else v[:, -1:])], 1)
+                   for k, v in batch.items()}
+            full, _ = forward_train(cfg, params, ext)
+            ref_first = full[:, PROMPT]
+            e_decode = rel_err(first_logits, ref_first)
+            agree = float((first_logits.argmax(-1) == ref_first.argmax(-1)).float().mean())
+            del full
         e_last = None
         if check_last:  # every fed token, teacher-forced through the packed forward
             fed = torch.stack(generated[:new_tokens], 1)
@@ -918,15 +1197,18 @@ def serve_phase(cfg, params, device, *, new_tokens=NEW_TOKENS, check_last=False)
         # where the time goes: device time by kernel; busy share against the
         # unprofiled wall time of the same call
         prof_prefill = device_profile(lambda: prefill_step(params, batch), steps=1)
-        step_batch = {"tokens": first_tok[:, None],
-                      "lengths": torch.full((SERVE_B,), PROMPT, dtype=torch.int32, device=device)}
         prof_decode = device_profile(lambda: serve_step(params, cache, step_batch), steps=4)
+        bound = decode_bound(cfg, params, cache)
     prof_prefill["busy_share"] = prof_prefill["device_seconds_per_call"] / t_prefill
     prof_decode["busy_share"] = prof_decode["device_seconds_per_call"] / (t_decode / new_tokens)
     if e_prefill > TOL_PREFILL_REL:
         raise AssertionError(f"prefill logits off the packed forward by {e_prefill} (rel)")
     if e_decode > TOL_DECODE_REL:
-        raise AssertionError(f"first decode logits off the packed forward by {e_decode} (rel)")
+        raise AssertionError(f"first decode logits off the packed forward by {e_decode} (rel)"
+                             f"{f'; MoE checks {moe_res}' if moe else ''}")
+    if moe and not moe_res["main_first_held"]:
+        raise AssertionError(f"the main path's first decode step, on the rows its prefill "
+                             f"dropped nothing of, off the drop-free one: {moe_res}")
     if e_last is not None and not e_last <= TOL_DECODE_REL:
         raise AssertionError(f"last decode logits off the teacher-forced packed forward by "
                              f"{e_last} (rel)")
@@ -943,7 +1225,9 @@ def serve_phase(cfg, params, device, *, new_tokens=NEW_TOKENS, check_last=False)
            "prefill_rel_err": e_prefill, "prefill_tol": TOL_PREFILL_REL,
            "decode_rel_err": e_decode, "decode_tol": TOL_DECODE_REL,
            "last_decode_rel_err": e_last,
-           "first_decode_argmax_agreement": agree,
+           "first_decode_argmax_agreement": agree, "decode_bound": bound,
+           "decode_bound_share": bound["bound_ms"] / (t_decode / new_tokens * 1e3),
+           "plain_calls": plain["plain_calls"], "moe": moe_res,
            "prefill_profile": prof_prefill, "decode_profile": prof_decode}
     log("serve", json.dumps(res))
     return res
@@ -986,8 +1270,6 @@ def train_phase(cfg, device, *, layers=TRAIN_LAYERS, steps=TRAIN_STEPS, fit=TRAI
     of its head width. Checks every step's launches and step 0's gradients
     and loss; reports step times, the Eq. 1 fit (on `fit` steps after the
     warm-up, held out on the rest) and the Detector's statistics."""
-    import dataclasses
-
     import repro_torch.launch.train as driver
     from repro_torch.core.detector.predictor import MicroBatchTimePredictor
     from repro_torch.data.packing import pack_stats
@@ -1140,8 +1422,6 @@ def pipeline_phase(cfg, device, spec):
     with two replicas or more, the migration identity; reports step times
     around each reconfiguration, the planning and recovery overheads and
     peak memory."""
-    import dataclasses
-
     import repro_torch.launch.train as driver
     from repro_torch.core.detector.dag_sim import ChunkId
     from repro_torch.data.synth import SyntheticPackedDataset
@@ -1226,7 +1506,7 @@ def pipeline_phase(cfg, device, spec):
         driver.PipelineEngine = Engine
         undo_plain()
         undo_lse()
-    peak = torch.cuda.max_memory_allocated()
+    peak, reserved = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
 
     # per step, whatever the partition: every micro-batch of every replica
     # runs each layer's forward kernel in F (no row log-sum-exp) and in B's
@@ -1290,7 +1570,8 @@ def pipeline_phase(cfg, device, spec):
            "adaptations": result["adaptations"],
            "loss_checks": checks, "loss_tol_rel": TOL_PIPE_LOSS_REL, "migration": migration,
            "launches_per_step": want, "launches": engine_total, "check_launches": check_launches,
-           "max_memory_allocated_bytes": peak, "profiled_step": profiled, "profile": prof}
+           "max_memory_allocated_bytes": peak, "max_memory_reserved_bytes": reserved,
+           "profiled_step": profiled, "profile": prof}
     if prof:
         prof["busy_share"] = (prof["device_seconds_per_call"]
                               / prof["profiled_wall_seconds_per_call"])
@@ -1496,8 +1777,9 @@ def kernel_entries(record):
     same kernel under `other_cases`."""
     from repro_torch.kernels.packed_flash_attn import BWD_SM90, BWD_TF32, FWD_TF32, SM90
 
-    kern, fk, fam, fp32 = (record["kernel"], record["family_kernel"], record["family"],
-                           record["fp32_path"])
+    kern, fk, fam, fp32, moe = (record["kernel"], record["family_kernel"], record["family"],
+                                record["fp32_path"], record["moe"])
+    qmoe = "qwen3-moe-30b-a3b"
 
     def entry(name, source, row, by_path, *, others=(), **extra):
         return {"name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source}",
@@ -1543,10 +1825,18 @@ def kernel_entries(record):
         entry("packed_flash_attention[head_dim 80]", SM90.source, fk["h2o-danube-1.8b_bf16"],
               {"h2o-danube-1.8b train": fwd(fam["h2o-danube-1.8b_train"], SM90.source)},
               head_dim=80),
+        # the MoE family's heads: qwen3-moe 32/4 (group 8), grok-1 48/8 (group 6)
+        entry("packed_flash_attention[GQA group 8]", SM90.source, fk[f"{qmoe}_bf16"],
+              {f"{qmoe} serve": served(moe[f"{qmoe}_serve"]),
+               f"{qmoe} train": fwd(moe[f"{qmoe}_train"], SM90.source),
+               f"{qmoe} pipeline": fwd(moe[f"{qmoe}_pipeline"], SM90.source)}, head_dim=128),
+        entry("packed_flash_attention[GQA group 6]", SM90.source, fk["grok-1-314b_bf16"],
+              {"grok-1-314b serve": served(moe["grok-1-314b_serve"])}, head_dim=128),
         # fp32: the parity paths, at head_dim 128, 256 and 80, each at its 2 x 256 batch
         *(entry(f"packed_flash_attention[float32{tag}]", FWD_TF32.source, fp32[arch]["kernel"],
-                {f"{arch} parity": fp32[arch]["launches"][FWD_TF32.source]
-                 + fp32[arch]["train_step_launches"][FWD_TF32.source]},
+                {f"{a} parity": fp32[a]["launches"][FWD_TF32.source]
+                 + fp32[a]["train_step_launches"][FWD_TF32.source]
+                 for a in (arch, qmoe) if a == arch or arch == "qwen3-8b"},
                 others=others, head_dim=fp32[arch]["head_dim"],
                 wrapper_device_ms=fp32[arch]["kernel"]["wrapper_device_ms"],
                 **{key: fp32[arch]["kernel"][key] for key in (
@@ -1555,7 +1845,8 @@ def kernel_entries(record):
                 **({"ragged": {key: kern["fp32_ragged"].get(key) for key in TIMING_KEYS}}
                    if arch == "qwen3-8b" else {}))
           for arch, tag, others in (
-              ("qwen3-8b", "", ("llama2-7b_fp32", "qwen2.5-7b_fp32")),
+              ("qwen3-8b", "", ("llama2-7b_fp32", "qwen2.5-7b_fp32", f"{qmoe}_fp32",
+                                "grok-1-314b_fp32")),
               ("gemma3-1b", ", head_dim 256", ("gemma3-1b_fp32", "gemma3-4b_fp32")),
               ("h2o-danube-1.8b", ", head_dim 80", ("h2o-danube-1.8b_fp32",)))),
         # the backward: per launch, at the train paths' micro-batches
@@ -1564,6 +1855,11 @@ def kernel_entries(record):
               {"qwen3-8b train": bwd(record["train"], BWD_SM90.source),
                "qwen3-8b pipeline": bwd(record["pipeline"], BWD_SM90.source)},
               head_dim=128, train_step_ms_per_launch=train_bwd_ms),
+        entry("packed_flash_attention_backward[GQA group 8]", BWD_SM90.source,
+              fk[f"{qmoe}_bf16_bwd"],
+              {f"{qmoe} train": bwd(moe[f"{qmoe}_train"], BWD_SM90.source),
+               f"{qmoe} pipeline": bwd(moe[f"{qmoe}_pipeline"], BWD_SM90.source)},
+              others=("grok-1-314b_bf16_bwd",), head_dim=128),
         entry("packed_flash_attention_backward[GQA group 1]", BWD_SM90.source,
               fk["llama2-7b_bf16_bwd"],
               {"llama2-7b pipeline": bwd(fam["llama2-7b_pipeline"], BWD_SM90.source)},
@@ -1583,9 +1879,10 @@ def kernel_entries(record):
                               ("tiles", "dq_tiles", "ms_by_kernel")}),
         entry("packed_flash_attention_backward[float32]", BWD_TF32.source,
               per_launch(kern["fp32_parity_bwd"]),
-              {"qwen3-8b parity":
-               fp32["qwen3-8b"]["train_step_backward_launches"][BWD_TF32.source]},
-              others=("llama2-7b_fp32_bwd", "qwen2.5-7b_fp32_bwd"), head_dim=128,
+              {f"{a} parity": fp32[a]["train_step_backward_launches"][BWD_TF32.source]
+               for a in ("qwen3-8b", qmoe)},
+              others=("llama2-7b_fp32_bwd", "qwen2.5-7b_fp32_bwd", f"{qmoe}_fp32_bwd",
+                      "grok-1-314b_fp32_bwd"), head_dim=128,
               **fp32_bwd_extra(per_launch(kern["fp32_parity_bwd"])),
               ragged=fp32_bwd_extra(kern["fp32_ragged_bwd"], full=True)),
         entry("packed_flash_attention_backward[float32, head_dim 256]", BWD_TF32.source,
@@ -1600,6 +1897,43 @@ def kernel_entries(record):
                fp32["h2o-danube-1.8b"]["train_step_backward_launches"][BWD_TF32.source]},
               head_dim=80, **fp32_bwd_extra(fk["h2o-danube-1.8b_fp32_bwd"])),
     ]
+
+
+def moe_phases(record, device):
+    """The MoE family, into `record`: the fp32 parity path with the full
+    config's Adafactor (`record["fp32_path"]`), then (`record["moe"]`) one
+    layer twice, qwen3-moe-30b-a3b serving at full depth, training cut to
+    MOE_TRAIN_LAYERS and under the ResiHP runtime's faults; grok-1-314b
+    serving cut to GROK_LAYERS."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import init_params
+    from repro_torch.train.optimizer import tree_leaves
+
+    moe = record["moe"] = {}
+    qmoe = get_arch("qwen3-moe-30b-a3b")
+    record["fp32_path"][qmoe.arch_id] = fp32_phase(qmoe, device, optimizer="adafactor",
+                                                   time_kernel=False)
+    moe["layer"] = moe_layer_phase(qmoe, device)
+    torch.cuda.empty_cache()
+    for mcfg in (qmoe, dataclasses.replace(get_arch("grok-1-314b"), n_layers=GROK_LAYERS)):
+        t0 = time.perf_counter()
+        params = init_params(mcfg, seed=0, dtype=torch.bfloat16, device=device)
+        torch.cuda.synchronize()
+        log(f"{mcfg.arch_id}: {mcfg.n_layers} layers, d_model {mcfg.d_model}, "
+            f"{sum(p.numel() for p in tree_leaves(params))} parameters, "
+            f"init {time.perf_counter() - t0:.1f} s")
+        moe[f"{mcfg.arch_id}_serve"] = serve_phase(mcfg, params, device,
+                                                   new_tokens=PAPER_NEW_TOKENS)
+        del params
+        torch.cuda.empty_cache()
+        if mcfg is qmoe:
+            moe[f"{qmoe.arch_id}_train"] = train_phase(qmoe, device, layers=MOE_TRAIN_LAYERS,
+                                                       steps=FAMILY_TRAIN_STEPS,
+                                                       fit=FAMILY_TRAIN_FIT)
+            torch.cuda.empty_cache()
+            moe[f"{qmoe.arch_id}_pipeline"] = pipeline_phase(qmoe, device,
+                                                             PIPE_SPECS[qmoe.arch_id])
+            torch.cuda.empty_cache()
 
 
 def main(argv=None):
@@ -1699,6 +2033,9 @@ def main(argv=None):
         torch.cuda.empty_cache()
     fam["llama2-7b_pipeline"] = pipeline_phase(get_arch("llama2-7b"), device,
                                                PIPE_SPECS["llama2-7b"])
+    torch.cuda.empty_cache()
+
+    moe_phases(record, device)
 
     record["kernels"] = kernel_entries(record)
     if args.out:

@@ -64,17 +64,59 @@ def params_from_jax(tree, *, dtype=torch.bfloat16, device="cuda"):
     return out
 
 
+def _is_vstate(tree):
+    return isinstance(tree, dict) and set(tree) in ({"v"}, {"vr", "vc"}) and not any(
+        isinstance(x, dict) for x in tree.values())
+
+
+def _stacked_vstates(stacked, fn):
+    """Adafactor's statistics of the scan layout, kept stacked (the port's
+    `init(params, period)` layout); raises where a stack's statistics do not
+    have the factored shapes of one leading layer axis."""
+    n = _leading_dim(stacked[0])
+
+    def conv(v):
+        if not _is_vstate(v):
+            return {k: conv(x) for k, x in v.items()}
+        shapes = {k: np.shape(x) for k, x in v.items()}
+        if "v" in v or len(shapes["vr"]) < 1 or shapes["vr"][0] != n or (
+                len(shapes["vr"]) >= 2 and shapes["vc"][0] != n):
+            raise ValueError(f"Adafactor statistics {shapes} do not factor a stack of {n} "
+                             "layers; the port's stacked state cannot take them")
+        return {k: fn(np.asarray(x)) for k, x in v.items()}
+
+    return tuple(conv(s) for s in stacked)
+
+
 def opt_state_from_jax(state, *, device="cuda"):
     """Reference optimizer state -> the port's, dtypes kept: AdamW's
     {"m", "v"} or Adafactor's {"m", "v"} with, per parameter, {"v"} or the
     factored {"vr", "vc"}; each a tree of the parameters' structure (scan or
-    list layout)."""
+    list layout). `m` and AdamW's `v` go per layer. Adafactor's statistics of
+    a stack cannot be split into per-layer statistics (a stacked (n, D) norm
+    weight has one `vc` (D,) for all n layers), so in the scan layout they
+    stay stacked: the state of the port's spmd Adafactor
+    (`optimizer.init(params, period)`). A list-layout state (the reference's
+    pipeline engine) converts layer by layer."""
     def conv(a):
         return _tensor(a, device)
 
-    return {name: {k: (_layers(v, conv) if k == "layers" else _map(conv, v))
+    def layers(name, v):
+        if name == "v" and not isinstance(v, list) and _is_factored(v):
+            return _stacked_vstates(v, conv)
+        return _layers(v, conv)
+
+    return {name: {k: (layers(name, v) if k == "layers" else _map(conv, v))
                    for k, v in tree.items()}
             for name, tree in state.items()}
+
+
+def _is_factored(tree):
+    """Whether a state tree holds Adafactor statistics ({"v"} / {"vr", "vc"})."""
+    if isinstance(tree, (list, tuple)):
+        return any(_is_factored(x) for x in tree)
+    return isinstance(tree, dict) and (_is_vstate(tree) or any(_is_factored(x)
+                                                                for x in tree.values()))
 
 
 def cache_from_jax(tree, *, device="cuda"):

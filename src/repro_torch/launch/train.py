@@ -90,6 +90,8 @@ def run_spmd(cfg, args):
             raise ValueError(f"--{name.replace('_', '-')} is read by --mode pipeline only")
     device = torch.device(args.device)
     opt = optimizer_for(cfg, lr=args.lr)
+    # Adafactor (above 20 B parameters) factors and clips each period
+    # position's layers as one stack, as the reference's scan-layout state
     state = init_train_state(args.seed, cfg, opt, device=device)
     step_fn = build_train_step(cfg, opt, microbatches=args.microbatches, remat=True)
 
@@ -153,7 +155,7 @@ def run_pipeline(cfg, args):
     device = torch.device(args.device)
     dp, pp, tp = (getattr(args, k) if getattr(args, k) is not None else v
                   for k, v in PIPELINE_DEFAULTS.items())
-    opt = optimizer_for(cfg, lr=args.lr)
+    opt = optimizer_for(cfg, lr=args.lr)  # per layer: the engine trains the list layout
     plan = initial_plan(cfg.n_layers, dp, pp, tp, microbatches=args.microbatches)
     layer_costs = costs_for_arch(cfg, args.seq_len)
     scheduler = Scheduler(layer_costs=layer_costs, k_min=1, delta=1)
@@ -242,7 +244,7 @@ def parser():
     ap = argparse.ArgumentParser(description="Fault-tolerant training on one device.")
     ap.add_argument("--arch", default="qwen3-8b",
                     help="any registered arch: qwen3-8b, gemma3-1b, gemma3-4b, h2o-danube-1.8b, "
-                         "and the paper's llama2-* and qwen2.5-*")
+                         "qwen3-moe-30b-a3b, grok-1-314b, and the paper's llama2-* and qwen2.5-*")
     ap.add_argument("--reduced", action="store_true", help="CPU-sized same-family config")
     ap.add_argument("--mode", choices=("spmd", "pipeline"), default="spmd")
     ap.add_argument("--steps", type=int, default=30)

@@ -1,6 +1,7 @@
 """Model assembly: init, packed forward and loss, prefill, decode step, cache.
 
-Counterpart of `repro.models.model` for dense attention LMs. Parameters are a
+Counterpart of `repro.models.model` for attention LMs whose FFN is dense or
+MoE (`models/moe.py`). Parameters are a
 plain dict with the reference's keys and shapes; `layers` is a list with one
 dict per layer (layer j*P + pos is `layers[pos][...][j]` of the reference's
 scan layout, P the period). Norm weights are always float32. Matrices are
@@ -21,11 +22,16 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models.attention import attention, init_attention
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.mlp import init_mlp, mlp
+from repro_torch.models.moe import init_moe, moe_ffn, router_aux_loss
+
+FFN_INIT = {"dense": init_mlp, "moe": init_moe}
+FFN_FN = {"dense": mlp, "moe": moe_ffn}
 
 
 def _check_spec(spec):
-    if spec.mixer != "attn" or spec.ffn != "dense":
-        raise NotImplementedError(f"layer {spec} is not ported yet (attention + dense FFN only)")
+    if spec.mixer != "attn" or spec.ffn not in FFN_FN:
+        raise NotImplementedError(f"layer {spec} is not ported yet "
+                                  "(attention + dense or MoE FFN only)")
 
 
 # ------------------------------------------------------------------- init
@@ -36,15 +42,15 @@ def init_layer(generator, cfg, spec, *, dtype=torch.bfloat16, device="cuda"):
         "norm1": torch.zeros(D, dtype=torch.float32, device=device),
         "mixer": init_attention(generator, cfg, dtype=dtype, device=device),
         "norm2": torch.zeros(D, dtype=torch.float32, device=device),
-        "ffn": init_mlp(generator, cfg, dtype=dtype, device=device),
+        "ffn": FFN_INIT[spec.ffn](generator, cfg, dtype=dtype, device=device),
     }
 
 
 def init_params(cfg, seed=0, *, dtype=torch.bfloat16, device="cuda"):
     """Random weights from `seed`, with the reference's keys, shapes and law
     (normal / sqrt(fan_in), norms zero)."""
-    if cfg.enc_dec or cfg.vlm or cfg.n_experts:
-        raise NotImplementedError(f"{cfg.arch_id}: only plain dense LMs are ported yet")
+    if cfg.enc_dec or cfg.vlm:
+        raise NotImplementedError(f"{cfg.arch_id}: only decoder-only LMs are ported yet")
     g = torch.Generator(device=device)
     g.manual_seed(seed)
     V, D = cfg.padded_vocab, cfg.d_model
@@ -71,7 +77,7 @@ def apply_layer(cfg, spec, p, x, md, cache=None):
                            cache=mix_cache)
     x = x + h
     new_cache = {"mixer": new_mix} if new_mix is not None else None
-    x = x + mlp(cfg, p["ffn"], rms_norm(x, p["norm2"], cfg.norm_eps))
+    x = x + FFN_FN[spec.ffn](cfg, p["ffn"], rms_norm(x, p["norm2"], cfg.norm_eps))
     return x, new_cache
 
 
@@ -129,10 +135,18 @@ def _hidden(cfg, params, batch, compute_dtype, collect, remat=False):
 def forward_train(cfg, params, batch, *, remat=True, compute_dtype=torch.bfloat16):
     """Packed forward: tokens, segment_ids, positions (B,S) -> logits (B,S,V), aux.
 
-    Differentiable; `remat` recomputes each layer in the backward."""
+    Differentiable; `remat` recomputes each layer in the backward. With MoE
+    layers, aux["moe_aux"] is `router_aux_loss` of the first MoE layer's
+    router (layer `pos` of the first MoE period position: `a[0]` of the
+    reference's scan layout) on the final-normed hidden state in fp32, not
+    on that layer's input, and without a stop-gradient, so its gradient
+    reaches that router and the hidden state: the reference's choice."""
     x, _ = _hidden(cfg, params, batch, compute_dtype, collect=False, remat=remat)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     aux = {"moe_aux": torch.zeros((), dtype=torch.float32, device=x.device)}
+    moe = [i for i, spec in enumerate(cfg.period) if spec.ffn == "moe"]
+    if moe:  # the reference's choice: the first MoE layer's router on the final-normed x
+        aux["moe_aux"] = router_aux_loss(cfg, params["layers"][moe[0]]["ffn"], x.float())
     return lm_logits(cfg, params, x), aux
 
 

@@ -8,10 +8,19 @@ row and column statistics `vr` and `vc` of leaves with two or more axes.
 returns new trees) and returns both. Not `torch.optim`: its state layout and
 its Adafactor differ from the reference's.
 
-The reference stacks the layers of a period position into one leaf; the port
-keeps one leaf per layer. AdamW is elementwise, so the two agree; Adafactor's
-factoring and its RMS update clip act on a whole leaf, so for a model the
-port's Adafactor works per layer where the reference's works per stack.
+Adafactor's factoring and its RMS update clip act on a whole leaf, and the
+reference's spmd state stacks the layers of each period position into one
+leaf (`stacked_init`), while the port keeps one dict per layer. So
+`init(params, period=P)` groups the layers the reference's way: Adafactor's
+state `v["layers"]` is then a tuple over the P period positions of stacked
+statistics, as the reference's (a layer's (D,) norm weight factored as
+(n, D) into `vr` (n,) and `vc` (D,); an (E, D, F) expert weight as
+(n, E, D, F), over its last two axes), and the clip spans each stack. The
+single-device trainer (`train_step.init_train_state`, so `launch.train
+.run_spmd`) takes that; the pipeline engine calls `init(params)` and gets
+per-layer Adafactor, as the reference's engine, which trains the list
+layout. `update` reads which from the state. AdamW is elementwise and takes
+no grouping.
 """
 from __future__ import annotations
 
@@ -24,7 +33,7 @@ import torch
 @dataclass(frozen=True)
 class Optimizer:
     name: str
-    init: Callable[[Any], Any]
+    init: Callable[..., Any]  # (params, period=None) -> state
     update: Callable[[Any, Any, Any, Any], tuple]  # (grads, state, params, step) -> (params, state)
     lr: float
 
@@ -55,7 +64,7 @@ def _f32(x):
 def make_optimizer(name="adamw", lr=3e-4, b1=0.9, b2=0.95, eps=1e-8,
                    weight_decay=0.01, momentum_dtype=torch.float32):
     if name == "adamw":
-        def init(params):
+        def init(params, period=None):  # elementwise: no stacks to group
             return {"m": tree_map(torch.zeros_like, params),
                     "v": tree_map(torch.zeros_like, params)}
 
@@ -75,38 +84,34 @@ def make_optimizer(name="adamw", lr=3e-4, b1=0.9, b2=0.95, eps=1e-8,
         return Optimizer("adamw", init, update, lr)
 
     if name == "adafactor":
-        def init(params):
-            def vstate(p):
-                if p.dim() >= 2:
-                    return {"vr": p.new_zeros(p.shape[:-1], dtype=torch.float32),
-                            "vc": p.new_zeros(p.shape[:-2] + p.shape[-1:], dtype=torch.float32)}
-                return {"v": torch.zeros_like(p, dtype=torch.float32)}
+        def vstate(shape, like):
+            if len(shape) >= 2:
+                return {"vr": like.new_zeros(shape[:-1], dtype=torch.float32),
+                        "vc": like.new_zeros(shape[:-2] + shape[-1:], dtype=torch.float32)}
+            return {"v": like.new_zeros(shape, dtype=torch.float32)}
 
-            return {"m": tree_map(lambda p: torch.zeros_like(p, dtype=momentum_dtype), params),
-                    "v": tree_map(vstate, params)}
+        def init(params, period=None):
+            m = tree_map(lambda p: torch.zeros_like(p, dtype=momentum_dtype), params)
+            if period is None:
+                return {"m": m, "v": tree_map(lambda p: vstate(p.shape, p), params)}
+            layers = params["layers"]
+            stacks = tuple(tree_map(lambda p: vstate((len(layers[pos::period]),) + p.shape, p),
+                                    layers[pos]) for pos in range(period))
+            return {"m": m, "v": {k: stacks if k == "layers" else tree_map(
+                lambda p: vstate(p.shape, p), v) for k, v in params.items()}}
 
         @torch.no_grad()
         def update(grads, state, params, step):
             stepf = step.float().cpu() + 1.0
             decay = float(1.0 - stepf ** -0.8)  # t^-0.8 schedule (Adafactor paper)
-            for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
-                                  tree_leaves(state["m"]), _vleaves(state["v"])):
-                g = g.float()
-                g2 = g.square().add_(1e-30)
-                if "vr" in v:
-                    v["vr"].mul_(decay).add_(g2.mean(dim=-1), alpha=1 - decay)
-                    v["vc"].mul_(decay).add_(g2.mean(dim=-2), alpha=1 - decay)
-                    vr, vc = v["vr"], v["vc"]
-                    vhat = (vr[..., None] * vc[..., None, :]
-                            / vr.mean(dim=-1)[..., None, None].clamp_min(1e-30))
-                else:
-                    v["v"].mul_(decay).add_(g2, alpha=1 - decay)
-                    vhat = v["v"]
-                u = g * torch.rsqrt(vhat + 1e-30)
-                rms = torch.sqrt(u.square().mean() + 1e-30)  # update clipping (RMS <= 1)
-                u = u / rms.clamp_min(1.0)
-                m.copy_((b1 * m.float() + (1 - b1) * u).to(m.dtype))
-                p.copy_((p - lr * (m.float() + weight_decay * p)).to(p.dtype))
+            for ps, gs, ms, vhats in _groups(params, grads, state["m"], state["v"], decay):
+                us = [g.float() * torch.rsqrt(vhat + 1e-30) for g, vhat in zip(gs, vhats)]
+                numel = sum(u.numel() for u in us)
+                rms = torch.sqrt(sum(u.square().sum() for u in us) / numel + 1e-30)
+                for p, m, u in zip(ps, ms, us):  # update clipping (RMS <= 1) over the group
+                    u = u / rms.clamp_min(1.0)
+                    m.copy_((b1 * m.float() + (1 - b1) * u).to(m.dtype))
+                    p.copy_((p - lr * (m.float() + weight_decay * p)).to(p.dtype))
             return params, state
 
         return Optimizer("adafactor", init, update, lr)
@@ -114,13 +119,64 @@ def make_optimizer(name="adamw", lr=3e-4, b1=0.9, b2=0.95, eps=1e-8,
     raise ValueError(name)
 
 
-def _vleaves(tree):
-    """Adafactor's per-parameter `v` states ({"v"} or {"vr", "vc"}) in leaf order."""
-    if isinstance(tree, dict) and ("v" in tree or "vr" in tree) and all(
-            isinstance(x, torch.Tensor) for x in tree.values()):
-        return [tree]
-    items = tree.values() if isinstance(tree, dict) else tree
-    return [leaf for x in items for leaf in _vleaves(x)]
+def _is_vstate(tree):
+    return isinstance(tree, dict) and set(tree) in ({"v"}, {"vr", "vc"}) and all(
+        isinstance(x, torch.Tensor) for x in tree.values())
+
+
+def _accumulate(v, g2, decay):
+    """Adafactor's second-moment statistics v ({"v"} or {"vr", "vc"}) take
+    the squared gradient g2, in place; returns v's estimate of it."""
+    if "vr" in v:
+        v["vr"].mul_(decay).add_(g2.mean(dim=-1), alpha=1 - decay)
+        v["vc"].mul_(decay).add_(g2.mean(dim=-2), alpha=1 - decay)
+        vr, vc = v["vr"], v["vc"]
+        return vr[..., None] * vc[..., None, :] / vr.mean(dim=-1)[..., None, None].clamp_min(1e-30)
+    v["v"].mul_(decay).add_(g2, alpha=1 - decay)
+    return v["v"]
+
+
+def _groups(params, grads, m, v, decay):
+    """Adafactor's update groups, their statistics updated with this step's
+    gradients: (params, grads, momenta, v-hats) of each set of leaves that
+    share one clip. A leaf is a group of its own, except where `v` holds a tuple over period
+    positions for a list of layers (`init(params, period)`): there the
+    layers of one period position form a stack, each of whose leaves is a
+    group, as the reference's stacked leaf."""
+    if _is_vstate(v):
+        vhat = _accumulate(v, grads.float().square().add_(1e-30), decay)
+        yield [params], [grads], [m], [vhat]
+    elif isinstance(v, tuple) and isinstance(params, list):
+        period = len(v)
+        for pos, stack in enumerate(v):
+            yield from _stacked(params[pos::period], grads[pos::period], m[pos::period], stack,
+                                decay)
+    elif isinstance(params, dict):
+        for k in params:
+            yield from _groups(params[k], grads[k], m[k], v[k], decay)
+    else:
+        for args in zip(params, grads, m, v):
+            yield from _groups(*args, decay)
+
+
+def _stacked(ps, gs, ms, v, decay):
+    """_groups over the layers ps of one period position, whose statistics v
+    are stacked: one group per leaf, factored by its stacked shape (n,) +
+    shape. A leaf of two or more axes is factored over its last two in each
+    layer, so layer j takes rows j of vr and vc; a 1-axis leaf (D,) is
+    factored as (n, D), its vr (n,) and vc (D,) shared by the stack."""
+    if isinstance(ps[0], dict):
+        for k in ps[0]:
+            yield from _stacked([p[k] for p in ps], [g[k] for g in gs], [m[k] for m in ms], v[k],
+                                decay)
+        return
+    if ps[0].dim() >= 2:
+        yield ps, gs, ms, [_accumulate({k: x[j] for k, x in v.items()},
+                                       g.float().square().add_(1e-30), decay)
+                           for j, g in enumerate(gs)]
+        return
+    vhat = _accumulate(v, torch.stack([g.float() for g in gs]).square_().add_(1e-30), decay)
+    yield ps, gs, ms, list(vhat)
 
 
 def optimizer_for(cfg, lr=3e-4):

@@ -15,11 +15,15 @@ from repro_torch.train.optimizer import tree_leaves, tree_map
 
 
 def init_train_state(seed, cfg, optimizer, *, device="cuda"):
-    """{"params": fp32 masters from `seed` (requiring grad), "opt", "step"}."""
+    """{"params": fp32 masters from `seed` (requiring grad), "opt", "step"}.
+
+    The optimizer state groups the layers of each period position as the
+    reference's scan-layout train state stacks them (Adafactor's factoring
+    and clip act per stack; `train.optimizer`)."""
     params = init_params(cfg, seed, dtype=torch.float32, device=device)
     for p in tree_leaves(params):
         p.requires_grad_(True)
-    return {"params": params, "opt": optimizer.init(params),
+    return {"params": params, "opt": optimizer.init(params, period=len(cfg.period)),
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 

@@ -1,7 +1,8 @@
 """The dense family beyond qwen3-8b against the JAX package, on the CPU.
 
-  * the config copies (gemma3-1b, gemma3-4b, h2o-danube-1.8b and the paper's
-    Table 3 models, with PAPER_PARALLELISM and PAPER_MODELS), field by field;
+  * the config copies (gemma3-1b, gemma3-4b, h2o-danube-1.8b, the paper's
+    Table 3 models, with PAPER_PARALLELISM and PAPER_MODELS, and the MoE
+    family's qwen3-moe-30b-a3b and grok-1-314b), field by field;
   * the plain packed attention at head_dim 80 and 256, with a window and GQA
     groups 1 and 7, against the JAX Pallas kernel in interpret mode (fp32
     2e-5, bf16 2e-2) on the rows where the kernel's windowed tile skip keeps
@@ -62,7 +63,8 @@ from conftest import make_packed
 from torch_helpers import n, t
 
 ARCHS = ["gemma3-1b", "gemma3-4b", "h2o-danube-1.8b", "llama2-7b", "llama2-13b", "llama2-30b",
-         "llama2-70b", "qwen2.5-7b", "qwen2.5-14b", "qwen2.5-32b", "qwen2.5-72b"]
+         "llama2-70b", "qwen2.5-7b", "qwen2.5-14b", "qwen2.5-32b", "qwen2.5-72b",
+         "qwen3-moe-30b-a3b", "grok-1-314b"]
 CPU = [torch.device("cpu")]
 
 
@@ -73,6 +75,16 @@ def test_config_copy_matches_reference(arch):
     assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
     assert mine.param_count() == ref.param_count()
     assert [s.attn_kind for s in mine.layer_specs()] == [s.attn_kind for s in ref.layer_specs()]
+
+
+def test_moe_config_copies_keep_the_reference_numbers():
+    """Capacity factor 1.25 (the base default), grok-1 without qk-norm, and
+    the parameter counts the port's phases size their cuts by."""
+    qwen, grok = t_get_arch("qwen3-moe-30b-a3b"), t_get_arch("grok-1-314b")
+    assert qwen.capacity_factor == grok.capacity_factor == 1.25
+    assert qwen.qk_norm and not grok.qk_norm
+    assert (qwen.n_experts, qwen.moe_top_k, grok.n_experts, grok.moe_top_k) == (128, 8, 8, 2)
+    assert round(qwen.param_count() / 1e9, 2) == 30.53 and round(grok.param_count() / 1e9, 1) == 316.5
 
 
 def test_paper_parallelism_and_models_match_reference():

@@ -2,8 +2,9 @@
 cores, fp32 in 3xTF32 on them; the forward's row log-sum-exp; the backward
 kernels, bf16 and fp32 alike) against their
 plain PyTorch versions, the port's reduced model, train step and pipeline
-engine on the card against themselves on the CPU, and a checkpoint of card
-tensors restored onto the card. Every case is
+engine on the card against themselves on the CPU, a checkpoint of card
+tensors restored onto the card, and the MoE layer against its CPU path and
+against itself. Every case is
 marked `gpu` and skips without a CUDA card. This file imports no JAX, so it
 runs where only PyTorch is installed:
 
@@ -470,9 +471,11 @@ def test_gpu_checkpoint_restores_card_tensors_bitwise(cuda, tmp_path):
 # ------------------------------------------------- the dense family's widths
 # (head_dim, H, K, window): gemma3-1b's and gemma3-4b's heads at head_dim 256,
 # h2o-danube's at 80 (bf16: kernels of its own width, five 16-column chunks
-# in shared memory), llama2-7b's GQA group 1 and qwen2.5-7b's group 7 at 128
+# in shared memory), llama2-7b's GQA group 1 and qwen2.5-7b's group 7 at 128,
+# qwen3-moe-30b-a3b's group 8 and grok-1-314b's group 6 at 128
 FAMILY_CASES = [(256, 4, 1, 512), (256, 8, 4, 1024), (80, 32, 8, 4096), (128, 32, 32, None),
-                (128, 28, 4, None), (80, 8, 8, 96), (256, 7, 1, 96)]
+                (128, 28, 4, None), (80, 8, 8, 96), (256, 7, 1, 96), (128, 32, 4, None),
+                (128, 48, 8, None)]
 
 
 @pytest.mark.gpu
@@ -864,3 +867,96 @@ def test_gpu_fp32_forward_forced_splits(cuda, rng, dh, monkeypatch):
         np.testing.assert_allclose(n(out), n(ref), atol=TOL["float32"], rtol=TOL["float32"])
         assert bool((out[seg == 0] == 0).all()) and bool(torch.isposinf(lse[~visible]).all())
         np.testing.assert_allclose(n(lse[visible]), n(want[visible]), atol=1e-4, rtol=1e-5)
+
+
+# ------------------------------------------------ fp32 forward at large outputs
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [80, 128, 256])
+def test_gpu_fp32_forward_large_outputs(cuda, rng, dh):
+    """v scaled up to 16x on its later 16-column groups, so that outputs
+    reach tens: the fp32 forward within 1e-4 of max |ref| of the plain
+    version (the fp32 gate of the parity paths and of `BWD_TOL`); the 0.5-2
+    scales of `test_gpu_fp32_forward_columns_keep_their_places` stay at the
+    elementwise 2e-5."""
+    q, k, v, seg, _, pos, _ = _args(rng, cuda, 2, 333, 8, 2, dh, "float32",
+                                    doc_lens=[100, 150, 50])
+    chunk = torch.arange(dh, device=cuda) // 16
+    v = v * (1.0 + 15.0 * chunk.float() / (dh // 16 - 1))
+    args = (q, k, v, seg, seg, pos, pos)
+    out = packed_flash_attention(*args, causal=True)
+    ref = packed_attention_ref(*args, causal=True)
+    assert float(ref.abs().max()) > 16
+    err = float((out - ref).abs().max())
+    assert err <= BWD_TOL["float32"] * float(ref.abs().max()), err
+    assert bool((out[seg == 0] == 0).all())
+
+
+# ------------------------------------------------------------------- MoE
+def _moe_layer(rng, *, factor=1.25):
+    """An MoE layer (16 experts, top-4, d 256, expert width 128) and its
+    input, fp32, from numpy draws; and the least gap between a row's 4th
+    and 5th router probability, computed on the CPU."""
+    from repro_torch.models.moe import init_moe
+
+    cfg = reduced(get_arch("qwen3-moe-30b-a3b"), d_model=256, moe_d_ff=128, n_experts=16,
+                  moe_top_k=4, capacity_factor=factor)
+    p = init_moe(torch.Generator().manual_seed(3), cfg, dtype=torch.float32, device="cpu")
+    x = t(rng.normal(size=(2, 200, 256)).astype(np.float32))
+    probs = torch.softmax(x.reshape(400, 256) @ p["router"], dim=-1)
+    top = probs.sort(dim=-1, descending=True).values
+    gap = float((top[:, 3] - top[:, 4]).min())
+    return cfg, p, x, gap
+
+
+def _moe_run(cfg, p, x):
+    from repro_torch.models.moe import moe_ffn
+
+    moe_ffn.routes = []
+    try:
+        out = moe_ffn(cfg, p, x)
+        return out, moe_ffn.routes[0]
+    finally:
+        moe_ffn.routes = None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("factor", [1.25, 0.25])
+def test_gpu_moe_layer_matches_cpu(cuda, rng, factor):
+    """The MoE layer on the card against the port's CPU path, fp32, on
+    inputs whose every row has a clear top-k margin (asserted: the 4th and
+    5th router probabilities apart by more than 1e-5), so that both route
+    every token alike: the same experts and the same drops (capacity factor
+    0.25 drops, asserted), and outputs within 1e-5."""
+    cfg, p, x, gap = _moe_layer(rng, factor=factor)
+    assert gap > 1e-5
+    want, want_routes = _moe_run(cfg, p, x)
+    got, routes = _moe_run(cfg, _to(p, cuda), x.to(cuda))
+    for key in ("experts", "kept"):
+        assert torch.equal(routes[key].cpu(), want_routes[key]), key
+    assert bool((~want_routes["kept"]).any()) == (factor < 1)
+    np.testing.assert_allclose(n(got), n(want), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_gpu_moe_layer_is_deterministic(cuda):
+    """One full-width qwen3-moe-30b-a3b layer (128 experts, top-8) in bf16 on
+    2 x 2048 positions, twice on the same input: outputs, routes and every
+    gradient (x and the four weights) equal bit for bit, as remat's
+    recompute of the layer needs."""
+    from repro_torch.models.moe import init_moe
+
+    cfg = get_arch("qwen3-moe-30b-a3b")
+    g = torch.Generator(device=cuda).manual_seed(0)
+    p = {k: w.requires_grad_(True) for k, w in
+         init_moe(g, cfg, dtype=torch.bfloat16, device=cuda).items()}
+    x = torch.randn((2, 2048, cfg.d_model), generator=g, device=cuda).to(torch.bfloat16)
+    x.requires_grad_(True)
+    d_out = torch.randn(x.shape, generator=g, device=cuda).to(torch.bfloat16)
+    runs = []
+    for _ in range(2):
+        out, routes = _moe_run(cfg, p, x)
+        runs.append((out, routes, torch.autograd.grad(out, (x, *p.values()), d_out)))
+    (a, ra, ga), (b, rb, gb) = runs
+    assert torch.equal(a, b)
+    assert all(torch.equal(ra[k], rb[k]) for k in ("experts", "kept"))
+    assert all(torch.equal(u, w) for u, w in zip(ga, gb))

@@ -33,6 +33,8 @@ assert {"repro_torch.core.detector.dag_sim", "repro_torch.engine.schedules",
         "repro_torch.launch.mesh"} <= set(names)
 assert {"repro_torch.configs.paper_models", "repro_torch.configs.gemma3_1b",
         "repro_torch.configs.gemma3_4b", "repro_torch.configs.h2o_danube_1_8b"} <= set(names)
+assert {"repro_torch.models.moe", "repro_torch.configs.qwen3_moe_30b_a3b",
+        "repro_torch.configs.grok_1_314b"} <= set(names)
 """
 
 
@@ -47,7 +49,7 @@ def test_port_imports_neither_jax_nor_reference():
                        text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     count = int(r.stdout.split()[0])
-    assert count >= 37  # every module of the slices so far was imported
+    assert count >= 40  # every module of the slices so far was imported
 
 
 def _imported_modules(path):
@@ -94,3 +96,4 @@ def test_chip_compare_imports_neither_jax_nor_reference_and_needs_a_card(tmp_pat
                        cwd=tmp_path, capture_output=True, text=True, timeout=120)
     assert r.returncode != 0
     assert '"runs"' not in r.stdout
+

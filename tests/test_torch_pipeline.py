@@ -52,29 +52,61 @@ def jparams():
     return params
 
 
-def _engine(jparams, plan, dtype, optimizer=None):
+def _engine(jparams, plan, dtype, optimizer=None, tcfg=TCFG):
     params = params_from_jax(jax.tree.map(np.asarray, jparams), dtype=torch.float32, device="cpu")
-    return PipelineEngine(TCFG, plan, optimizer=optimizer, devices=CPU, params=params,
+    return PipelineEngine(tcfg, plan, optimizer=optimizer, devices=CPU, params=params,
                           compute_dtype=dtype)
 
 
-def _jax_loss(batch, dtype):
-    params, _ = split_annotations(stacked_init(jax.random.PRNGKey(0), CFG))
-    _, aux = j_loss_fn(CFG, params, {k: jnp.asarray(v) for k, v in batch.items()}, NULL_POLICY,
+def _jax_loss(batch, dtype, cfg=CFG):
+    params, _ = split_annotations(stacked_init(jax.random.PRNGKey(0), cfg))
+    _, aux = j_loss_fn(cfg, params, {k: jnp.asarray(v) for k, v in batch.items()}, NULL_POLICY,
                        use_scan=False, remat=False, compute_dtype=dtype)
     return float(aux["loss"])
 
 
-@pytest.mark.parametrize("dtype,jdtype,tol", [(torch.float32, jnp.float32, 1e-5),
-                                              (torch.bfloat16, jnp.bfloat16, 2e-3)])
-def test_engine_loss_matches_jax_loss_fn(jparams, dtype, jdtype, tol):
+def _moe_case():
+    """Reduced qwen3-moe at 4 layers, its JAX list-layout weights, and a
+    batch of 4 rows, one a micro-batch, each row's padding made one more
+    document (labels -1): an MoE layer's capacity counts a micro-batch's
+    positions, and the reference's jnp attention gives a padding row the
+    mean of V, its kernel and the port 0 (tests/test_torch_moe.py)."""
+    cfg = reduced(get_arch("qwen3-moe-30b-a3b"), n_layers=4)
+    tcfg = t_reduced(t_get_arch("qwen3-moe-30b-a3b"), n_layers=4)
+    params, _ = split_annotations(j_init_params(jax.random.PRNGKey(0), cfg))
+    batch = SyntheticPackedDataset(cfg, 64, 4, seed=3).batch_at(0)
+    seg, pos = batch["segment_ids"], batch["positions"]
+    for b in range(seg.shape[0]):
+        pad = seg[b] == 0
+        seg[b, pad], pos[b, pad] = seg[b].max() + 1, np.arange(int(pad.sum()))
+    return cfg, tcfg, params, batch
+
+
+@pytest.mark.parametrize("dtype,jdtype,tol,arch", [
+    pytest.param(torch.float32, jnp.float32, 1e-5, "qwen3-8b", id="dtype0-jdtype0-1e-05"),
+    pytest.param(torch.bfloat16, jnp.bfloat16, 2e-3, "qwen3-8b", id="dtype1-jdtype1-0.002"),
+    pytest.param(torch.float32, jnp.float32, 1e-5, "qwen3-moe-30b-a3b", id="moe-float32"),
+])
+def test_engine_loss_matches_jax_loss_fn(jparams, dtype, jdtype, tol, arch):
     """dp2/pp2/tp1, 2 micro-batches: the token-weighted mean over every
     micro-batch and replica is the single-device loss (fp32: relative 1e-5;
-    bf16: the reference's absolute 2e-3)."""
-    batch = _batch()
-    eng = _engine(jparams, initial_plan(4, dp=2, pp=2, tp=1, microbatches=2), dtype)
+    bf16: the reference's absolute 2e-3). The MoE case: reduced qwen3-moe,
+    one row a micro-batch, held to the token-weighted mean of the JAX
+    `loss_fn` NLL row by row (each MoE layer's capacity then counts the
+    same positions); the engine, as the reference's, trains on NLL alone,
+    without moe_aux."""
+    if arch == "qwen3-8b":
+        cfg, tcfg, batch = CFG, TCFG, _batch()
+    else:
+        cfg, tcfg, jparams, batch = _moe_case()
+    eng = _engine(jparams, initial_plan(4, dp=2, pp=2, tp=1, microbatches=2), dtype, tcfg=tcfg)
     loss, grads = eng.run_iteration({k: t(v) for k, v in batch.items()})
-    want = _jax_loss(batch, jdtype)
+    if arch == "qwen3-8b":
+        want = _jax_loss(batch, jdtype)
+    else:
+        ntok = (batch["labels"] >= 0).sum(1)
+        want = sum(_jax_loss({k: v[b:b + 1] for k, v in batch.items()}, jdtype, cfg) * ntok[b]
+                   for b in range(4)) / ntok.sum()
     if dtype == torch.float32:
         np.testing.assert_allclose(loss, want, rtol=tol)
     else:
