@@ -7,11 +7,11 @@ Phases, in one process; any failure exits nonzero:
              and check in the SASS that the bf16 kernels, forward and
              backward, run on the tensor cores (HGMMA instructions), the
              head_dim 256 backward's dK/dV and dQ kernels and the head_dim
-             80 forward, dK/dV and dQ kernels each on its own, and that the
-             fp32 forward (at every head width) and the fp32 backward's
-             dK/dV and dQ kernels (at head_dim 80, 128 and 256) run TF32
-             tensor-core products (HMMA ... TF32), each with no spill in
-             its ptxas report;
+             80 and 64 forward, dK/dV and dQ kernels each on its own, and
+             that the fp32 forward (at every head width) and the fp32
+             backward's dK/dV and dQ kernels (at head_dim 64, 80, 128 and
+             256) run TF32 tensor-core products (HMMA ... TF32); no
+             function of any library spills in its ptxas report;
   2. kernel  hold each kernel against its plain PyTorch version on the card
              (bf16 tensor-core forward: serving shape and a packed shape,
              timed also with every visible tile masked, and a windowed
@@ -77,7 +77,22 @@ Phases, in one process; any failure exits nonzero:
              prefill dropped nothing of; decode ms beside its
              weight-streaming bound), trains cut to 3 layers (10 steps)
              and runs phase 8's faults cut to 3 layers; grok-1-314b at
-             full width cut to 4 layers serves the same.
+             full width cut to 4 layers serves the same;
+ 12. VLM and encoder-decoder: the kernels in whisper-medium's regimes
+             (16/16 heads, head_dim 64, bf16 and fp32, forward and backward:
+             the non-causal encoder at 4 x 1500 and 1 x 4096 packed clips,
+             the causal decoder at 1 x 1024, cross-attention at 1 x 1024
+             over 1 x 4096 keys, a transcript without its clip included, and
+             at 4 x 64 over 4 x 1500); the fp32 parity paths of reduced
+             qwen2-vl-7b (head_dim 128, M-RoPE) and whisper-medium (head_dim
+             64); qwen2-vl-7b (28 layers) serves 4 x 2048 prompts opening
+             with 512 vision embeddings + 16 greedy steps and trains cut to
+             8 layers (10 steps of 2 x 1 x 4096, a 1024-embedding vision
+             span a row); whisper-medium (24 + 24 layers) serves 4 clips of
+             1500 frames with 64-token prompts + 64 greedy steps over a
+             448-slot self cache and constant cross caches, and trains 10
+             steps of 2 x (4096 frames, 1024 decoder positions); exact
+             launches (72 a whisper pass) by source and by regime.
 Prints the card's name and power limit first, a `kernels` JSON line before
 the last, and as the last line {"ok": true, "device": {...}}. Imports no JAX
 and nothing of the JAX package.
@@ -168,6 +183,19 @@ TOL_PREFILL_REL, TOL_DECODE_REL = 2e-2, 5e-2
 # (qwen3-moe 0.986); a decode step routing by another rule would agree on
 # about k / E of them
 MOE_ROUTE_AGREEMENT_FLOOR = 0.9
+# the VLM and encoder-decoder families: qwen2-vl-7b serves 4 x 2048 prompts
+# whose first PROMPT / 4 positions are vision embeddings (the reference's
+# S / 4) on a 16 x 32 grid, and trains cut to 8 layers (2.96 B: AdamW, 16
+# bytes a parameter) on 1 x 4096 micro-batches whose first document opens
+# with a 1024-embedding span on a 32 x 32 grid; whisper-medium (24 + 24
+# layers) serves 4 clips of 1500 frames (30 s each) with 64-token prompts
+# and 64 greedy steps over a 448-slot self cache (its published
+# max_target_positions), and trains at full depth on rows of 4096 frames
+# packed from 300-1500-frame clips and 1024 decoder positions
+VLM_SERVE_GRID, VLM_TRAIN_VISION, VLM_TRAIN_GRID, VLM_TRAIN_LAYERS = (16, 32), 1024, (32, 32), 8
+WHISPER_FRAMES, WHISPER_PROMPT, WHISPER_MAX_TARGET = 1500, 64, 448
+WHISPER_TRAIN_FRAMES, WHISPER_CLIPS = 4096, (300, 1500)
+MM_CROSS_QUERIES = 64  # the serving cross-attention's decoder prompt
 
 
 def log(*args):
@@ -248,14 +276,16 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def check_case(name, out, ref, tol, seg):
+def check_case(name, out, ref, tol, seg, no_key=None):
+    """Max abs error of a forward output; fails outside `tol` or where a
+    padding row (or a row of `no_key`, which sees no key) is not exactly 0."""
     err = float((out.float() - ref.float()).abs().max())
     bad = ((out.float() - ref.float()).abs() > tol + tol * ref.float().abs()).sum().item()
     if bad or not math.isfinite(err):
         raise AssertionError(f"{name}: {bad} elements outside {tol} (max abs err {err})")
-    pad = seg == 0
+    pad = seg == 0 if no_key is None else no_key
     if pad.any() and not bool((out[pad] == 0).all()):
-        raise AssertionError(f"{name}: padding rows are not exactly 0")
+        raise AssertionError(f"{name}: padding rows or rows with no visible key are not exactly 0")
     return err
 
 
@@ -274,37 +304,49 @@ def all_tiles_masked(fn):
     return run
 
 
+def case_ids(seg, pos, keys):
+    """(seg_q, seg_k, pos_q, pos_k) of a case: the keys' ids are the
+    queries' unless `keys` gives their own (cross-attention)."""
+    seg_k, pos_k = keys if keys is not None else (seg, pos)
+    return seg, seg_k, pos, pos_k
+
+
 def kernel_case(name, q, k, v, seg, pos, tol, *, time_it, window=None, time_masked=True,
-                time_splits=False):
-    """Kernel vs plain version on one input; optionally timed (and, for the
-    bf16 kernel with `time_masked`, timed again with every tile masked; for
-    the fp32 kernel with `time_splits`, held to the plain version and timed
-    at every split of its key walk up to 16). Returns a row."""
+                time_splits=False, causal=True, keys=None):
+    """Kernel vs plain version on one input (with `keys`, the keys' own
+    (seg, pos): cross-attention); optionally timed (and, for the bf16 kernel
+    with `time_masked`, timed again with every tile masked; for the fp32
+    kernel with `time_splits`, held to the plain version and timed at every
+    split of its key walk up to 16). Rows with no visible key must be
+    exactly 0. Returns a row."""
     from repro_torch.kernels.packed_flash_attn import (
         FWD_TF32, SM90, _sm_count, fwd_splits, kernel_for, packed_flash_attention, tile_map,
         tile_sizes)
     from repro_torch.kernels.ref import attention_mask, packed_attention_ref
 
-    args = (q, k, v, seg, seg, pos, pos)
-    kw = {"causal": True, "window": window}
+    ids = case_ids(seg, pos, keys)
+    args = (q, k, v, *ids)
+    kw = {"causal": causal, "window": window}
     dh = q.shape[-1]
     kern = kernel_for(q.dtype, dh)
     out = packed_flash_attention(*args, **kw)
     torch.cuda.synchronize()
     ref = packed_attention_ref(*args, **kw)
-    codes = tile_map(seg, seg, pos, pos, *tile_sizes(q.dtype, dh), **kw)
+    codes = tile_map(*ids, *tile_sizes(q.dtype, dh), **kw)
+    mask = attention_mask(*ids, **kw)
+    no_key = ~mask.any(-1)
     row = {"case": name, "kernel": kern.source, "shape": list(q.shape),
-           "kv_heads": k.shape[2], "dtype": str(q.dtype), "window": window,
-           "head_dim": dh,
-           "max_abs_err": check_case(name, out, ref, tol, seg), "tol": tol,
-           "padding_rows": int((seg == 0).sum()), "tiles": list(tile_sizes(q.dtype, dh)),
+           "kv_heads": k.shape[2], "keys": k.shape[1], "dtype": str(q.dtype), "window": window,
+           "causal": causal, "head_dim": dh,
+           "max_abs_err": check_case(name, out, ref, tol, seg, no_key), "tol": tol,
+           "padding_rows": int((seg == 0).sum()), "rows_without_key": int(no_key.sum()),
+           "tiles": list(tile_sizes(q.dtype, dh)),
            "skipped_tile_fraction": float((codes == 0).float().mean()),
            "unmasked_tile_fraction": float((codes == 2).float().mean())}
     if time_it:
-        mask = attention_mask(seg, seg, pos, pos, **kw)
         # q, k, v and the int32 seg/pos of both sides read, out written
-        bound, by, flops, moved = attention_bound(q, mask, 2,
-                                                  nbytes(q, k, v, out) + 4 * nbytes(seg))
+        bound, by, flops, moved = attention_bound(
+            q, mask, 2, nbytes(q, k, v, out, *ids))
         # ms: the kernels' own device time; wrapper_*: the whole call (tile
         # map + launch), on the device and on CUDA events (host gaps count)
         call = lambda: packed_flash_attention(*args, **kw)  # noqa: E731
@@ -330,34 +372,38 @@ def kernel_case(name, q, k, v, seg, pos, tol, *, time_it, window=None, time_mask
                 row["ms_by_splits"] = {}
                 for s in (1, 2, 4, 8, 16):
                     with forced("fwd_splits", s):
-                        check_case(f"{name} split {s}", call(), ref, tol, seg)
+                        check_case(f"{name} split {s}", call(), ref, tol, seg, no_key)
                         row["ms_by_splits"][s] = device_ms(call, 20, kern.names)
         if kern.source == SM90.source and time_masked:  # what the unmasked tiles (code 2) save
             masked = all_tiles_masked(call)
-            check_case(f"{name} all tiles masked", masked(), ref, tol, seg)
+            check_case(f"{name} all tiles masked", masked(), ref, tol, seg, no_key)
             row["all_masked_ms"] = device_ms(masked, 20, kern.names)
             row["all_masked_wrapper_event_ms"] = cuda_ms(masked, iters=20)
     log("kernel", json.dumps(row))
     return row
 
 
-def backward_case(name, q, k, v, seg, pos, tol, *, time_it, window=None, time_splits=False):
-    """Backward kernel vs autograd through the plain version; optionally
-    timed (with `time_splits`, the fp32 backward also at every split of its
-    two loops, and in turn with SDPA's backward, round by round, for their
-    spread). Returns a row."""
+def backward_case(name, q, k, v, seg, pos, tol, *, time_it, window=None, time_splits=False,
+                  causal=True, keys=None):
+    """Backward kernel vs autograd through the plain version (with `keys`,
+    the keys' own (seg, pos): cross-attention); optionally timed (with
+    `time_splits`, the fp32 backward also at every split of its two loops,
+    and in turn with SDPA's backward, round by round, for their spread).
+    Rows with no visible key must give lse +inf and dq exactly 0, keys no
+    query sees dk and dv exactly 0. Returns a row."""
     from repro_torch.kernels.packed_flash_attn import (
         backward_kernel_for, backward_tile_maps, packed_flash_attention,
         packed_flash_attention_backward)
     from repro_torch.kernels.ref import attention_mask, packed_attention_ref_backward
 
-    kw = {"causal": True, "window": window}
+    ids = case_ids(seg, pos, keys)
+    kw = {"causal": causal, "window": window}
     g = torch.Generator(device=q.device)
     g.manual_seed(4321)
     d_out = torch.randn(q.shape, generator=g, device=q.device).to(q.dtype)
-    out, lse = packed_flash_attention(q, k, v, seg, seg, pos, pos, **kw, return_lse=True)
+    out, lse = packed_flash_attention(q, k, v, *ids, **kw, return_lse=True)
     call = lambda: packed_flash_attention_backward(  # noqa: E731
-        q, k, v, out, lse, d_out, seg, seg, pos, pos, **kw)
+        q, k, v, out, lse, d_out, *ids, **kw)
     grads = call()
     again = call()
     torch.cuda.synchronize()
@@ -365,15 +411,19 @@ def backward_case(name, q, k, v, seg, pos, tol, *, time_it, window=None, time_sp
         raise AssertionError(f"{name}: a second backward launch differs bit for bit")
     del again
     plain = lambda: packed_attention_ref_backward(  # noqa: E731
-        q, k, v, d_out, seg, seg, pos, pos, **kw)
+        q, k, v, d_out, *ids, **kw)
     ref = plain()
     errs = {gname: grad_error(name, gname, a, b, tol)
             for gname, a, b in zip(("dq", "dk", "dv"), grads, ref)}
-    pad = seg == 0
-    if pad.any() and not all(bool((x[pad] == 0).all()) for x in grads):
-        raise AssertionError(f"{name}: gradients of padding rows or keys are not exactly 0")
+    mask = attention_mask(*ids, **kw)
+    no_key, no_query = ~mask.any(-1), ~mask.any(1)
+    if not (bool(torch.isposinf(lse.transpose(1, 2)[no_key]).all())
+            and bool((grads[0][no_key] == 0).all())
+            and all(bool((x[no_query] == 0).all()) for x in grads[1:])):
+        raise AssertionError(f"{name}: a row with no visible key (lse, dq) or a key no query "
+                             "sees (dk, dv) is not exactly +inf / 0")
     kern = backward_kernel_for(q.dtype, q.shape[-1])
-    padded, (codes, codes_dq) = backward_tile_maps(kern, seg, seg, pos, pos, **kw)
+    padded, (codes, codes_dq) = backward_tile_maps(kern, *ids, **kw)
     # the wrapper's split of each loop over CTAs (the sum kernels run only then)
     B, H, K = q.shape[0], q.shape[2], k.shape[2]
     Sqp, Skp = padded[0].shape[1], padded[1].shape[1]
@@ -381,20 +431,20 @@ def backward_case(name, q, k, v, seg, pos, tol, *, time_it, window=None, time_sp
     splits = kern.splits(B, H, K, Sqp, Skp, sms)
     launched = [n for n in kern.names if max(splits) > 1 or "_sum_" not in n]
     row = {"case": name, "kernel": kern.source, "shape": list(q.shape), "kv_heads": k.shape[2],
-           "dtype": str(q.dtype), "window": window, "head_dim": q.shape[-1],
-           "max_abs_err": max(errs.values()),
+           "keys": k.shape[1], "dtype": str(q.dtype), "window": window, "causal": causal,
+           "head_dim": q.shape[-1], "max_abs_err": max(errs.values()),
            "max_abs_err_by_grad": errs, "tol_of_max_ref": tol,
-           "padding_rows": int(pad.sum()), "tiles": [kern.block_q, kern.block_k],
+           "padding_rows": int((seg == 0).sum()), "rows_without_key": int(no_key.sum()),
+           "keys_without_query": int(no_query.sum()), "tiles": [kern.block_q, kern.block_k],
            "splits": splits, "skipped_tile_fraction": float((codes == 0).float().mean())}
     if kern.dq_tiles is not None:
         row.update(dq_tiles=list(kern.dq_tiles),
                    dq_skipped_tile_fraction=float((codes_dq == 0).float().mean()),
                    unmasked_tile_fraction=float((codes == 2).float().mean()))
     if time_it:
-        mask = attention_mask(seg, seg, pos, pos, **kw)
         # q, k, v, out, d_out, lse and seg/pos read; dq, dk, dv written
         bound, by, flops, moved = attention_bound(
-            q, mask, 5, 2 * nbytes(q, k, v) + nbytes(out, d_out, lse) + 4 * nbytes(seg))
+            q, mask, 5, 2 * nbytes(q, k, v) + nbytes(out, d_out, lse, *ids))
         us = device_us_by_kernel(call, 10)
         by_name = {kname: sum(t for key, t in us.items() if kname in key) / 1e3 / 10
                    for kname in launched}
@@ -501,13 +551,43 @@ def tf32_split_ms(call, kern, chosen, kv_iters, dq_iters, tol, ref):
 
 
 def parity_model(cfg):
-    """The fp32 parity path's model and its batch."""
+    """The fp32 parity path's model (reduced, at the real head width, and
+    with M-RoPE at the real sections, which sum to its half) and its batch:
+    packed documents; a VLM's rows open with a PARITY_SEQ / 8 vision span
+    (at the reference's S / 4 the 384 labelled positions leave 0.13% of the
+    gradient elements, 271 of them in the LM head, nonzero within 1e-4 of
+    their leaf's max, over the train step check's 0.1% cap on elements held
+    only to 2 lr; at S / 8, 0.06%), an encoder-decoder's hold PARITY_SEQ
+    frames of clips and their transcripts in PARITY_SEQ / 4 decoder
+    positions."""
     from repro_torch.configs import reduced
+    from repro_torch.data.multimodal import enc_dec_batch, vlm_batch
     from repro_torch.data.synth import SyntheticPackedDataset
 
-    small = reduced(cfg, head_dim=cfg.head_dim)
+    small = reduced(cfg, head_dim=cfg.head_dim, mrope_sections=cfg.mrope_sections)
+    if small.enc_dec:
+        return small, enc_dec_batch(small, PARITY_SEQ, PARITY_SEQ // small.dec_ratio,
+                                    PARITY_BATCH, seed=0,
+                                    clip_frames=(PARITY_SEQ // 6, PARITY_SEQ // 2))
+    if small.vlm:
+        return small, vlm_batch(small, PARITY_SEQ, PARITY_BATCH, seed=0,
+                                vision_len=PARITY_SEQ // 8, grid=(4, PARITY_SEQ // 32), mu=4.0,
+                                sigma=0.8)
     return small, SyntheticPackedDataset(small, PARITY_SEQ, PARITY_BATCH, seed=0, mu=4.0,
                                          sigma=0.8).batch_at(0)
+
+
+def attention_calls(cfg):
+    """Attention layers one forward pass of `cfg`'s model runs, so kernel
+    launches: every layer's self-attention, and an encoder-decoder's
+    encoder layers and each decoder layer's cross-attention too."""
+    return cfg.n_layers + (cfg.n_enc_layers + cfg.n_layers if cfg.enc_dec else 0)
+
+
+def row_ids(cfg, batch):
+    """The segment ids of the rows whose logits a batch yields (the decoder's
+    for an encoder-decoder)."""
+    return batch["dec_segment_ids" if cfg.enc_dec else "segment_ids"]
 
 
 def microbatch_cases(name, inputs, seg, pos, microbatches, tol, *, time_splits=False):
@@ -740,9 +820,10 @@ def fp32_model_parity(small, batch, device, optimizer):
                                                                       routes["cpu"])
                        for k in ("experts", "kept")):
         raise AssertionError("fp32 MoE path: the card routes a token otherwise than the CPU")
-    if counts[FWD_TF32.source] != small.n_layers or counts[SM90.source] != 0:
-        raise AssertionError(f"fp32 path launches {counts}, expected {small.n_layers} fp32 only")
-    valid = torch.from_numpy(batch["segment_ids"] != 0)
+    calls = attention_calls(small)
+    if counts[FWD_TF32.source] != calls or counts[SM90.source] != 0:
+        raise AssertionError(f"fp32 path launches {counts}, expected {calls} fp32 only")
+    valid = torch.from_numpy(row_ids(small, batch) != 0)
     err = float((logits_gpu.cpu()[valid] - logits_cpu[valid]).abs().max())
     if not err <= TOL_FP32 * (1 + float(logits_cpu[valid].abs().max())):
         raise AssertionError(f"fp32 path: card vs CPU logits differ by {err}")
@@ -766,8 +847,8 @@ def fp32_model_parity(small, batch, device, optimizer):
                         [x.grad.detach().cpu() for x in tree_leaves(p)],
                         [x.detach().cpu() for x in tree_leaves(p)])
     # per micro-batch and layer: forward + remat recompute, one backward
-    want = {FWD_TF32.source: 2 * PARITY_MICROBATCHES * small.n_layers, SM90.source: 0}
-    want_bwd = {BWD_TF32.source: PARITY_MICROBATCHES * small.n_layers, BWD_SM90.source: 0}
+    want = {FWD_TF32.source: 2 * PARITY_MICROBATCHES * calls, SM90.source: 0}
+    want_bwd = {BWD_TF32.source: PARITY_MICROBATCHES * calls, BWD_SM90.source: 0}
     if train_counts != want or bwd_counts != want_bwd:
         raise AssertionError(f"fp32 train step launches {train_counts} {bwd_counts}, "
                              f"expected {want} and {want_bwd}")
@@ -908,14 +989,18 @@ KERNEL_GROUPS = {"attention_forward": ("packed_flash_attn",), "attention_backwar
 PROFILED_OPS = ("aten::bmm",)
 
 
-def device_profile(fn, steps):
+def device_profile(fn, steps, *, host_ops=True):
     """Device time by kernel over `steps` calls of fn, from torch.profiler,
-    and the wall time of the same calls (the profiler's host cost included)."""
+    and the wall time of the same calls (the profiler's host cost included).
+    Without `host_ops` the profiler traces the device alone (no operator
+    shares): a step of ~15 k small launches took 24 times its own wall time
+    with host operators traced."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] if host_ops else []
+    with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             fn()
@@ -945,15 +1030,18 @@ def rel_err(a, b):
 
 
 def decode_bound(cfg, params, cache):
-    """Least ms of a decode step: the bytes it must read (every weight once,
-    of the embedding only the batch's rows unless the LM head reads it too,
-    and every cache slot's K, V and position, which the dense decode
-    attention reads) over the card's memory rate. With MoE every expert
-    counts: the reference's dispatch runs all E experts' products at C = B."""
+    """Least ms of a decode step: the bytes it must read (every weight of the
+    decoder once, of the embedding only the batch's rows unless the LM head
+    reads it too, and every cache slot's K, V and position, which the dense
+    decode attention reads, an encoder-decoder's constant cross K/V too)
+    over the card's memory rate. With MoE every expert counts: the
+    reference's dispatch runs all E experts' products at C = B. An
+    encoder's weights do not count: a decode step never runs the encoder."""
     from repro_torch.train.optimizer import tree_leaves
 
     embed = params["embed"]
-    weights = nbytes(*tree_leaves(params)) - nbytes(embed)
+    decoder = {k: v for k, v in params.items() if k not in ("enc_layers", "enc_norm")}
+    weights = nbytes(*tree_leaves(decoder)) - nbytes(embed)
     weights += nbytes(embed) if cfg.tie_embeddings else SERVE_B * embed[0].numel() * embed.element_size()
     caches = nbytes(*tree_leaves(cache))
     return {"bound_ms": (weights + caches) / PEAK_BYTES * 1e3, "weight_bytes": weights,
@@ -1094,25 +1182,80 @@ def recording_routes(into, key):
         moe_ffn.routes = None
 
 
-def serve_phase(cfg, params, device, *, new_tokens=NEW_TOKENS, check_last=False):
+def serve_prompt(cfg, device):
+    """SERVE_B prompts of one document a row, random tokens from a seed, and
+    the decode step's inputs besides tokens and lengths: (batch, extra).
+    An LM's are PROMPT tokens; a VLM's open with a PROMPT / 4 vision span
+    (seeded normal embeddings) on a VLM_SERVE_GRID grid; an
+    encoder-decoder's are WHISPER_PROMPT decoder tokens over one clip of
+    WHISPER_FRAMES frames a row, whose ids the decode step reads."""
+    from repro_torch.data.multimodal import mrope_positions
+
+    rng = np.random.default_rng(7)
+    P = WHISPER_PROMPT if cfg.enc_dec else PROMPT
+
+    def ids(S):
+        return (torch.ones((SERVE_B, S), dtype=torch.int32, device=device),
+                torch.arange(S, dtype=torch.int32, device=device).repeat(SERVE_B, 1))
+    tokens = torch.from_numpy(rng.integers(1, cfg.vocab_size, size=(SERVE_B, P)).astype(np.int32))
+    seg, pos = ids(P)
+    if cfg.enc_dec:
+        enc_seg, enc_pos = ids(WHISPER_FRAMES)
+        frames = rng.standard_normal((SERVE_B, WHISPER_FRAMES, cfg.d_model), dtype=np.float32)
+        batch = {"frame_embeds": torch.from_numpy(frames).to(device),
+                 "enc_segment_ids": enc_seg, "enc_positions": enc_pos,
+                 "dec_tokens": tokens.to(device), "dec_segment_ids": seg, "dec_positions": pos}
+        return batch, {"cross_segment_ids": enc_seg, "cross_positions": enc_pos}
+    batch = {"tokens": tokens.to(device), "segment_ids": seg, "positions": pos}
+    if cfg.vlm:
+        vis = P // 4
+        batch["positions"] = torch.from_numpy(
+            mrope_positions(np.arange(P, dtype=np.int32), vis, VLM_SERVE_GRID)).to(device)[
+                None].repeat(SERVE_B, 1, 1)
+        batch["vision_embeds"] = torch.from_numpy(
+            rng.standard_normal((SERVE_B, vis, cfg.d_model), dtype=np.float32)).to(device)
+    return batch, {}
+
+
+def appended(cfg, batch, fed):
+    """The prompt `batch` with the (B, n) tokens `fed` appended to its one
+    document a row, as decode feeds them: token i at position P + i (on all
+    three M-RoPE axes), the vision span and the encoder frames as they were."""
+    pre = "dec_" if cfg.enc_dec else ""
+    tokens = batch[pre + "tokens"]
+    B, P = tokens.shape
+    n = fed.shape[1]
+    pos = torch.arange(P, P + n, dtype=torch.int32, device=tokens.device).repeat(B, 1)
+    if cfg.mrope_sections is not None:
+        pos = pos[..., None].expand(B, n, 3)
+    out = dict(batch)
+    out[pre + "tokens"] = torch.cat([tokens, fed.to(tokens.dtype)], 1)
+    out[pre + "segment_ids"] = torch.cat([batch[pre + "segment_ids"],
+                                          batch[pre + "segment_ids"][:, -1:].expand(B, n)], 1)
+    out[pre + "positions"] = torch.cat([batch[pre + "positions"], pos], 1)
+    return out
+
+
+def serve_phase(cfg, params, device, *, new_tokens=NEW_TOKENS, check_last=False, max_len=None):
     """The main path: prefill through the kernel, then greedy decode (over
-    ring caches for sliding-window layers). The first decode step is held to
-    the packed forward (with MoE, by `moe_decode_check`, and the main
-    path's on the rows its prefill dropped nothing of to that check's decode
-    step, which drops nothing: like with like); with `check_last`, the last
-    step too, to a teacher-forced packed forward over the prompt and the fed
-    tokens. No plain attention call on the path."""
+    ring caches for sliding-window layers; an encoder-decoder's decoder
+    over the prefill's constant cross caches) of the `serve_prompt`
+    prompts, into caches of `max_len` slots (the prompt and the new tokens
+    by default). The first decode step is held to the packed forward (with
+    MoE, by `moe_decode_check`, and the main path's on the rows its prefill
+    dropped nothing of to that check's decode step, which drops nothing:
+    like with like); with `check_last`, the last step too, to a
+    teacher-forced packed forward over the prompt and the fed tokens. No
+    plain attention call on the path."""
     from repro_torch.kernels.packed_flash_attn import kernel_for
     from repro_torch.models.model import cache_len, extend_cache, forward_train
     from repro_torch.train.train_step import build_prefill_step, build_serve_step
 
-    rng = np.random.default_rng(7)
-    tokens = torch.from_numpy(rng.integers(1, cfg.vocab_size, size=(SERVE_B, PROMPT)).astype(np.int32))
-    batch = {"tokens": tokens.to(device),
-             "segment_ids": torch.ones((SERVE_B, PROMPT), dtype=torch.int32, device=device),
-             "positions": torch.arange(PROMPT, dtype=torch.int32, device=device).repeat(SERVE_B, 1)}
+    batch, extra = serve_prompt(cfg, device)
+    P = row_ids(cfg, batch).shape[1]
     prefill_step, serve_step = build_prefill_step(cfg), build_serve_step(cfg)
-    max_len = PROMPT + new_tokens
+    max_len = max_len or P + new_tokens
+    calls = attention_calls(cfg)
     kern = kernel_for(torch.bfloat16, cfg.head_dim)
     moe = bool(cfg.n_experts)
     routes = {}
@@ -1123,10 +1266,12 @@ def serve_phase(cfg, params, device, *, new_tokens=NEW_TOKENS, check_last=False)
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         plain, undo_plain = counting_plain_calls()
+        regimes, undo_regimes = counting_regimes()
         t0 = time.perf_counter()
         last_logits, caches = prefill_step(params, batch)
         torch.cuda.synchronize()
         t_prefill = time.perf_counter() - t0
+        undo_regimes()
         cache = extend_cache(cfg, caches, max_len)
         del caches
         tok = last_logits[:, -1].argmax(-1).to(torch.int32)
@@ -1134,8 +1279,9 @@ def serve_phase(cfg, params, device, *, new_tokens=NEW_TOKENS, check_last=False)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for i in range(new_tokens):
-            lengths = torch.full((SERVE_B,), PROMPT + i, dtype=torch.int32, device=device)
-            tok, logits, cache = serve_step(params, cache, {"tokens": tok[:, None], "lengths": lengths})
+            lengths = torch.full((SERVE_B,), P + i, dtype=torch.int32, device=device)
+            tok, logits, cache = serve_step(params, cache, {"tokens": tok[:, None],
+                                                            "lengths": lengths, **extra})
             if first_logits is None:
                 first_logits = logits[:, 0].clone()
             generated.append(tok)
@@ -1146,10 +1292,9 @@ def serve_phase(cfg, params, device, *, new_tokens=NEW_TOKENS, check_last=False)
         by_source = read_counts()
         launches = sum(by_source.values())
         peak = torch.cuda.max_memory_allocated()
-        if (by_source[kern.source] != cfg.n_layers or launches != cfg.n_layers
-                or plain["plain_calls"]):
+        if by_source[kern.source] != calls or launches != calls or plain["plain_calls"]:
             raise AssertionError(f"main path launches {by_source} and {plain}, expected "
-                                 f"{cfg.n_layers} of {kern.source} only")
+                                 f"{calls} of {kern.source} only")
         out = torch.stack(generated, 1)
         if out.shape != (SERVE_B, new_tokens + 1) or not all(
                 bool(torch.isfinite(x.float()).all()) for x in (first_logits, logits)):
@@ -1157,14 +1302,15 @@ def serve_phase(cfg, params, device, *, new_tokens=NEW_TOKENS, check_last=False)
         slots = sorted({cache_len(cfg, spec, max_len) for spec in cfg.layer_specs()})
         ring_pos = [c["mixer"]["pos"] for c in cache if c["mixer"]["pos"].shape[1] < max_len]
         # a ring of T slots must hold exactly the last T positions written
-        ring_wrapped = bool(ring_pos) and all(int(p.min()) == PROMPT + new_tokens - p.shape[1]
+        ring_wrapped = bool(ring_pos) and all(int(p.min()) == P + new_tokens - p.shape[1]
                                               for p in ring_pos)
 
         full, _ = forward_train(cfg, params, batch)
         e_prefill = rel_err(last_logits[:, 0], full[:, -1])
         del full
         step_batch = {"tokens": first_tok[:, None],
-                      "lengths": torch.full((SERVE_B,), PROMPT, dtype=torch.int32, device=device)}
+                      "lengths": torch.full((SERVE_B,), P, dtype=torch.int32, device=device),
+                      **extra}
         moe_res = None
         if moe:  # the main path's drops; the decode check without them
             check, nodrop_first = moe_decode_check(cfg, params, batch, device)
@@ -1175,23 +1321,15 @@ def serve_phase(cfg, params, device, *, new_tokens=NEW_TOKENS, check_last=False)
                                                    routes["prefill"])}
             e_decode, agree = moe_res["decode_rel_err"], moe_res["argmax_agreement"]
         else:
-            ext = {k: torch.cat([v, first_tok[:, None] if k == "tokens" else
-                                 (v[:, -1:] + 1 if k == "positions" else v[:, -1:])], 1)
-                   for k, v in batch.items()}
-            full, _ = forward_train(cfg, params, ext)
-            ref_first = full[:, PROMPT]
+            full, _ = forward_train(cfg, params, appended(cfg, batch, first_tok[:, None]))
+            ref_first = full[:, P]
             e_decode = rel_err(first_logits, ref_first)
             agree = float((first_logits.argmax(-1) == ref_first.argmax(-1)).float().mean())
             del full
         e_last = None
         if check_last:  # every fed token, teacher-forced through the packed forward
             fed = torch.stack(generated[:new_tokens], 1)
-            n_all = PROMPT + new_tokens
-            forced = {"tokens": torch.cat([batch["tokens"], fed], 1),
-                      "segment_ids": torch.ones((SERVE_B, n_all), dtype=torch.int32, device=device),
-                      "positions": torch.arange(n_all, dtype=torch.int32,
-                                                device=device).repeat(SERVE_B, 1)}
-            full, _ = forward_train(cfg, params, forced)
+            full, _ = forward_train(cfg, params, appended(cfg, batch, fed))
             e_last = rel_err(last_logits_decode, full[:, -1])
             del full
         # where the time goes: device time by kernel; busy share against the
@@ -1215,13 +1353,15 @@ def serve_phase(cfg, params, device, *, new_tokens=NEW_TOKENS, check_last=False)
     if ring_pos and not ring_wrapped:
         raise AssertionError("the sliding-window ring caches did not hold the last positions")
     res = {"arch": cfg.arch_id, "layers": cfg.n_layers, "params": cfg.param_count(),
+           "prompt": P, "encoder_frames": batch["frame_embeds"].shape[1] if cfg.enc_dec else None,
+           "vision_embeddings": batch["vision_embeds"].shape[1] if cfg.vlm else None,
            "new_tokens": new_tokens, "cache_slots": slots, "ring_layers": len(ring_pos),
            "ring_wrapped": ring_wrapped,
            "prefill_seconds": t_prefill, "decode_ms_per_token": t_decode / new_tokens * 1e3,
            "decode_tokens_per_s": SERVE_B * new_tokens / t_decode,
-           "prefill_tokens_per_s": SERVE_B * PROMPT / t_prefill,
+           "prefill_tokens_per_s": SERVE_B * P / t_prefill,
            "max_memory_allocated_bytes": peak, "main_path_launches": launches,
-           "main_path_launches_by_source": by_source,
+           "main_path_launches_by_source": by_source, "prefill_calls_by_regime": regimes,
            "prefill_rel_err": e_prefill, "prefill_tol": TOL_PREFILL_REL,
            "decode_rel_err": e_decode, "decode_tol": TOL_DECODE_REL,
            "last_decode_rel_err": e_last,
@@ -1261,6 +1401,23 @@ def counting_plain_calls():
 
     ops.packed_attention_ref = counted
     return calls, lambda: setattr(ops, "packed_attention_ref", plain)
+
+
+def counting_regimes():
+    """Count the model's calls of the packed attention through
+    `models.attention.packed_attention` by regime: causal self-attention,
+    non-causal self-attention (an encoder), cross-attention (query and key
+    ids of two sequences). Returns (counts, undo)."""
+    import repro_torch.models.attention as attn
+
+    inner, calls = attn.packed_attention, {"causal": 0, "non_causal": 0, "cross": 0}
+
+    def counted(q, k, v, seg_q, seg_k, *a, causal=True, **kw):
+        calls["cross" if seg_k is not seg_q else "causal" if causal else "non_causal"] += 1
+        return inner(q, k, v, seg_q, seg_k, *a, causal=causal, **kw)
+
+    attn.packed_attention = counted
+    return calls, lambda: setattr(attn, "packed_attention", inner)
 
 
 def train_phase(cfg, device, *, layers=TRAIN_LAYERS, steps=TRAIN_STEPS, fit=TRAIN_FIT):
@@ -1710,7 +1867,8 @@ def ptxas_by_function(log):
 # backward's dK/dV and dQ kernels on wgmma, the bf16 head_dim 80 forward,
 # dK/dV and dQ kernels (five 16-column chunks under the 32-byte swizzle) on
 # wgmma, the fp32 forward on TF32 tensor-core products at every head width,
-# and the fp32 backward's dK/dV and dQ kernels at every width its paths run
+# and the fp32 backward's dK/dV and dQ kernels at every width its paths run;
+# head_dim 64 is whisper-medium's, forward and backward, bf16 and fp32
 BUILD_GATES = (
     ("head_dim_256_backward_build", "BWD_SM90_WIDE",
      ("bwd_sm90_dkdv_split_kernel", "bwd_sm90_dq_kernel"), (256,), ("HGMMA",)),
@@ -1719,9 +1877,26 @@ BUILD_GATES = (
      (80,), ("HGMMA",)),
     ("fp32_forward_build", "FWD_TF32", ("packed_flash_attn_tf32_kernel",),
      (16, 32, 64, 80, 128, 256), ("HMMA", "TF32")),
+    ("head_dim_64_forward_build", "SM90", ("packed_flash_attn_sm90_kernel",), (64,), ("HGMMA",)),
+    ("head_dim_64_backward_build", "BWD_SM90", ("bwd_sm90_dkdv_kernel", "bwd_sm90_dq_kernel"),
+     (64,), ("HGMMA",)),
     ("fp32_backward_build", "BWD_TF32", ("bwd_tf32_dkdv_kernel", "bwd_tf32_dq_kernel"),
-     (80, 128, 256), ("HMMA", "TF32")),
+     (64, 80, 128, 256), ("HMMA", "TF32")),
 )
+
+
+def spill_check(sources):
+    """Every function of every library's ptxas report, by source: fails on
+    any spill, or on a library whose report names no function. Returns the
+    functions reported by source."""
+    from repro_torch.kernels import build
+
+    report = {src: ptxas_by_function(build.build_log(src)) for src in sources}
+    spilled = {f"{src}:{name}": r for src, funcs in report.items() for name, r in funcs.items()
+               if r.get("spill_stores", 0) or r.get("spill_loads", 0)}
+    if spilled or not all(report.values()):
+        raise AssertionError(f"ptxas reports spills (or no function) in {spilled or report}")
+    return {src: len(funcs) for src, funcs in report.items()}
 
 
 def kernel_build_check(record_name, knames, head_dims, opcode):
@@ -1777,9 +1952,14 @@ def kernel_entries(record):
     same kernel under `other_cases`."""
     from repro_torch.kernels.packed_flash_attn import BWD_SM90, BWD_TF32, FWD_TF32, SM90
 
-    kern, fk, fam, fp32, moe = (record["kernel"], record["family_kernel"], record["family"],
-                                record["fp32_path"], record["moe"])
-    qmoe = "qwen3-moe-30b-a3b"
+    kern, fk, fam, fp32, moe, mm = (record["kernel"], record["family_kernel"], record["family"],
+                                    record["fp32_path"], record["moe"], record["multimodal"])
+    qmoe, vl, wh = "qwen3-moe-30b-a3b", "qwen2-vl-7b", "whisper-medium"
+    mk = {k.removeprefix(f"{wh}_"): row for k, row in mm["kernel"].items()}  # whisper's regimes
+
+    def regimes(tag, bwd=""):  # whisper's regime rows other than the encoder's training one
+        return {name: {k: mk[f"{name}_{tag}{bwd}"].get(k) for k in TIMING_KEYS + ("causal", "keys")}
+                for name in ("encoder_serve", "decoder_self_train", "cross_train", "cross_serve")}
 
     def entry(name, source, row, by_path, *, others=(), **extra):
         return {"name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source}",
@@ -1816,7 +1996,17 @@ def kernel_entries(record):
               {"llama2-7b serve": served(fam["llama2-7b_serve"]),
                "llama2-7b pipeline": fwd(fam["llama2-7b_pipeline"], SM90.source)}, head_dim=128),
         entry("packed_flash_attention[GQA group 7]", SM90.source, fk["qwen2.5-7b_bf16"],
-              {"qwen2.5-7b serve": served(fam["qwen2.5-7b_serve"])}, head_dim=128),
+              {"qwen2.5-7b serve": served(fam["qwen2.5-7b_serve"]),
+               f"{vl} serve": served(mm[f"{vl}_serve"]),
+               f"{vl} train": fwd(mm[f"{vl}_train"], SM90.source)}, head_dim=128),
+        # whisper-medium's heads (16/16, head_dim 64) in its three regimes: the
+        # non-causal encoder, the causal decoder and the cross-attention
+        entry("packed_flash_attention[head_dim 64]", SM90.source, mk["encoder_train_bf16"],
+              {f"{wh} serve": served(mm[f"{wh}_serve"]),
+               f"{wh} train": fwd(mm[f"{wh}_train"], SM90.source)}, head_dim=64,
+              launches_by_regime={"serve prefill": mm[f"{wh}_serve"]["prefill_calls_by_regime"],
+                                  "train": mm[f"{wh}_train"]["forward_calls_by_regime"]},
+              regimes=regimes("bf16")),
         entry("packed_flash_attention[head_dim 256]", SM90.source, fk["gemma3-1b_bf16"],
               {"gemma3-1b serve": served(fam["gemma3-1b_serve"]),
                "gemma3-1b train": fwd(fam["gemma3-1b_train"], SM90.source),
@@ -1836,7 +2026,7 @@ def kernel_entries(record):
         *(entry(f"packed_flash_attention[float32{tag}]", FWD_TF32.source, fp32[arch]["kernel"],
                 {f"{a} parity": fp32[a]["launches"][FWD_TF32.source]
                  + fp32[a]["train_step_launches"][FWD_TF32.source]
-                 for a in (arch, qmoe) if a == arch or arch == "qwen3-8b"},
+                 for a in (arch, qmoe, vl) if a == arch or arch == "qwen3-8b"},
                 others=others, head_dim=fp32[arch]["head_dim"],
                 wrapper_device_ms=fp32[arch]["kernel"]["wrapper_device_ms"],
                 **{key: fp32[arch]["kernel"][key] for key in (
@@ -1849,6 +2039,13 @@ def kernel_entries(record):
                                 "grok-1-314b_fp32")),
               ("gemma3-1b", ", head_dim 256", ("gemma3-1b_fp32", "gemma3-4b_fp32")),
               ("h2o-danube-1.8b", ", head_dim 80", ("h2o-danube-1.8b_fp32",)))),
+        entry("packed_flash_attention[float32, head_dim 64]", FWD_TF32.source,
+              mk["encoder_train_fp32"],
+              {f"{wh} parity": fp32[wh]["launches"][FWD_TF32.source]
+               + fp32[wh]["train_step_launches"][FWD_TF32.source]}, head_dim=64,
+              regimes=regimes("fp32"),
+              **{key: mk["encoder_train_fp32"].get(key) for key in (
+                  "bound_3xtf32_ms", "bound_3xtf32_share", "splits")}),
         # the backward: per launch, at the train paths' micro-batches
         entry("packed_flash_attention_backward", BWD_SM90.source,
               per_launch(kern["train_bwd"]),
@@ -1863,7 +2060,17 @@ def kernel_entries(record):
         entry("packed_flash_attention_backward[GQA group 1]", BWD_SM90.source,
               fk["llama2-7b_bf16_bwd"],
               {"llama2-7b pipeline": bwd(fam["llama2-7b_pipeline"], BWD_SM90.source)},
-              others=("qwen2.5-7b_bf16_bwd",), head_dim=128),
+              head_dim=128),
+        entry("packed_flash_attention_backward[GQA group 7]", BWD_SM90.source,
+              fk["qwen2.5-7b_bf16_bwd"],
+              {f"{vl} train": bwd(mm[f"{vl}_train"], BWD_SM90.source)}, head_dim=128),
+        # whisper-medium: each launch runs one of the three regimes, a third each
+        entry("packed_flash_attention_backward[head_dim 64]", BWD_SM90.source,
+              mk["encoder_train_bf16_bwd"],
+              {f"{wh} train": bwd(mm[f"{wh}_train"], BWD_SM90.source)}, head_dim=64,
+              regimes=regimes("bf16", "_bwd"),
+              **{key: mk["encoder_train_bf16_bwd"].get(key) for key in (
+                  "tiles", "dq_tiles", "ms_by_kernel")}),
         entry("packed_flash_attention_backward[head_dim 256]", BWD_SM90.source,
               fk["gemma3-1b_bf16_bwd"],
               {"gemma3-1b train": bwd(fam["gemma3-1b_train"], BWD_SM90.source),
@@ -1880,7 +2087,7 @@ def kernel_entries(record):
         entry("packed_flash_attention_backward[float32]", BWD_TF32.source,
               per_launch(kern["fp32_parity_bwd"]),
               {f"{a} parity": fp32[a]["train_step_backward_launches"][BWD_TF32.source]
-               for a in ("qwen3-8b", qmoe)},
+               for a in ("qwen3-8b", qmoe, vl)},
               others=("llama2-7b_fp32_bwd", "qwen2.5-7b_fp32_bwd", f"{qmoe}_fp32_bwd",
                       "grok-1-314b_fp32_bwd"), head_dim=128,
               **fp32_bwd_extra(per_launch(kern["fp32_parity_bwd"])),
@@ -1896,6 +2103,11 @@ def kernel_entries(record):
               {"h2o-danube-1.8b parity":
                fp32["h2o-danube-1.8b"]["train_step_backward_launches"][BWD_TF32.source]},
               head_dim=80, **fp32_bwd_extra(fk["h2o-danube-1.8b_fp32_bwd"])),
+        entry("packed_flash_attention_backward[float32, head_dim 64]", BWD_TF32.source,
+              mk["encoder_train_fp32_bwd"],
+              {f"{wh} parity": fp32[wh]["train_step_backward_launches"][BWD_TF32.source]},
+              head_dim=64, regimes=regimes("fp32", "_bwd"),
+              **fp32_bwd_extra(mk["encoder_train_fp32_bwd"])),
     ]
 
 
@@ -1934,6 +2146,207 @@ def moe_phases(record, device):
             moe[f"{qmoe.arch_id}_pipeline"] = pipeline_phase(qmoe, device,
                                                              PIPE_SPECS[qmoe.arch_id])
             torch.cuda.empty_cache()
+
+
+def multimodal_kernel_phase(device):
+    """The kernels in the regimes whisper-medium runs them, at its heads (16
+    query and 16 KV heads, head_dim 64), bf16 and fp32, forward and
+    backward, each against the plain version and timed beside its bound,
+    the plain version and SDPA with a boolean mask: the encoder's
+    non-causal self-attention at serving's 4 x 1500 frames and at the
+    training batch's 1 x 4096 packed clips, the decoder's causal
+    self-attention at 1 x 1024, and the cross-attention at 1 x 1024 queries
+    over 1 x 4096 keys (the training row, whose last decoder document is
+    given a segment id no clip has: exactly 0 out and 0 gradient) and at
+    4 x 64 over 4 x 1500 (serving)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.multimodal import enc_dec_batch
+
+    cfg = get_arch("whisper-medium")
+    H, K, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    raw = enc_dec_batch(cfg, WHISPER_TRAIN_FRAMES, WHISPER_TRAIN_FRAMES // cfg.dec_ratio, 1,
+                        seed=0, clip_frames=WHISPER_CLIPS)
+    enc_seg, enc_pos, dec_seg, dec_pos = (torch.from_numpy(raw[k]).to(device) for k in (
+        "enc_segment_ids", "enc_positions", "dec_segment_ids", "dec_positions"))
+    orphan = dec_seg == dec_seg.max()  # a transcript without its clip
+    dec_seg = torch.where(orphan, dec_seg.max() + 1, dec_seg)
+    enc_abs = torch.arange(WHISPER_TRAIN_FRAMES, dtype=torch.int32, device=device)[None]
+    dec_abs = torch.arange(dec_seg.shape[1], dtype=torch.int32, device=device)[None]
+
+    def ones(B, S):
+        return (torch.ones((B, S), dtype=torch.int32, device=device),
+                torch.arange(S, dtype=torch.int32, device=device).repeat(B, 1))
+    serve_enc, serve_dec = ones(SERVE_B, WHISPER_FRAMES), ones(SERVE_B, MM_CROSS_QUERIES)
+    # (name, queries (seg, pos), keys (seg, pos) or None: the queries', causal)
+    cases = (("encoder_serve", serve_enc, None, False),
+             ("encoder_train", (enc_seg, enc_pos), None, False),
+             ("decoder_self_train", (dec_seg, dec_pos), None, True),
+             ("cross_train", (dec_seg, dec_abs), (enc_seg, enc_abs), False),
+             ("cross_serve", serve_dec, (serve_enc[0], serve_enc[1]), False))
+    g = torch.Generator(device=device)
+    g.manual_seed(64)
+    rows = {}
+    for dtype, tol, tag in ((torch.bfloat16, TOL_BF16, "bf16"), (torch.float32, TOL_FP32, "fp32")):
+        for name, (seg, pos), keys, causal in cases:
+            B, Sq = seg.shape
+            Sk = Sq if keys is None else keys[0].shape[1]
+            q = torch.randn((B, Sq, H, dh), generator=g, device=device).to(dtype)
+            k, v = (torch.randn((B, Sk, K, dh), generator=g, device=device).to(dtype)
+                    for _ in range(2))
+            label = f"whisper-medium_{name}_{tag}"
+            kw = {"time_it": True, "causal": causal, "keys": keys}
+            rows[label] = kernel_case(label, q, k, v, seg, pos, tol, time_masked=False, **kw)
+            rows[f"{label}_bwd"] = backward_case(f"{label}_bwd", q, k, v, seg, pos, tol, **kw)
+            if name == "cross_train" and not rows[label]["rows_without_key"] >= int(orphan.sum()):
+                raise AssertionError(f"{label}: the transcript without its clip sees a key")
+            del q, k, v
+        torch.cuda.empty_cache()
+    return rows
+
+
+def multimodal_train_batch(cfg, index):
+    """Batch `index` of the family's training path: 2 rows (one a micro-batch)."""
+    from repro_torch.data.multimodal import enc_dec_batch, vlm_batch
+
+    if cfg.enc_dec:
+        return enc_dec_batch(cfg, WHISPER_TRAIN_FRAMES, WHISPER_TRAIN_FRAMES // cfg.dec_ratio,
+                             TRAIN_BATCH, seed=0, clip_frames=WHISPER_CLIPS, index=index)
+    return vlm_batch(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=0, vision_len=VLM_TRAIN_VISION,
+                     grid=VLM_TRAIN_GRID, index=index)
+
+
+def multimodal_train_phase(cfg, device, *, layers=None, steps=FAMILY_TRAIN_STEPS):
+    """A VLM or encoder-decoder at full width (cut to `layers`, None: full
+    depth) trained for `steps` steps by `train_step.build_train_step` (fp32
+    masters, bf16 compute, remat, TRAIN_MICROBATCHES micro-batches of one
+    row; `optimizer_for`'s optimizer) on `multimodal_train_batch` batches,
+    through the bf16 forward and backward kernels. Checks every step's
+    launches (each micro-batch: every attention call's forward kernel twice,
+    forward and remat recompute, its backward kernel once), no plain call,
+    step 0's loss against `loss_fn` on the same parameters and micro-batches,
+    every parameter leaf's step-0 gradient finite and nonzero, and every
+    loss finite; reports step times, throughput, peak memory and the device
+    profile of step TRAIN_PROFILED_STEP."""
+    from repro_torch.models.model import loss_fn
+    from repro_torch.train.optimizer import optimizer_for, tree_leaves
+    from repro_torch.train.train_step import build_train_step, init_train_state
+
+    tcfg = cfg if layers is None else dataclasses.replace(cfg, n_layers=layers)  # depth only
+    mb, calls = TRAIN_MICROBATCHES, attention_calls(tcfg)
+    torch.cuda.reset_peak_memory_stats()
+    opt = optimizer_for(tcfg, lr=1e-3)
+    state = init_train_state(0, tcfg, opt, device=device)
+    step_fn = build_train_step(tcfg, opt, microbatches=mb)
+    n = TRAIN_BATCH // mb
+    with torch.no_grad():
+        first = to_device(multimodal_train_batch(tcfg, 0), device)
+        loss0_fn = sum(float(loss_fn(tcfg, state["params"], {k: v[i * n:(i + 1) * n]
+                                                             for k, v in first.items()})[0])
+                       for i in range(mb)) / mb
+    del first
+
+    def counts():
+        return {**read_counts(), **{f"backward[{k}]": v for k, v in read_backward_counts().items()},
+                "plain_calls": plain["plain_calls"]}
+    want = bf16_launches(tcfg.head_dim, forward=2 * calls * mb, backward=calls * mb)
+    plain, undo = counting_plain_calls()
+    regimes, undo_regimes = counting_regimes()
+    losses, times, positions, profile, step0 = [], [], 0, None, {}
+    total = {k: 0 for k in want}
+    try:
+        for it in range(steps):
+            raw = multimodal_train_batch(tcfg, it)
+            batch = to_device(raw, device)
+            positions += int((row_ids(tcfg, raw) != 0).sum())
+            reset_counts()
+            plain["plain_calls"] = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if it == TRAIN_PROFILED_STEP:
+                out = []
+                profile = device_profile(lambda: out.append(step_fn(state, batch)), 1,
+                                         host_ops=False)
+                state, metrics = out[0]
+            else:
+                state, metrics = step_fn(state, batch)
+            losses.append(float(metrics["loss"]))  # waits for the step
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            got = counts()
+            if got != want:
+                raise AssertionError(f"{tcfg.arch_id} train step {it}: launches {got}, "
+                                     f"expected {want}")
+            total = {k: total[k] + got[k] for k in want}
+            if it == 0:
+                flags = [bool(torch.isfinite(p.grad).all() & (p.grad != 0).any())
+                         for p in tree_leaves(state["params"])]
+                step0.update(leaves=len(flags), leaves_with_finite_nonzero_grad=sum(flags))
+    finally:
+        undo()
+        undo_regimes()
+    peak = torch.cuda.max_memory_allocated()
+    del state
+    if step0["leaves_with_finite_nonzero_grad"] != step0["leaves"]:
+        raise AssertionError(f"{tcfg.arch_id} step 0: only {step0['leaves_with_finite_nonzero_grad']}"
+                             f" of {step0['leaves']} parameter leaves have a finite nonzero gradient")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{tcfg.arch_id} train losses not finite: {losses}")
+    loss0_rel = abs(losses[0] - loss0_fn) / abs(loss0_fn)
+    if not loss0_rel <= 1e-3:
+        raise AssertionError(f"{tcfg.arch_id} step 0 loss {losses[0]} vs loss_fn {loss0_fn}")
+    steady = times[TRAIN_WARMUP:]
+    profile["busy_share"] = (profile["device_seconds_per_call"]
+                             / profile["profiled_wall_seconds_per_call"])
+    res = {"arch": cfg.arch_id, "layers": tcfg.n_layers, "enc_layers": tcfg.n_enc_layers,
+           "params": tcfg.param_count(), "optimizer": opt.name, "steps": steps,
+           "batch": TRAIN_BATCH, "microbatches": mb, "head_dim": tcfg.head_dim,
+           "losses": losses, "step_seconds": times,
+           "step_seconds_mean": sum(steady) / len(steady), "step_seconds_min": min(steady),
+           "step_seconds_max": max(steady),
+           "tokens_per_s": positions * len(steady) / steps / sum(steady),
+           "launches_per_step": want, "launches": total, "forward_calls_by_regime": regimes,
+           "step0_loss_fn": loss0_fn, "step0_loss_rel": loss0_rel,
+           "step0_leaves": step0["leaves"], "max_memory_allocated_bytes": peak,
+           "profiled_step": TRAIN_PROFILED_STEP, "profile": profile}
+    log("train", json.dumps(res))
+    return res
+
+
+def multimodal_phases(record, device):
+    """The VLM and encoder-decoder families, into `record["multimodal"]`:
+    the kernels in whisper-medium's regimes (`multimodal_kernel_phase`); the
+    fp32 parity paths of reduced qwen2-vl-7b (head_dim 128, M-RoPE at its
+    real sections) and whisper-medium (head_dim 64) into
+    `record["fp32_path"]`; qwen2-vl-7b serving at full depth (28 layers)
+    and training cut to VLM_TRAIN_LAYERS; whisper-medium serving and
+    training at full depth (24 + 24 layers)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import init_params
+    from repro_torch.train.optimizer import tree_leaves
+
+    mm = record["multimodal"] = {}
+    mm["kernel"] = multimodal_kernel_phase(device)
+    torch.cuda.empty_cache()
+    for arch in ("qwen2-vl-7b", "whisper-medium"):
+        cfg = get_arch(arch)
+        record["fp32_path"][arch] = fp32_phase(cfg, device, time_kernel=False)
+        t0 = time.perf_counter()
+        params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=device)
+        torch.cuda.synchronize()
+        log(f"{arch}: {cfg.n_layers} layers (+{cfg.n_enc_layers} encoder), d_model "
+            f"{cfg.d_model}, {sum(p.numel() for p in tree_leaves(params))} parameters, "
+            f"init {time.perf_counter() - t0:.1f} s")
+        if cfg.enc_dec:
+            mm[f"{arch}_serve"] = serve_phase(cfg, params, device, new_tokens=NEW_TOKENS,
+                                              check_last=True, max_len=WHISPER_MAX_TARGET)
+        else:
+            mm[f"{arch}_serve"] = serve_phase(cfg, params, device, new_tokens=PAPER_NEW_TOKENS,
+                                              check_last=True)
+        del params
+        torch.cuda.empty_cache()
+        mm[f"{arch}_train"] = multimodal_train_phase(
+            cfg, device, layers=None if cfg.enc_dec else VLM_TRAIN_LAYERS)
+        torch.cuda.empty_cache()
 
 
 def main(argv=None):
@@ -1982,6 +2395,9 @@ def main(argv=None):
     for name, kern, knames, dims, opcode in BUILD_GATES:
         record[name] = kernel_build_check(kern, knames, dims, opcode)
         log(f"build: {name} {json.dumps(record[name])}")
+    record["kernels_without_spill"] = spill_check([k.source for k in (SM90, FWD_TF32, BWD_SM90,
+                                                                        BWD_TF32)])
+    log(f"build: no spill in {record['kernels_without_spill']} kernels by source")
 
     cfg = get_arch("qwen3-8b")
     record["kernel"] = kernel_phase(cfg, device)
@@ -2036,6 +2452,7 @@ def main(argv=None):
     torch.cuda.empty_cache()
 
     moe_phases(record, device)
+    multimodal_phases(record, device)
 
     record["kernels"] = kernel_entries(record)
     if args.out:

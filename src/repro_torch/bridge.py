@@ -7,7 +7,8 @@ holds; a tied tree has no `lm_head`), its optimizer state or its decode
 cache (a sliding-window layer's cache is its ring), by converting every leaf
 with `np.asarray`; this module never imports jax. The reference's scan layout
 stacks layers per period position (a tuple: `layers[pos][...][j]` is layer
-j * P + pos); its list layout, like the port, keeps one dict per layer.
+j * P + pos); its list layout, like the port, keeps one dict per layer. An
+encoder-decoder's `enc_layers` are laid out the same way, at a period of one.
 """
 from __future__ import annotations
 
@@ -53,15 +54,16 @@ def _layers(layers, fn):
     return _unstack(layers, fn)
 
 
+LAYER_KEYS = ("layers", "enc_layers")  # the trees of per-layer parameters
+
+
 def params_from_jax(tree, *, dtype=torch.bfloat16, device="cuda"):
     """Reference parameters (scan or list layout) -> port parameters:
     matrices in `dtype`, 1-D weights (norms) in float32."""
     def conv(a):
         return _tensor(a, device, dtype if np.ndim(a) >= 2 else torch.float32)
 
-    out = {k: conv(v) for k, v in tree.items() if k != "layers"}
-    out["layers"] = _layers(tree["layers"], conv)
-    return out
+    return {k: _layers(v, conv) if k in LAYER_KEYS else conv(v) for k, v in tree.items()}
 
 
 def _is_vstate(tree):
@@ -106,7 +108,7 @@ def opt_state_from_jax(state, *, device="cuda"):
             return _stacked_vstates(v, conv)
         return _layers(v, conv)
 
-    return {name: {k: (layers(name, v) if k == "layers" else _map(conv, v))
+    return {name: {k: (layers(name, v) if k in LAYER_KEYS else _map(conv, v))
                    for k, v in tree.items()}
             for name, tree in state.items()}
 
@@ -120,5 +122,6 @@ def _is_factored(tree):
 
 
 def cache_from_jax(tree, *, device="cuda"):
-    """Reference decode cache (scan layout) -> per-layer list, dtypes kept."""
+    """Reference decode cache (scan layout) -> per-layer list, dtypes kept;
+    an encoder-decoder's layers keep their "cross" K/V beside "mixer"."""
     return _unstack(tree, lambda a: _tensor(a, device))

@@ -154,7 +154,9 @@ struct KvCfg : Tiles<DH> {
   static constexpr int STAGE = 2 * QT + 4 * KV_BQ;  // Q, dO, lse, delta, seg, pos
   static constexpr int XCH = GROUPS * 16 * KV_BQ;   // P^T, A to B
   static constexpr int BYTES = (2 * KT + STAGES * STAGE + XCH + WALK) * 4;
-  static constexpr int MIN_CTAS = DH >= 80 ? 1 : 2;  // registers: a total and a part
+  // registers: a total and a part; at dh 64 two CTAs an SM (128 registers)
+  // spilled 16 bytes, one takes 166
+  static constexpr int MIN_CTAS = DH >= 64 ? 1 : 2;
   static_assert(BYTES <= 232448, "more shared memory than a CTA can have");
 };
 
@@ -552,23 +554,28 @@ struct SumJobs {
   long long first_block[SUM_JOBS + 1];
 };
 
+// Each job is read at a constant index: a job picked by a loop's index
+// was copied out of the parameter into local memory (a 4-byte spill).
 __global__ void __launch_bounds__(SUM_THREADS)
 bwd_tf32_sum_kernel(const __grid_constant__ SumJobs jobs) {
-  int j = 0;
-  while (j + 1 < SUM_JOBS && blockIdx.x >= jobs.first_block[j + 1]) ++j;
-  const SumJob& job = jobs.job[j];
-  const long long i = ((long long)(blockIdx.x - jobs.first_block[j]) * SUM_THREADS + threadIdx.x) * 4;
-  if (i >= job.n) return;
-  float4 acc = *reinterpret_cast<const float4*>(job.parts + i);
-  for (int p = 1; p < job.splits; ++p) {
-    const float4 x = *reinterpret_cast<const float4*>(job.parts + p * job.stride + i);
-    acc.x += x.x;
-    acc.y += x.y;
-    acc.z += x.z;
-    acc.w += x.w;
+#pragma unroll
+  for (int j = 0; j < SUM_JOBS; ++j) {
+    if (blockIdx.x < jobs.first_block[j] || blockIdx.x >= jobs.first_block[j + 1]) continue;
+    const SumJob& job = jobs.job[j];
+    const long long i =
+        ((long long)(blockIdx.x - jobs.first_block[j]) * SUM_THREADS + threadIdx.x) * 4;
+    if (i >= job.n) return;
+    float4 acc = *reinterpret_cast<const float4*>(job.parts + i);
+    for (int p = 1; p < job.splits; ++p) {
+      const float4 x = *reinterpret_cast<const float4*>(job.parts + p * job.stride + i);
+      acc.x += x.x;
+      acc.y += x.y;
+      acc.z += x.z;
+      acc.w += x.w;
+    }
+    *reinterpret_cast<float4*>(job.out + i) =
+        make_float4(acc.x * job.mul, acc.y * job.mul, acc.z * job.mul, acc.w * job.mul);
   }
-  *reinterpret_cast<float4*>(job.out + i) =
-      make_float4(acc.x * job.mul, acc.y * job.mul, acc.z * job.mul, acc.w * job.mul);
 }
 
 struct Args {

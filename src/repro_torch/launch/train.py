@@ -78,10 +78,21 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def _check_feedable(cfg):
+    """The driver's data are token batches: a VLM (vision embeddings, 3-axis
+    positions) or an encoder-decoder (frames) cannot be fed, as in the
+    reference's driver, whose `SyntheticPackedDataset` has neither."""
+    if cfg.vlm or cfg.enc_dec:
+        raise ValueError(f"{cfg.arch_id}: the driver's synthetic batches hold tokens only; a "
+                         f"{'VLM' if cfg.vlm else 'encoder-decoder'} trains through "
+                         "train_step.build_train_step on its own batches")
+
+
 # ---------------------------------------------------------------- spmd mode
 def run_spmd(cfg, args):
     """Train `args.steps` steps on `args.device`; returns {"losses", "times",
     "detector"} as the reference's spmd mode does."""
+    _check_feedable(cfg)
     if args.tp is not None:
         raise NotImplementedError("--tp in spmd mode: sharding (ROADMAP Queue 1 item 4) is not "
                                   "ported yet; --mode pipeline reads it")
@@ -152,6 +163,7 @@ def run_pipeline(cfg, args):
     plus each step's seconds ("times"), each adaptation's plan, notes, layer
     moves and measured recovery seconds ("adaptations") and the final plan
     ("plan")."""
+    _check_feedable(cfg)
     device = torch.device(args.device)
     dp, pp, tp = (getattr(args, k) if getattr(args, k) is not None else v
                   for k, v in PIPELINE_DEFAULTS.items())

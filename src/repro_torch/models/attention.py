@@ -1,9 +1,11 @@
-"""GQA attention over packed segments with qk-norm and RoPE; KV-cache decode.
+"""GQA attention over packed segments with qk-norm, RoPE and M-RoPE;
+cross-attention over an encoder output; KV-cache decode.
 
 Counterpart of `repro.models.attention.attention`. Prefill and the packed
-forward go through `kernels.ops.packed_attention` (the Hopper kernel on the
-card) with the KV heads un-repeated; decode is dense masked attention over the
-cache in plain PyTorch, as the reference computes it in jnp.
+forward, causal or not (the encoder), self- or cross-attention, go through
+`kernels.ops.packed_attention` (the Hopper kernel on the card) with the KV
+heads un-repeated; decode is dense masked attention over the cache in plain
+PyTorch, as the reference computes it in jnp.
 """
 from __future__ import annotations
 
@@ -44,15 +46,33 @@ def _sdpa_dense(q, k, v, mask, scale):
     return out.reshape(B, Sq, H, dh)
 
 
-def attention(cfg, spec, p, x, md, cache=None):
-    """Full attention layer.
+def _decode_attend(q, k, v, seg_k, pos_k, lengths, *, causal, window, scale):
+    """Decode attention of the S new queries at positions lengths + 0..S-1
+    over cached keys (seg_k 0: not visible), dense in plain PyTorch."""
+    B, S = q.shape[:2]
+    pos_q = lengths[:, None] + torch.arange(S, device=q.device)[None]
+    seg_q = torch.ones((B, S), dtype=torch.int32, device=q.device)
+    mask = attention_mask(seg_q, seg_k, pos_q, pos_k, causal=causal, window=window)
+    return _sdpa_dense(q, k.to(q.dtype), v.to(q.dtype), mask, scale)
 
-    md: 'positions' (B,S) packed RoPE positions, 'segment_ids' (B,S),
-        'abs_positions' (B,S) for the causal test, and for decode 'lengths'
-        (B,) current KV fill.
-    cache: None for the packed forward and prefill, else {'k': (B,T,K,dh),
-        'v': ..., 'pos': (B,T)} (T slots: `model.cache_len`), updated in place (the reference returns a
-        new array; in place saves a cache copy per layer and step).
+
+def attention(cfg, spec, p, x, md, cache=None):
+    """Full attention layer: self-attention, or cross-attention over the
+    encoder output `md["cross_x"]`.
+
+    md: 'positions' (B,S) packed RoPE positions, or (B,S,3) with M-RoPE
+        (`cfg.mrope_sections`); 'segment_ids' (B,S), 'abs_positions' (B,S)
+        for the causal test; 'causal' (False: the encoder); for decode
+        'lengths' (B,) current KV fill. Cross-attention also reads
+        'cross_segment_ids' and 'cross_positions' (B,S_enc), the encoder's
+        ids, and is never causal, windowed or rotated.
+    cache: None for the packed forward and prefill; else for self-attention
+        {'k': (B,T,K,dh), 'v': ..., 'pos': (B,T)} (T slots: `model.cache_len`),
+        updated in place (the reference returns a new array; in place saves a
+        cache copy per layer and step), and for cross-attention the constant
+        {'k_const', 'v_const'} (B,S_enc,K,dh), read and never written.
+    With md['collect_state'] (prefill) the new cache is {'k', 'v', 'pos'} of
+    self-attention or {'k_const', 'v_const'} of cross-attention.
     Returns (out (B,S,D), new_cache).
     """
     D, H, K, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -60,43 +80,57 @@ def attention(cfg, spec, p, x, md, cache=None):
     scale = 1.0 / math.sqrt(dh)
     window = cfg.window if spec.attn_kind == "swa" else None
     causal = md.get("causal", True)
+    kx = md.get("cross_x")  # the encoder output, for cross-attention
 
     q = (x @ p["wq"].reshape(D, H * dh).to(x.dtype)).view(B, S, H, dh)
-    k = (x @ p["wk"].reshape(D, K * dh).to(x.dtype)).view(B, S, K, dh)
-    v = (x @ p["wv"].reshape(D, K * dh).to(x.dtype)).view(B, S, K, dh)
-    if cfg.qk_norm:
-        q = head_rms_norm(q, p["q_norm"])
-        k = head_rms_norm(k, p["k_norm"])
-    if md.get("rope", True):
-        ang = rope_angles(md["positions"], dh, cfg.rope_theta)
-        q = apply_rope(q, ang)
-        k = apply_rope(k, ang)
-
-    if cache is None:
-        seg, pos = md["segment_ids"], md["abs_positions"]
-        out = packed_attention(q, k, v, seg, seg, pos, pos,
-                               causal=causal, window=window, scale=scale)
-        new_cache = {"k": k, "v": v, "pos": pos} if md.get("collect_state") else None
-    else:
-        # decode: ring-buffer insert at (position % T). For full-attention
-        # layers T == max_len, so slot == position; for sliding-window layers
-        # T = min(2 * window, max_len), and a slot is overwritten once its
-        # position is out of the window (the mask drops it before that)
-        idx = md["lengths"]
-        rows = torch.arange(B, device=x.device)
-        T = cache["k"].shape[1]
-        slot = idx % T
-        cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
-        cache["pos"][rows, slot] = idx.to(torch.int32)
-        pos_arr = cache["pos"]
-        pos_k = pos_arr.clamp_min(0)
-        seg_k = (pos_arr >= 0).to(torch.int32)  # valid cache entries
-        pos_q = idx[:, None] + torch.arange(S, device=x.device)[None]
-        seg_q = torch.ones((B, S), dtype=torch.int32, device=x.device)
-        mask = attention_mask(seg_q, seg_k, pos_q, pos_k, causal=causal, window=window)
-        out = _sdpa_dense(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), mask, scale)
+    if cache is not None and "k_const" in cache:
+        # decode over the constant cross K/V; the query is not qk-normed here,
+        # as in the reference (prefill's is)
+        out = _decode_attend(q, cache["k_const"], cache["v_const"], md["cross_segment_ids"],
+                             md["cross_positions"], md["lengths"], causal=False, window=None,
+                             scale=scale)
         new_cache = cache
+    else:
+        src = kx if kx is not None else x
+        Sk = src.shape[1]
+        k = (src @ p["wk"].reshape(D, K * dh).to(x.dtype)).view(B, Sk, K, dh)
+        v = (src @ p["wv"].reshape(D, K * dh).to(x.dtype)).view(B, Sk, K, dh)
+        if cfg.qk_norm:
+            q = head_rms_norm(q, p["q_norm"])
+            k = head_rms_norm(k, p["k_norm"])
+        if md.get("rope", True) and kx is None:
+            ang = rope_angles(md["positions"], dh, cfg.rope_theta, cfg.mrope_sections)
+            q = apply_rope(q, ang)
+            k = apply_rope(k, ang)
+
+        if cache is None:
+            seg, pos = md["segment_ids"], md["abs_positions"]
+            collect = md.get("collect_state")
+            if kx is not None:
+                out = packed_attention(q, k, v, seg, md["cross_segment_ids"], pos,
+                                       md["cross_positions"], causal=False, window=None,
+                                       scale=scale)
+                new_cache = {"k_const": k, "v_const": v} if collect else None
+            else:
+                out = packed_attention(q, k, v, seg, seg, pos, pos,
+                                       causal=causal, window=window, scale=scale)
+                new_cache = {"k": k, "v": v, "pos": pos} if collect else None
+        else:
+            # decode: ring-buffer insert at (position % T). For full-attention
+            # layers T == max_len, so slot == position; for sliding-window
+            # layers T = min(2 * window, max_len), and a slot is overwritten
+            # once its position is out of the window (the mask drops it first)
+            idx = md["lengths"]
+            rows = torch.arange(B, device=x.device)
+            slot = idx % cache["k"].shape[1]
+            cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
+            cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
+            cache["pos"][rows, slot] = idx.to(torch.int32)
+            pos_arr = cache["pos"]  # -1: an empty slot
+            out = _decode_attend(q, cache["k"], cache["v"], (pos_arr >= 0).to(torch.int32),
+                                 pos_arr.clamp_min(0), idx, causal=causal, window=window,
+                                 scale=scale)
+            new_cache = cache
 
     y = out.reshape(B, S, H * dh) @ p["wo"].reshape(H * dh, D).to(x.dtype)
     return y, new_cache

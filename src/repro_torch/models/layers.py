@@ -1,4 +1,4 @@
-"""Common layers: norms, rotary embeddings, initializers (`repro.models.layers`)."""
+"""Common layers: norms, rotary embeddings (M-RoPE too), initializers (`repro.models.layers`)."""
 from __future__ import annotations
 
 import math
@@ -29,12 +29,23 @@ def head_rms_norm(x, weight, eps=1e-6):
     return rms_norm(x, weight, eps)
 
 
-def rope_angles(positions, head_dim, theta):
-    """(...,) integer positions -> (..., head_dim//2) float32 angles."""
+def rope_angles(positions, head_dim, theta, sections=None):
+    """Rotary angles, (..., head_dim//2) float32.
+
+    positions: (...,) integers for standard RoPE, or (..., 3) for M-RoPE with
+    `sections` (t, h, w): the first sections[0] frequency slots take the t
+    position, the next sections[1] the h position, the last the w position.
+    """
     half = head_dim // 2
     exponent = torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
     inv_freq = 1.0 / (theta ** exponent)
-    return positions.float()[..., None] * inv_freq
+    if sections is None:
+        return positions.float()[..., None] * inv_freq
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to head_dim // 2 = {half}")
+    axis = torch.repeat_interleave(torch.arange(len(sections), device=positions.device),
+                                   torch.tensor(sections, device=positions.device))
+    return positions.float()[..., axis] * inv_freq
 
 
 def apply_rope(x, angles):

@@ -1,10 +1,14 @@
 """Model assembly: init, packed forward and loss, prefill, decode step, cache.
 
-Counterpart of `repro.models.model` for attention LMs whose FFN is dense or
-MoE (`models/moe.py`). Parameters are a
-plain dict with the reference's keys and shapes; `layers` is a list with one
-dict per layer (layer j*P + pos is `layers[pos][...][j]` of the reference's
-scan layout, P the period). Norm weights are always float32. Matrices are
+Counterpart of `repro.models.model` for attention models whose FFN is dense
+or MoE (`models/moe.py`): decoder-only LMs, the VLM (vision embeddings in
+place of the first tokens' embeddings, M-RoPE positions) and the
+encoder-decoder (a non-causal encoder over frame embeddings, then a decoder
+whose layers cross-attend to its output). Parameters are a plain dict with
+the reference's keys and shapes; `layers` (and the encoder's `enc_layers`)
+is a list with one dict per layer (layer j*P + pos is `layers[pos][...][j]`
+of the reference's scan layout, P the period; the encoder's period is
+`cfg.period[0]` alone). Norm weights are always float32. Matrices are
 stored in whatever dtype `init_params` was given: serving and the forward
 phase keep them in bf16; training keeps float32 masters, as the reference
 does, and every use casts them to the compute dtype (`attention`, `mlp`,
@@ -35,22 +39,26 @@ def _check_spec(spec):
 
 
 # ------------------------------------------------------------------- init
-def init_layer(generator, cfg, spec, *, dtype=torch.bfloat16, device="cuda"):
+def init_layer(generator, cfg, spec, *, cross=False, dtype=torch.bfloat16, device="cuda"):
+    """One layer; with `cross`, a decoder layer's cross-attention block too."""
     _check_spec(spec)
     D = cfg.d_model
-    return {
-        "norm1": torch.zeros(D, dtype=torch.float32, device=device),
-        "mixer": init_attention(generator, cfg, dtype=dtype, device=device),
-        "norm2": torch.zeros(D, dtype=torch.float32, device=device),
-        "ffn": FFN_INIT[spec.ffn](generator, cfg, dtype=dtype, device=device),
-    }
+
+    def norm():
+        return torch.zeros(D, dtype=torch.float32, device=device)
+    p = {"norm1": norm(), "mixer": init_attention(generator, cfg, dtype=dtype, device=device)}
+    if cross:
+        p["norm_cross"] = norm()
+        p["cross"] = init_attention(generator, cfg, dtype=dtype, device=device)
+    p["norm2"] = norm()
+    p["ffn"] = FFN_INIT[spec.ffn](generator, cfg, dtype=dtype, device=device)
+    return p
 
 
 def init_params(cfg, seed=0, *, dtype=torch.bfloat16, device="cuda"):
     """Random weights from `seed`, with the reference's keys, shapes and law
-    (normal / sqrt(fan_in), norms zero)."""
-    if cfg.enc_dec or cfg.vlm:
-        raise NotImplementedError(f"{cfg.arch_id}: only decoder-only LMs are ported yet")
+    (normal / sqrt(fan_in), norms zero); an encoder-decoder also has
+    `enc_layers` (of spec `cfg.period[0]`, no cross block) and `enc_norm`."""
     g = torch.Generator(device=device)
     g.manual_seed(seed)
     V, D = cfg.padded_vocab, cfg.d_model
@@ -62,11 +70,15 @@ def init_params(cfg, seed=0, *, dtype=torch.bfloat16, device="cuda"):
     params = {
         "embed": normal((V, D)),
         "final_norm": torch.zeros(D, dtype=torch.float32, device=device),
-        "layers": [init_layer(g, cfg, cfg.layer_spec(i), dtype=dtype, device=device)
-                   for i in range(cfg.n_layers)],
+        "layers": [init_layer(g, cfg, cfg.layer_spec(i), cross=cfg.enc_dec, dtype=dtype,
+                              device=device) for i in range(cfg.n_layers)],
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = normal((D, V))
+    if cfg.enc_dec:
+        params["enc_layers"] = [init_layer(g, cfg, cfg.period[0], dtype=dtype, device=device)
+                                for _ in range(cfg.n_enc_layers)]
+        params["enc_norm"] = torch.zeros(D, dtype=torch.float32, device=device)
     return params
 
 
@@ -77,20 +89,29 @@ def apply_layer(cfg, spec, p, x, md, cache=None):
                            cache=mix_cache)
     x = x + h
     new_cache = {"mixer": new_mix} if new_mix is not None else None
+    if "cross" in p:  # a decoder layer over the encoder output md["enc_out"]
+        cmd = {**md, "cross_x": md.get("enc_out")}
+        h, new_cross = attention(cfg, spec, p["cross"], rms_norm(x, p["norm_cross"], cfg.norm_eps),
+                                 cmd, cache=cache.get("cross") if cache else None)
+        x = x + h
+        if new_cross is not None:  # prefill's K/V, or decode's constant cache
+            new_cache = {**(new_cache or {}), "cross": new_cross}
     x = x + FFN_FN[spec.ffn](cfg, p["ffn"], rms_norm(x, p["norm2"], cfg.norm_eps))
     return x, new_cache
 
 
-def _run_layers(cfg, layers, x, md, caches=None, *, remat=False):
-    """Run the layers in order; returns (x, per-layer caches or None).
+def _run_layers(cfg, layers, x, md, caches=None, *, remat=False, period=None):
+    """Run the layers in order, layer i of spec period[i % P] (`cfg.period`
+    by default); returns (x, per-layer caches or None).
 
     With `remat`, while autograd records, each layer keeps only its input for
     the backward and runs again there (the reference's `jax.checkpoint`).
     """
     remat = remat and caches is None and torch.is_grad_enabled()
+    period = period or cfg.period
     new_caches = []
     for i, p in enumerate(layers):
-        spec = cfg.layer_spec(i)
+        spec = period[i % len(period)]
         _check_spec(spec)
         if remat:
             x, nc = checkpoint(apply_layer, cfg, spec, p, x, md, use_reentrant=False,
@@ -115,25 +136,56 @@ def lm_logits(cfg, params, x):
 # ------------------------------------------------------------------ train
 def _default_md(batch):
     seg = batch["segment_ids"]
-    B, S = seg.shape
-    return {
-        "segment_ids": seg,
-        "positions": batch["positions"],
-        "abs_positions": torch.arange(S, dtype=torch.int32, device=seg.device).repeat(B, 1),
-        "causal": True,
-    }
+    return {"segment_ids": seg, "positions": batch["positions"],
+            "abs_positions": _arange_rows(*seg.shape, seg.device), "causal": True}
+
+
+def _arange_rows(B, S, device):
+    return torch.arange(S, dtype=torch.int32, device=device).repeat(B, 1)
+
+
+def _encoder_md(cfg, params, batch, compute_dtype, remat):
+    """Run the non-causal encoder over the frame embeddings, then `enc_norm`;
+    returns the decoder's metadata, which carries the encoder output and
+    its ids for the cross-attention."""
+    enc_x = batch["frame_embeds"].to(compute_dtype)
+    B, S_enc = enc_x.shape[:2]
+    enc_pos = _arange_rows(B, S_enc, enc_x.device)
+    enc_md = {"segment_ids": batch["enc_segment_ids"], "positions": batch["enc_positions"],
+              "abs_positions": enc_pos, "causal": False}
+    enc_out, _ = _run_layers(cfg, params["enc_layers"], enc_x, enc_md, remat=remat,
+                             period=(cfg.period[0],))
+    seg = batch["dec_segment_ids"]
+    return {"segment_ids": seg, "positions": batch["dec_positions"],
+            "abs_positions": _arange_rows(B, seg.shape[1], seg.device), "causal": True,
+            "enc_out": rms_norm(enc_out, params["enc_norm"], cfg.norm_eps),
+            "cross_segment_ids": batch["enc_segment_ids"], "cross_positions": enc_pos}
 
 
 def _hidden(cfg, params, batch, compute_dtype, collect, remat=False):
-    md = _default_md(batch)
+    if cfg.enc_dec:
+        md = _encoder_md(cfg, params, batch, compute_dtype, remat)
+        x = embed_tokens(cfg, params, batch["dec_tokens"], compute_dtype)
+    else:
+        md = _default_md(batch)
+        x = embed_tokens(cfg, params, batch["tokens"], compute_dtype)
+        if cfg.vlm and "vision_embeds" in batch:  # in place of the first S_vis embeddings
+            vis = batch["vision_embeds"].to(compute_dtype)
+            x = torch.cat([vis, x[:, vis.shape[1]:]], dim=1)
     if collect:
         md["collect_state"] = True
-    x = embed_tokens(cfg, params, batch["tokens"], compute_dtype)
     return _run_layers(cfg, params["layers"], x, md, remat=remat)
 
 
 def forward_train(cfg, params, batch, *, remat=True, compute_dtype=torch.bfloat16):
-    """Packed forward: tokens, segment_ids, positions (B,S) -> logits (B,S,V), aux.
+    """Packed forward -> logits (B,S,V), aux. The batch, by family:
+
+    LM:      tokens, segment_ids, positions (B,S);
+    VLM:     + vision_embeds (B,S_vis,D) in place of the first S_vis token
+             embeddings, positions (B,S,3) for M-RoPE;
+    enc-dec: frame_embeds (B,S_enc,D), enc_segment_ids, enc_positions
+             (B,S_enc), dec_tokens, dec_segment_ids, dec_positions (B,S_dec);
+             the logits are the decoder's.
 
     Differentiable; `remat` recomputes each layer in the backward. With MoE
     layers, aux["moe_aux"] is `router_aux_loss` of the first MoE layer's
@@ -169,7 +221,9 @@ def loss_fn(cfg, params, batch, **fw_kwargs):
 
 def prefill_forward(cfg, params, batch, *, compute_dtype=torch.bfloat16):
     """Inference prefill: last-position logits (B,1,V) + per-layer K/V caches
-    of length S. Only the last position goes through the LM head."""
+    of length S (an encoder-decoder's also hold each layer's cross K/V over
+    the encoder output, under "cross"). Only the last position goes through
+    the LM head."""
     x, caches = _hidden(cfg, params, batch, compute_dtype, collect=True)
     x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
     return lm_logits(cfg, params, x), caches
@@ -183,26 +237,32 @@ def cache_len(cfg, spec, max_len):
     return min(2 * cfg.window, max_len) if spec.attn_kind == "swa" else max_len
 
 
-def init_cache(cfg, B, max_len, cache_dtype=torch.bfloat16, device="cuda"):
-    """Per-layer decode cache: zero K/V of `cache_len` slots, positions -1."""
+def init_cache(cfg, B, max_len, cache_dtype=torch.bfloat16, device="cuda", cross_len=0):
+    """Per-layer decode cache: zero K/V of `cache_len` slots, positions -1;
+    an encoder-decoder's layers also hold zero cross K/V of `cross_len`
+    encoder positions ("cross": {"k_const", "v_const"})."""
     K, dh = cfg.n_kv_heads, cfg.head_dim
+
+    def zeros(T):
+        return torch.zeros((B, T, K, dh), dtype=cache_dtype, device=device)
     caches = []
     for i in range(cfg.n_layers):
         spec = cfg.layer_spec(i)
         _check_spec(spec)
         T = cache_len(cfg, spec, max_len)
-        caches.append({"mixer": {
-            "k": torch.zeros((B, T, K, dh), dtype=cache_dtype, device=device),
-            "v": torch.zeros((B, T, K, dh), dtype=cache_dtype, device=device),
-            "pos": torch.full((B, T), -1, dtype=torch.int32, device=device),
-        }})
+        c = {"mixer": {"k": zeros(T), "v": zeros(T),
+                       "pos": torch.full((B, T), -1, dtype=torch.int32, device=device)}}
+        if cfg.enc_dec:
+            c["cross"] = {"k_const": zeros(cross_len), "v_const": zeros(cross_len)}
+        caches.append(c)
     return caches
 
 
 def extend_cache(cfg, prefill_caches, max_len):
     """A max_len decode cache holding the prefill K/V: position p of a full
     layer in slot p; of a sliding-window layer in slot p % T of its ring, of
-    which it keeps the last T positions (the ones decode can still see)."""
+    which it keeps the last T positions (the ones decode can still see). An
+    encoder-decoder's cross K/V are the prefill's, carried over unchanged."""
     first = prefill_caches[0]["mixer"]["k"]
     B, S = first.shape[:2]
     if S > max_len:
@@ -214,22 +274,33 @@ def extend_cache(cfg, prefill_caches, max_len):
         slots = torch.arange(S - keep, S, device=first.device) % T
         for name in ("k", "v", "pos"):
             dst["mixer"][name][:, slots] = src["mixer"][name][:, S - keep:]
+        if "cross" in src:
+            dst["cross"] = src["cross"]
     return cache
 
 
 def serve_forward(cfg, params, cache, batch, *, compute_dtype=torch.bfloat16):
-    """One decode step. batch: tokens (B,1), lengths (B,) current positions.
+    """One decode step. batch: tokens (B,1), lengths (B,) current positions;
+    an encoder-decoder's also cross_segment_ids and cross_positions (B,S_enc),
+    the ids of its cross caches' encoder positions. With M-RoPE the step's
+    position is `lengths` on all three axes, as the reference's.
 
     Returns (logits (B,1,V), cache), the cache updated in place.
     """
     tokens, lengths = batch["tokens"], batch["lengths"]
     B = tokens.shape[0]
+    positions = lengths[:, None].to(torch.int32)
+    if cfg.mrope_sections is not None:
+        positions = positions[..., None].expand(B, 1, 3)
     md = {
-        "positions": lengths[:, None].to(torch.int32),
+        "positions": positions,
         "lengths": lengths,
         "segment_ids": torch.ones((B, 1), dtype=torch.int32, device=tokens.device),
         "causal": True,
     }
+    if cfg.enc_dec:
+        md["cross_segment_ids"] = batch["cross_segment_ids"]
+        md["cross_positions"] = batch["cross_positions"]
     x = embed_tokens(cfg, params, tokens, compute_dtype)
     x, cache = _run_layers(cfg, params["layers"], x, md, caches=cache)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -13,7 +13,8 @@ reference's spmd state stacks the layers of each period position into one
 leaf (`stacked_init`), while the port keeps one dict per layer. So
 `init(params, period=P)` groups the layers the reference's way: Adafactor's
 state `v["layers"]` is then a tuple over the P period positions of stacked
-statistics, as the reference's (a layer's (D,) norm weight factored as
+statistics (and an encoder-decoder's `v["enc_layers"]` a tuple of one stack),
+as the reference's (a layer's (D,) norm weight factored as
 (n, D) into `vr` (n,) and `vc` (D,); an (E, D, F) expert weight as
 (n, E, D, F), over its last two axes), and the clip spans each stack. The
 single-device trainer (`train_step.init_train_state`, so `launch.train
@@ -94,11 +95,15 @@ def make_optimizer(name="adamw", lr=3e-4, b1=0.9, b2=0.95, eps=1e-8,
             m = tree_map(lambda p: torch.zeros_like(p, dtype=momentum_dtype), params)
             if period is None:
                 return {"m": m, "v": tree_map(lambda p: vstate(p.shape, p), params)}
-            layers = params["layers"]
-            stacks = tuple(tree_map(lambda p: vstate((len(layers[pos::period]),) + p.shape, p),
-                                    layers[pos]) for pos in range(period))
-            return {"m": m, "v": {k: stacks if k == "layers" else tree_map(
-                lambda p: vstate(p.shape, p), v) for k, v in params.items()}}
+
+            def v_of(key, tree):
+                # the encoder's layers are one stack: its period is cfg.period[0] alone
+                P = {"layers": period, "enc_layers": 1}.get(key)
+                if P is None:
+                    return tree_map(lambda p: vstate(p.shape, p), tree)
+                return tuple(tree_map(lambda p: vstate((len(tree[pos::P]),) + p.shape, p),
+                                      tree[pos]) for pos in range(P))
+            return {"m": m, "v": {k: v_of(k, v) for k, v in params.items()}}
 
         @torch.no_grad()
         def update(grads, state, params, step):

@@ -38,7 +38,7 @@ def build_train_step(cfg, optimizer, *, microbatches=1, remat=True, clip_norm=1.
 
     def train_step(state, batch):
         params = state["params"]
-        B = batch["tokens"].shape[0]
+        B = batch["labels"].shape[0]  # every family's batch has labels
         if B % microbatches:
             raise ValueError(f"batch {B} does not split into {microbatches} micro-batches")
         n = B // microbatches

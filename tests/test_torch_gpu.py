@@ -42,7 +42,7 @@ from repro_torch.train.optimizer import make_optimizer, tree_leaves
 from repro_torch.train.train_step import build_train_step
 
 from conftest import make_packed
-from torch_helpers import cuda, n, t  # noqa: F401
+from torch_helpers import cross_ids, cuda, n, t  # noqa: F401
 
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -960,3 +960,73 @@ def test_gpu_moe_layer_is_deterministic(cuda):
     assert torch.equal(a, b)
     assert all(torch.equal(ra[k], rb[k]) for k in ("experts", "kept"))
     assert all(torch.equal(u, w) for u, w in zip(ga, gb))
+
+
+# ------------------------------------- non-causal and cross-attention cases
+# (Sq, Sk, H, K, dh): whisper's heads (16/16, dh 64) in the encoder's
+# non-causal self-attention and the decoder's cross-attention over 1500
+# frames (no tile multiple) from 200 and 64 queries, and dh 128 with GQA
+CROSS_CASES = [(333, 333, 16, 16, 64), (200, 1500, 16, 16, 64), (64, 1500, 16, 16, 64),
+               (333, 333, 8, 2, 128), (300, 777, 8, 2, 128)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Sq,Sk,H,K,dh", CROSS_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_noncausal_and_cross_forward_and_backward(cuda, rng, Sq, Sk, H, K, dh, dtype):
+    """causal=False with query and key ids of their own: forward and
+    backward against the plain version; a row with no visible key (padding,
+    or a decoder document without its clip) gives exactly 0 out, lse +inf
+    and 0 gradient, and so does a key no query sees; two backward launches
+    agree bit for bit."""
+    if Sq == Sk:  # the encoder's self-attention: packed clips, padding
+        seg, pos = (t(x).to(cuda) for x in make_packed(rng, 2, Sq, doc_lens=[100, 90, 80]))
+        ids = (seg, seg, pos, pos)
+    else:
+        ids = tuple(t(x).to(cuda) for x in cross_ids(rng, 2, Sq, Sk, 3))
+    q = t(rng.normal(size=(2, Sq, H, dh)).astype(np.float32)).to(cuda, TDT[dtype])
+    k, v = (t(rng.normal(size=(2, Sk, K, dh)).astype(np.float32)).to(cuda, TDT[dtype])
+            for _ in range(2))
+    args = (q, k, v, *ids)
+    kw = {"causal": False, "window": None}
+    out, lse = packed_flash_attention(*args, **kw, return_lse=True)
+    ref = packed_attention_ref(*args, **kw)
+    np.testing.assert_allclose(n(out), n(ref), atol=TOL[dtype], rtol=TOL[dtype])
+    mask = attention_mask(*ids, **kw)
+    no_key, no_query = ~mask.any(-1), ~mask.any(1)
+    assert bool(no_key.any()) and bool(no_query.any())
+    if Sq != Sk:  # a document of queries without keys, besides the padding
+        assert bool((no_key & (ids[0] != 0)).any())
+    assert bool((out[no_key] == 0).all())
+    assert bool(torch.isposinf(lse.transpose(1, 2)[no_key]).all())
+    d_out = t(rng.normal(size=tuple(q.shape)).astype(np.float32)).to(cuda, TDT[dtype])
+    first = packed_flash_attention_backward(*args[:3], out, lse, d_out, *args[3:], **kw)
+    second = packed_flash_attention_backward(*args[:3], out, lse, d_out, *args[3:], **kw)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    _check_grads(first, packed_attention_ref_backward(*args[:3], d_out, *args[3:], **kw), dtype)
+    dq, dk, dv = first
+    assert bool((dq[no_key] == 0).all())
+    assert bool((dk[no_query] == 0).all()) and bool((dv[no_query] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_cross_attention_through_autograd(cuda, rng, dtype):
+    """`ops.packed_attention` at causal=False over two sequences under
+    autograd: one forward and one backward launch, gradients of q, k and v
+    against autograd through the plain version."""
+    ids = tuple(t(x).to(cuda) for x in cross_ids(rng, 1, 100, 400, 2))
+    q = t(rng.normal(size=(1, 100, 16, 64)).astype(np.float32)).to(cuda, TDT[dtype])
+    k, v = (t(rng.normal(size=(1, 400, 16, 64)).astype(np.float32)).to(cuda, TDT[dtype])
+            for _ in range(2))
+    leaves = [x.requires_grad_(True) for x in (q, k, v)]
+    before = (_launches(), sum(packed_flash_attention_backward.launches.values()))
+    out = ops.packed_attention(*leaves, *ids, causal=False)
+    got = torch.autograd.grad(out, leaves, torch.ones_like(out))
+    torch.cuda.synchronize()
+    assert (_launches(), sum(packed_flash_attention_backward.launches.values())) == (
+        before[0] + 1, before[1] + 1)
+    ref = packed_attention_ref_backward(q.detach(), k.detach(), v.detach(), torch.ones_like(out),
+                                        *ids, causal=False)
+    _check_grads(got, ref, dtype)

@@ -43,7 +43,7 @@ from repro_torch.kernels.packed_flash_attn import (
 from repro_torch.kernels.ref import attention_mask
 
 from conftest import make_packed
-from torch_helpers import n, t
+from torch_helpers import cross_ids, n, t
 
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -99,6 +99,51 @@ def test_port_matches_jax_kernel_and_ref(rng, S, H, K, dh, bq, bk, dtype):
     np.testing.assert_array_equal(
         block_metadata(ts, ts, tp, tp, bq, bk, causal=True, window=None).numpy(),
         np.asarray(j_block_metadata(sj, sj, pj, pj, bq, bk, causal=True, window=None)))
+
+
+# (Sq, Sk, H, K, dh, bq, bk): the encoder's self-attention, not causal, and
+# the decoder's cross-attention over more keys than queries (ragged, and the
+# reverse), at whisper's head width and GQA
+CROSS_SWEEP = [
+    (128, 128, 4, 4, 64, 64, 64),  # non-causal self-attention
+    (96, 200, 4, 4, 64, 32, 64),   # cross: Sq < Sk, ragged Sk
+    (150, 70, 4, 2, 32, 64, 32),   # cross: Sq > Sk, both ragged, GQA
+]
+
+
+@pytest.mark.parametrize("Sq,Sk,H,K,dh,bq,bk", CROSS_SWEEP)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_port_matches_jax_kernel_noncausal_and_cross(rng, Sq, Sk, H, K, dh, bq, bk, dtype):
+    """Not causal, with query ids and key ids of their own (a query document
+    without keys included): the port against the JAX Pallas kernel in
+    interpret mode and its jnp oracle on every row (a row with no visible
+    key exactly 0 in all three), and `block_metadata` against the JAX map."""
+    B = 1
+    if Sq == Sk:
+        seg, pos = make_packed(rng, B, Sq, doc_lens=[50, 40])
+        ids = (seg, seg, pos, pos)
+    else:
+        ids = cross_ids(rng, B, Sq, Sk, 3)
+    q = rng.normal(size=(B, Sq, H, dh))
+    k, v = (rng.normal(size=(B, Sk, K, dh)) for _ in range(2))
+    q, k, v = (np.asarray(jnp.asarray(a, JDT[dtype]).astype(jnp.float32)) for a in (q, k, v))
+    kw = {"causal": False}
+    out = n(ops.packed_attention(*(t(a).to(TDT[dtype]) for a in (q, k, v)),
+                                 *(t(x) for x in ids), **kw))
+    jargs = [jnp.asarray(a, JDT[dtype]) for a in (q, k, v)] + [jnp.asarray(x) for x in ids]
+    kern = np.asarray(j_packed_attention(*jargs, block_q=bq, block_k=bk, interpret=True, **kw),
+                      np.float32)
+    ref = np.asarray(j_ref(*jargs, **kw), np.float32)
+    np.testing.assert_allclose(out, kern, atol=TOL[dtype], rtol=TOL[dtype])
+    np.testing.assert_allclose(out, ref, atol=TOL[dtype], rtol=TOL[dtype])
+    mask = attention_mask(*(t(x) for x in ids), causal=False, window=None).numpy()
+    empty = ~mask.any(-1)
+    assert empty.any() and np.all(out[empty] == 0) and np.all(kern[empty] == 0)
+    padded = _pad_all(*(t(x) for x in ids), bq, bk)
+    np.testing.assert_array_equal(
+        block_metadata(*padded, bq, bk, causal=False, window=None).numpy(),
+        np.asarray(j_block_metadata(*(jnp.asarray(x.numpy()) for x in padded), bq, bk,
+                                    causal=False, window=None)))
 
 
 @pytest.mark.parametrize("window", [16, 64, None])
@@ -204,6 +249,32 @@ def test_tile_codes_mark_fully_visible_tiles(rng):
                 np.testing.assert_array_equal(codes != 0, meta == 1)
             seen |= set(np.unique(codes).tolist())
     assert seen == {0, 1, 2}
+
+
+@pytest.mark.parametrize("Sq,Sk", [(200, 200), (96, 333), (333, 96)])
+def test_tile_codes_noncausal_with_distinct_query_and_key_ids(Sq, Sk):
+    """`tile_map` at causal=False over query and key ids of two sequences
+    (the cross-attention's; Sq == Sk: the encoder's self-attention): never 0
+    on a tile with a visible pair, 2 exactly where every pair is visible,
+    nonzero exactly where `block_metadata` is 1, at each kernel's tiles."""
+    rng = np.random.default_rng(Sq + Sk)
+    if Sq == Sk:
+        seg, pos = make_packed(rng, 1, Sq, doc_lens=[120, 50])
+        ids = tuple(t(x) for x in (seg, seg, pos, pos))
+    else:
+        ids = tuple(t(x) for x in cross_ids(rng, 1, Sq, Sk, 3))
+    seen = set()
+    for bq, bk in ((128, 128), (64, 16), (32, 64), (128, 64)):
+        padded = _pad_all(*ids, bq, bk)
+        codes = tile_map(*ids, bq, bk, causal=False, window=None).numpy()
+        mask = attention_mask(*padded, causal=False, window=None).numpy()
+        tiles = mask.reshape(1, codes.shape[1], bq, codes.shape[2], bk)
+        assert np.all(codes[tiles.any(axis=(2, 4))] != 0)
+        np.testing.assert_array_equal(codes == 2, tiles.all(axis=(2, 4)))
+        meta = block_metadata(*padded, bq, bk, causal=False, window=None).numpy()
+        np.testing.assert_array_equal(codes != 0, meta == 1)
+        seen |= set(np.unique(codes).tolist())
+    assert {0, 1} <= seen
 
 
 def test_tile_map_pads_ragged_lengths(rng):
@@ -811,15 +882,17 @@ def _walk_keeps(code, summary, seg, pos, *, stream_q, causal, window):
     return False
 
 
-def _walk_drops(seg, pos, window, rows):
+def _walk_drops(seg, pos, window, rows, *, causal=True, keys=None):
     """Tiles of the map that the walk drops, over one packed row, with
     queries resident (the forward and the dQ kernel, 64 x 16 tiles) or keys
     (the dK/dV kernel, 32 x 64); fails where it drops a visible pair or
-    keeps a tile the map skips."""
+    keeps a tile the map skips. `keys`: the keys' (seg, pos) where they are
+    not the queries' (cross-attention)."""
     bq, bk = (64, 16) if rows == "queries" else (32, 64)
-    padded = _pad_all(t(seg), t(seg), t(pos), t(pos), 64, 64)
-    codes = tile_map(*padded, bq, bk, causal=True, window=window)[0].numpy()
-    mask = attention_mask(*padded, causal=True, window=window)[0].numpy()
+    seg_k, pos_k = keys if keys is not None else (seg, pos)
+    padded = _pad_all(t(seg), t(seg_k), t(pos), t(pos_k), 64, 64)
+    codes = tile_map(*padded, bq, bk, causal=causal, window=window)[0].numpy()
+    mask = attention_mask(*padded, causal=causal, window=window)[0].numpy()
     sq, sk, pq, pk = (x[0].numpy() for x in padded)
     dropped = 0
     for i in range(codes.shape[0]):
@@ -827,10 +900,10 @@ def _walk_drops(seg, pos, window, rows):
             qs, ks = slice(i * bq, (i + 1) * bq), slice(j * bk, (j + 1) * bk)
             if rows == "queries":
                 kept = _walk_keeps(codes[i, j], _summary(sq[qs], pq[qs]), sk[ks], pk[ks],
-                                   stream_q=False, causal=True, window=window)
+                                   stream_q=False, causal=causal, window=window)
             else:
                 kept = _walk_keeps(codes[i, j], _summary(sk[ks], pk[ks]), sq[qs], pq[qs],
-                                   stream_q=True, causal=True, window=window)
+                                   stream_q=True, causal=causal, window=window)
             assert kept or not mask[qs, ks].any(), (i, j)
             assert not kept or codes[i, j] != 0, (i, j)
             dropped += int(codes[i, j] != 0 and not kept)
@@ -863,3 +936,35 @@ def test_walk_drops_tiles_at_document_starts(rows):
     both documents, and the walk drops those that see neither part."""
     seg, pos = make_packed(np.random.default_rng(0), 1, 256, doc_lens=[100, 156])
     assert _walk_drops(seg, pos, None, rows) > 0
+
+
+@settings(max_examples=10, deadline=None)
+@given(
+    Sq=st.integers(40, 400),
+    Sk=st.integers(40, 700),
+    n_docs=st.integers(1, 6),
+    orphan=st.booleans(),
+    rows=st.sampled_from(["queries", "keys"]),
+)
+def test_walk_keep_rule_noncausal_cross(Sq, Sk, n_docs, orphan, rows):
+    """The same rule at causal=False over query and key ids of two sequences
+    (cross-attention: the resident rows' segments come from the other
+    sequence than the streamed rows'), a query document without keys
+    included: no visible pair dropped, no skipped tile kept."""
+    rng = np.random.default_rng(Sq * 1000 + Sk)
+    seg_q, seg_k, pos_q, pos_k = cross_ids(rng, 1, Sq, Sk, min(n_docs, Sq // 8, Sk // 8) or 1,
+                                           orphan=orphan)
+    _walk_drops(seg_q, pos_q, None, rows, causal=False, keys=(seg_k, pos_k))
+
+
+@pytest.mark.parametrize("rows", ["queries", "keys"])
+def test_walk_drops_nothing_without_the_causal_test(rows):
+    """At causal=False the map's segment range test is exact for sorted ids
+    (a tile pair whose ranges meet shares a segment), so the walk, whose
+    drops come from the causal and window tests at document starts, keeps
+    every tile the map keeps: the encoder's packed clips, and the
+    cross-attention's two sequences."""
+    seg, pos = make_packed(np.random.default_rng(1), 1, 256, doc_lens=[100, 120, 36])
+    assert _walk_drops(seg, pos, None, rows, causal=False) == 0
+    seg_q, seg_k, pos_q, pos_k = cross_ids(np.random.default_rng(2), 1, 200, 500, 4)
+    assert _walk_drops(seg_q, pos_q, None, rows, causal=False, keys=(seg_k, pos_k)) == 0

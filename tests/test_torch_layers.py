@@ -34,16 +34,35 @@ def test_rms_norm_keeps_dtype():
     assert tl.rms_norm(x, torch.zeros(8)).dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("theta,dh", [(1e6, 16), (1e4, 128)])
-def test_rope_matches(rng, theta, dh):
-    pos = rng.integers(0, 64, size=(2, 7)).astype(np.int32)
+@pytest.mark.parametrize("theta,dh,sections", [
+    pytest.param(1e6, 16, None, id="1000000.0-16"),
+    pytest.param(1e4, 128, None, id="10000.0-128"),
+    # M-RoPE: reduced qwen2-vl's sections, and qwen2-vl-7b's at head_dim 128
+    pytest.param(1e6, 16, (2, 3, 3), id="mrope-1000000.0-16"),
+    pytest.param(1e6, 128, (16, 24, 24), id="mrope-1000000.0-128"),
+])
+def test_rope_matches(rng, theta, dh, sections):
+    """Angles and rotated heads; with `sections`, (B,S,3) positions whose t,
+    h and w axes differ, each frequency slot taking its section's axis."""
+    shape = (2, 7) if sections is None else (2, 7, 3)
+    pos = rng.integers(0, 64, size=shape).astype(np.int32)
     x = rng.normal(size=(2, 7, 4, dh)).astype(np.float32)
-    ang_j = jl.rope_angles(jnp.asarray(pos), dh, theta)
-    ang_t = tl.rope_angles(t(pos), dh, theta)
+    ang_j = jl.rope_angles(jnp.asarray(pos), dh, theta, sections)
+    ang_t = tl.rope_angles(t(pos), dh, theta, sections)
+    if sections is not None:  # slot i of section a reads axis a
+        first = np.cumsum((0,) + sections[:-1])
+        for a, i in enumerate(first):
+            np.testing.assert_allclose(n(ang_t)[..., i], pos[..., a] * theta ** (-i / (dh // 2)),
+                                       rtol=1e-5)
     np.testing.assert_allclose(n(ang_t), np.asarray(ang_j), atol=TOL, rtol=TOL)
     ref = np.asarray(jl.apply_rope(jnp.asarray(x), ang_j))
     out = n(tl.apply_rope(t(x), ang_t))
     np.testing.assert_allclose(out, ref, atol=TOL, rtol=TOL)
+
+
+def test_mrope_refuses_sections_off_the_head_width():
+    with pytest.raises(ValueError, match="do not sum"):
+        tl.rope_angles(torch.zeros((1, 2, 3), dtype=torch.int32), 128, 1e6, (2, 3, 3))
 
 
 def test_swiglu_mlp_matches(rng):

@@ -70,3 +70,42 @@ def test_moe_serve_checks_hold_on_the_cpu(smoke, arch):
     res = smoke.main_first_check(first, nodrop_first, routes["prefill"])
     assert res["main_first_rows_held"] == dropped.count(False)
     assert res["main_first_held"] and res["main_first_rel_err"] <= smoke.TOL_DECODE_REL
+
+
+def test_parity_model_keeps_the_real_mrope_sections(smoke):
+    """The fp32 parity path of qwen2-vl-7b keeps the real head width and
+    its M-RoPE sections (16, 24, 24), which sum to head_dim // 2 = 64
+    (`reduced`'s (2, 3, 3) fit head_dim 16 only), and its model runs on its
+    own batch: 3-axis positions, a vision span of PARITY_SEQ / 8 a row."""
+    from repro_torch.models.model import forward_train
+
+    small, batch = smoke.parity_model(get_arch("qwen2-vl-7b"))
+    assert small.head_dim == 128 and small.mrope_sections == (16, 24, 24)
+    assert batch["positions"].shape == (smoke.PARITY_BATCH, smoke.PARITY_SEQ, 3)
+    params = init_params(small, seed=0, dtype=torch.float32, device=CPU)
+    with torch.no_grad():
+        logits, _ = forward_train(small, params, {k: torch.from_numpy(v) for k, v in batch.items()},
+                                  compute_dtype=torch.float32)
+    assert logits.shape[:2] == (smoke.PARITY_BATCH, smoke.PARITY_SEQ)
+    assert bool(torch.isfinite(logits).all())
+
+
+def test_decode_bound_reads_the_decoder_and_every_cache(smoke):
+    """A decode step never runs the encoder: whisper's weight bytes are the
+    decoder's (the embedding's batch rows only, the LM head whole), and
+    the cache bytes hold the constant cross K/V besides the self caches."""
+    from repro_torch.models.model import init_cache
+    from repro_torch.train.optimizer import tree_leaves
+
+    cfg = reduced(get_arch("whisper-medium"))
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=CPU)
+    cache = init_cache(cfg, smoke.SERVE_B, 16, device=CPU, cross_len=40)
+    got = smoke.decode_bound(cfg, params, cache)
+    decoder = sum(x.numel() * 2 for k in ("layers", "final_norm", "lm_head")
+                  for x in tree_leaves(params[k]) if x.dtype == torch.bfloat16)
+    decoder += sum(x.numel() * 4 for k in ("layers", "final_norm")
+                   for x in tree_leaves(params[k]) if x.dtype == torch.float32)
+    decoder += smoke.SERVE_B * cfg.d_model * 2  # the fed tokens' embedding rows
+    assert got["weight_bytes"] == decoder
+    cross = sum(c["cross"][k].numel() * 2 for c in cache for k in ("k_const", "v_const"))
+    assert cross > 0 and got["cache_bytes"] == smoke.nbytes(*tree_leaves(cache))

@@ -22,3 +22,19 @@ def cuda():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
+
+
+def cross_ids(rng, B, Sq, Sk, n_docs, *, orphan=True):
+    """numpy (seg_q, seg_k, pos_q, pos_k), (B, Sq) and (B, Sk), as an
+    encoder-decoder's cross-attention sees them: documents 1..n_docs on each
+    side of random lengths, then padding; with `orphan`, one more query
+    document whose segment id no key has (a transcript without its clip)."""
+    def side(S, n):
+        cuts = np.sort(rng.choice(np.arange(1, S - 2), size=n, replace=False))
+        seg, pos = np.zeros(S, np.int32), np.zeros(S, np.int32)
+        for i, (a, b) in enumerate(zip((0, *cuts[:-1]), cuts)):
+            seg[a:b], pos[a:b] = i + 1, np.arange(b - a)
+        return seg, pos
+    rows = [(*side(Sq, n_docs + orphan), *side(Sk, n_docs)) for _ in range(B)]
+    seg_q, pos_q, seg_k, pos_k = (np.stack(x) for x in zip(*rows))
+    return seg_q, seg_k, pos_q, pos_k
