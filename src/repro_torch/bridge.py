@@ -15,6 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.models.layers import param_dtype
+
 
 def _tensor(a, device, dtype=None):
     a = np.asarray(a)
@@ -25,10 +27,11 @@ def _tensor(a, device, dtype=None):
     return t.to(device=device, dtype=dtype)
 
 
-def _map(fn, tree):
+def _map(fn, tree, key=None):
+    """fn(leaf, key of the leaf in its dict) over a tree of dicts."""
     if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: _map(fn, v, k) for k, v in tree.items()}
+    return fn(tree, key)
 
 
 def _leading_dim(tree):
@@ -44,7 +47,7 @@ def _unstack(stacked, fn):
     layers = [None] * (n * P)
     for pos in range(P):
         for j in range(n):
-            layers[j * P + pos] = _map(lambda a: fn(np.asarray(a)[j]), stacked[pos])
+            layers[j * P + pos] = _map(lambda a, key: fn(np.asarray(a)[j], key), stacked[pos])
     return layers
 
 
@@ -58,12 +61,14 @@ LAYER_KEYS = ("layers", "enc_layers")  # the trees of per-layer parameters
 
 
 def params_from_jax(tree, *, dtype=torch.bfloat16, device="cuda"):
-    """Reference parameters (scan or list layout) -> port parameters:
-    matrices in `dtype`, 1-D weights (norms) in float32."""
-    def conv(a):
-        return _tensor(a, device, dtype if np.ndim(a) >= 2 else torch.float32)
+    """Reference parameters (scan or list layout) -> port parameters, each
+    in the dtype `init_params` stores it in (`layers.param_dtype`): matrices
+    in `dtype`; 1-D weights (norms, biases) and the parameters the reference
+    uses in float32 only (`layers.FP32_PARAMS`: A_log, r_g, b_g) in float32."""
+    def conv(a, key):
+        return _tensor(a, device, param_dtype(key, np.ndim(a), dtype))
 
-    return {k: _layers(v, conv) if k in LAYER_KEYS else conv(v) for k, v in tree.items()}
+    return {k: _layers(v, conv) if k in LAYER_KEYS else conv(v, k) for k, v in tree.items()}
 
 
 def _is_vstate(tree):
@@ -100,7 +105,7 @@ def opt_state_from_jax(state, *, device="cuda"):
     stay stacked: the state of the port's spmd Adafactor
     (`optimizer.init(params, period)`). A list-layout state (the reference's
     pipeline engine) converts layer by layer."""
-    def conv(a):
+    def conv(a, key=None):
         return _tensor(a, device)
 
     def layers(name, v):
@@ -124,4 +129,4 @@ def _is_factored(tree):
 def cache_from_jax(tree, *, device="cuda"):
     """Reference decode cache (scan layout) -> per-layer list, dtypes kept;
     an encoder-decoder's layers keep their "cross" K/V beside "mixer"."""
-    return _unstack(tree, lambda a: _tensor(a, device))
+    return _unstack(tree, lambda a, key: _tensor(a, device))

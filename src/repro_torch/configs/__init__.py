@@ -1,5 +1,5 @@
 """Config registry (copy of `repro.configs`): importing this package registers
-the architectures the port runs so far."""
+all architectures."""
 from repro_torch.configs.base import (  # noqa: F401
     ALL_SHAPES,
     SHAPES_BY_NAME,
@@ -12,6 +12,9 @@ from repro_torch.configs.base import (  # noqa: F401
     register,
 )
 
+# Assigned architectures (register on import).
+from repro_torch.configs import jamba_1_5_large_398b  # noqa: F401
+from repro_torch.configs import xlstm_1_3b  # noqa: F401
 from repro_torch.configs import qwen3_8b  # noqa: F401
 from repro_torch.configs import gemma3_1b  # noqa: F401
 from repro_torch.configs import gemma3_4b  # noqa: F401
@@ -23,3 +26,16 @@ from repro_torch.configs import whisper_medium  # noqa: F401
 
 # Paper's own models (Table 3).
 from repro_torch.configs import paper_models  # noqa: F401
+
+ASSIGNED_ARCHS = (
+    "jamba-1.5-large-398b",
+    "xlstm-1.3b",
+    "qwen3-8b",
+    "gemma3-1b",
+    "gemma3-4b",
+    "h2o-danube-1.8b",
+    "qwen2-vl-7b",
+    "whisper-medium",
+    "grok-1-314b",
+    "qwen3-moe-30b-a3b",
+)

@@ -1,10 +1,12 @@
-"""Common layers: norms, rotary embeddings (M-RoPE too), initializers (`repro.models.layers`)."""
+"""Common layers: norms, rotary embeddings (M-RoPE too), the causal depthwise
+conv, initializers (`repro.models.layers`)."""
 from __future__ import annotations
 
 import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def dense_init(generator, shape, in_axis=0, *, dtype=torch.float32, device="cuda"):
@@ -13,6 +15,20 @@ def dense_init(generator, shape, in_axis=0, *, dtype=torch.float32, device="cuda
     scale = 1.0 / math.sqrt(max(fan_in, 1))
     w = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
     return w.mul_(scale).to(dtype)
+
+
+# parameters of more than one axis that stay float32 whatever dtype the
+# model's matrices take: the reference uses them in float32 arithmetic only
+# (Mamba's `A = -exp(A_log)`, sLSTM's recurrence `r_g`, cast to float32, and
+# its gate bias `b_g` in `gx + gr + b_g`), never cast to the compute dtype;
+# one-axis parameters (norms, biases) are float32 always
+FP32_PARAMS = frozenset({"A_log", "r_g", "b_g"})
+
+
+def param_dtype(name, ndim, dtype):
+    """The dtype a parameter named `name` of `ndim` axes is stored in when
+    the model's matrices take `dtype` (`init_params`, `bridge`)."""
+    return dtype if ndim >= 2 and name not in FP32_PARAMS else torch.float32
 
 
 def rms_norm(x, weight, eps=1e-6):
@@ -59,3 +75,22 @@ def apply_rope(x, angles):
     cos = torch.cos(angles)[..., None, :].to(x.dtype)
     sin = torch.sin(angles)[..., None, :].to(x.dtype)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def causal_conv1d(x, w, b, segment_ids=None):
+    """Depthwise causal conv over the sequence: x (B,S,C), w (C,K), b (C,).
+
+    K shifted multiply-adds (K <= 4), in x's dtype; where `segment_ids`
+    (B,S) is given, a tap that reaches across a packed-document boundary
+    reads 0.
+    """
+    K, S = w.shape[-1], x.shape[1]
+    out = x * w[:, -1]
+    for j in range(1, K):
+        shifted = F.pad(x, (0, 0, j, 0))[:, :S]
+        if segment_ids is not None:
+            same = F.pad(segment_ids, (j, 0))[:, :S] == segment_ids
+            shifted = torch.where(same[..., None], shifted, torch.zeros((), dtype=x.dtype,
+                                                                        device=x.device))
+        out = out + shifted * w[:, -1 - j]
+    return out + b

@@ -1,14 +1,19 @@
 """Model assembly: init, packed forward and loss, prefill, decode step, cache.
 
-Counterpart of `repro.models.model` for attention models whose FFN is dense
-or MoE (`models/moe.py`): decoder-only LMs, the VLM (vision embeddings in
+Counterpart of `repro.models.model`: layers whose mixer is attention,
+Mamba (`models/ssm.py`), mLSTM or sLSTM (`models/xlstm.py`) and whose FFN
+is dense, MoE (`models/moe.py`) or none (an xLSTM block carries its own
+projections); decoder-only LMs, the hybrid and recurrent ones among them,
+the VLM (vision embeddings in
 place of the first tokens' embeddings, M-RoPE positions) and the
 encoder-decoder (a non-causal encoder over frame embeddings, then a decoder
 whose layers cross-attend to its output). Parameters are a plain dict with
 the reference's keys and shapes; `layers` (and the encoder's `enc_layers`)
 is a list with one dict per layer (layer j*P + pos is `layers[pos][...][j]`
 of the reference's scan layout, P the period; the encoder's period is
-`cfg.period[0]` alone). Norm weights are always float32. Matrices are
+`cfg.period[0]` alone). Norm weights and every other one-axis weight are
+always float32, and so are the few parameters the reference uses in float32
+arithmetic only (`layers.FP32_PARAMS`). The other matrices are
 stored in whatever dtype `init_params` was given: serving and the forward
 phase keep them in bf16; training keeps float32 masters, as the reference
 does, and every use casts them to the compute dtype (`attention`, `mlp`,
@@ -27,15 +32,26 @@ from repro_torch.models.attention import attention, init_attention
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.mlp import init_mlp, mlp
 from repro_torch.models.moe import init_moe, moe_ffn, router_aux_loss
+from repro_torch.models.ssm import init_mamba, init_mamba_cache, mamba
+from repro_torch.models.xlstm import (
+    init_mlstm,
+    init_mlstm_cache,
+    init_slstm,
+    init_slstm_cache,
+    mlstm,
+    slstm,
+)
 
+MIXER_INIT = {"attn": init_attention, "mamba": init_mamba, "mlstm": init_mlstm,
+              "slstm": init_slstm}
+MIXER_FN = {"attn": attention, "mamba": mamba, "mlstm": mlstm, "slstm": slstm}
 FFN_INIT = {"dense": init_mlp, "moe": init_moe}
 FFN_FN = {"dense": mlp, "moe": moe_ffn}
 
 
 def _check_spec(spec):
-    if spec.mixer != "attn" or spec.ffn not in FFN_FN:
-        raise NotImplementedError(f"layer {spec} is not ported yet "
-                                  "(attention + dense or MoE FFN only)")
+    if spec.mixer not in MIXER_FN or (spec.ffn != "none" and spec.ffn not in FFN_FN):
+        raise NotImplementedError(f"layer {spec}: no such mixer or FFN")
 
 
 # ------------------------------------------------------------------- init
@@ -46,12 +62,14 @@ def init_layer(generator, cfg, spec, *, cross=False, dtype=torch.bfloat16, devic
 
     def norm():
         return torch.zeros(D, dtype=torch.float32, device=device)
-    p = {"norm1": norm(), "mixer": init_attention(generator, cfg, dtype=dtype, device=device)}
+    p = {"norm1": norm(),
+         "mixer": MIXER_INIT[spec.mixer](generator, cfg, dtype=dtype, device=device)}
     if cross:
         p["norm_cross"] = norm()
         p["cross"] = init_attention(generator, cfg, dtype=dtype, device=device)
-    p["norm2"] = norm()
-    p["ffn"] = FFN_INIT[spec.ffn](generator, cfg, dtype=dtype, device=device)
+    if spec.ffn != "none":
+        p["norm2"] = norm()
+        p["ffn"] = FFN_INIT[spec.ffn](generator, cfg, dtype=dtype, device=device)
     return p
 
 
@@ -85,8 +103,8 @@ def init_params(cfg, seed=0, *, dtype=torch.bfloat16, device="cuda"):
 # ----------------------------------------------------------------- layers
 def apply_layer(cfg, spec, p, x, md, cache=None):
     mix_cache = cache.get("mixer") if cache else None
-    h, new_mix = attention(cfg, spec, p["mixer"], rms_norm(x, p["norm1"], cfg.norm_eps), md,
-                           cache=mix_cache)
+    h, new_mix = MIXER_FN[spec.mixer](cfg, spec, p["mixer"], rms_norm(x, p["norm1"], cfg.norm_eps),
+                                      md, cache=mix_cache)
     x = x + h
     new_cache = {"mixer": new_mix} if new_mix is not None else None
     if "cross" in p:  # a decoder layer over the encoder output md["enc_out"]
@@ -96,7 +114,8 @@ def apply_layer(cfg, spec, p, x, md, cache=None):
         x = x + h
         if new_cross is not None:  # prefill's K/V, or decode's constant cache
             new_cache = {**(new_cache or {}), "cross": new_cross}
-    x = x + FFN_FN[spec.ffn](cfg, p["ffn"], rms_norm(x, p["norm2"], cfg.norm_eps))
+    if spec.ffn != "none":
+        x = x + FFN_FN[spec.ffn](cfg, p["ffn"], rms_norm(x, p["norm2"], cfg.norm_eps))
     return x, new_cache
 
 
@@ -237,38 +256,58 @@ def cache_len(cfg, spec, max_len):
     return min(2 * cfg.window, max_len) if spec.attn_kind == "swa" else max_len
 
 
-def init_cache(cfg, B, max_len, cache_dtype=torch.bfloat16, device="cuda", cross_len=0):
-    """Per-layer decode cache: zero K/V of `cache_len` slots, positions -1;
-    an encoder-decoder's layers also hold zero cross K/V of `cross_len`
-    encoder positions ("cross": {"k_const", "v_const"})."""
+def _layer_cache(cfg, spec, B, max_len, cache_dtype, device, cross_len):
+    """One layer's zero decode cache (the reference's `_layer_cache`)."""
     K, dh = cfg.n_kv_heads, cfg.head_dim
 
     def zeros(T):
         return torch.zeros((B, T, K, dh), dtype=cache_dtype, device=device)
-    caches = []
-    for i in range(cfg.n_layers):
-        spec = cfg.layer_spec(i)
-        _check_spec(spec)
+    _check_spec(spec)
+    if spec.mixer == "attn":
         T = cache_len(cfg, spec, max_len)
         c = {"mixer": {"k": zeros(T), "v": zeros(T),
                        "pos": torch.full((B, T), -1, dtype=torch.int32, device=device)}}
-        if cfg.enc_dec:
-            c["cross"] = {"k_const": zeros(cross_len), "v_const": zeros(cross_len)}
-        caches.append(c)
-    return caches
+    elif spec.mixer == "mamba":  # float32 conv window, the reference's default
+        c = {"mixer": init_mamba_cache(cfg, B, device=device)}
+    elif spec.mixer == "mlstm":
+        c = {"mixer": init_mlstm_cache(cfg, B, device=device)}
+    else:
+        c = {"mixer": init_slstm_cache(cfg, B, device=device)}
+    if cfg.enc_dec:
+        c["cross"] = {"k_const": zeros(cross_len), "v_const": zeros(cross_len)}
+    return c
+
+
+def init_cache(cfg, B, max_len, cache_dtype=torch.bfloat16, device="cuda", cross_len=0):
+    """Per-layer decode cache, by mixer: attention's zero K/V of `cache_len`
+    slots, positions -1; Mamba's zero float32 conv window (B, K-1, d_inner)
+    and state (B, d_inner, N); the mLSTM's zero (C, n, m) and the sLSTM's
+    (c, n, m, h), float32. An encoder-decoder's layers also hold zero cross
+    K/V of `cross_len` encoder positions ("cross": {"k_const", "v_const"})."""
+    return [_layer_cache(cfg, cfg.layer_spec(i), B, max_len, cache_dtype, device, cross_len)
+            for i in range(cfg.n_layers)]
 
 
 def extend_cache(cfg, prefill_caches, max_len):
-    """A max_len decode cache holding the prefill K/V: position p of a full
-    layer in slot p; of a sliding-window layer in slot p % T of its ring, of
-    which it keeps the last T positions (the ones decode can still see). An
-    encoder-decoder's cross K/V are the prefill's, carried over unchanged."""
-    first = prefill_caches[0]["mixer"]["k"]
-    B, S = first.shape[:2]
+    """A max_len decode cache from the prefill's: an attention layer's K/V
+    of position p in slot p of a full layer, p % T of a sliding-window
+    layer's ring, of which it keeps the last T positions (the ones decode
+    can still see); a recurrent layer's state, and an encoder-decoder's
+    cross K/V, carried over unchanged. B, the prompt length S, the dtype
+    and the device are the first K/V's (B, device of any state without
+    attention)."""
+    kv = [c["mixer"]["k"] for c in prefill_caches if "k" in c["mixer"]]
+    first = kv[0] if kv else next(iter(prefill_caches[0]["mixer"].values()))
+    B, S = first.shape[0], (kv[0].shape[1] if kv else 0)
     if S > max_len:
         raise ValueError(f"prompt length {S} exceeds max_len {max_len}")
-    cache = init_cache(cfg, B, max_len, cache_dtype=first.dtype, device=first.device)
-    for dst, src in zip(cache, prefill_caches):
+    cache = []
+    for i, src in enumerate(prefill_caches):
+        spec = cfg.layer_spec(i)
+        if spec.mixer != "attn":
+            cache.append(dict(src))
+            continue
+        dst = _layer_cache(cfg, spec, B, max_len, first.dtype, first.device, 0)
         T = dst["mixer"]["k"].shape[1]
         keep = min(S, T)
         slots = torch.arange(S - keep, S, device=first.device) % T
@@ -276,6 +315,7 @@ def extend_cache(cfg, prefill_caches, max_len):
             dst["mixer"][name][:, slots] = src["mixer"][name][:, S - keep:]
         if "cross" in src:
             dst["cross"] = src["cross"]
+        cache.append(dst)
     return cache
 
 

@@ -1,0 +1,268 @@
+"""xLSTM blocks, as `repro.models.xlstm`: mLSTM (matrix memory, chunkwise
+parallel) and sLSTM (scalar memory, recurrent per position, block-diagonal
+recurrence per head).
+
+The mLSTM's training and prefill path is the chunkwise form: quadratic work
+inside a chunk of L positions, the (B, H, dh, dh) matrix state carried from
+chunk to chunk, stabilised in log space, with the state dropped at packed
+document starts (`carry_ok`, `suffix_ok`). The reference's `lax.scan` over
+chunks is a Python loop over them here, and the sLSTM's scan over positions
+a Python loop over positions. Decode is O(1) a token from the (C, n, m)
+cache of an mLSTM and the (c, n, m, h) cache of an sLSTM.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import causal_conv1d, dense_init
+
+NEG = -1e30
+
+
+def _di(cfg):
+    return 2 * cfg.d_model
+
+
+def init_mlstm(generator, cfg, *, dtype=torch.bfloat16, device="cuda"):
+    D, H = cfg.d_model, cfg.n_heads
+    di = _di(cfg)
+    dh = di // H
+    kw = dict(dtype=dtype, device=device)
+
+    def vec(n, value):
+        return torch.full((n,), value, dtype=torch.float32, device=device)
+    return {
+        "w_m": dense_init(generator, (D, di), **kw),
+        "w_z": dense_init(generator, (D, di), **kw),
+        "conv_w": dense_init(generator, (di, cfg.xlstm_conv), **kw),
+        "conv_b": vec(di, 0.0),
+        # block-diagonal per-head q/k/v
+        "wq": dense_init(generator, (H, dh, dh), in_axis=1, **kw),
+        "wk": dense_init(generator, (H, dh, dh), in_axis=1, **kw),
+        "wv": dense_init(generator, (H, dh, dh), in_axis=1, **kw),
+        "wi": dense_init(generator, (di, H), **kw),
+        "wf": dense_init(generator, (di, H), **kw),
+        "bi": vec(H, 0.0),
+        "bf": vec(H, 3.0),  # forget ~ sigmoid(3)
+        "gn": vec(di, 1.0),
+        "w_out": dense_init(generator, (di, D), **kw),
+    }
+
+
+def _mlstm_inputs(cfg, p, x, segment_ids):
+    """q, k (scaled by 1/sqrt(dh)), v (B,S,H,dh) in x's dtype; the input and
+    forget gates' logs li, lf (B,S,H) in float32; the output gate's z (B,S,di)."""
+    H, di = cfg.n_heads, _di(cfg)
+    dh = di // H
+    B, S, _ = x.shape
+    dtype = x.dtype
+    xm = x @ p["w_m"].to(dtype)
+    z = x @ p["w_z"].to(dtype)
+    xc = F.silu(causal_conv1d(xm, p["conv_w"].to(dtype), p["conv_b"].to(dtype), segment_ids))
+    xh = xc.reshape(B, S, H, dh)
+    q = torch.einsum("bshk,hkl->bshl", xh, p["wq"].to(dtype))
+    k = torch.einsum("bshk,hkl->bshl", xh, p["wk"].to(dtype)) / math.sqrt(dh)
+    v = torch.einsum("bshk,hkl->bshl", xm.reshape(B, S, H, dh), p["wv"].to(dtype))
+    li = (xc @ p["wi"].to(dtype)).float() + p["bi"]
+    lf = F.logsigmoid((xc @ p["wf"].to(dtype)).float() + p["bf"])
+    return q, k, v, li, lf, z
+
+
+def _mlstm_chunk(C, n, m, qb, kb, vb, lib, lfb, sb, kpb, tri):
+    """One chunk of L positions from the carried (C (B,H,dh,dh), n (B,H,dh),
+    m (B,H)): qb, kb, vb (B,H,L,dh), lib, lfb (B,H,L) float32; sb (B,L) the
+    segment ids, kpb (B,L) 0 where a document starts. -> (h (B,H,L,dh), C, n, m)."""
+    kpf = kpb.float()
+    # prod(kp[:i]): the positions that may still see the carry from earlier chunks
+    carry_ok = torch.cumprod(kpf, dim=-1)[:, None, :]  # (B,1,L)
+    # prod(kp[j+1:]): the positions whose contribution survives to the chunk's end
+    kp_next = torch.cat([kpf[:, 1:], torch.ones_like(kpf[:, :1])], dim=-1)
+    suffix_ok = torch.flip(torch.cumprod(torch.flip(kp_next, (-1,)), dim=-1), (-1,))[:, None, :]
+
+    b = torch.cumsum(lfb, dim=-1)  # (B,H,L) inclusive log-decay
+    m_inter = b + m[..., None]
+    dmat = b[..., :, None] - b[..., None, :] + lib[..., None, :]  # (B,H,L,L)
+    smask = (sb[:, None, :, None] == sb[:, None, None, :]) & tri
+    dmat = torch.where(smask, dmat, torch.full((), NEG, device=dmat.device))
+    m_new = torch.maximum(m_inter, dmat.amax(dim=-1))  # (B,H,L)
+    sc = (qb @ kb.transpose(-1, -2)) * torch.exp(dmat - m_new[..., None])
+    inter_w = carry_ok * torch.exp(m_inter - m_new)  # (B,H,L)
+    num = sc @ vb + inter_w[..., None] * (qb @ C)
+    den = sc.sum(-1) + inter_w * torch.einsum("bhk,bhlk->bhl", n, qb)
+    h = num / torch.maximum(den.abs(), torch.exp(-m_new))[..., None]  # (B,H,L,dh)
+    # the chunk-end state, without the contributions before the last document start
+    total = b[..., -1]  # (B,H)
+    dk = total[..., None] - b + lib  # (B,H,L): decay from each position to the chunk's end
+    m_c = torch.maximum(total + m, dk.amax(dim=-1))
+    scale_old = carry_ok[:, :, -1] * torch.exp(total + m - m_c)  # (B,H)
+    w = suffix_ok * torch.exp(dk - m_c[..., None])
+    C = scale_old[..., None, None] * C + (kb * w[..., None]).transpose(-1, -2) @ vb
+    n = scale_old[..., None] * n + torch.einsum("bhl,bhlk->bhk", w, kb)
+    return h, C, n, m_c
+
+
+def mlstm_scan(q, k, v, li, lf, seg, keep, L):
+    """The chunkwise mLSTM over (B,S,H,dh) q, k, v and (B,S,H) li, lf from a
+    zero state, chunks of L positions; seg, keep (B,S): segment ids and
+    False where a document starts. -> (h (B,S,H·dh) float32, (C, n, m))."""
+    B, S, H, dh = q.shape
+    nc = S // L
+
+    def chunks(t):  # (B,S,H,dh) -> nc x (B,H,L,dh); (B,S,H) -> nc x (B,H,L)
+        t = t.reshape((B, nc, L) + t.shape[2:])
+        return (t.permute(1, 0, 3, 2, 4) if t.dim() == 5 else t.permute(1, 0, 3, 2)).unbind(0)
+
+    tri = torch.tril(torch.ones((L, L), dtype=torch.bool, device=q.device))
+    C = torch.zeros((B, H, dh, dh), dtype=torch.float32, device=q.device)
+    n = torch.zeros((B, H, dh), dtype=torch.float32, device=q.device)
+    m = torch.zeros((B, H), dtype=torch.float32, device=q.device)
+    hs = []
+    for qb, kb, vb, lib, lfb, sb, kpb in zip(
+            *(chunks(t.float()) for t in (q, k, v)), *(chunks(t) for t in (li, lf)),
+            seg.reshape(B, nc, L).unbind(1), keep.reshape(B, nc, L).unbind(1)):
+        h, C, n, m = _mlstm_chunk(C, n, m, qb, kb, vb, lib, lfb, sb, kpb, tri)
+        hs.append(h)
+    h = torch.stack(hs, 1).permute(0, 1, 3, 2, 4).reshape(B, S, H * dh)  # (B,nc,L,H,dh)
+    return h, (C, n, m)
+
+
+def mlstm(cfg, spec, p, x, md, cache=None, chunk=None):
+    """Returns (out (B,S,D), new_cache).
+
+    cache: None for the packed forward and prefill, chunkwise over chunks of
+    `chunk` positions (`cfg.mlstm_chunk` by default; S must be a multiple of
+    it, or shorter; with md['collect_state'] the new cache is the
+    {'C', 'n', 'm'} after the last chunk); else that cache and one token.
+    """
+    chunk = chunk if chunk is not None else cfg.mlstm_chunk
+    B, S, D = x.shape
+    di = _di(cfg)
+    dtype = x.dtype
+
+    if cache is not None:  # O(1) recurrent decode step
+        # The reference passes no conv state: `_mlstm_inputs(cfg, p, x, None)`
+        # over the new token alone (src/repro/models/xlstm.py:81), so the
+        # causal conv sees that token only, where the packed forward's sees the
+        # xlstm_conv - 1 before it too; kept as the reference computes it.
+        q, k, v, li, lf, z = _mlstm_inputs(cfg, p, x, None)
+        C, n, m = cache["C"], cache["n"], cache["m"]  # (B,H,dh,dh), (B,H,dh), (B,H)
+        li, lf = li[:, 0], lf[:, 0]  # (B,H)
+        m_new = torch.maximum(lf + m, li)
+        fe = torch.exp(lf + m - m_new)[..., None]
+        ie = torch.exp(li - m_new)[..., None]
+        kf, vf = k[:, 0].float(), v[:, 0].float()
+        C = fe[..., None] * C + ie[..., None] * kf[..., :, None] * vf[..., None, :]
+        n = fe * n + ie * kf
+        qf = q[:, 0].float()  # (B,H,dh)
+        num = torch.einsum("bhkl,bhk->bhl", C, qf)
+        den = torch.einsum("bhk,bhk->bh", n, qf).abs()
+        h = num / torch.maximum(den, torch.exp(-m_new))[..., None]
+        hflat = (h.reshape(B, 1, di) * p["gn"]).to(dtype)
+        out = (hflat * F.silu(z)) @ p["w_out"].to(dtype)
+        return out, {"C": C, "n": n, "m": m_new}
+
+    seg = md.get("segment_ids")
+    q, k, v, li, lf, z = _mlstm_inputs(cfg, p, x, seg)
+    L = min(chunk, S)
+    assert S % L == 0, (S, L)
+    if seg is not None:
+        keep = seg == F.pad(seg, (1, 0), value=-1)[:, :S]
+    else:
+        seg = torch.ones((B, S), dtype=torch.int32, device=x.device)
+        keep = torch.ones((B, S), dtype=torch.bool, device=x.device)
+    h, (C, n, m) = mlstm_scan(q, k, v, li, lf, seg, keep, L)
+    h = (h * p["gn"]).to(dtype)
+    out = (h * F.silu(z)) @ p["w_out"].to(dtype)
+    new_cache = {"C": C, "n": n, "m": m} if md.get("collect_state") else None
+    return out, new_cache
+
+
+def init_mlstm_cache(cfg, batch, device="cuda"):
+    H = cfg.n_heads
+    dh = _di(cfg) // H
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+    return {"C": zeros(batch, H, dh, dh), "n": zeros(batch, H, dh), "m": zeros(batch, H)}
+
+
+# --------------------------------------------------------------------- sLSTM
+def init_slstm(generator, cfg, *, dtype=torch.bfloat16, device="cuda"):
+    """`r_g` and `b_g` stay float32 (`layers.FP32_PARAMS`): the reference
+    computes the recurrence and the gate bias in float32."""
+    D, H = cfg.d_model, cfg.n_heads
+    dh = D // H
+    kw = dict(dtype=dtype, device=device)
+    b_g = torch.zeros((4, H, dh), dtype=torch.float32, device=device)
+    b_g[1] = 3.0  # the forget gate's
+    return {
+        "w_g": dense_init(generator, (D, 4, H, dh), **kw),
+        "r_g": dense_init(generator, (4, H, dh, dh), in_axis=2, device=device) * 0.5,
+        "b_g": b_g,
+        "w_out": dense_init(generator, (D, D), **kw),
+    }
+
+
+def slstm_scan(gates_x, keep, r_g, b_g, carry):
+    """The sLSTM over positions: gates_x (B,S,4,H,dh) the input's gate
+    pre-activations, keep (B,S) float32 0 where the carry is zeroed, r_g
+    (4,H,dh,dh) and b_g (4,H,dh) float32, carry the (c, n, m, h) (B,H,dh)
+    before the first position. -> (h (B,S,H,dh) float32, carry after the last)."""
+    B, S, _, H, dh = gates_x.shape
+    # the recurrence as one product a head: h (dh) -> the 4 gates' dh columns
+    r = r_g.float().permute(1, 2, 0, 3).reshape(H, dh, 4 * dh)
+    c, n, m, h = carry
+    hs = []
+    for gx, kp in zip(gates_x.float().unbind(1), keep[..., None, None].unbind(1)):
+        c, n, m, h = c * kp, n * kp, m * kp, h * kp
+        gr = torch.bmm(h.transpose(0, 1), r).view(H, B, 4, dh).permute(1, 2, 0, 3)
+        it, ft, zt, ot = (gx + gr + b_g).unbind(1)  # (B,H,dh) each
+        m_new = torch.maximum(ft + m, it)
+        i_e = torch.exp(it - m_new)
+        f_e = torch.exp(ft + m - m_new)
+        c = f_e * c + i_e * torch.tanh(zt)
+        n = f_e * n + i_e
+        h = torch.sigmoid(ot) * c / n.clamp_min(1.0)
+        m = m_new
+        hs.append(h)
+    return torch.stack(hs, 1), (c, n, m, h)
+
+
+def slstm(cfg, spec, p, x, md, cache=None):
+    """sLSTM, one position at a time, with a block-diagonal recurrence per
+    head. Gates: i (exp), f (exp, stabilised by m), z (tanh cell input), o
+    (sigmoid); the carry is zeroed at a document start (the packed forward
+    and prefill), never in decode. Returns (out (B,S,D), new_cache): the
+    {'c', 'n', 'm', 'h'} after the last position, with a cache given (decode)
+    or md['collect_state'] (prefill)."""
+    B, S, D = x.shape
+    H = cfg.n_heads
+    dh = D // H
+    dtype = x.dtype
+    gates_x = (x @ p["w_g"].reshape(D, 4 * H * dh).to(dtype)).view(B, S, 4, H, dh)
+    seg = md.get("segment_ids")
+    if seg is not None and cache is None:
+        keep = (seg == F.pad(seg, (1, 0), value=-1)[:, :S]).float()
+    else:
+        keep = torch.ones((B, S), dtype=torch.float32, device=x.device)
+    if cache is not None:
+        carry = (cache["c"], cache["n"], cache["m"], cache["h"])
+    else:
+        carry = (torch.zeros((B, H, dh), dtype=torch.float32, device=x.device),) * 4
+    hs, (c, n, m, h) = slstm_scan(gates_x, keep, p["r_g"], p["b_g"], carry)
+    y = hs.reshape(B, S, D).to(dtype)
+    out = y @ p["w_out"].to(dtype)
+    new_cache = None
+    if cache is not None or md.get("collect_state"):
+        new_cache = {"c": c, "n": n, "m": m, "h": h}
+    return out, new_cache
+
+
+def init_slstm_cache(cfg, batch, device="cuda"):
+    H = cfg.n_heads
+    dh = cfg.d_model // H
+    z = torch.zeros((batch, H, dh), dtype=torch.float32, device=device)
+    return {"c": z, "n": z.clone(), "m": z.clone(), "h": z.clone()}

@@ -4,7 +4,8 @@ kernels, bf16 and fp32 alike) against their
 plain PyTorch versions, the port's reduced model, train step and pipeline
 engine on the card against themselves on the CPU, a checkpoint of card
 tensors restored onto the card, and the MoE layer against its CPU path and
-against itself. Every case is
+against itself, and the recurrent mixers (Mamba, mLSTM, sLSTM) against
+their CPU path. Every case is
 marked `gpu` and skips without a CUDA card. This file imports no JAX, so it
 runs where only PyTorch is installed:
 
@@ -475,7 +476,7 @@ def test_gpu_checkpoint_restores_card_tensors_bitwise(cuda, tmp_path):
 # qwen3-moe-30b-a3b's group 8 and grok-1-314b's group 6 at 128
 FAMILY_CASES = [(256, 4, 1, 512), (256, 8, 4, 1024), (80, 32, 8, 4096), (128, 32, 32, None),
                 (128, 28, 4, None), (80, 8, 8, 96), (256, 7, 1, 96), (128, 32, 4, None),
-                (128, 48, 8, None)]
+                (128, 48, 8, None), (128, 64, 8, None)]  # the last: jamba-1.5-large-398b
 
 
 @pytest.mark.gpu
@@ -1030,3 +1031,52 @@ def test_gpu_cross_attention_through_autograd(cuda, rng, dtype):
     ref = packed_attention_ref_backward(q.detach(), k.detach(), v.detach(), torch.ones_like(out),
                                         *ids, causal=False)
     _check_grads(got, ref, dtype)
+
+
+# ------------------------------------------------------------ recurrent mixers
+RECURRENT_MIXERS = [("jamba-1.5-large-398b", "mamba"), ("xlstm-1.3b", "mlstm"),
+                    ("xlstm-1.3b", "slstm")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,mixer", RECURRENT_MIXERS)
+def test_gpu_recurrent_mixer_matches_cpu(cuda, rng, arch, mixer):
+    """A reduced recurrent mixer (d_model 64; the mLSTM at chunk 16, so 4
+    chunks) in fp32 on the card against its CPU path on 2 x 64 packed
+    documents that start mid-chunk and end in padding: the output, the
+    collected state, one decode step from that state, and every gradient
+    of sum(out * r), each to 1e-4 of the CPU's largest |value|."""
+    from repro_torch.models import ssm, xlstm
+    from repro_torch.models.model import init_layer
+    from repro_torch.train.optimizer import tree_leaves
+
+    fn = {"mamba": ssm.mamba, "mlstm": xlstm.mlstm, "slstm": xlstm.slstm}[mixer]
+    cfg = reduced(get_arch(arch), mlstm_chunk=16)
+    spec = next(sp for sp in cfg.period if sp.mixer == mixer)
+    g = torch.Generator()
+    g.manual_seed(0)
+    p = init_layer(g, cfg, spec, dtype=torch.float32, device="cpu")["mixer"]
+    seg = np.zeros((2, 64), np.int32)
+    seg[0, :10], seg[0, 10:41], seg[0, 41:58] = 1, 2, 3
+    seg[1, :27], seg[1, 27:] = 1, 2
+    x = torch.from_numpy(rng.standard_normal((2, 64, cfg.d_model), dtype=np.float32))
+    r = torch.from_numpy(rng.standard_normal((2, 64, cfg.d_model), dtype=np.float32))
+    tok = torch.from_numpy(rng.standard_normal((2, 1, cfg.d_model), dtype=np.float32))
+
+    def run(dev):
+        params = {k: v.to(dev).requires_grad_(True) for k, v in p.items()}
+        xi = x.to(dev).requires_grad_(True)
+        md = {"segment_ids": torch.from_numpy(seg).to(dev), "collect_state": True}
+        out, state = fn(cfg, spec, params, xi, md)
+        grads = torch.autograd.grad((out * r.to(dev)).sum(), [xi] + tree_leaves(params))
+        with torch.no_grad():
+            step, nxt = fn(cfg, spec, params, tok.to(dev),
+                           {"segment_ids": torch.ones((2, 1), dtype=torch.int32, device=dev)},
+                           cache={k: v.detach() for k, v in state.items()})
+        return [t.detach().cpu() for t in (out, *state.values(), step, *nxt.values(), *grads)]
+
+    want, got = run("cpu"), run(cuda)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()) + 1e-7

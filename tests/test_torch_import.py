@@ -35,6 +35,8 @@ assert {"repro_torch.configs.paper_models", "repro_torch.configs.gemma3_1b",
         "repro_torch.configs.gemma3_4b", "repro_torch.configs.h2o_danube_1_8b"} <= set(names)
 assert {"repro_torch.models.moe", "repro_torch.configs.qwen3_moe_30b_a3b",
         "repro_torch.configs.grok_1_314b"} <= set(names)
+assert {"repro_torch.models.ssm", "repro_torch.models.xlstm", "repro_torch.configs.xlstm_1_3b",
+        "repro_torch.configs.jamba_1_5_large_398b"} <= set(names)
 """
 
 
@@ -49,7 +51,7 @@ def test_port_imports_neither_jax_nor_reference():
                        text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     count = int(r.stdout.split()[0])
-    assert count >= 40  # every module of the slices so far was imported
+    assert count >= 44  # every module of the slices so far was imported
 
 
 def _imported_modules(path):

@@ -109,3 +109,41 @@ def test_decode_bound_reads_the_decoder_and_every_cache(smoke):
     assert got["weight_bytes"] == decoder
     cross = sum(c["cross"][k].numel() * 2 for c in cache for k in ("k_const", "v_const"))
     assert cross > 0 and got["cache_bytes"] == smoke.nbytes(*tree_leaves(cache))
+
+
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "jamba-1.5-large-398b"])
+def test_decode_bound_reads_and_writes_recurrent_state(smoke, arch):
+    """A decode step replaces every recurrent state (an mLSTM's C, n, m, an
+    sLSTM's c, n, m, h, Mamba's conv window and state): `decode_bound`
+    counts those bytes twice, read and written, and attention K/V once
+    (reduced configs; xlstm-1.3b holds no attention cache)."""
+    from repro_torch.models.model import init_cache
+    from repro_torch.train.optimizer import tree_leaves
+
+    cfg = reduced(get_arch(arch))
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=CPU)
+    cache = init_cache(cfg, smoke.SERVE_B, 16, device=CPU)
+    got = smoke.decode_bound(cfg, params, cache)
+    states = smoke.nbytes(*(x for c in cache if "k" not in c["mixer"]
+                            for x in c["mixer"].values()))
+    kv = smoke.nbytes(*tree_leaves(cache)) - states
+    assert states > 0 and got["state_bytes"] == states and got["cache_bytes"] == kv
+    assert (kv > 0) == arch.startswith("jamba")
+    assert got["bound_ms"] == pytest.approx(
+        (got["weight_bytes"] + kv + 2 * states) / smoke.PEAK_BYTES * 1e3, rel=1e-12)
+
+
+def test_full_xlstm_state_bytes():
+    """xlstm-1.3b's decode state at the serve batch (meta tensors, no
+    memory): 42 mLSTM layers of C (4, 4, 1024, 1024), n and m and 6 sLSTM
+    layers of c, n, m, h (4, 4, 512), all float32: 2.82 GB, moved twice a
+    step."""
+    from repro_torch.models.model import init_cache
+
+    cfg = get_arch("xlstm-1.3b")
+    cache = init_cache(cfg, 4, 2112, device="meta")
+    got = sum(x.numel() * x.element_size() for c in cache for x in c["mixer"].values())
+    B, H = 4, cfg.n_heads
+    dh_m, dh_s = 2 * cfg.d_model // H, cfg.d_model // H
+    assert got == 4 * (42 * B * H * (dh_m * dh_m + dh_m + 1) + 6 * 4 * B * H * dh_s)
+    assert 2.8e9 < got < 2.85e9
