@@ -105,7 +105,22 @@ Phases, in one process; any failure exits nonzero:
              jamba-1.5-large-398b cut to 4 layers serves 4 x 2048 + 16 steps
              (1 attention launch a prefill, the MoE serve checks); each with
              device time, busy share, launches per layer and step, and its
-             loops' share of the device time.
+             loops' share of the device time;
+ 14. sharding: a one-rank NCCL process group and its (1, 1) (data, model)
+             mesh: the sharded train step (DTensor state placed by the
+             sharding rules, the kernels through `local_map`) on the fp32
+             parity model against the unsharded step (3 steps, parameters
+             to 1e-5 of each leaf's max, bit for bit or not); full-width
+             qwen3-8b cut to 8 layers, 5 steps through
+             `build_train_step(..., policy=...)`: step 0's loss held to
+             `loss_fn`, every loss to the train phase's on the same seed and
+             batches, exact launches a step, zero plain calls, step seconds,
+             busy share and peak memory beside the train phase's; the
+             int8 error-feedback compressor over that step's gradients
+             (seconds and GB/s beside the HBM bound, one leaf's codes and
+             scales equal to the CPU's); qwen3-moe-30b-a3b cut to 3 layers,
+             one step through the MoE layer's EP path and one through its
+             TP path, each held to the unsharded step's loss and routes.
 Prints the card's name and power limit first, a `kernels` JSON line before
 the last, and as the last line {"ok": true, "device": {...}}. Imports no JAX
 and nothing of the JAX package.
@@ -221,13 +236,21 @@ MM_CROSS_QUERIES = 64  # the serving cross-attention's decoder prompt
 # 9.66 B, 155 GB of AdamW state); jamba's period position 1 (Mamba + dense,
 # 1.02 B) trains forward and backward alone on 1 x 4096, its gradients held
 # to the same layer in fp32 on the card to TOL_MAMBA_GRAD of a leaf's max
-XLSTM_TRAIN_STEPS, JAMBA_LAYERS, TOL_MAMBA_GRAD = 3, 4, 2e-2
+XLSTM_TRAIN_STEPS, JAMBA_LAYERS, TOL_MAMBA_GRAD = 2, 4, 2e-2
+# its first step is its warm-up: 2 steps keep the whole command under 1000 s
+# (with 3 and the sharding phase it took 978.1 s on an NVIDIA H100 80GB HBM3
+# at 700 W)
+XLSTM_TRAIN_WARMUP = 1
 RECURRENT = ("mamba", "mlstm", "slstm")
 # each recurrent mixer's loop, by module and name (`loop_profile` times it alone)
 SCANS = {"mamba": ("repro_torch.models.ssm", "selective_scan"),
          "mlstm": ("repro_torch.models.xlstm", "mlstm_scan"),
          "slstm": ("repro_torch.models.xlstm", "slstm_scan")}
 ROUTER_GAP = 1e-5  # least gap between a router's k-th and (k+1)-th probability
+# the sharding phase: 3 fp32 parity steps (2 x PARITY_SEQ) held to 1e-5 of a
+# leaf's max, then full-width qwen3-8b (TRAIN_LAYERS) for SHARD_STEPS steps
+# of the train phase's batches; the compressor's block
+SHARD_PARITY_STEPS, SHARD_STEPS, TOL_SHARD, COMPRESS_BLOCK = 3, 5, 1e-5, 256
 LOOP_PROFILE_SCALE = 4  # `loop_profile` runs a layer on a quarter of the path's positions
 
 
@@ -1756,14 +1779,15 @@ def counting_regimes():
 
 
 def train_phase(cfg, device, *, layers=TRAIN_LAYERS, steps=TRAIN_STEPS, fit=TRAIN_FIT,
-                batch=TRAIN_BATCH, microbatches=TRAIN_MICROBATCHES, profile=True):
+                batch=TRAIN_BATCH, microbatches=TRAIN_MICROBATCHES, profile=True,
+                warmup=TRAIN_WARMUP):
     """The training path: a model at full width, cut to `layers` layers (None:
     full depth), trained for `steps` steps of `batch` rows of TRAIN_SEQ in
     `microbatches` micro-batches by the port's spmd driver
     (`launch.train.run_spmd`) through the bf16 forward and backward kernels
     of its head width (none for a model without attention). Checks every
-    step's launches and step 0's gradients and loss; reports step times,
-    the Eq. 1 fit (on `fit` steps after the warm-up, held out on the rest;
+    step's launches and step 0's gradients and loss; reports step times
+    (the first `warmup` left out of the steady ones), the Eq. 1 fit (on `fit` steps after the warm-up, held out on the rest;
     None: no fit) and the Detector's statistics; with `profile`, the device
     profile of step TRAIN_PROFILED_STEP (on the device alone for a model
     with recurrent layers)."""
@@ -1856,7 +1880,7 @@ def train_phase(cfg, device, *, layers=TRAIN_LAYERS, steps=TRAIN_STEPS, fit=TRAI
     # Eq. 1 on whole-step times (forward + backward of both micro-batches),
     # after the warm-up steps the driver skips too
     obs = []
-    for it in range(TRAIN_WARMUP, steps):
+    for it in range(warmup, steps):
         stats = pack_stats(ds.batch_at(it)["segment_ids"])
         obs.append((sum(x[0] for x in stats), sum(x[1] for x in stats), times[it]))
     eq1 = None
@@ -1868,7 +1892,7 @@ def train_phase(cfg, device, *, layers=TRAIN_LAYERS, steps=TRAIN_STEPS, fit=TRAI
         eq1 = {"alpha": pred.alpha, "beta": pred.beta, "gamma": pred.gamma,
                "mape_heldout": pred.mape([(n_tok, l2, 1, dt) for n_tok, l2, dt in obs[fit:]]),
                "fit_steps": fit, "heldout_steps": len(obs) - fit}
-    steady = times[TRAIN_WARMUP:]
+    steady = times[warmup:]
     res = {"arch": cfg.arch_id, "layers": L, "steps": steps, "seq_len": S, "batch": B,
            "microbatches": mb, "head_dim": tcfg.head_dim, "window": arch_window(tcfg),
            "params": tcfg.param_count(), "losses": losses, "step_seconds": times,
@@ -2562,7 +2586,7 @@ def recurrent_phases(record, device):
     # forward, then remat's recompute and the backward), the LM head, loss
     # and AdamW left out
     train = train_phase(xcfg, device, layers=None, steps=XLSTM_TRAIN_STEPS, fit=None, batch=1,
-                        microbatches=1, profile=False)
+                        microbatches=1, profile=False, warmup=XLSTM_TRAIN_WARMUP)
     torch.cuda.empty_cache()
     mark(f"{xcfg.arch_id} train")
     loops = loop_profile(xcfg, device, 1, TRAIN_SEQ, train=True)
@@ -2778,6 +2802,262 @@ def multimodal_phases(record, device):
         torch.cuda.empty_cache()
 
 
+def one_rank_mesh(device):
+    """A one-rank NCCL process group in this process (on a free localhost
+    port) and its (1, 1) `("data", "model")` mesh."""
+    import datetime
+    import socket
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=300))
+    return make_mesh((1, 1), ("data", "model"))
+
+
+def sharded_parity(policy, device):
+    """The fp32 parity model (reduced qwen3-8b at head_dim 128, 2 x
+    PARITY_SEQ) for SHARD_PARITY_STEPS steps unsharded and on the mesh, from
+    the same seed and batches: the largest difference of a loss (relative)
+    and of a parameter (over its leaf's max), and whether all are equal bit
+    for bit."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synth import SyntheticPackedDataset
+    from repro_torch.kernels.packed_flash_attn import BWD_TF32, FWD_TF32
+    from repro_torch.parallel.sharding import NULL_POLICY, gather
+    from repro_torch.train.optimizer import make_optimizer, tree_leaves
+    from repro_torch.train.train_step import build_train_step, init_train_state
+
+    small, _ = parity_model(get_arch("qwen3-8b"))
+    ds = SyntheticPackedDataset(small, PARITY_SEQ, PARITY_BATCH, seed=0, mu=4.0, sigma=0.8)
+    runs = {}
+    for name, pol in (("plain", NULL_POLICY), ("sharded", policy)):
+        opt = make_optimizer("adamw", lr=1e-3)
+        state = init_train_state(0, small, opt, device=device, policy=pol)
+        step = build_train_step(small, opt, policy=pol, microbatches=PARITY_MICROBATCHES,
+                                compute_dtype=torch.float32)
+        reset_counts()
+        losses = [float(step(state, to_device(ds.batch_at(i), device))[1]["loss"])
+                  for i in range(SHARD_PARITY_STEPS)]
+        torch.cuda.synchronize()
+        runs[name] = (losses, [p.detach() for p in tree_leaves(gather(state["params"]))],
+                      {**read_counts(), **read_backward_counts()})
+    (l0, p0, c0), (l1, p1, c1) = runs["plain"], runs["sharded"]
+    calls = attention_calls(small) * PARITY_MICROBATCHES * SHARD_PARITY_STEPS
+    if c1 != c0 or c1[FWD_TF32.source] != 2 * calls or c1[BWD_TF32.source] != calls:
+        raise AssertionError(f"sharded fp32 steps launch {c1}, the unsharded ones {c0}")
+    res = {"steps": SHARD_PARITY_STEPS, "losses": l1, "losses_unsharded": l0,
+           "loss_max_rel": max(abs(a - b) / abs(b) for a, b in zip(l1, l0)),
+           "param_max_rel": max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                                for a, b in zip(p1, p0)),
+           "bit_for_bit": l1 == l0 and all(torch.equal(a, b) for a, b in zip(p1, p0)),
+           "launches": c1, "tol": TOL_SHARD}
+    if not (res["loss_max_rel"] <= TOL_SHARD and res["param_max_rel"] <= TOL_SHARD):
+        raise AssertionError(f"sharded fp32 steps vs unsharded: {res}")
+    return res
+
+
+def sharded_train(cfg, policy, device, train):
+    """Full-width `cfg` cut to TRAIN_LAYERS, SHARD_STEPS steps of the train
+    phase's batches through `build_train_step(..., policy=policy)`: step 0's
+    loss against `loss_fn`, every loss against the train phase's (`train`,
+    the unsharded driver on the same seed and batches), exact launches a
+    step, zero plain calls; step seconds, the profile of step
+    TRAIN_PROFILED_STEP and the peak memory. Returns (result, the last
+    step's gradients as local tensors): the optimizer state is freed."""
+    from repro_torch.data.synth import SyntheticPackedDataset
+    from repro_torch.models.model import init_params, loss_fn
+    from repro_torch.train.optimizer import optimizer_for, tree_leaves
+    from repro_torch.train.train_step import build_train_step, init_train_state
+
+    tcfg = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS)
+    B, S, mb = TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICROBATCHES
+    ds = SyntheticPackedDataset(tcfg, S, B, seed=0)
+    params = init_params(tcfg, 0, dtype=torch.float32, device=device)
+    batch, n = to_device(ds.batch_at(0), device), B // mb
+    with torch.no_grad():
+        loss0_fn = sum(float(loss_fn(tcfg, params, {k: v[i * n:(i + 1) * n]
+                                                    for k, v in batch.items()})[0])
+                       for i in range(mb)) / mb
+    del params, batch
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    opt = optimizer_for(tcfg, lr=1e-3)
+    state = init_train_state(0, tcfg, opt, device=device, policy=policy)
+    step = build_train_step(tcfg, opt, policy=policy, microbatches=mb, remat=True)
+    want = bf16_launches(tcfg.head_dim, forward=2 * attention_calls(tcfg) * mb,
+                         backward=attention_calls(tcfg) * mb)
+    plain, undo = counting_plain_calls()
+    losses, times, per_step, prof = [], [], [], None
+    try:
+        for it in range(SHARD_STEPS):
+            b = to_device(ds.batch_at(it), device)
+            reset_counts()
+            plain["plain_calls"] = 0
+            t0 = time.perf_counter()
+            if it == TRAIN_PROFILED_STEP:
+                out = []
+                prof = device_profile(lambda: out.append(step(state, b)[1]), 1)
+                metrics = out.pop()
+            else:
+                metrics = step(state, b)[1]
+            losses.append(float(metrics["loss"]))
+            times.append(time.perf_counter() - t0)
+            per_step.append({**read_counts(), **{f"backward[{k}]": v for k, v in
+                                                 read_backward_counts().items()},
+                             "plain_calls": plain["plain_calls"]})
+    finally:
+        undo()
+    peak = torch.cuda.max_memory_allocated()
+    for i, got in enumerate(per_step):
+        if got != want:
+            raise AssertionError(f"sharded train step {i}: launches {got}, expected {want}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, train["losses"])]
+    loss0_rel = abs(losses[0] - loss0_fn) / abs(loss0_fn)
+    if not (loss0_rel <= 1e-3 and max(rel) <= 1e-3 and all(map(math.isfinite, losses))):
+        raise AssertionError(f"sharded losses {losses} vs the train phase's "
+                             f"{train['losses'][:SHARD_STEPS]}, step 0 vs loss_fn {loss0_fn}")
+    steady = [t for i, t in enumerate(times) if i >= TRAIN_WARMUP and i != TRAIN_PROFILED_STEP]
+    prof["busy_share"] = prof["device_seconds_per_call"] / prof["profiled_wall_seconds_per_call"]
+    tp = train["profile"]
+    res = {"layers": tcfg.n_layers, "steps": SHARD_STEPS, "losses": losses,
+           "losses_train_phase": train["losses"][:SHARD_STEPS], "loss_max_rel": max(rel),
+           "step0_loss_fn": loss0_fn, "step0_loss_rel": loss0_rel, "step_seconds": times,
+           "step_seconds_mean": sum(steady) / len(steady),
+           "train_phase_step_seconds_mean": train["step_seconds_mean"],
+           "launches_per_step": want, "profile": prof,
+           "busy_share": prof["busy_share"], "train_phase_busy_share": tp and tp["busy_share"],
+           "max_memory_allocated_bytes": peak,
+           "train_phase_max_memory_allocated_bytes": train["max_memory_allocated_bytes"]}
+    grads = [p.grad.to_local() for p in tree_leaves(state["params"])]
+    del state, opt, step
+    torch.cuda.empty_cache()
+    return res, grads
+
+
+def compression_check(grads, device):
+    """`compress_tree` with error feedback over `grads` (every leaf of a
+    full-width step's fp32 gradients), from zero residuals, then again from
+    its own residuals, timed: seconds and GB/s of the 16 bytes an element it
+    must move (the gradient and residual read, the dequantized gradient and
+    the new residual written) beside that traffic's HBM bound; one leaf's
+    codes and scales held equal to the same function on the CPU."""
+    from repro_torch.train.compression import Int8Compressor, compress_tree, init_feedback
+
+    torch.cuda.empty_cache()
+    comp = Int8Compressor(block=COMPRESS_BLOCK)
+    n = sum(g.numel() for g in grads)
+    reckoned = 4 * 4 * n  # the gradients, residuals, dequantized and new residuals, fp32
+    free, total = torch.cuda.mem_get_info()
+    if reckoned > free:
+        raise AssertionError(f"compression: {reckoned} bytes reckoned, {free} free")
+    torch.cuda.reset_peak_memory_stats()
+    res = init_feedback(grads)
+    deq, res = compress_tree(comp, grads, res)
+    del deq
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    deq, res = compress_tree(comp, grads, res)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if not all(bool(torch.isfinite(d).all()) for d in deq):
+        raise AssertionError("compression: a dequantized gradient is not finite")
+    leaf = max(grads, key=lambda g: g.numel() if g.numel() < 2 ** 25 else 0)  # a layer's wq
+    q, s, _ = comp.compress(leaf)
+    q_cpu, s_cpu, _ = comp.compress(leaf.cpu())
+    equal = torch.equal(q.cpu(), q_cpu) and torch.equal(s.cpu(), s_cpu)
+    if not equal:
+        raise AssertionError("compression: the card's codes or scales differ from the CPU's")
+    moved = 16 * n
+    out = {"elements": n, "block": COMPRESS_BLOCK, "seconds": seconds,
+           "gb_per_s": moved / seconds / 1e9, "bound_ms": moved / PEAK_BYTES * 1e3,
+           "bound_share": moved / PEAK_BYTES / seconds,
+           "ratio": comp.ratio(grads[0]), "reckoned_bytes": reckoned,
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "cpu_equal_leaf_shape": list(leaf.shape), "cpu_equal": equal}
+    del deq, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_moe(mesh, device):
+    """qwen3-moe-30b-a3b cut to MOE_TRAIN_LAYERS layers: one train step
+    unsharded, one through the MoE layer's EP path and one through its TP
+    path on the mesh, from the same seed and batch: each loss held to the
+    unsharded one (1e-3) and each token's routes in every MoE call equal.
+    Without remat, so that every call records its routes (a recompute stops
+    once the tensors its backward needs are back, which may come before a
+    layer records them)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synth import SyntheticPackedDataset
+    from repro_torch.parallel.sharding import NULL_POLICY, policy_for_mesh
+    from repro_torch.train.optimizer import optimizer_for
+    from repro_torch.train.train_step import build_train_step, init_train_state
+
+    mcfg = dataclasses.replace(get_arch("qwen3-moe-30b-a3b"), n_layers=MOE_TRAIN_LAYERS)
+    batch = to_device(SyntheticPackedDataset(mcfg, TRAIN_SEQ, TRAIN_BATCH, seed=0).batch_at(0),
+                      device)
+    routes, losses, seconds = {}, {}, {}
+    for name, pol in (("plain", NULL_POLICY), ("ep", policy_for_mesh(mesh, expert_parallel=True)),
+                      ("tp", policy_for_mesh(mesh))):
+        opt = optimizer_for(mcfg, lr=1e-3)
+        state = init_train_state(0, mcfg, opt, device=device, policy=pol)
+        step = build_train_step(mcfg, opt, policy=pol, microbatches=TRAIN_MICROBATCHES,
+                                remat=False)
+        t0 = time.perf_counter()
+        with recording_routes(routes, name):
+            losses[name] = float(step(state, batch)[1]["loss"])
+        seconds[name] = time.perf_counter() - t0
+        del state, opt, step
+        torch.cuda.empty_cache()
+    out = {"layers": mcfg.n_layers, "losses": losses, "step_seconds": seconds}
+    for name in ("ep", "tp"):
+        rel = abs(losses[name] - losses["plain"]) / abs(losses["plain"])
+        same = len(routes[name]) == len(routes["plain"]) and all(
+            torch.equal(a[k], b[k]) for a, b in zip(routes[name], routes["plain"])
+            for k in ("experts", "kept"))
+        out[f"{name}_loss_rel"], out[f"{name}_routes_equal"] = rel, same
+        if not (rel <= 1e-3 and same):
+            raise AssertionError(f"MoE {name} path: loss {losses[name]} vs {losses['plain']}, "
+                                 f"routes equal {same}")
+    out["moe_calls"] = len(routes["plain"])
+    if out["moe_calls"] != TRAIN_MICROBATCHES * MOE_TRAIN_LAYERS:
+        raise AssertionError(f"MoE steps recorded {out['moe_calls']} calls' routes")
+    return out
+
+
+def sharding_phase(record, device):
+    """Phase 14: the sharded step on a (1, 1) mesh of a one-rank NCCL group
+    (each part in the module's docstring). Destroys the group after."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.parallel.sharding import policy_for_mesh
+
+    t0 = time.perf_counter()
+    mesh = one_rank_mesh(device)
+    try:
+        policy = policy_for_mesh(mesh)
+        rec = record["sharding"] = {"mesh": {"shape": list(mesh.shape),
+                                             "axes": list(mesh.mesh_dim_names)}}
+        rec["fp32_parity"] = sharded_parity(policy, device)
+        log("sharding: fp32 parity", json.dumps(rec["fp32_parity"]))
+        rec["train"], grads = sharded_train(get_arch("qwen3-8b"), policy, device, record["train"])
+        log("sharding: train", json.dumps({k: v for k, v in rec["train"].items()
+                                           if k != "profile"}))
+        rec["compression"] = compression_check(grads, device)
+        del grads
+        log("sharding: compression", json.dumps(rec["compression"]))
+        rec["moe"] = sharded_moe(mesh, device)
+        log("sharding: moe", json.dumps(rec["moe"]))
+    finally:
+        dist.destroy_process_group()
+    rec["seconds"] = time.perf_counter() - t0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the full record to this JSON file")
@@ -2899,6 +3179,9 @@ def main(argv=None):
     mark("multimodal")
     recurrent_phases(record, device)
     mark("recurrent")
+    sharding_phase(record, device)
+    torch.cuda.empty_cache()
+    mark("sharding")
 
     record["kernels"] = kernel_entries(record)
     if args.out:

@@ -237,8 +237,11 @@ class CheckpointManager:
         self.interval = interval
         self.keep = keep
 
+    def due(self, step: int) -> bool:
+        return step % self.interval == 0 and step > 0
+
     def maybe_save(self, state, step: int, extra=None) -> Optional[Path]:
-        if step % self.interval == 0 and step > 0:
+        if self.due(step):
             return save_checkpoint(self.root, state, step, extra=extra, keep=self.keep)
         return None
 

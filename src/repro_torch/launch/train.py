@@ -3,10 +3,12 @@
 Two execution modes share the data pipeline, optimizer, checkpointing, and
 the ResiHP stack, as in the reference:
 
-  * spmd     — one device runs the train step (fp32 masters, bf16 compute,
-               micro-batched, remat). Iteration times + pack stats stream to
-               the Eq. 1 predictor and the Detector. Sharding is not ported
-               yet: `--tp` raises here.
+  * spmd     — the train step (fp32 masters, bf16 compute, micro-batched,
+               remat) on one device, or under `torchrun` with a world of N
+               sharded over the `(N // tp, tp)` `(data, model)` mesh by the
+               reference's rules (`--tp`; NCCL for cuda, gloo for cpu).
+               Iteration times + pack stats stream to the Eq. 1 predictor
+               and the Detector.
   * pipeline — the ResiHP runtime: a ParallelPlan (`--dp/--pp/--tp`)
                executed by PipelineEngine with per-stage device groups;
                failure injection (`--inject-failstop`, `--inject-failslow`)
@@ -17,6 +19,8 @@ the ResiHP stack, as in the reference:
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --steps 4 --device cpu
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train --device cpu \
+      --reduced --tp 2 --steps 4 --seq-len 64
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --mode pipeline \
       --dp 2 --pp 2 --tp 2 --steps 6 --seq-len 64 --inject-failstop 3:5 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --arch gemma3-1b \
@@ -25,11 +29,14 @@ Examples:
 from __future__ import annotations
 
 import argparse
+import datetime
 import json
+import os
 import time
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_arch, reduced as reduce_cfg
@@ -45,8 +52,10 @@ from repro_torch.core.scheduler.scheduler import Scheduler
 from repro_torch.data.packing import pack_stats
 from repro_torch.data.synth import SyntheticPackedDataset
 from repro_torch.engine.pipeline import PipelineEngine
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.parallel.sharding import NULL_POLICY, gather, policy_for_mesh
 from repro_torch.train.optimizer import optimizer_for, tree_leaves, tree_map
-from repro_torch.train.train_step import build_train_step, init_train_state
+from repro_torch.train.train_step import build_train_step, init_train_state, place_state
 
 PIPELINE_DEFAULTS = {"dp": 2, "pp": 2, "tp": 1}  # the reference's defaults
 PIPELINE_ONLY = ("dp", "pp", "inject_failstop", "inject_failslow")
@@ -89,27 +98,63 @@ def _check_feedable(cfg):
 
 
 # ---------------------------------------------------------------- spmd mode
+def spmd_policy(args):
+    """(policy, device) of this rank, as the reference's driver builds its
+    mesh: at world size 1 (`WORLD_SIZE` unset or 1) NULL_POLICY on
+    `args.device`, whatever `--tp` says; under `torchrun` with a world of N,
+    the process group (NCCL for cuda, gloo for cpu), then the
+    `(N // tp, tp)` `(data, model)` mesh and its policy."""
+    device = torch.device(args.device)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    tp = args.tp if args.tp is not None else 1
+    if world == 1:
+        return NULL_POLICY, device
+    if tp < 1 or world % tp:
+        raise ValueError(f"--tp {tp} does not divide the world size {world}")
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(device)
+    if not dist.is_initialized():
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                                timeout=datetime.timedelta(minutes=10))
+    return policy_for_mesh(make_mesh((world // tp, tp), ("data", "model"))), device
+
+
+def _save(ckpt, state, step, extra, policy):
+    """ckpt.maybe_save of the whole state: under a mesh every rank gathers
+    it (`full_tensor`) and rank 0 writes it."""
+    if policy.mesh is None:
+        ckpt.maybe_save(state, step, extra=extra)
+    elif ckpt.due(step):
+        full = gather(state)
+        if dist.get_rank() == 0:
+            ckpt.maybe_save(full, step, extra=extra)
+        dist.barrier()
+
+
 def run_spmd(cfg, args):
-    """Train `args.steps` steps on `args.device`; returns {"losses", "times",
-    "detector"} as the reference's spmd mode does."""
+    """Train `args.steps` steps; returns {"losses", "times", "detector"} as
+    the reference's spmd mode does. Under `torchrun` the state and the step
+    are sharded (`spmd_policy`); a checkpoint holds the whole state, so a
+    run resumes on a mesh of another shape."""
     _check_feedable(cfg)
-    if args.tp is not None:
-        raise NotImplementedError("--tp in spmd mode: sharding (ROADMAP Queue 1 item 4) is not "
-                                  "ported yet; --mode pipeline reads it")
     for name in PIPELINE_ONLY:
         if getattr(args, name) is not None:
             raise ValueError(f"--{name.replace('_', '-')} is read by --mode pipeline only")
-    device = torch.device(args.device)
+    policy, device = spmd_policy(args)
+    lead = policy.mesh is None or dist.get_rank() == 0  # the rank that prints
     opt = optimizer_for(cfg, lr=args.lr)
     # Adafactor (above 20 B parameters) factors and clips each period
     # position's layers as one stack, as the reference's scan-layout state
-    state = init_train_state(args.seed, cfg, opt, device=device)
-    step_fn = build_train_step(cfg, opt, microbatches=args.microbatches, remat=True)
+    state = init_train_state(args.seed, cfg, opt, device=device, policy=policy)
+    step_fn = build_train_step(cfg, opt, policy=policy, microbatches=args.microbatches,
+                               remat=True)
 
     ckpt = CheckpointManager(args.ckpt_dir, interval=args.ckpt_interval) if args.ckpt_dir else None
     start = 0
     if ckpt and ckpt.has_checkpoint() and args.resume:
         state, start, _ = ckpt.restore_latest(target=state, shardings=device)
+        state = place_state(policy, cfg, opt, state)
         for p in tree_leaves(state["params"]):
             p.requires_grad_(True)
         print(f"[train] resumed from step {start}", flush=True)
@@ -140,8 +185,8 @@ def run_spmd(cfg, args):
         losses.append(loss)
         times.append(dt)
         if ckpt:
-            ckpt.maybe_save(state, it + 1, extra={"loss": loss})
-        if it % max(args.steps // 10, 1) == 0 or it == args.steps - 1:
+            _save(ckpt, state, it + 1, {"loss": loss}, policy)
+        if (it % max(args.steps // 10, 1) == 0 or it == args.steps - 1) and lead:
             print(f"[train] step {it} loss {loss:.4f} {dt*1e3:.0f} ms", flush=True)
     return {"losses": losses, "times": times, "detector": detector.stats.as_dict()}
 
@@ -253,7 +298,7 @@ def run_pipeline(cfg, args):
 
 
 def parser():
-    ap = argparse.ArgumentParser(description="Fault-tolerant training on one device.")
+    ap = argparse.ArgumentParser(description="Fault-tolerant training.")
     ap.add_argument("--arch", default="qwen3-8b",
                     help="any registered arch: qwen3-8b, gemma3-1b, gemma3-4b, h2o-danube-1.8b, "
                          "qwen3-moe-30b-a3b, grok-1-314b, and the paper's llama2-* and qwen2.5-*")
@@ -263,7 +308,8 @@ def parser():
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--microbatches", type=int, default=2)
-    # pipeline mode; unset means the reference's defaults (dp 2, pp 2, tp 1)
+    # pipeline mode; unset means the reference's defaults (dp 2, pp 2, tp 1);
+    # --tp is the model axis of the spmd mesh under torchrun too
     ap.add_argument("--dp", type=int, default=None)
     ap.add_argument("--pp", type=int, default=None)
     ap.add_argument("--tp", type=int, default=None)
@@ -290,6 +336,11 @@ def main(argv=None):
     print(f"[train] arch={cfg.arch_id} params={cfg.param_count()/1e6:.1f}M "
           f"mode={args.mode} device={args.device}", flush=True)
     result = run_spmd(cfg, args) if args.mode == "spmd" else run_pipeline(cfg, args)
+    if dist.is_initialized():  # a torchrun world: rank 0 writes
+        rank = dist.get_rank()
+        dist.destroy_process_group()
+        if rank:
+            return result
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(result, default=float))

@@ -9,6 +9,7 @@ PyTorch, as the reference computes it in jnp.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -16,6 +17,7 @@ import torch
 from repro_torch.kernels.ops import packed_attention
 from repro_torch.kernels.ref import NEG_INF, attention_mask
 from repro_torch.models.layers import apply_rope, dense_init, head_rms_norm, rope_angles
+from repro_torch.parallel.sharding import NULL_POLICY
 
 
 def init_attention(generator, cfg, *, dtype=torch.bfloat16, device="cuda"):
@@ -31,6 +33,16 @@ def init_attention(generator, cfg, *, dtype=torch.bfloat16, device="cuda"):
         p["q_norm"] = torch.zeros(dh, dtype=torch.float32, device=device)
         p["k_norm"] = torch.zeros(dh, dtype=torch.float32, device=device)
     return p
+
+
+def attention_axes(cfg):
+    """The logical axes of `init_attention`'s leaves (the reference's
+    `annotate` calls)."""
+    ax = {"wq": ("dmodel", "heads", "head_dim"), "wk": ("dmodel", "kv_heads", "head_dim"),
+          "wv": ("dmodel", "kv_heads", "head_dim"), "wo": ("heads", "head_dim", "dmodel")}
+    if cfg.qk_norm:
+        ax["q_norm"] = ax["k_norm"] = (None,)
+    return ax
 
 
 def _sdpa_dense(q, k, v, mask, scale):
@@ -56,7 +68,61 @@ def _decode_attend(q, k, v, seg_k, pos_k, lengths, *, causal, window, scale):
     return _sdpa_dense(q, k.to(q.dtype), v.to(q.dtype), mask, scale)
 
 
-def attention(cfg, spec, p, x, md, cache=None):
+def _kv_for_local_heads(k, v, H, h0, Hl):
+    """The kv heads that q heads h0..h0+Hl-1 of H read (head h reads kv head
+    h*K//H), so that the kernel's own map over the local heads, h*K'//Hl,
+    reads the same ones: a contiguous range where that map holds, else one
+    kv head for each q head."""
+    K = k.shape[2]
+    kv = [h * K // H for h in range(h0, h0 + Hl)]
+    n = kv[-1] - kv[0] + 1
+    if [h * n // Hl for h in range(Hl)] == [j - kv[0] for j in kv]:
+        return k[:, :, kv[0]:kv[0] + n], v[:, :, kv[0]:kv[0] + n]
+    idx = torch.tensor(kv, device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def sharded_packed_attention(policy, q, k, v, seg_q, seg_k, pos_q, pos_k, **kw):
+    """`packed_attention` over DTensors: each rank runs the kernel on its
+    local heads through `local_map`. The q heads are split over tp where
+    they divide (the head dim never is: a rank needs whole heads), the kv
+    heads too where they divide; where they do not, each rank passes the kv
+    heads its q heads read (`_kv_for_local_heads`), and their gradients,
+    each rank's part of the whole, are summed over tp. Out: placed as q."""
+    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    H = q.shape[2]
+    # never the sequence (`seq_parallel` splits it between blocks): every
+    # rank's kernel reads all of its rows' positions and keys
+    qp = policy.placements_for(("batch", None, "heads", None), q.shape)
+    kp = policy.placements_for(("batch", None, "kv_heads", None), k.shape)
+    ip = policy.placements_for(("batch", None), seg_q.shape)
+    ik = policy.placements_for(("batch", None), seg_k.shape)
+    h0 = None
+    if Shard(2) in qp and Shard(2) not in kp:
+        tp_dim = [i for i, pl in enumerate(qp) if pl == Shard(2)]
+        Hl = H // math.prod(policy.mesh.size(i) for i in tp_dim)
+        rank = 0
+        for i in tp_dim:  # the rank's block of heads, major mesh dim first
+            rank = rank * policy.mesh.size(i) + policy.mesh.get_local_rank(i)
+        h0 = rank * Hl
+        grad_kp = [Partial() if i in tp_dim else pl for i, pl in enumerate(kp)]
+        k, v = (t.redistribute(policy.mesh, kp).to_local(grad_placements=grad_kp)
+                for t in (k, v))
+        kp = None  # passed as local tensors
+
+    def local(q, k, v, sq, sk, pq, pk):
+        if h0 is not None:
+            k, v = _kv_for_local_heads(k, v, H, h0, q.shape[2])
+        return packed_attention(q, k, v, sq, sk, pq, pk, **kw)
+
+    return local_map(local, out_placements=qp, in_placements=(qp, kp, kp, ip, ik, ip, ik),
+                     device_mesh=policy.mesh, redistribute_inputs=True)(
+        q, k, v, seg_q, seg_k, pos_q, pos_k)
+
+
+def attention(cfg, spec, p, x, md, cache=None, policy=NULL_POLICY):
     """Full attention layer: self-attention, or cross-attention over the
     encoder output `md["cross_x"]`.
 
@@ -73,8 +139,13 @@ def attention(cfg, spec, p, x, md, cache=None):
         {'k_const', 'v_const'} (B,S_enc,K,dh), read and never written.
     With md['collect_state'] (prefill) the new cache is {'k', 'v', 'pos'} of
     self-attention or {'k_const', 'v_const'} of cross-attention.
+    Under a `policy` with a mesh, x and the weights are DTensors and the
+    kernel runs on each rank's heads (`sharded_packed_attention`).
     Returns (out (B,S,D), new_cache).
     """
+    attend = packed_attention
+    if policy.mesh is not None:
+        attend = functools.partial(sharded_packed_attention, policy)
     D, H, K, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     B, S = x.shape[:2]
     scale = 1.0 / math.sqrt(dh)
@@ -107,13 +178,12 @@ def attention(cfg, spec, p, x, md, cache=None):
             seg, pos = md["segment_ids"], md["abs_positions"]
             collect = md.get("collect_state")
             if kx is not None:
-                out = packed_attention(q, k, v, seg, md["cross_segment_ids"], pos,
-                                       md["cross_positions"], causal=False, window=None,
-                                       scale=scale)
+                out = attend(q, k, v, seg, md["cross_segment_ids"], pos, md["cross_positions"],
+                             causal=False, window=None, scale=scale)
                 new_cache = {"k_const": k, "v_const": v} if collect else None
             else:
-                out = packed_attention(q, k, v, seg, seg, pos, pos,
-                                       causal=causal, window=window, scale=scale)
+                out = attend(q, k, v, seg, seg, pos, pos, causal=causal, window=window,
+                             scale=scale)
                 new_cache = {"k": k, "v": v, "pos": pos} if collect else None
         else:
             # decode: ring-buffer insert at (position % T). For full-attention
@@ -132,5 +202,6 @@ def attention(cfg, spec, p, x, md, cache=None):
                                  scale=scale)
             new_cache = cache
 
+    out = policy.constrain(out, "batch", "seq", "heads", "head_dim")
     y = out.reshape(B, S, H * dh) @ p["wo"].reshape(H * dh, D).to(x.dtype)
     return y, new_cache

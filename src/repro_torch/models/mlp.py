@@ -5,6 +5,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import dense_init
+from repro_torch.parallel.sharding import NULL_POLICY
 
 
 def init_mlp(generator, cfg, *, dtype=torch.bfloat16, device="cuda"):
@@ -17,7 +18,12 @@ def init_mlp(generator, cfg, *, dtype=torch.bfloat16, device="cuda"):
     }
 
 
-def mlp(cfg, p, x):
+def mlp_axes(cfg):
+    return {"w_gate": ("dmodel", "ffn"), "w_up": ("dmodel", "ffn"), "w_down": ("ffn", "dmodel")}
+
+
+def mlp(cfg, p, x, policy=NULL_POLICY):
     h = x @ p["w_gate"].to(x.dtype)
     u = x @ p["w_up"].to(x.dtype)
-    return (F.silu(h) * u) @ p["w_down"].to(x.dtype)
+    h = policy.constrain(F.silu(h) * u, "batch", "seq", "ffn")
+    return h @ p["w_down"].to(x.dtype)

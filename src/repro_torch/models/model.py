@@ -28,25 +28,32 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.attention import attention, init_attention
+from repro_torch.models.attention import attention, attention_axes, init_attention
 from repro_torch.models.layers import rms_norm
-from repro_torch.models.mlp import init_mlp, mlp
-from repro_torch.models.moe import init_moe, moe_ffn, router_aux_loss
-from repro_torch.models.ssm import init_mamba, init_mamba_cache, mamba
+from repro_torch.models.mlp import init_mlp, mlp, mlp_axes
+from repro_torch.models.moe import init_moe, moe_axes, moe_ffn, router_aux_loss
+from repro_torch.models.ssm import init_mamba, init_mamba_cache, mamba, mamba_axes
 from repro_torch.models.xlstm import (
     init_mlstm,
     init_mlstm_cache,
     init_slstm,
     init_slstm_cache,
     mlstm,
+    mlstm_axes,
     slstm,
+    slstm_axes,
 )
+from repro_torch.parallel.sharding import NULL_POLICY, arange_rows_like
 
 MIXER_INIT = {"attn": init_attention, "mamba": init_mamba, "mlstm": init_mlstm,
               "slstm": init_slstm}
+MIXER_AXES = {"attn": attention_axes, "mamba": mamba_axes, "mlstm": mlstm_axes,
+              "slstm": slstm_axes}
 MIXER_FN = {"attn": attention, "mamba": mamba, "mlstm": mlstm, "slstm": slstm}
 FFN_INIT = {"dense": init_mlp, "moe": init_moe}
+FFN_AXES = {"dense": mlp_axes, "moe": moe_axes}
 FFN_FN = {"dense": mlp, "moe": moe_ffn}
+NORM_AXES = ("dmodel",)
 
 
 def _check_spec(spec):
@@ -76,9 +83,13 @@ def init_layer(generator, cfg, spec, *, cross=False, dtype=torch.bfloat16, devic
 def init_params(cfg, seed=0, *, dtype=torch.bfloat16, device="cuda"):
     """Random weights from `seed`, with the reference's keys, shapes and law
     (normal / sqrt(fan_in), norms zero); an encoder-decoder also has
-    `enc_layers` (of spec `cfg.period[0]`, no cross block) and `enc_norm`."""
-    g = torch.Generator(device=device)
-    g.manual_seed(seed)
+    `enc_layers` (of spec `cfg.period[0]`, no cross block) and `enc_norm`.
+    On `device="meta"` the tree holds shapes and dtypes only, so the
+    sharding rules read a full-size model without allocating it."""
+    g = None
+    if torch.device(device).type != "meta":  # meta tensors take no generator
+        g = torch.Generator(device=device)
+        g.manual_seed(seed)
     V, D = cfg.padded_vocab, cfg.d_model
 
     def normal(shape):
@@ -100,11 +111,40 @@ def init_params(cfg, seed=0, *, dtype=torch.bfloat16, device="cuda"):
     return params
 
 
+def layer_axes(cfg, spec, *, cross=False):
+    """The logical axes of `init_layer`'s leaves (the reference's `annotate`)."""
+    _check_spec(spec)
+    ax = {"norm1": NORM_AXES, "mixer": MIXER_AXES[spec.mixer](cfg)}
+    if cross:
+        ax["norm_cross"] = NORM_AXES
+        ax["cross"] = attention_axes(cfg)
+    if spec.ffn != "none":
+        ax["norm2"] = NORM_AXES
+        ax["ffn"] = FFN_AXES[spec.ffn](cfg)
+    return ax
+
+
+def param_axes(cfg):
+    """The logical axes of every leaf of `init_params(cfg)`, in its tree."""
+    ax = {"embed": ("vocab", "dmodel"), "final_norm": NORM_AXES,
+          "layers": [layer_axes(cfg, cfg.layer_spec(i), cross=cfg.enc_dec)
+                     for i in range(cfg.n_layers)]}
+    if not cfg.tie_embeddings:
+        ax["lm_head"] = ("dmodel", "vocab")
+    if cfg.enc_dec:
+        ax["enc_layers"] = [layer_axes(cfg, cfg.period[0]) for _ in range(cfg.n_enc_layers)]
+        ax["enc_norm"] = NORM_AXES
+    return ax
+
+
 # ----------------------------------------------------------------- layers
-def apply_layer(cfg, spec, p, x, md, cache=None):
+def apply_layer(cfg, spec, p, x, md, cache=None, policy=NULL_POLICY):
     mix_cache = cache.get("mixer") if cache else None
+    # a policy with a mesh reaches only attention and the FFN: the other
+    # mixers refuse a mesh (`train_step.check_shardable`)
+    kw = {"policy": policy} if spec.mixer == "attn" else {}
     h, new_mix = MIXER_FN[spec.mixer](cfg, spec, p["mixer"], rms_norm(x, p["norm1"], cfg.norm_eps),
-                                      md, cache=mix_cache)
+                                      md, cache=mix_cache, **kw)
     x = x + h
     new_cache = {"mixer": new_mix} if new_mix is not None else None
     if "cross" in p:  # a decoder layer over the encoder output md["enc_out"]
@@ -115,11 +155,13 @@ def apply_layer(cfg, spec, p, x, md, cache=None):
         if new_cross is not None:  # prefill's K/V, or decode's constant cache
             new_cache = {**(new_cache or {}), "cross": new_cross}
     if spec.ffn != "none":
-        x = x + FFN_FN[spec.ffn](cfg, p["ffn"], rms_norm(x, p["norm2"], cfg.norm_eps))
-    return x, new_cache
+        x = x + FFN_FN[spec.ffn](cfg, p["ffn"], rms_norm(x, p["norm2"], cfg.norm_eps),
+                                 policy=policy)
+    return policy.constrain(x, "batch", "seq", None), new_cache
 
 
-def _run_layers(cfg, layers, x, md, caches=None, *, remat=False, period=None):
+def _run_layers(cfg, layers, x, md, caches=None, *, remat=False, period=None,
+                policy=NULL_POLICY):
     """Run the layers in order, layer i of spec period[i % P] (`cfg.period`
     by default); returns (x, per-layer caches or None).
 
@@ -133,11 +175,12 @@ def _run_layers(cfg, layers, x, md, caches=None, *, remat=False, period=None):
         spec = period[i % len(period)]
         _check_spec(spec)
         if remat:
-            x, nc = checkpoint(apply_layer, cfg, spec, p, x, md, use_reentrant=False,
+            x, nc = checkpoint(apply_layer, cfg, spec, p, x, md, None, policy,
+                               use_reentrant=False,
                                preserve_rng_state=False)  # no layer draws random numbers
         else:
             x, nc = apply_layer(cfg, spec, p, x, md,
-                                cache=caches[i] if caches is not None else None)
+                                cache=caches[i] if caches is not None else None, policy=policy)
         new_caches.append(nc)
     return x, (new_caches if new_caches and new_caches[0] is not None else None)
 
@@ -147,20 +190,16 @@ def embed_tokens(cfg, params, tokens, compute_dtype=torch.bfloat16):
     return params["embed"][tokens.long()].to(compute_dtype)
 
 
-def lm_logits(cfg, params, x):
+def lm_logits(cfg, params, x, policy=NULL_POLICY):
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return x @ w.to(x.dtype)
+    return policy.constrain(x @ w.to(x.dtype), "batch", "seq", "vocab")
 
 
 # ------------------------------------------------------------------ train
 def _default_md(batch):
     seg = batch["segment_ids"]
     return {"segment_ids": seg, "positions": batch["positions"],
-            "abs_positions": _arange_rows(*seg.shape, seg.device), "causal": True}
-
-
-def _arange_rows(B, S, device):
-    return torch.arange(S, dtype=torch.int32, device=device).repeat(B, 1)
+            "abs_positions": arange_rows_like(seg), "causal": True}
 
 
 def _encoder_md(cfg, params, batch, compute_dtype, remat):
@@ -168,20 +207,19 @@ def _encoder_md(cfg, params, batch, compute_dtype, remat):
     returns the decoder's metadata, which carries the encoder output and
     its ids for the cross-attention."""
     enc_x = batch["frame_embeds"].to(compute_dtype)
-    B, S_enc = enc_x.shape[:2]
-    enc_pos = _arange_rows(B, S_enc, enc_x.device)
+    enc_pos = arange_rows_like(batch["enc_segment_ids"])
     enc_md = {"segment_ids": batch["enc_segment_ids"], "positions": batch["enc_positions"],
               "abs_positions": enc_pos, "causal": False}
     enc_out, _ = _run_layers(cfg, params["enc_layers"], enc_x, enc_md, remat=remat,
                              period=(cfg.period[0],))
     seg = batch["dec_segment_ids"]
     return {"segment_ids": seg, "positions": batch["dec_positions"],
-            "abs_positions": _arange_rows(B, seg.shape[1], seg.device), "causal": True,
+            "abs_positions": arange_rows_like(seg), "causal": True,
             "enc_out": rms_norm(enc_out, params["enc_norm"], cfg.norm_eps),
             "cross_segment_ids": batch["enc_segment_ids"], "cross_positions": enc_pos}
 
 
-def _hidden(cfg, params, batch, compute_dtype, collect, remat=False):
+def _hidden(cfg, params, batch, compute_dtype, collect, remat=False, policy=NULL_POLICY):
     if cfg.enc_dec:
         md = _encoder_md(cfg, params, batch, compute_dtype, remat)
         x = embed_tokens(cfg, params, batch["dec_tokens"], compute_dtype)
@@ -193,10 +231,12 @@ def _hidden(cfg, params, batch, compute_dtype, collect, remat=False):
             x = torch.cat([vis, x[:, vis.shape[1]:]], dim=1)
     if collect:
         md["collect_state"] = True
-    return _run_layers(cfg, params["layers"], x, md, remat=remat)
+    x = policy.constrain(x, "batch", "seq", None)
+    return _run_layers(cfg, params["layers"], x, md, remat=remat, policy=policy)
 
 
-def forward_train(cfg, params, batch, *, remat=True, compute_dtype=torch.bfloat16):
+def forward_train(cfg, params, batch, *, remat=True, compute_dtype=torch.bfloat16,
+                  policy=NULL_POLICY):
     """Packed forward -> logits (B,S,V), aux. The batch, by family:
 
     LM:      tokens, segment_ids, positions (B,S);
@@ -211,14 +251,18 @@ def forward_train(cfg, params, batch, *, remat=True, compute_dtype=torch.bfloat1
     router (layer `pos` of the first MoE period position: `a[0]` of the
     reference's scan layout) on the final-normed hidden state in fp32, not
     on that layer's input, and without a stop-gradient, so its gradient
-    reaches that router and the hidden state: the reference's choice."""
-    x, _ = _hidden(cfg, params, batch, compute_dtype, collect=False, remat=remat)
+    reaches that router and the hidden state: the reference's choice.
+
+    Under a `policy` with a mesh the parameters and the batch are DTensors
+    placed by the sharding rules, and the activations are constrained where
+    the reference constrains them."""
+    x, _ = _hidden(cfg, params, batch, compute_dtype, collect=False, remat=remat, policy=policy)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     aux = {"moe_aux": torch.zeros((), dtype=torch.float32, device=x.device)}
     moe = [i for i, spec in enumerate(cfg.period) if spec.ffn == "moe"]
     if moe:  # the reference's choice: the first MoE layer's router on the final-normed x
-        aux["moe_aux"] = router_aux_loss(cfg, params["layers"][moe[0]]["ffn"], x.float())
-    return lm_logits(cfg, params, x), aux
+        aux["moe_aux"] = router_aux_loss(cfg, params["layers"][moe[0]]["ffn"], x.float(), policy)
+    return lm_logits(cfg, params, x, policy), aux
 
 
 def loss_fn(cfg, params, batch, **fw_kwargs):
@@ -227,7 +271,8 @@ def loss_fn(cfg, params, batch, **fw_kwargs):
     labels = batch["labels"]
     mask = (labels >= 0).float()
     labels_c = labels.clamp_min(0).long()
-    logits = logits.float()
+    # whole rows of logits on every rank of a mesh: the gather reads them
+    logits = fw_kwargs.get("policy", NULL_POLICY).constrain(logits.float(), "batch", "seq", None)
     lse = torch.logsumexp(logits, dim=-1)
     ll = logits.gather(-1, labels_c[..., None])[..., 0]
     nll = (lse - ll) * mask

@@ -54,6 +54,13 @@ def init_mamba(generator, cfg, *, dtype=torch.bfloat16, device="cuda"):
     }
 
 
+def mamba_axes(cfg):
+    return {"w_x": ("dmodel", "dinner"), "w_z": ("dmodel", "dinner"), "conv_w": ("dinner", None),
+            "conv_b": ("dinner",), "w_dt": ("dinner", None), "dt_proj": (None, "dinner"),
+            "dt_bias": ("dinner",), "w_B": ("dinner", None), "w_C": ("dinner", None),
+            "A_log": ("dinner", None), "D_skip": ("dinner",), "w_out": ("dinner", "dmodel")}
+
+
 def _ssm_inputs(p, xc, dtype):
     """dt (softplus, float32), B and C (float32) of the conv output xc; the
     weights cast to the compute dtype, then to xc's (float32 in a decode

@@ -52,6 +52,13 @@ def init_mlstm(generator, cfg, *, dtype=torch.bfloat16, device="cuda"):
     }
 
 
+def mlstm_axes(cfg):
+    return {"w_m": ("dmodel", "dinner"), "w_z": ("dmodel", "dinner"), "conv_w": ("dinner", None),
+            "conv_b": ("dinner",), "wq": ("heads", None, None), "wk": ("heads", None, None),
+            "wv": ("heads", None, None), "wi": ("dinner", None), "wf": ("dinner", None),
+            "bi": (None,), "bf": (None,), "gn": ("dinner",), "w_out": ("dinner", "dmodel")}
+
+
 def _mlstm_inputs(cfg, p, x, segment_ids):
     """q, k (scaled by 1/sqrt(dh)), v (B,S,H,dh) in x's dtype; the input and
     forget gates' logs li, lf (B,S,H) in float32; the output gate's z (B,S,di)."""
@@ -204,6 +211,11 @@ def init_slstm(generator, cfg, *, dtype=torch.bfloat16, device="cuda"):
         "b_g": b_g,
         "w_out": dense_init(generator, (D, D), **kw),
     }
+
+
+def slstm_axes(cfg):
+    return {"w_g": ("dmodel", None, "heads", None), "r_g": (None, "heads", None, None),
+            "b_g": (None, "heads", None), "w_out": ("dmodel", "dmodel")}
 
 
 def slstm_scan(gates_x, keep, r_g, b_g, carry):

@@ -2,39 +2,137 @@
 
 train_step: micro-batched gradient accumulation, global-norm clipping,
 optimizer update. Mixed precision as the reference: fp32 master parameters,
-bf16 compute, fp32 gradients. One device; the reference's sharding policy,
-`use_scan` and `flash_chunk` have no counterpart here (the attention kernel
-takes every length).
+bf16 compute, fp32 gradients. Under a `ShardingPolicy` with a mesh the train
+state is DTensors placed by the reference's rules (`sharding_for_state`),
+each micro-batch is split over the dp axes (`batch_spec`), and the forward,
+the loss, the clip and the optimizer's in-place update act on DTensors; the
+dense and MoE families train so (the recurrent, VLM and encoder-decoder ones
+wait, ROADMAP Queue 1). The reference's `use_scan` and `flash_chunk` have no
+counterpart here (the attention kernel takes every length).
 """
 from __future__ import annotations
 
+import contextlib
+import math
+
 import torch
 
-from repro_torch.models.model import init_params, loss_fn, prefill_forward, serve_forward
+from repro_torch.models.model import (
+    init_params,
+    loss_fn,
+    param_axes,
+    prefill_forward,
+    serve_forward,
+)
+from repro_torch.parallel.sharding import NULL_POLICY, mesh_sizes, tree_map_axes
 from repro_torch.train.optimizer import tree_leaves, tree_map
 
 
-def init_train_state(seed, cfg, optimizer, *, device="cuda"):
+def init_train_state(seed, cfg, optimizer, *, device="cuda", policy=NULL_POLICY):
     """{"params": fp32 masters from `seed` (requiring grad), "opt", "step"}.
 
     The optimizer state groups the layers of each period position as the
     reference's scan-layout train state stacks them (Adafactor's factoring
-    and clip act per stack; `train.optimizer`)."""
+    and clip act per stack; `train.optimizer`). Under a policy with a mesh
+    the parameters and the optimizer state are DTensors placed by
+    `sharding_for_state` (every rank builds the whole state from the seed,
+    then keeps its shards); the step stays a plain tensor. On
+    `device="meta"` the state holds shapes only."""
     params = init_params(cfg, seed, dtype=torch.float32, device=device)
     for p in tree_leaves(params):
         p.requires_grad_(True)
-    return {"params": params, "opt": optimizer.init(params, period=len(cfg.period)),
-            "step": torch.zeros((), dtype=torch.int32, device=device)}
+    state = {"params": params, "opt": optimizer.init(params, period=len(cfg.period)),
+             "step": torch.zeros((), dtype=torch.int32, device=device)}
+    return place_state(policy, cfg, optimizer, state)
+
+
+def opt_axes(cfg, optimizer, params_axes):
+    """The logical axes of `optimizer.init(params, period=P)`'s state. AdamW's
+    `m` and `v` and Adafactor's `m` mirror the parameters; Adafactor's
+    statistics drop an axis as the reference's (`vr` the last, `vc` the one
+    before it), and those of `layers` (and `enc_layers`) are stacked per
+    period position, their axes ("layers",) + a layer's: "layers" maps to no
+    mesh axis."""
+    if optimizer.name == "adamw":
+        return {"m": params_axes, "v": params_axes}
+
+    def v_axes(ax):
+        if len(ax) >= 2:
+            return {"vr": ax[:-1], "vc": ax[:-2] + ax[-1:]}
+        return {"v": ax}
+
+    def of(key, tree):
+        P = {"layers": len(cfg.period), "enc_layers": 1}.get(key)
+        if P is None:
+            return tree_map_axes(v_axes, tree)
+        return tuple(tree_map_axes(lambda ax: v_axes(("layers",) + ax), tree[pos])
+                     for pos in range(P))
+    return {"m": params_axes, "v": {k: of(k, v) for k, v in params_axes.items()}}
+
+
+def state_axes(cfg, optimizer):
+    """(state shapes on the meta device, logical-axes tree of the state);
+    the step's axes are ()."""
+    state = init_train_state(0, cfg, optimizer, device="meta")
+    pax = param_axes(cfg)
+    return state, {"params": pax, "opt": opt_axes(cfg, optimizer, pax), "step": ()}
+
+
+def sharding_for_state(policy, cfg, optimizer):
+    """(placements tree of the state (None without a mesh), state shapes on
+    the meta device, axes tree): the reference's `sharding_for_state`."""
+    shapes, axes = state_axes(cfg, optimizer)
+
+    def place(ax, s):
+        return policy.placements_for(ax, tuple(s.shape)) if policy.mesh is not None else None
+    return tree_map_axes(place, axes, shapes), shapes, axes
+
+
+def place_state(policy, cfg, optimizer, state):
+    """The whole train state (the same on every rank) placed by
+    `sharding_for_state`: its parameters and optimizer state as DTensors,
+    the step plain. Without a mesh, `state` itself."""
+    if policy.mesh is None:
+        return state
+    check_shardable(cfg)
+    from torch.distributed.tensor import distribute_tensor
+
+    def place(tree, placements):
+        if isinstance(tree, torch.Tensor):
+            d = distribute_tensor(tree.detach(), policy.mesh, placements)
+            return d.requires_grad_(tree.requires_grad)
+        if isinstance(tree, dict):
+            return {k: place(v, placements[k]) for k, v in tree.items()}
+        return type(tree)(place(v, pl) for v, pl in zip(tree, placements, strict=True))
+    placements = sharding_for_state(policy, cfg, optimizer)[0]
+    return {"params": place(state["params"], placements["params"]),
+            "opt": place(state["opt"], placements["opt"]), "step": state["step"]}
+
+
+def check_shardable(cfg):
+    """The families the sharded step holds: dense and MoE attention LMs."""
+    if cfg.vlm or cfg.enc_dec or any(s.mixer != "attn" for s in cfg.period):
+        kind = "VLM" if cfg.vlm else "encoder-decoder" if cfg.enc_dec else "recurrent"
+        raise NotImplementedError(f"{cfg.arch_id}: the {kind} family under a mesh is not "
+                                  "ported yet (ROADMAP Queue 1)")
 
 
 def global_norm(tree):
     return torch.sqrt(sum(g.float().square().sum() for g in tree_leaves(tree)))
 
 
-def build_train_step(cfg, optimizer, *, microbatches=1, remat=True, clip_norm=1.0,
-                     compute_dtype=torch.bfloat16):
+def build_train_step(cfg, optimizer, *, policy=NULL_POLICY, microbatches=1, remat=True,
+                     clip_norm=1.0, compute_dtype=torch.bfloat16):
     """Returns train_step(state, batch) -> (state, metrics); the state's
-    parameters and optimizer state are updated in place."""
+    parameters and optimizer state are updated in place. Under a policy
+    with a mesh the state is `init_train_state(..., policy=policy)`'s, every
+    rank passes the whole global batch, and the metrics come back as full
+    (replicated) tensors."""
+    sharded = policy.mesh is not None
+    if sharded:
+        check_shardable(cfg)
+        from torch.distributed.tensor import DTensor
+        from torch.distributed.tensor.experimental import implicit_replication
 
     def train_step(state, batch):
         params = state["params"]
@@ -45,44 +143,73 @@ def build_train_step(cfg, optimizer, *, microbatches=1, remat=True, clip_norm=1.
         for p in tree_leaves(params):
             p.grad = None
         loss_sum = ntokens = 0.0
-        for i in range(microbatches):
-            mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
-            total, metrics = loss_fn(cfg, params, mb, remat=remat, compute_dtype=compute_dtype)
-            (total / microbatches).backward()  # accumulates the mean into fp32 .grad
-            loss_sum = loss_sum + total.detach()
-            ntokens = ntokens + metrics["ntokens"]
-        grads = tree_map(lambda p: p.grad, params)
-        with torch.no_grad():
-            gnorm = global_norm(grads)
-            scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
-            for g in tree_leaves(grads):
-                g.mul_(scale)
-        optimizer.update(grads, state["opt"], params, state["step"])
+        # under a mesh, the model's own plain tensors (position rows, masks)
+        # count as replicated
+        with implicit_replication() if sharded else contextlib.nullcontext():
+            for i in range(microbatches):
+                mb = policy.distribute_batch({k: v[i * n:(i + 1) * n] for k, v in batch.items()})
+                total, metrics = loss_fn(cfg, params, mb, remat=remat,
+                                         compute_dtype=compute_dtype, policy=policy)
+                (total / microbatches).backward()  # accumulates the mean into fp32 .grad
+                loss_sum = loss_sum + total.detach()
+                ntokens = ntokens + metrics["ntokens"]
+            if sharded:  # each gradient placed as its parameter (its partial sums reduced)
+                for p in tree_leaves(params):
+                    p.grad = p.grad.redistribute(p.device_mesh, p.placements)
+            grads = tree_map(lambda p: p.grad, params)
+            with torch.no_grad():
+                gnorm = global_norm(grads)
+                scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+                for g in tree_leaves(grads):
+                    g.mul_(scale)
+            optimizer.update(grads, state["opt"], params, state["step"])
         state["step"] += 1
-        return state, {"loss": loss_sum / microbatches, "grad_norm": gnorm, "ntokens": ntokens}
+        metrics = {"loss": loss_sum / microbatches, "grad_norm": gnorm, "ntokens": ntokens}
+        if sharded:
+            metrics = {k: v.full_tensor() if isinstance(v, DTensor) else v
+                       for k, v in metrics.items()}
+        return state, metrics
 
     return train_step
 
 
-def build_serve_step(cfg, *, sample="greedy", compute_dtype=torch.bfloat16):
+def _local_steps(policy, name):
+    """Serving under a mesh: at one rank every shard is the whole tensor, so
+    the step runs the unsharded functions on the local tensors; across ranks
+    it waits for `launch/specs.py`'s cache shardings (ROADMAP Queue 1)."""
+    ranks = math.prod(mesh_sizes(policy.mesh).values())
+    if ranks > 1:
+        raise NotImplementedError(f"{name} under a mesh of {ranks} ranks is not ported yet "
+                                  "(ROADMAP Queue 1: launch/specs.py's cache shardings)")
+    if policy.mesh is None:
+        return lambda tree: tree
+    from torch.distributed.tensor import DTensor
+    return lambda tree: tree_map(lambda x: x.to_local() if isinstance(x, DTensor) else x, tree)
+
+
+def build_serve_step(cfg, *, sample="greedy", compute_dtype=torch.bfloat16,
+                     policy=NULL_POLICY):
     """serve_step(params, cache, batch) -> (next_tokens, logits, cache). The
     cache (`init_cache`/`extend_cache`) may mix the rings of sliding-window
     layers with the full caches of global ones."""
     if sample != "greedy":
         raise ValueError(f"sampling '{sample}' is not supported; only 'greedy'")
+    local = _local_steps(policy, "build_serve_step")
 
     def serve_step(params, cache, batch):
-        logits, cache = serve_forward(cfg, params, cache, batch, compute_dtype=compute_dtype)
+        logits, cache = serve_forward(cfg, local(params), cache, batch,
+                                      compute_dtype=compute_dtype)
         next_tokens = logits[:, -1].argmax(dim=-1).to(torch.int32)
         return next_tokens, logits, cache
 
     return serve_step
 
 
-def build_prefill_step(cfg, *, compute_dtype=torch.bfloat16):
+def build_prefill_step(cfg, *, compute_dtype=torch.bfloat16, policy=NULL_POLICY):
     """prefill_step(params, batch) -> (last_logits, caches)."""
+    local = _local_steps(policy, "build_prefill_step")
 
     def prefill_step(params, batch):
-        return prefill_forward(cfg, params, batch, compute_dtype=compute_dtype)
+        return prefill_forward(cfg, local(params), batch, compute_dtype=compute_dtype)
 
     return prefill_step

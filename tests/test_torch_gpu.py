@@ -1080,3 +1080,94 @@ def test_gpu_recurrent_mixer_matches_cpu(cuda, rng, arch, mixer):
     for a, b in zip(got, want):
         assert a.shape == b.shape
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()) + 1e-7
+
+
+@pytest.fixture
+def nccl_mesh(cuda):
+    """A one-rank NCCL process group in this process and its (1, 1)
+    ("data", "model") mesh; the group is destroyed after the test."""
+    import datetime
+    import socket
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        yield make_mesh((1, 1), ("data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,kw", [("qwen3-8b", {}),
+                                     ("qwen3-moe-30b-a3b", {"expert_parallel": True}),
+                                     ("qwen3-moe-30b-a3b", {})],
+                         ids=["qwen3-8b", "qwen3-moe-ep", "qwen3-moe-tp"])
+def test_gpu_one_rank_mesh_step_matches_unsharded(nccl_mesh, arch, kw):
+    """The sharded train step on the card's (1, 1) NCCL mesh (DTensor state,
+    the fp32 kernels through `local_map`, the MoE layer's EP or TP path)
+    against the unsharded step: 2 fp32 steps of reduced `arch` at head_dim
+    128, losses to 1e-5 relative, parameters to 1e-5 of each leaf's max,
+    the same kernel launches, the same routes. The MoE cases run without
+    remat, so that each records every call's routes: a recompute stops once
+    the tensors its backward needs are back, which may come before a layer
+    records them."""
+    from repro_torch.models import moe
+    from repro_torch.parallel.sharding import NULL_POLICY, gather, policy_for_mesh
+    from repro_torch.train.train_step import init_train_state
+
+    cfg = reduced(get_arch(arch), head_dim=128)
+    ds = SyntheticPackedDataset(cfg, 128, 4, seed=0, mu=3.6, sigma=0.8)
+    runs = {}
+    for name, pol in (("plain", NULL_POLICY), ("sharded", policy_for_mesh(nccl_mesh, **kw))):
+        opt = make_optimizer("adamw", lr=1e-3)
+        state = init_train_state(0, cfg, opt, device=nccl_mesh.device_type, policy=pol)
+        step = build_train_step(cfg, opt, policy=pol, microbatches=2, remat=not cfg.n_experts,
+                                compute_dtype=torch.float32)
+        before = (dict(packed_flash_attention.launches),
+                  dict(packed_flash_attention_backward.launches))
+        moe.moe_ffn.routes = []
+        try:
+            losses = [float(step(state, {k: t(v).cuda() for k, v in ds.batch_at(i).items()})[1]
+                            ["loss"]) for i in range(2)]
+            routes = moe.moe_ffn.routes
+        finally:
+            moe.moe_ffn.routes = None
+        torch.cuda.synchronize()
+        launches = [{k: c[k] - b[k] for k in c} for c, b in
+                    zip((packed_flash_attention.launches,
+                         packed_flash_attention_backward.launches), before)]
+        runs[name] = (losses, [n(p) for p in tree_leaves(gather(state["params"]))], launches,
+                      routes)
+    (l0, p0, c0, r0), (l1, p1, c1, r1) = runs["plain"], runs["sharded"]
+    np.testing.assert_allclose(l1, l0, rtol=1e-5)
+    for a, b in zip(p1, p0):
+        assert np.abs(a - b).max() <= 1e-5 * np.abs(b).max()
+    assert c1 == c0 and c1[0][FWD_TF32.source] > 0 and c1[1][BWD_TF32.source] > 0
+    assert len(r1) == len(r0) == (2 * 2 * cfg.n_layers if cfg.n_experts else 0)
+    for a, b in zip(r1, r0):
+        assert all(torch.equal(a[k], b[k]) for k in ("experts", "kept"))
+
+
+@pytest.mark.gpu
+def test_gpu_int8_compressor_matches_cpu(cuda):
+    """The int8 error-feedback compressor on the card gives the CPU's codes,
+    scales, dequantized values and residuals bit for bit (a scale divided
+    by a Python number there would be multiplied by its reciprocal)."""
+    from repro_torch.train.compression import Int8Compressor
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(1 << 22, generator=g) * torch.rand(1 << 22, generator=g) * 3
+    r = torch.randn(1 << 22, generator=g) * 1e-3
+    x[:256] = 0.0  # an all-zero block: the 1e-30 guard
+    comp = Int8Compressor(block=256)
+    for a, b in zip(comp.compress(x[:-5])[:2], comp.compress(x[:-5].cuda())[:2]):
+        assert torch.equal(a, b.cpu())
+    for a, b in zip(comp.roundtrip_with_feedback(x, r),
+                    comp.roundtrip_with_feedback(x.cuda(), r.cuda())):
+        assert torch.equal(a, b.cpu())

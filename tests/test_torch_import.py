@@ -37,6 +37,7 @@ assert {"repro_torch.models.moe", "repro_torch.configs.qwen3_moe_30b_a3b",
         "repro_torch.configs.grok_1_314b"} <= set(names)
 assert {"repro_torch.models.ssm", "repro_torch.models.xlstm", "repro_torch.configs.xlstm_1_3b",
         "repro_torch.configs.jamba_1_5_large_398b"} <= set(names)
+assert {"repro_torch.parallel.sharding", "repro_torch.train.compression"} <= set(names)
 """
 
 

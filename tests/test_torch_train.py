@@ -541,14 +541,18 @@ def test_run_spmd_on_cpu():
     assert set(result["detector"]) >= {"false_alarms", "detections"}
 
 
-def test_driver_refuses_what_is_not_ported(tmp_path):
-    """What is still not ported raises: --tp in spmd mode (sharding, ROADMAP
-    Queue 1 item 4); the pipeline-only flags raise in spmd mode. What this
-    test refused before is read now: --mode pipeline trains, --ckpt-dir
-    writes a committed checkpoint."""
+def test_driver_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    """What this test refused before is read now: --tp in spmd mode (at world
+    size 1 the run is the run without it; under torchrun it shards:
+    tests/test_torch_sharding.py), --mode pipeline trains, --ckpt-dir writes
+    a committed checkpoint. Still refused: a --tp that does not divide the
+    world size, the pipeline-only flags in spmd mode."""
     base = ["--reduced", "--steps", "1", "--seq-len", "64", "--batch", "4", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    assert t_launch.main(base + ["--tp", "2"])["losses"] == t_launch.main(base)["losses"]
+    monkeypatch.setenv("WORLD_SIZE", "3")
+    with pytest.raises(ValueError, match="does not divide the world size 3"):
         t_launch.main(base + ["--tp", "2"])
+    monkeypatch.delenv("WORLD_SIZE")
     with pytest.raises(ValueError, match="--mode pipeline"):
         t_launch.main(base + ["--dp", "2"])
     r = t_launch.main(base + ["--mode", "pipeline"])

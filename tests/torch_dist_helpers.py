@@ -1,0 +1,294 @@
+"""Spawned `gloo` ranks for the port's sharding tests (tests/test_torch_sharding.py).
+
+`launch(fn, world, *args)` starts `world` CPU processes, each of which joins
+a process group over `tcp://localhost:<free port>` (every collective times
+out after `COLLECTIVE_TIMEOUT_S`) and returns `fn(rank, world, *args)`;
+`Ranks.results(timeout)` joins them, kills any rank still running at the
+timeout and raises with every rank's traceback, so a hang fails its test.
+
+A rank writes its result (or traceback) to a file and sends only its rank
+and status through the queue: a message of a few bytes is one atomic write
+to the pipe, so a rank that its watchdog ends never leaves the reader
+blocked on half a message, and no rank waits for the test to read a large
+result before it can exit.
+
+The workers (`mesh_cases` and its cases) import no jax: they get numpy
+inputs from the test and send back numpy results.
+"""
+from __future__ import annotations
+
+import datetime
+import os
+import pickle
+import queue
+import shutil
+import socket
+import tempfile
+import traceback
+
+import numpy as np
+import torch
+import torch.multiprocessing as mp
+
+COLLECTIVE_TIMEOUT_S = 120
+RANK_TIMEOUT_S = 600  # a rank still running then prints its stack and exits
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _result_path(result_dir, rank):
+    return os.path.join(result_dir, f"rank{rank}.pkl")
+
+
+def _entry(rank, world, port, out, fn, args, result_dir):
+    import faulthandler
+
+    import torch.distributed as dist
+
+    faulthandler.dump_traceback_later(RANK_TIMEOUT_S, exit=True)
+    torch.set_num_threads(1)
+    try:
+        os.environ.update(WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK=str(rank))
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                                world_size=world,
+                                timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
+        status, value = "ok", fn(rank, world, *args)
+    except BaseException:  # noqa: BLE001 - every failure goes back to the test
+        status, value = "error", traceback.format_exc()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    path = _result_path(result_dir, rank)
+    with open(path + ".tmp", "wb") as f:
+        pickle.dump(value, f)
+    os.replace(path + ".tmp", path)
+    faulthandler.cancel_dump_traceback_later()
+    out.put((rank, status))
+
+
+class Ranks:
+    def __init__(self, world, procs, out, result_dir):
+        self.world, self.procs, self.out, self.result_dir = world, procs, out, result_dir
+        self._results = self._error = None
+
+    def results(self, timeout=300.0):
+        """{rank: fn's value}; raises if a rank failed or did not end in time
+        (and again on every later call, without waiting)."""
+        if self._error is not None:
+            raise RuntimeError(self._error)
+        if self._results is not None:
+            return self._results
+        got, errors = {}, []
+        deadline = datetime.datetime.now() + datetime.timedelta(seconds=timeout)
+        while len(got) + len(errors) < self.world:
+            left = (deadline - datetime.datetime.now()).total_seconds()
+            try:
+                rank, status = self.out.get(timeout=max(left, 0.1))
+            except queue.Empty:
+                break
+            with open(_result_path(self.result_dir, rank), "rb") as f:
+                value = pickle.load(f)
+            (got.__setitem__(rank, value) if status == "ok" else errors.append((rank, value)))
+        for p in self.procs:
+            p.join(timeout=5)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(self.result_dir, ignore_errors=True)
+        if errors or len(got) < self.world:
+            msgs = [f"rank {r}:\n{tb}" for r, tb in sorted(errors)]
+            missing = sorted(set(range(self.world)) - set(got) - {r for r, _ in errors})
+            if missing:
+                msgs.append(f"ranks {missing} did not end within {timeout} s")
+            self._error = "\n".join(msgs)
+            raise RuntimeError(self._error)
+        self._results = got
+        return got
+
+
+def launch(fn, world, *args):
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    port = free_port()
+    result_dir = tempfile.mkdtemp(prefix="ranks-")
+    procs = [ctx.Process(target=_entry, args=(r, world, port, out, fn, args, result_dir),
+                         daemon=True)
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    return Ranks(world, procs, out, result_dir)
+
+
+# ------------------------------------------------------------------ workers
+def _tensor_batch(batch):
+    return {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
+
+
+def _numpy(tree_leaves_list):
+    return [x.detach().float().numpy().copy() for x in tree_leaves_list]
+
+
+def _step_case(mesh, case):
+    """len(batches) fp32 steps of the sharded train step from the case's
+    numpy parameters -> losses, grad norms, token counts, each step's
+    clipped gradients, the final parameters and optimizer state (whole)."""
+    from repro_torch.bridge import params_from_jax
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.parallel.sharding import gather, policy_for_mesh
+    from repro_torch.train.optimizer import make_optimizer, tree_leaves
+    from repro_torch.train.train_step import build_train_step, place_state
+
+    cfg = reduced(get_arch(case["arch"]), **case["over"])
+    policy = policy_for_mesh(mesh, **case["policy"])
+    name, momentum = case["opt"]
+    opt = make_optimizer(name, lr=case["lr"], momentum_dtype=getattr(torch, momentum))
+    params = params_from_jax(case["params"], dtype=torch.float32, device="cpu")
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    state = {"params": params, "opt": opt.init(params, period=len(cfg.period)),
+             "step": torch.zeros((), dtype=torch.int32)}
+    state = place_state(policy, cfg, opt, state)
+    step = build_train_step(cfg, opt, policy=policy, microbatches=case["microbatches"],
+                            clip_norm=case["clip_norm"], compute_dtype=torch.float32)
+    out = {"loss": [], "grad_norm": [], "ntokens": [], "grads": []}
+    for batch in case["batches"]:
+        state, m = step(state, _tensor_batch(batch))
+        for k in ("loss", "grad_norm", "ntokens"):
+            out[k].append(float(m[k]))
+        out["grads"].append(_numpy(gather([p.grad for p in tree_leaves(state["params"])])))
+    out["params"] = _numpy(tree_leaves(gather(state["params"])))
+    out["opt"] = _numpy(tree_leaves(gather(state["opt"])))
+    out["step"] = int(state["step"])
+    return out
+
+
+def _moe_layer_case(mesh, case):
+    """moe_ffn under the policy on the case's numpy layer, input and output
+    gradient -> whole output, input and weight gradients, this rank's routes."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models import moe
+    from repro_torch.parallel.sharding import policy_for_mesh
+
+    cfg = reduced(get_arch(case["arch"]), **case["over"])
+    policy = policy_for_mesh(mesh, **case["policy"])
+    p = policy.distribute({k: torch.from_numpy(v).requires_grad_(True)
+                           for k, v in case["p"].items()}, moe.moe_axes(cfg))
+    x, dy = (distribute_tensor(torch.from_numpy(a), mesh,
+                               policy.placements_for(("batch", "seq", None), a.shape))
+             for a in (case["x"], case["dy"]))
+    x.requires_grad_(True)
+    moe.moe_ffn.routes = []
+    try:
+        y = moe.moe_ffn(cfg, p, x, policy)
+        routes = moe.moe_ffn.routes
+    finally:
+        moe.moe_ffn.routes = None
+    (y * dy).sum().backward()
+    return {"y": y.full_tensor().detach().numpy(), "dx": x.grad.full_tensor().numpy(),
+            "dp": {k: v.grad.full_tensor().numpy() for k, v in p.items()},
+            "routes": {k: routes[0][k].numpy() for k in ("experts", "kept")},
+            "coords": mesh.get_coordinate()}
+
+
+def _placements_case(mesh, case):
+    """Each (axes, shape, policy kw) placed by `placements_for`: this rank's
+    local shard of arange(numel)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.parallel.sharding import policy_for_mesh
+
+    out = []
+    for axes, shape, kw in case["specs"]:
+        policy = policy_for_mesh(mesh, **kw)
+        full = torch.arange(int(np.prod(shape)), dtype=torch.float32).reshape(shape)
+        d = distribute_tensor(full, mesh, policy.placements_for(axes, shape))
+        out.append((policy.spec_for(axes, shape), d.to_local().numpy()))
+    return {"coords": mesh.get_coordinate(), "locals": out}
+
+
+def _one_rank_case(mesh, case):
+    """At a (1, 1) mesh: the sharded step against the unsharded one from the
+    same state, and prefill + a decode step through build_prefill_step /
+    build_serve_step with the DTensor parameters."""
+    from repro_torch.bridge import params_from_jax
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models.model import extend_cache
+    from repro_torch.parallel.sharding import NULL_POLICY, gather, policy_for_mesh
+    from repro_torch.train.optimizer import make_optimizer, tree_leaves
+    from repro_torch.train.train_step import (
+        build_prefill_step,
+        build_serve_step,
+        build_train_step,
+        place_state,
+    )
+
+    cfg = reduced(get_arch(case["arch"]), **case["over"])
+    policy = policy_for_mesh(mesh)
+    opt = make_optimizer("adamw", lr=case["lr"])
+
+    def state_of(p):
+        params = params_from_jax(case["params"], dtype=torch.float32, device="cpu")
+        for x in tree_leaves(params):
+            x.requires_grad_(True)
+        state = {"params": params, "opt": opt.init(params),
+                 "step": torch.zeros((), dtype=torch.int32)}
+        return place_state(p, cfg, opt, state)
+    plain, sharded = state_of(NULL_POLICY), state_of(policy)
+    out = {"plain": [], "sharded": []}
+    for pol, st, key in ((NULL_POLICY, plain, "plain"), (policy, sharded, "sharded")):
+        step = build_train_step(cfg, opt, policy=pol, microbatches=2, compute_dtype=torch.float32)
+        for batch in case["batches"]:
+            st, m = step(st, _tensor_batch(batch))
+            out[key].append(float(m["loss"]))
+    out["params_plain"] = _numpy(tree_leaves(plain["params"]))
+    out["params_sharded"] = _numpy(tree_leaves(gather(sharded["params"])))
+    prompt = {k: torch.from_numpy(v) for k, v in case["prompt"].items()}
+    with torch.no_grad():
+        served = {}
+        for key, params, pol in (("plain", plain["params"], NULL_POLICY),
+                                 ("sharded", sharded["params"], policy)):
+            logits, caches = build_prefill_step(cfg, compute_dtype=torch.float32, policy=pol)(
+                params, prompt)
+            cache = extend_cache(cfg, caches, prompt["tokens"].shape[1] + 1)
+            nxt, dec, _ = build_serve_step(cfg, compute_dtype=torch.float32, policy=pol)(
+                params, cache, {"tokens": logits[:, -1].argmax(-1, keepdim=True).int(),
+                                "lengths": torch.full((logits.shape[0],),
+                                                      prompt["tokens"].shape[1])})
+            served[key] = (logits.numpy(), dec.numpy(), nxt.numpy())
+    out["served"] = served
+    return out
+
+
+def _driver_case(mesh, case):
+    """`launch.train.run_spmd` (the driver) under this world, as torchrun
+    runs it: its argv, then its losses."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.launch import train
+
+    args = train.parser().parse_args(case["argv"])
+    return train.run_spmd(reduced(get_arch(args.arch)), args)["losses"]
+
+
+CASES = {"step": _step_case, "moe_layer": _moe_layer_case, "placements": _placements_case,
+         "one_rank": _one_rank_case, "driver": _driver_case}
+
+
+def mesh_cases(rank, world, shape, cases):
+    """Every case on the `("data", "model")` mesh of `shape`, in order:
+    {name: rank 0's result} ({name: result} of every rank for the cases
+    whose result differs by rank: moe_layer, placements)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+    out = {}
+    for name, case in cases.items():
+        result = CASES[case["kind"]](mesh, case)
+        if rank == 0 or case["kind"] in ("moe_layer", "placements"):
+            out[name] = result
+    return out
