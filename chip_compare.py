@@ -2,7 +2,7 @@
 
     python3 chip_compare.py --trees _archive/parent . . _archive/parent \\
         [--arch h2o-danube-1.8b ...] [--head-dims 64 80 128] [--fp32-forward]
-        [--skip-train] [--out FILE.json]
+        [--multimodal [bf16] [fp32]] [--skip-train] [--out FILE.json]
 
 Each tree is a checkout of this repository (for an older commit, a `git
 archive` unpacked into a git-ignored directory). For each tree in the order
@@ -18,12 +18,15 @@ each of those head widths, which shows how much of a kernel's time follows
 its products. `--fp32-forward` adds the fp32 forward alone at every family
 arch's 1 x 4096 case (where `--arch` did not run it), at the ragged 2 x 777
 shape (qwen3-8b's heads) and at each fp32 parity path's 2 x 256 batch and
-heads (chip_smoke's `PARITY_ARCHS`). The full record also keeps each tree's
-ptxas registers and spills. Naming a tree twice, as parent, change, change,
-parent, shows the spread beside the difference. Prints one JSON summary per
-run and, as the last line, the summaries of all runs; `--out` also keeps
-every run's full record. Needs a CUDA card; exits nonzero without one or if
-any run fails.
+heads (chip_smoke's `PARITY_ARCHS`). `--multimodal [bf16] [fp32]` adds
+that tree's `multimodal_kernel_phase`: whisper-medium's five attention
+regimes at head_dim 64 (16/16 heads), in the dtypes named (both when none
+is), forward and backward, the backward's time split by kernel. The full
+record also keeps each tree's ptxas registers and spills. Naming a tree
+twice, as parent, change, change, parent, shows the spread beside the
+difference. Prints one JSON summary per run and, as the last line, the
+summaries of all runs; `--out` also keeps every run's full record. Needs a
+CUDA card; exits nonzero without one or if any run fails.
 """
 from __future__ import annotations
 
@@ -121,6 +124,9 @@ if opts["fp32_forward"]:  # the family's 1 x 4096 documents, the ragged shape, t
         kw = {"time_splits": True} if "time_splits" in signature(cs.kernel_case).parameters else {}
         rows[name] = cs.kernel_case(name, *inputs, seg, pos, cs.TOL_FP32, time_it=True,
                                     window=cs.arch_window(small), **kw)
+if opts["multimodal"]:  # whisper-medium's regimes at head_dim 64
+    rows.update(cs.multimodal_kernel_phase(device, tags=opts["multimodal"]))
+    torch.cuda.empty_cache()
 for arch in opts["archs"] if opts["train"] else ():
     record["train"][arch] = cs.train_phase(get_arch(arch), device, layers=None,
                                            steps=cs.FAMILY_TRAIN_STEPS, fit=cs.FAMILY_TRAIN_FIT)
@@ -128,9 +134,10 @@ for arch in opts["archs"] if opts["train"] else ():
 print("RESULT " + json.dumps(record), flush=True)
 """
 
-CASE_KEYS = ("ms", "ms_by_kernel", "splits", "ms_by_splits", "bound_ms", "bound_by",
-             "bound_share", "bound_3xtf32_ms", "bound_3xtf32_share", "plain_ms", "library_ms",
-             "max_abs_err", "wrapper_event_ms", "shape", "kv_heads")
+CASE_KEYS = ("ms", "ms_by_kernel", "share_by_kernel", "splits", "ms_by_splits", "bound_ms",
+             "bound_by", "bound_share", "bound_3xtf32_ms", "bound_3xtf32_share", "plain_ms",
+             "library_ms", "library_kernels", "max_abs_err", "wrapper_event_ms", "shape",
+             "kv_heads", "pair")
 
 
 def summary(tree, record):
@@ -173,6 +180,9 @@ def main(argv=None):
                     help="also time the bf16 kernels at each arch's shape at these head widths")
     ap.add_argument("--fp32-forward", action="store_true",
                     help="also time the fp32 forward at the ragged and parity shapes")
+    ap.add_argument("--multimodal", nargs="*", choices=("bf16", "fp32"),
+                    help="also time the kernels in whisper-medium's regimes (head_dim 64), "
+                         "in these dtypes (both when none is named)")
     ap.add_argument("--skip-train", action="store_true", help="run no train steps")
     ap.add_argument("--out", help="also write every run's full record to this JSON file")
     args = ap.parse_args(argv)
@@ -185,7 +195,9 @@ def main(argv=None):
     if unknown:
         ap.error(f"--arch {sorted(unknown)} not in {FAMILY_KERNEL_ARCHS}")
     opts = {"archs": args.arch, "head_dims": args.head_dims, "train": not args.skip_train,
-            "fp32_forward": args.fp32_forward}
+            "fp32_forward": args.fp32_forward,
+            "multimodal": (args.multimodal or ["bf16", "fp32"]) if args.multimodal is not None
+            else []}
 
     if not torch.cuda.is_available():
         print("chip_compare: no CUDA card visible; nothing was run", file=sys.stderr)

@@ -306,6 +306,16 @@ def device_ms(fn, iters, names=()):
     return us / 1e3 / iters
 
 
+def library_timing(fn, iters):
+    """(device ms per call, the names of the kernels it launched) of a
+    yardstick PyTorch call: which backend SDPA picks shows in the names, and
+    its time has moved up to 2.5x between processes on the same shapes."""
+    us = device_us_by_kernel(fn, iters)
+    if sum(us.values()) <= 0:
+        raise AssertionError("the profiler saw no device time for the yardstick call")
+    return sum(us.values()) / 1e3 / iters, sorted(name[:80] for name in us)
+
+
 def attention_bound(q, mask, products, moved_bytes):
     """Least time (ms) for packed attention on these inputs, and what bounds it.
 
@@ -376,8 +386,8 @@ def kernel_case(name, q, k, v, seg, pos, tol, *, time_it, window=None, time_mask
     split of its key walk up to 16). Rows with no visible key must be
     exactly 0. Returns a row."""
     from repro_torch.kernels.packed_flash_attn import (
-        FWD_TF32, SM90, _sm_count, fwd_splits, kernel_for, packed_flash_attention, tile_map,
-        tile_sizes)
+        FWD_TF32, SM90, _sm_count, fwd_splits, kernel_for, packed_flash_attention, pair_rows,
+        tile_map, tile_sizes)
     from repro_torch.kernels.ref import attention_mask, packed_attention_ref
 
     ids = case_ids(seg, pos, keys)
@@ -398,7 +408,10 @@ def kernel_case(name, q, k, v, seg, pos, tol, *, time_it, window=None, time_mask
            "padding_rows": int((seg == 0).sum()), "rows_without_key": int(no_key.sum()),
            "tiles": list(tile_sizes(q.dtype, dh)),
            "skipped_tile_fraction": float((codes == 0).float().mean()),
-           "unmasked_tile_fraction": float((codes == 2).float().mean())}
+           "unmasked_tile_fraction": float((codes == 2).float().mean()),
+           # the narrow bf16 kernel's mode: two map rows a CTA (1) or one (0)
+           "pair": pair_rows(kern, q.shape[0], q.shape[2], codes.shape[1],
+                            _sm_count(q.device.index))}
     if time_it:
         # q, k, v and the int32 seg/pos of both sides read, out written
         bound, by, flops, moved = attention_bound(
@@ -413,7 +426,7 @@ def kernel_case(name, q, k, v, seg, pos, tol, *, time_it, window=None, time_mask
         # yardstick only: one PyTorch call computing the same function
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         bmask = mask[:, None]
-        row["library_ms"] = device_ms(
+        row["library_ms"], row["library_kernels"] = library_timing(
             lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bmask, enable_gqa=True), 10)
         row["library_call"] = "torch.nn.functional.scaled_dot_product_attention(bool mask, enable_gqa)"
         row["bound_share"] = row["bound_ms"] / row["ms"]
@@ -513,7 +526,11 @@ def backward_case(name, q, k, v, seg, pos, tol, *, time_it, window=None, time_sp
         if kern.split_rule == "tf32" and time_splits:
             row["ms_by_splits"] = tf32_split_ms(call, kern, splits, H // K * Sqp // kern.block_q,
                                                 Skp // kern.dq_tiles[1], tol, ref)
-        row.update(ms=sum(by_name.values()), ms_by_kernel=by_name,
+        # each kernel's share of the backward (whisper's regimes: the delta pass,
+        # dK/dV and dQ, each a launch of its own or folded into another)
+        total = sum(by_name.values())
+        row["share_by_kernel"] = {kname: t / total for kname, t in by_name.items()}
+        row.update(ms=total, ms_by_kernel=by_name,
                    wrapper_event_ms=cuda_ms(call, iters=10),
                    plain_ms=device_ms(plain, 2), bound_ms=bound, bound_by=by, flops=flops,
                    bytes=moved)
@@ -525,7 +542,7 @@ def backward_case(name, q, k, v, seg, pos, tol, *, time_it, window=None, time_sp
         o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask[:, None], enable_gqa=True)
         dot = d_out.transpose(1, 2)
         library = lambda: torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True)  # noqa: E731
-        row["library_ms"] = device_ms(library, 10)
+        row["library_ms"], row["library_kernels"] = library_timing(library, 10)
         row["library_call"] = ("torch.nn.functional.scaled_dot_product_attention(bool mask, "
                                "enable_gqa) backward by torch.autograd.grad")
         if time_splits:  # the kernel and SDPA in turn, each round's time: their spread
@@ -2238,7 +2255,9 @@ def ptxas_by_function(log):
 # dK/dV and dQ kernels (five 16-column chunks under the 32-byte swizzle) on
 # wgmma, the fp32 forward on TF32 tensor-core products at every head width,
 # and the fp32 backward's dK/dV and dQ kernels at every width its paths run;
-# head_dim 64 is whisper-medium's, forward and backward, bf16 and fp32
+# head_dim 64 is whisper-medium's, forward and backward, bf16 and fp32: in
+# bf16 the narrow kernels (64-row forward CTAs, the dQ kernel with the delta
+# pass, the persistent dK/dV kernel), which head_dim 16 and 32 share
 BUILD_GATES = (
     ("head_dim_256_backward_build", "BWD_SM90_WIDE",
      ("bwd_sm90_dkdv_split_kernel", "bwd_sm90_dq_kernel"), (256,), ("HGMMA",)),
@@ -2247,9 +2266,10 @@ BUILD_GATES = (
      (80,), ("HGMMA",)),
     ("fp32_forward_build", "FWD_TF32", ("packed_flash_attn_tf32_kernel",),
      (16, 32, 64, 80, 128, 256), ("HMMA", "TF32")),
-    ("head_dim_64_forward_build", "SM90", ("packed_flash_attn_sm90_kernel",), (64,), ("HGMMA",)),
-    ("head_dim_64_backward_build", "BWD_SM90", ("bwd_sm90_dkdv_kernel", "bwd_sm90_dq_kernel"),
-     (64,), ("HGMMA",)),
+    ("head_dim_64_forward_build", "SM90_NARROW", ("packed_flash_attn_sm90_narrow_kernel",),
+     (16, 32, 64), ("HGMMA",)),
+    ("head_dim_64_backward_build", "BWD_SM90_NARROW",
+     ("bwd_sm90_dq_narrow_kernel", "bwd_sm90_dkdv_narrow_kernel"), (16, 32, 64), ("HGMMA",)),
     ("fp32_backward_build", "BWD_TF32", ("bwd_tf32_dkdv_kernel", "bwd_tf32_dq_kernel"),
      (64, 80, 128, 256), ("HMMA", "TF32")),
 )
@@ -2282,26 +2302,32 @@ def kernel_build_check(record_name, knames, head_dims, opcode):
     report = {}
     for kname in knames:
         for dh in head_dims:
-            label = f"{kname}<{dh}>"
-            found = [f for f in sass if kname in f and f"ILi{dh}E" in f]  # template argument
-            if len(found) != 1 or found[0] not in ptxas:
-                raise AssertionError(f"{label}: {len(found)} functions in the SASS ({found}), "
-                                     f"in the ptxas report: {[f in ptxas for f in found]}")
-            res = ptxas[found[0]]
-            row = {"function": found[0], "opcode": " ".join(opcode),
-                   "instructions": sum(all(w in line for w in opcode) for line in sass[found[0]]),
-                   **res}
-            if row["instructions"] == 0:
-                raise AssertionError(f"{label}: no {' '.join(opcode)} instruction in its SASS")
-            if res.get("spill_stores", 1) or res.get("spill_loads", 1):
-                raise AssertionError(f"{label}: ptxas reports spills {res}")
-            report[label] = row
+            # every instance at this width (the narrow kernels have one a mode:
+            # a second template argument, `Lb0`/`Lb1` in the mangled name)
+            found = [f for f in sass if kname in f and f"ILi{dh}E" in f]
+            if not found or not all(f in ptxas for f in found):
+                raise AssertionError(f"{kname}<{dh}>: {len(found)} functions in the SASS "
+                                     f"({found}), in the ptxas report: "
+                                     f"{[f in ptxas for f in found]}")
+            for func in found:
+                rest = func.split(f"ILi{dh}E", 1)[1]
+                label = f"{kname}<{dh}>" if rest.startswith("EEv") else (
+                    f"{kname}<{dh}, {rest.split('E', 1)[0]}>")
+                res = ptxas[func]
+                row = {"function": func, "opcode": " ".join(opcode),
+                       "instructions": sum(all(w in line for w in opcode) for line in sass[func]),
+                       **res}
+                if row["instructions"] == 0:
+                    raise AssertionError(f"{label}: no {' '.join(opcode)} instruction in its SASS")
+                if res.get("spill_stores", 1) or res.get("spill_loads", 1):
+                    raise AssertionError(f"{label}: ptxas reports spills {res}")
+                report[label] = row
     return report
 
 
-TIMING_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err", "shape",
-               "kv_heads", "window", "dtype", "splits", "ms_by_splits", "ms_by_kernel",
-               "bound_3xtf32_ms", "bound_3xtf32_share")
+TIMING_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_kernels",
+               "max_abs_err", "shape", "kv_heads", "window", "dtype", "splits", "ms_by_splits",
+               "ms_by_kernel", "share_by_kernel", "bound_3xtf32_ms", "bound_3xtf32_share")
 
 
 def fp32_bwd_extra(row, full=False):
@@ -2446,7 +2472,7 @@ def kernel_entries(record):
               {f"{wh} train": bwd(mm[f"{wh}_train"], BWD_SM90.source)}, head_dim=64,
               regimes=regimes("bf16", "_bwd"),
               **{key: mk["encoder_train_bf16_bwd"].get(key) for key in (
-                  "tiles", "dq_tiles", "ms_by_kernel")}),
+                  "tiles", "dq_tiles", "ms_by_kernel", "share_by_kernel")}),
         entry("packed_flash_attention_backward[head_dim 256]", BWD_SM90.source,
               fk["gemma3-1b_bf16_bwd"],
               {"gemma3-1b train": bwd(fam["gemma3-1b_train"], BWD_SM90.source),
@@ -2601,17 +2627,17 @@ def recurrent_phases(record, device):
     mark(f"{xcfg.arch_id} train loops")
 
 
-def multimodal_kernel_phase(device):
+def multimodal_kernel_phase(device, tags=("bf16", "fp32")):
     """The kernels in the regimes whisper-medium runs them, at its heads (16
-    query and 16 KV heads, head_dim 64), bf16 and fp32, forward and
-    backward, each against the plain version and timed beside its bound,
-    the plain version and SDPA with a boolean mask: the encoder's
-    non-causal self-attention at serving's 4 x 1500 frames and at the
-    training batch's 1 x 4096 packed clips, the decoder's causal
-    self-attention at 1 x 1024, and the cross-attention at 1 x 1024 queries
-    over 1 x 4096 keys (the training row, whose last decoder document is
-    given a segment id no clip has: exactly 0 out and 0 gradient) and at
-    4 x 64 over 4 x 1500 (serving)."""
+    query and 16 KV heads, head_dim 64), bf16 and fp32 (or the dtypes of
+    `tags`), forward and backward, each against the plain version and
+    timed beside its bound, the plain version and SDPA with a boolean
+    mask: the encoder's non-causal self-attention at serving's 4 x 1500
+    frames and at the training batch's 1 x 4096 packed clips, the decoder's
+    causal self-attention at 1 x 1024, and the cross-attention at 1 x 1024
+    queries over 1 x 4096 keys (the training row, whose last decoder
+    document is given a segment id no clip has: exactly 0 out and 0
+    gradient) and at 4 x 64 over 4 x 1500 (serving)."""
     from repro_torch.configs import get_arch
     from repro_torch.data.multimodal import enc_dec_batch
 
@@ -2640,6 +2666,8 @@ def multimodal_kernel_phase(device):
     g.manual_seed(64)
     rows = {}
     for dtype, tol, tag in ((torch.bfloat16, TOL_BF16, "bf16"), (torch.float32, TOL_FP32, "fp32")):
+        if tag not in tags:
+            continue
         for name, (seg, pos), keys, causal in cases:
             B, Sq = seg.shape
             Sk = Sq if keys is None else keys[0].shape[1]

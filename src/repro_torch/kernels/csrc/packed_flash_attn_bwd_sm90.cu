@@ -95,6 +95,11 @@
 // Q K^T-type products over 5 k-steps, dV, dK and dQ each one m64n80k16
 // product a k-step (40 accumulator registers a thread each), and the delta
 // pass at 16 lanes a row, 10 of them loading.
+//
+// Head widths 16, 32 and 64 (whisper-medium) run two narrow kernels of their
+// own, (c'') dQ with the delta pass folded in, then (b'') a persistent dK/dV
+// kernel over a compacted list of each key tile's query tiles (the
+// `Tiles<64>` branch below; its design note is beside the kernels).
 
 #include "sm90_common.cuh"
 
@@ -113,6 +118,15 @@ struct Tiles<256> {
   static constexpr int KV_BQ = 64, KV_BK = 64, DQ_BQ = 128, DQ_BK = 32;
   static constexpr int PAD_Q = 128, PAD_K = 64;
 };
+// dh <= 64: dQ at 64 query rows a CTA, so ids pad to 64 queries (the
+// narrow kernels (b'') and (c'') below)
+struct NarrowTiles {
+  static constexpr int KV_BQ = 64, KV_BK = 128, DQ_BQ = 64, DQ_BK = 128;
+  static constexpr int PAD_Q = 64, PAD_K = 128;
+};
+template <> struct Tiles<16> : NarrowTiles {};
+template <> struct Tiles<32> : NarrowTiles {};
+template <> struct Tiles<64> : NarrowTiles {};
 constexpr int CONSUMERS = 256;            // two warpgroups of 64 rows each
 constexpr int THREADS = CONSUMERS + 128;  // and one producer warpgroup
 constexpr int STAGES = 2;                 // ring depth
@@ -123,8 +137,20 @@ constexpr int DELTA_THREADS = 256;
 // the consumers. 2 x 232 + 40 = 3 x 168.
 constexpr int PRODUCER_REGS = 40;
 constexpr int CONSUMER_REGS = 232;
-// named barriers of the dh 256 dK/dV kernel's P^T hand-over (0 is __syncthreads)
-constexpr int BAR_P_FULL = 1, BAR_P_EMPTY = 2;
+// named barriers of the dh 256 dK/dV kernel's P^T hand-over (0 is __syncthreads),
+// of the narrow dQ kernel's hand-over of warpgroup 1's part, and of each
+// warpgroup's turn to issue its score products in the narrow kernels
+constexpr int BAR_P_FULL = 1, BAR_P_EMPTY = 2, BAR_MERGE = 3, BAR_TURN = 4;
+constexpr int NARROW_STAGES = 4;  // ring depth of the narrow kernels
+constexpr int NARROW_KV_BUFS = 2;  // K/V buffers of the narrow dK/dV kernel
+// Two habits of the narrow kernels, as in FlashAttention-3. Ping-pong: the
+// two warpgroups issue their score products (S and dP, or S^T and dP^T) in
+// turn (BAR_TURN + wg), so that one's elementwise work runs while the
+// other's products hold the tensor cores; without it they run in step, both
+// on the same stage or on two stages that arrive together. Overlap: a
+// warpgroup's elementwise work runs while its next product is in flight (P
+// while dP runs; in dK/dV also dS^T while dV runs), by waiting for all but
+// the last committed product group.
 
 template <int DH>
 __host__ __device__ constexpr bool tiles_divide_padding() {
@@ -132,8 +158,8 @@ __host__ __device__ constexpr bool tiles_divide_padding() {
   return T::PAD_Q % T::KV_BQ == 0 && T::PAD_Q % T::DQ_BQ == 0 && T::PAD_K % T::KV_BK == 0 &&
          T::PAD_K % T::DQ_BK == 0;
 }
-static_assert(tiles_divide_padding<80>() && tiles_divide_padding<128>() &&
-                  tiles_divide_padding<256>(),
+static_assert(tiles_divide_padding<64>() && tiles_divide_padding<80>() &&
+                  tiles_divide_padding<128>() && tiles_divide_padding<256>(),
               "every tile divides the padding");
 
 // dK/dV shared memory: K and V tiles, then per stage the Q and dO tiles and
@@ -893,15 +919,641 @@ bwd_sm90_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Narrow heads (dh <= 64: whisper-medium's 64, and 16, 32). At these widths a
+// CTA's products are few and short, so its fixed chain (launch, barrier set-
+// up, the once-loaded tiles, the first stage, the epilogue) and the launches
+// themselves set the time: whisper serving's cross-attention (64 queries over
+// 1500 keys) gave 768 dK/dV CTAs of one stage each, 5.8 waves of that chain,
+// and 64 dQ CTAs whose 128-row tiles were half padding. Two kernels, no
+// delta launch:
+//   (c'') dQ, launched first, with the delta pass folded in: a CTA owns 64
+//       query rows of one (batch, head) (two such map rows, one a
+//       warpgroup, in pair mode: see the kernel); each consumer thread computes
+//       delta for its two rows from O and dO in device memory (a quad of
+//       threads a row, DH / 4 columns each) while Q and dO arrive by TMA,
+//       and warpgroup 0 writes lse2 and delta to the (B, H, Sqp) buffers
+//       that (b'') reads. Both warpgroups hold all 64 rows and take the
+//       row's visible key tiles in turn (the even ones warpgroup 0, the odd
+//       ones 1) through a ring of NARROW_STAGES stages, visible tile i in
+//       stage i % NARROW_STAGES; warpgroup 1 hands its fp32 dQ part to
+//       warpgroup 0 through shared memory, which adds it (in that order:
+//       deterministic) and stores.
+//   (b'') dK/dV, persistent: `ctas` CTAs (one an SM) walk the work items,
+//       (key tile, KV head, batch) with early (heavy) key tiles first: CTA c
+//       starts on item c, and each later item goes to the first CTA whose
+//       producer asks for one (an atomic counter, which (c'') zeroes), so
+//       uneven items (packed clips) balance as the hardware's own block
+//       scheduling would; every item is computed the same way whichever CTA
+//       takes it, so the result is deterministic. K, V and the keys' ids of
+//       an item go into one of NARROW_KV_BUFS buffers, so the producer
+//       copies the next item's while the consumers finish this one and
+//       store its dK and dV. The
+//       producer's first warp reads the item's column of tile codes once,
+//       32 codes a load, and compacts the nonzero ones into a list in
+//       shared memory (qt << 2 | code; a ballot and a prefix count), which
+//       the producer and both consumer warpgroups walk: no thread scans the
+//       column byte by byte at a stride of nK. The products are (b)'s.
+// ---------------------------------------------------------------------------
+
+// sum of a[i] b[i] over N bf16 (N a multiple of 4), in 16-byte loads (8-byte
+// ones when N is not a multiple of 8)
+template <int N>
+__device__ __forceinline__ float dot_bf16(const __nv_bfloat16* a, const __nv_bfloat16* b) {
+  constexpr int W = N % 8 == 0 ? 8 : 4;  // bf16 a load
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < N; i += W) {
+    uint32_t aw[W / 2], bw[W / 2];
+    if constexpr (W == 8) {
+      const uint4 x = *reinterpret_cast<const uint4*>(a + i);
+      const uint4 y = *reinterpret_cast<const uint4*>(b + i);
+      aw[0] = x.x; aw[1] = x.y; aw[2] = x.z; aw[3] = x.w;
+      bw[0] = y.x; bw[1] = y.y; bw[2] = y.z; bw[3] = y.w;
+    } else {
+      const uint2 x = *reinterpret_cast<const uint2*>(a + i);
+      const uint2 y = *reinterpret_cast<const uint2*>(b + i);
+      aw[0] = x.x; aw[1] = x.y;
+      bw[0] = y.x; bw[1] = y.y;
+    }
+#pragma unroll
+    for (int w = 0; w < W / 2; ++w) {
+      const float2 af = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&aw[w]));
+      const float2 bf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&bw[w]));
+      acc = fmaf(af.x, bf.x, acc);
+      acc = fmaf(af.y, bf.y, acc);
+    }
+  }
+  return acc;
+}
+
+// (c'') shared memory: the Q tiles of the CTA's map rows (64 rows each; two
+// in pair mode), then their dO tiles, then per stage the K and V tiles and
+// the keys' segment ids and positions; warpgroup 1's dQ part (DH / 2 floats
+// a thread, split mode); then the barriers.
+template <int DH>
+struct DqNarrowSmem {
+  using T = Tiles<DH>;
+  static constexpr int QT_BYTES = T::DQ_BQ * DH * 2;
+  static constexpr int KT_BYTES = T::DQ_BK * DH * 2;
+  static constexpr int META_BYTES = 2 * T::DQ_BK * 4;
+  static constexpr int STAGE_BYTES = 2 * KT_BYTES + META_BYTES;
+  static constexpr int DO = 2 * QT_BYTES;  // Q of map rows 0 and 1, then dO of each
+  static constexpr int STAGE0 = 4 * QT_BYTES;
+  static constexpr int MERGE = STAGE0 + NARROW_STAGES * STAGE_BYTES;
+  static constexpr int BAR = MERGE + 128 * (DH / 2) * 4;  // q, full[STAGES], empty[STAGES]
+  static constexpr int ALLOC = BAR + (1 + 2 * NARROW_STAGES) * 8 + 1024;
+  static_assert(QT_BYTES % 1024 == 0 && KT_BYTES % 1024 == 0 && META_BYTES % 1024 == 0,
+                "swizzle atoms need 1024-byte alignment");
+  static_assert(ALLOC <= 232448, "more shared memory than a CTA can have");
+};
+
+// (c'') dQ of one or two 64-row map rows of one head, dh <= 64, and the
+// rows' lse2 and delta. Split mode (pair 0): one map row a CTA, the two
+// warpgroups taking its visible key tiles in turn and adding their parts in
+// shared memory. Pair mode (pair 1, grids of two waves or more, as the
+// forward's): two map rows a CTA, one a warpgroup, both consuming every key
+// tile either row needs, so that each K/V tile serves 128 rows. One
+// instance a mode (PAIR).
+template <int DH, bool PAIR>
+__global__ void __launch_bounds__(THREADS, 1)
+bwd_sm90_dq_narrow_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_do,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __nv_bfloat16* __restrict__ out,
+                          const __nv_bfloat16* __restrict__ d_out, const float* __restrict__ lse,
+                          float* __restrict__ lse2, float* __restrict__ delta,
+                          const int* __restrict__ seg_q, const int* __restrict__ seg_k,
+                          const int* __restrict__ pos_q, const int* __restrict__ pos_k,
+                          const int8_t* __restrict__ blk, __nv_bfloat16* __restrict__ dq,
+                          int* __restrict__ next_item, int Sq, int Sqp, int Skp, int H, int KH,
+                          float scale, float scale_log2, int causal, int has_window,
+                          int window) {
+  using M = DqNarrowSmem<DH>;
+  constexpr int BQ = Tiles<DH>::DQ_BQ, BK = Tiles<DH>::DQ_BK, NST = NARROW_STAGES;
+  constexpr bool pair = PAIR;
+  static_assert(DH <= 64 && Chunking<DH>::NCH == 1, "one chunk a row");
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t bar_q = base + M::BAR;
+  auto bar_full = [&](int s) { return bar_q + 8u * (1 + s); };
+  auto bar_empty = [&](int s) { return bar_q + 8u * (1 + NST + s); };
+
+  const int nQ = Sqp / BQ, nK = Skp / BK;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int ct = (pair ? (nQ + 1) / 2 : nQ) - 1 - (int)blockIdx.z;  // heavy causal tiles first
+  const int kh = h * KH / H;
+  // the CTA's map rows: mt0 (and, in pair mode, mt0 + 1 if there is one)
+  const int mt0 = pair ? 2 * ct : ct;
+  const bool two = pair && mt0 + 1 < nQ;
+  const int8_t* codes0 = blk + ((size_t)b * nQ + mt0) * nK;
+  const int8_t* codes1 = codes0 + nK;  // read only when `two`
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(bar_full(s), 1);
+      // lane 0 of each warp of the stage's consumers: one warpgroup, or both
+      mbar_init(bar_empty(s), pair ? 8 : 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    // (b''), launched after this kernel, hands out its items from 0
+    if (blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0) *next_item = 0;
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (tid == CONSUMERS) {
+      mbar_expect_tx(bar_q, (two ? 4 : 2) * M::QT_BYTES);
+      tma_load_4d(base, &tm_q, bar_q, 0, h, mt0 * BQ, b);
+      tma_load_4d(base + M::DO, &tm_do, bar_q, 0, h, mt0 * BQ, b);
+      if (two) {
+        tma_load_4d(base + M::QT_BYTES, &tm_q, bar_q, 0, h, (mt0 + 1) * BQ, b);
+        tma_load_4d(base + M::DO + M::QT_BYTES, &tm_do, bar_q, 0, h, (mt0 + 1) * BQ, b);
+      }
+      int n = 0;
+      for (int kt = 0; kt < nK; ++kt) {
+        if (!(codes0[kt] | (two ? codes1[kt] : 0))) continue;
+        const int stage = n % NST;
+        const uint32_t phase = (n / NST) & 1u;
+        ++n;
+        mbar_wait(bar_empty(stage), phase ^ 1u);
+        const uint32_t full = bar_full(stage);
+        mbar_expect_tx(full, M::STAGE_BYTES);
+        const uint32_t dst = base + M::STAGE0 + stage * M::STAGE_BYTES;
+        tma_load_4d(dst, &tm_k, full, 0, kh, kt * BK, b);
+        tma_load_4d(dst + M::KT_BYTES, &tm_v, full, 0, kh, kt * BK, b);
+        const size_t ids = (size_t)b * Skp + (size_t)kt * BK;
+        bulk_load(dst + 2 * M::KT_BYTES, seg_k + ids, BK * 4, full);
+        bulk_load(dst + 2 * M::KT_BYTES + BK * 4, pos_k + ids, BK * 4, full);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+
+  // consumers: warpgroup wg's map row mt (both hold mt0 in split mode), this
+  // thread its rows r0 and r0 + 8; `mine` false for pair mode's missing row.
+  // First the delta pass over the rows, while Q and dO arrive.
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31, t128 = tid & 127;
+  const int r0 = 16 * warp + (lane >> 2);
+  const int cq = 2 * (lane & 3);
+  const int mt = pair ? mt0 + wg : mt0;
+  const bool mine = !pair || wg == 0 || two;
+  const int8_t* codes = pair && wg == 1 ? codes1 : codes0;
+  int sq[2] = {0, 0}, pq[2] = {0, 0};
+  float l2[2] = {INFINITY, INFINITY}, dl[2] = {0.f, 0.f};
+  if (mine) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int row = mt * BQ + r0 + 8 * j;  // < Sqp: the ids are padded
+      sq[j] = seg_q[(size_t)b * Sqp + row];
+      pq[j] = pos_q[(size_t)b * Sqp + row];
+      float acc = 0.f;
+      if (row < Sq) {
+        const size_t at = (((size_t)b * Sq + row) * H + h) * DH + (lane & 3) * (DH / 4);
+        acc = dot_bf16<DH / 4>(out + at, d_out + at);
+      }
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+      l2[j] = row < Sq ? lse[((size_t)b * H + h) * Sq + row] * LOG2E : INFINITY;
+      dl[j] = row < Sq ? acc : 0.f;
+      if ((pair || wg == 0) && (lane & 3) == 0) {
+        lse2[((size_t)b * H + h) * Sqp + row] = l2[j];
+        delta[((size_t)b * H + h) * Sqp + row] = dl[j];
+      }
+    }
+  }
+  float dq_acc[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) dq_acc[i] = 0.f;
+
+  const uint32_t q_addr = base + (pair ? wg * M::QT_BYTES : 0), do_addr = q_addr + M::DO;
+  mbar_wait(bar_q, 0);
+  if (wg == 1) named_bar_arrive(BAR_TURN, CONSUMERS);  // warpgroup 0 first
+  int n = 0;
+  for (int kt = 0; kt < nK; ++kt) {
+    const int any = codes0[kt] | (two ? codes1[kt] : 0);
+    if (!any) continue;
+    const int idx = n++;
+    if (!pair && (idx & 1) != wg) continue;
+    // a pair-mode warpgroup runs every tile, masked where its own row sees
+    // none of it (code 0 there, or no row): no product is conditional, which
+    // would serialize the asynchronous ones
+    const int own = pair && mine ? codes[kt] : 0;
+    const int code = pair ? (own ? own : 1) : any;
+    const int stage = idx % NST;
+    mbar_wait(bar_full(stage), (idx / NST) & 1u);
+    const uint32_t k_addr = base + M::STAGE0 + stage * M::STAGE_BYTES;
+    const uint32_t v_addr = k_addr + M::KT_BYTES;
+
+    // S = Q K^T, then dP = dO V^T, two commit groups: m64 rows x n128 keys,
+    // in this warpgroup's turn; P is computed while dP runs
+    float s[BK / 2], dp[BK / 2];
+    named_bar_sync(BAR_TURN + wg, CONSUMERS);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      Wgmma<BK>::ss(s, kmajor_desc<DH>(q_addr, BQ, kk), kmajor_desc<DH>(k_addr, BK, kk), kk > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      Wgmma<BK>::ss(dp, kmajor_desc<DH>(do_addr, BQ, kk), kmajor_desc<DH>(v_addr, BK, kk), kk > 0);
+    wgmma_commit();
+    named_bar_arrive(BAR_TURN + 1 - wg, CONSUMERS);
+    wgmma_wait<1>();  // S
+    pin(s);
+
+    // P = exp2(S scale log2e - lse2) where visible, else 0
+    const int* key_seg = reinterpret_cast<const int*>(smem + M::STAGE0 +
+                                                      stage * M::STAGE_BYTES + 2 * M::KT_BYTES);
+    const int* key_pos = key_seg + BK;
+#pragma unroll
+    for (int i = 0; i < BK / 8; ++i) {
+      const int2 skv = *reinterpret_cast<const int2*>(key_seg + 8 * i + cq);
+      const int2 pkv = *reinterpret_cast<const int2*>(key_pos + 8 * i + cq);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const bool v0 = code == 2 || visible(sq[j], pq[j], skv.x, pkv.x, causal, has_window, window);
+        const bool v1 = code == 2 || visible(sq[j], pq[j], skv.y, pkv.y, causal, has_window, window);
+        const int e = 4 * i + 2 * j;
+        s[e] = v0 ? exp2f(fmaf(s[e], scale_log2, -l2[j])) : 0.f;
+        s[e + 1] = v1 ? exp2f(fmaf(s[e + 1], scale_log2, -l2[j])) : 0.f;
+      }
+    }
+    wgmma_wait_all();  // dP
+    pin(dp);
+    // dS = P o (dP - delta), to bf16 in the register layout of the A operand
+    uint32_t dsa[BK / 4];
+#pragma unroll
+    for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int e = 4 * i + 2 * j;
+        dsa[2 * i + j] = pack_bf16(s[e] * (dp[e] - dl[j]), s[e + 1] * (dp[e + 1] - dl[j]));
+      }
+
+    // dQ += dS K: 16 keys per k-step, K MN-major
+    pin(dq_acc);
+    pin(dsa);
+    wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < BK / 16; ++t)
+      Wgmma<DH>::rs(dq_acc, dsa + 4 * t, mnmajor_desc<DH>(k_addr, BK, t));
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(dq_acc);
+    if (lane == 0) mbar_arrive(bar_empty(stage));
+  }
+  // the last hand-on of a turn is taken: in split mode by warpgroup n % 2,
+  // in pair mode, where both take every tile, by 0
+  if (wg == (pair ? 0 : n & 1)) named_bar_sync(BAR_TURN + wg, CONSUMERS);
+
+  if (!pair) {
+    // warpgroup 1 hands its part to warpgroup 0, thread for thread
+    float* mg = reinterpret_cast<float*>(smem + M::MERGE);
+    if (wg == 1) {
+#pragma unroll
+      for (int i = 0; i < DH / 2; ++i) mg[i * 128 + t128] = dq_acc[i];
+      named_bar_arrive(BAR_MERGE, CONSUMERS);
+      return;
+    }
+    named_bar_sync(BAR_MERGE, CONSUMERS);
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) dq_acc[i] += mg[i * 128 + t128];
+  }
+  if (!mine) return;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int row = mt * BQ + r0 + 8 * j;
+    if (row < Sq) {
+      __nv_bfloat16* drow = dq + (((size_t)b * Sq + row) * H + h) * DH + cq;
+#pragma unroll
+      for (int i = 0; i < DH / 8; ++i)
+        *reinterpret_cast<__nv_bfloat162*>(drow + 8 * i) = __floats2bfloat162_rn(
+            dq_acc[4 * i + 2 * j] * scale, dq_acc[4 * i + 2 * j + 1] * scale);
+    }
+  }
+}
+
+// (b'') shared memory: NARROW_KV_BUFS buffers of an item's K and V tiles, the
+// ring's stages (Q and dO tiles, the rows' lse2, delta, segment ids,
+// positions), each buffer's key ids, each buffer's item and count of listed
+// query tiles, the barriers; then (sized at launch) each buffer's list of
+// query tiles.
+template <int DH>
+struct KvNarrowSmem {
+  using T = Tiles<DH>;
+  static constexpr int KT_BYTES = T::KV_BK * DH * 2;
+  static constexpr int QT_BYTES = T::KV_BQ * DH * 2;
+  static constexpr int META_BYTES = 4 * T::KV_BQ * 4;
+  static constexpr int STAGE_BYTES = 2 * QT_BYTES + META_BYTES;
+  static constexpr int NB = NARROW_KV_BUFS;
+  static constexpr int KV_BUF = 2 * KT_BYTES;
+  static constexpr int STAGE0 = NB * KV_BUF;
+  static constexpr int KMETA = STAGE0 + NARROW_STAGES * STAGE_BYTES;  // buffer u: seg_k, pos_k
+  static constexpr int KMETA_BYTES = 2 * T::KV_BK * 4;
+  static constexpr int COUNT = KMETA + NB * KMETA_BYTES;  // int count[NB], item[NB]
+  static constexpr int BAR = COUNT + (8 * NB + 15) / 16 * 16;  // kv_full[NB], kv_empty[NB],
+  // full[STAGES], empty[STAGES]
+  static constexpr int LIST = BAR + (2 * NB + 2 * NARROW_STAGES + 1) / 2 * 16;  // uint16
+  // list[NB][list_cap]
+  static_assert(KT_BYTES % 1024 == 0 && QT_BYTES % 1024 == 0 && META_BYTES % 1024 == 0 &&
+                    KMETA_BYTES % 1024 == 0 && LIST % 16 == 0,
+                "swizzle atoms need 1024-byte alignment");
+  // bytes of dynamic shared memory with lists of `cap` entries (1024 of slack to align)
+  static constexpr int alloc(int cap) { return LIST + NB * cap * 2 + 1024; }
+};
+
+// (b'') dK, dV, dh <= 64: persistent CTAs over (key tile, KV head, batch)
+template <int DH>
+__global__ void __launch_bounds__(THREADS, 1)
+bwd_sm90_dkdv_narrow_kernel(const __grid_constant__ CUtensorMap tm_q,
+                            const __grid_constant__ CUtensorMap tm_do,
+                            const __grid_constant__ CUtensorMap tm_k,
+                            const __grid_constant__ CUtensorMap tm_v,
+                            const float* __restrict__ lse2, const float* __restrict__ delta,
+                            const int* __restrict__ seg_q, const int* __restrict__ seg_k,
+                            const int* __restrict__ pos_q, const int* __restrict__ pos_k,
+                            const int8_t* __restrict__ blk, __nv_bfloat16* __restrict__ dk,
+                            __nv_bfloat16* __restrict__ dv, int* __restrict__ next_item, int B,
+                            int Sk, int Sqp, int Skp, int H, int KH, float scale,
+                            float scale_log2, int causal, int has_window, int window,
+                            int list_cap) {
+  using C = Chunking<DH>;
+  using M = KvNarrowSmem<DH>;
+  constexpr int KV_BQ = Tiles<DH>::KV_BQ, KV_BK = Tiles<DH>::KV_BK, NST = NARROW_STAGES;
+  constexpr int NB = M::NB;
+  static_assert(DH <= 64 && C::NCH == 1, "one chunk a row");
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t bar = base + M::BAR;
+  auto kv_full = [&](int u) { return bar + 8u * u; };
+  auto kv_empty = [&](int u) { return bar + 8u * (NB + u); };
+  auto bar_full = [&](int s) { return bar + 8u * (2 * NB + s); };
+  auto bar_empty = [&](int s) { return bar + 8u * (2 * NB + NST + s); };
+  int* counts = reinterpret_cast<int*>(smem + M::COUNT);
+  int* item_of = counts + NB;  // buffer u's item, -1: no more items
+  uint16_t* lists = reinterpret_cast<uint16_t*>(smem + M::LIST);
+
+  const int nQ = Sqp / KV_BQ, nK = Skp / KV_BK, group = H / KH, items = nK * KH * B;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int u = 0; u < NB; ++u) {
+      mbar_init(kv_full(u), 1);
+      mbar_init(kv_empty(u), CONSUMERS / 32);  // lane 0 of each consumer warp
+    }
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(bar_full(s), 1);
+      mbar_init(bar_empty(s), CONSUMERS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {
+    // producer: its first warp lists each item's query tiles, and that
+    // warp's first thread issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (tid < CONSUMERS + 32) {
+      const int lane = tid & 31;
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int n = 0;; ++n) {
+        const int u = n % NB;
+        mbar_wait(kv_empty(u), ((n / NB) & 1u) ^ 1u);
+        // this CTA's first item is its index, each later one the next unclaimed
+        int item = 0;
+        if (lane == 0) item = n == 0 ? (int)blockIdx.x : (int)gridDim.x + atomicAdd(next_item, 1);
+        item = __shfl_sync(0xffffffffu, item, 0);
+        if (item >= items) {  // tell the consumers, and stop
+          if (lane == 0) {
+            item_of[u] = -1;
+            mbar_arrive(kv_full(u));
+          }
+          break;
+        }
+        const int kt = item / (KH * B), kh = item % (KH * B) / B, b = item % B;
+        // the key tile's column of codes (codes[qt * nK]), 32 a load, its
+        // nonzero entries listed in order
+        const int8_t* col = blk + (size_t)b * nQ * nK + kt;
+        uint16_t* list = lists + u * list_cap;
+        int cnt = 0;
+        for (int q0 = 0; q0 < nQ; q0 += 32) {
+          const int qt = q0 + lane;
+          const int code = qt < nQ ? col[(size_t)qt * nK] : 0;
+          const unsigned nz = __ballot_sync(0xffffffffu, code != 0);
+          if (code) list[cnt + __popc(nz & ((1u << lane) - 1u))] = (uint16_t)(qt << 2 | code);
+          cnt += __popc(nz);
+        }
+        if (lane == 0) {
+          counts[u] = cnt;
+          item_of[u] = item;
+        }
+        __threadfence_block();
+        __syncwarp();
+        if (lane == 0) {
+          const uint32_t kvf = kv_full(u);
+          mbar_expect_tx(kvf, 2 * M::KT_BYTES + M::KMETA_BYTES);
+          const uint32_t kdst = base + u * M::KV_BUF;
+          tma_load_4d(kdst, &tm_k, kvf, 0, kh, kt * KV_BK, b);
+          tma_load_4d(kdst + M::KT_BYTES, &tm_v, kvf, 0, kh, kt * KV_BK, b);
+          const uint32_t kmeta = base + M::KMETA + u * M::KMETA_BYTES;
+          const size_t kid = (size_t)b * Skp + (size_t)kt * KV_BK;
+          bulk_load(kmeta, seg_k + kid, KV_BK * 4, kvf);
+          bulk_load(kmeta + KV_BK * 4, pos_k + kid, KV_BK * 4, kvf);
+          for (int h = kh * group; h < (kh + 1) * group; ++h) {
+            for (int e = 0; e < cnt; ++e) {
+              const int qt = list[e] >> 2;
+              mbar_wait(bar_empty(stage), phase ^ 1u);
+              const uint32_t full = bar_full(stage);
+              mbar_expect_tx(full, M::STAGE_BYTES);
+              const uint32_t dst = base + M::STAGE0 + stage * M::STAGE_BYTES;
+              tma_load_4d(dst, &tm_q, full, 0, h, qt * KV_BQ, b);
+              tma_load_4d(dst + M::QT_BYTES, &tm_do, full, 0, h, qt * KV_BQ, b);
+              const uint32_t meta = dst + 2 * M::QT_BYTES;
+              const size_t stat = ((size_t)b * H + h) * Sqp + (size_t)qt * KV_BQ;
+              const size_t ids = (size_t)b * Sqp + (size_t)qt * KV_BQ;
+              bulk_load(meta, lse2 + stat, KV_BQ * 4, full);
+              bulk_load(meta + KV_BQ * 4, delta + stat, KV_BQ * 4, full);
+              bulk_load(meta + 2 * KV_BQ * 4, seg_q + ids, KV_BQ * 4, full);
+              bulk_load(meta + 3 * KV_BQ * 4, pos_q + ids, KV_BQ * 4, full);
+              if (++stage == NST) { stage = 0; phase ^= 1u; }
+            }
+          }
+        }
+        __syncwarp();
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+
+  // consumers: warpgroup wg owns keys 64 wg .. 64 wg + 63 of each item's
+  // tile; this thread keys r0 and r0 + 8 (rows of S^T), queries 8i + cq (+1)
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int r0 = 64 * wg + 16 * warp + (lane >> 2);
+  const int cq = 2 * (lane & 3);
+  int stage = 0;
+  uint32_t phase = 0;
+  if (wg == 1) named_bar_arrive(BAR_TURN, CONSUMERS);  // warpgroup 0 first
+  for (int n = 0;; ++n) {
+    const int u = n % NB;
+    mbar_wait(kv_full(u), (n / NB) & 1u);
+    const int item = item_of[u];
+    if (item < 0) break;
+    const int kt = item / (KH * B), kh = item % (KH * B) / B, b = item % B;
+    const int cnt = counts[u];
+    const uint16_t* list = lists + u * list_cap;
+    const int* kseg = reinterpret_cast<const int*>(smem + M::KMETA + u * M::KMETA_BYTES);
+    int sk[2], pk[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      sk[j] = kseg[r0 + 8 * j];
+      pk[j] = kseg[KV_BK + r0 + 8 * j];
+    }
+    float dk_acc[DH / 2], dv_acc[DH / 2];
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    const uint32_t k_addr = base + u * M::KV_BUF + wg * 64 * C::SW, v_addr = k_addr + M::KT_BYTES;
+
+    for (int h = kh * group; h < (kh + 1) * group; ++h) {
+      for (int e = 0; e < cnt; ++e) {
+        const int code = list[e] & 3;
+        mbar_wait(bar_full(stage), phase);
+        const uint32_t q_addr = base + M::STAGE0 + stage * M::STAGE_BYTES;
+        const uint32_t do_addr = q_addr + M::QT_BYTES;
+
+        // S^T = K Q^T, then dP^T = V dO^T, two commit groups: m64 keys x n64
+        // queries, in this warpgroup's turn (warpgroup 0 issues each stage's
+        // first). The chain below overlaps its elementwise work with the
+        // products in flight: P^T while dP^T runs, dS^T while dV runs.
+        float s[KV_BQ / 2], dp[KV_BQ / 2];
+        named_bar_sync(BAR_TURN + wg, CONSUMERS);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DH / 16; ++kk)
+          Wgmma<KV_BQ>::ss(s, kmajor_desc<DH>(k_addr, KV_BK, kk),
+                           kmajor_desc<DH>(q_addr, KV_BQ, kk), kk > 0);
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < DH / 16; ++kk)
+          Wgmma<KV_BQ>::ss(dp, kmajor_desc<DH>(v_addr, KV_BK, kk),
+                           kmajor_desc<DH>(do_addr, KV_BQ, kk), kk > 0);
+        wgmma_commit();
+        named_bar_arrive(BAR_TURN + 1 - wg, CONSUMERS);
+        wgmma_wait<1>();  // S^T
+        pin(s);
+
+        // P^T = exp2(S^T scale log2e - lse2) where visible, else 0; lse2,
+        // delta and ids of column (query) c
+        const float* row_lse = reinterpret_cast<const float*>(smem + M::STAGE0 +
+                                                              stage * M::STAGE_BYTES +
+                                                              2 * M::QT_BYTES);
+        const float* row_delta = row_lse + KV_BQ;
+        const int* row_seg = reinterpret_cast<const int*>(row_delta + KV_BQ);
+        const int* row_pos = row_seg + KV_BQ;
+#pragma unroll
+        for (int i = 0; i < KV_BQ / 8; ++i) {
+          const int c = 8 * i + cq;
+          const float2 l2 = *reinterpret_cast<const float2*>(row_lse + c);
+          const int2 sq = *reinterpret_cast<const int2*>(row_seg + c);
+          const int2 pq = *reinterpret_cast<const int2*>(row_pos + c);
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const bool v0 = code == 2 || visible(sq.x, pq.x, sk[j], pk[j], causal, has_window, window);
+            const bool v1 = code == 2 || visible(sq.y, pq.y, sk[j], pk[j], causal, has_window, window);
+            const int x = 4 * i + 2 * j;
+            s[x] = v0 ? exp2f(fmaf(s[x], scale_log2, -l2.x)) : 0.f;
+            s[x + 1] = v1 ? exp2f(fmaf(s[x + 1], scale_log2, -l2.y)) : 0.f;
+          }
+        }
+        uint32_t pa[KV_BQ / 4], dsa[KV_BQ / 4];
+#pragma unroll
+        for (int i = 0; i < KV_BQ / 4; ++i) pa[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+
+        // dV += P^T dO: 16 queries per k-step, dO MN-major
+        pin(dv_acc);
+        pin(pa);
+        wgmma_fence();
+#pragma unroll
+        for (int t = 0; t < KV_BQ / 16; ++t)
+          Wgmma<DH>::rs(dv_acc, pa + 4 * t, mnmajor_desc<DH>(do_addr, KV_BQ, t));
+        wgmma_commit();
+        wgmma_wait<1>();  // dP^T (dV may still run)
+        pin(dp);
+
+        // dS^T = P^T o (dP^T - delta)
+#pragma unroll
+        for (int i = 0; i < KV_BQ / 8; ++i) {
+          const float2 dl = *reinterpret_cast<const float2*>(row_delta + 8 * i + cq);
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int x = 4 * i + 2 * j;
+            dp[x] = s[x] * (dp[x] - dl.x);
+            dp[x + 1] = s[x + 1] * (dp[x + 1] - dl.y);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < KV_BQ / 4; ++i) dsa[i] = pack_bf16(dp[2 * i], dp[2 * i + 1]);
+
+        // dK += dS^T Q: Q MN-major
+        pin(dk_acc);
+        pin(dsa);
+        wgmma_fence();
+#pragma unroll
+        for (int t = 0; t < KV_BQ / 16; ++t)
+          Wgmma<DH>::rs(dk_acc, dsa + 4 * t, mnmajor_desc<DH>(q_addr, KV_BQ, t));
+        wgmma_commit();
+        wgmma_wait_all();
+        pin(dv_acc);
+        pin(dk_acc);
+        if (lane == 0) mbar_arrive(bar_empty(stage));
+        if (++stage == NST) { stage = 0; phase ^= 1u; }
+      }
+    }
+    // K, V, the key ids and the list of buffer u are read: the producer may refill it
+    if (lane == 0) mbar_arrive(kv_empty(u));
+
+    // epilogue: keys past Sk are not stored; a key no query sees stores 0
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int key = kt * KV_BK + r0 + 8 * j;
+      if (key < Sk) {
+        const size_t at = (((size_t)b * Sk + key) * KH + kh) * DH + cq;
+#pragma unroll
+        for (int i = 0; i < DH / 8; ++i) {
+          *reinterpret_cast<__nv_bfloat162*>(dk + at + 8 * i) = __floats2bfloat162_rn(
+              dk_acc[4 * i + 2 * j] * scale, dk_acc[4 * i + 2 * j + 1] * scale);
+          *reinterpret_cast<__nv_bfloat162*>(dv + at + 8 * i) =
+              __floats2bfloat162_rn(dv_acc[4 * i + 2 * j], dv_acc[4 * i + 2 * j + 1]);
+        }
+      }
+    }
+  }
+  // both warpgroups ran every stage: warpgroup 1's last hand-on is to 0
+  if (wg == 0) named_bar_sync(BAR_TURN, CONSUMERS);
+}
+
 template <int DH>
 int launch(const void* q, const void* k, const void* v, const void* out, const void* d_out,
            const void* lse, const void* seg_q, const void* seg_k, const void* pos_q,
            const void* pos_k, const void* blk_kv, const void* blk_dq, void* lse2, void* delta,
            void* dq, void* dk, void* dv, int B, int Sq, int Sk, int H, int KH, int Sqp, int Skp,
            float scale, int causal, int has_window, int window, int splits, void* part,
-           cudaStream_t stream) {
+           int ctas, void* counter, int pair, cudaStream_t stream) {
   using T = Tiles<DH>;
   if (Sqp % T::PAD_Q || Skp % T::PAD_K) return (int)cudaErrorInvalidValue;
+  // the narrow dK/dV kernel runs `ctas` persistent CTAs and hands out items by `counter`
+  if (DH <= 64 && (ctas < 1 || counter == nullptr)) return (int)cudaErrorInvalidValue;
   // the GQA group splits over dK/dV CTAs only at dh 256, into fp32 parts
   if (splits < 1 || (H / KH) % splits || (splits > 1 && (DH <= 128 || part == nullptr)))
     return (int)cudaErrorInvalidValue;
@@ -930,54 +1582,83 @@ int launch(const void* q, const void* k, const void* v, const void* out, const v
             *pq = static_cast<const int*>(pos_q), *pk = static_cast<const int*>(pos_k);
   const float scale_log2 = scale * LOG2E;
 
-  const long long rows = (long long)B * H * Sqp;
-  constexpr int rows_per_block = DELTA_THREADS / delta_lanes<DH>();
-  bwd_sm90_delta_kernel<DH><<<(unsigned)((rows + rows_per_block - 1) / rows_per_block),
-                              DELTA_THREADS, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(out), static_cast<const __nv_bfloat16*>(d_out),
-      static_cast<const float*>(lse), static_cast<float*>(lse2), static_cast<float*>(delta), Sq,
-      Sqp, H, rows);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  constexpr int kv_smem = KvSmem<DH>::ALLOC;
-  const int8_t* bkv = static_cast<const int8_t*>(blk_kv);
-  __nv_bfloat16 *dk16 = static_cast<__nv_bfloat16*>(dk), *dv16 = static_cast<__nv_bfloat16*>(dv);
-  if constexpr (DH > 128) {
-    auto dkdv = bwd_sm90_dkdv_split_kernel<DH>;
-    err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, kv_smem);
+  if constexpr (DH <= 64) {
+    // (c'') dQ and the delta pass, then (b'') dK/dV, which reads lse2 and delta
+    auto dqk = pair ? bwd_sm90_dq_narrow_kernel<DH, true> : bwd_sm90_dq_narrow_kernel<DH, false>;
+    constexpr int q_smem = DqNarrowSmem<DH>::ALLOC;
+    cudaError_t err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, q_smem);
     if (err != cudaSuccess) return (int)err;
-    float* parts = static_cast<float*>(part);
-    dkdv<<<dim3(KH * splits, B, Skp / T::KV_BK), THREADS, kv_smem, stream>>>(
-        tm_q_kv, tm_do_kv, tm_k_kv, tm_v_kv, l2, dl, sq, sk, pq, pk, bkv, dk16, dv16, Sk, Sqp,
-        Skp, H, KH, scale, scale_log2, causal, has_window, window, splits, parts);
+    const int nQ = Sqp / T::DQ_BQ;
+    dqk<<<dim3(H, B, pair ? (nQ + 1) / 2 : nQ), THREADS, q_smem, stream>>>(
+        tm_q_dq, tm_do_dq, tm_k_dq, tm_v_dq, static_cast<const __nv_bfloat16*>(out),
+        static_cast<const __nv_bfloat16*>(d_out), static_cast<const float*>(lse),
+        static_cast<float*>(lse2), static_cast<float*>(delta), sq, sk, pq, pk,
+        static_cast<const int8_t*>(blk_dq), static_cast<__nv_bfloat16*>(dq),
+        static_cast<int*>(counter), Sq, Sqp, Skp, H, KH, scale, scale_log2, causal, has_window,
+        window);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    if (splits > 1) {
-      const long long n = (long long)B * Sk * KH * DH;
-      const long long blocks = (2 * n / 4 + DELTA_THREADS - 1) / DELTA_THREADS;
-      bwd_sm90_kv_sum_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), DELTA_THREADS, 0,
-                               stream>>>(parts, dk16, dv16, n, splits);
-    }
-  } else {
-    auto dkdv = bwd_sm90_dkdv_kernel<DH>;
+    const int list_cap = (Sqp / T::KV_BQ + 7) / 8 * 8;  // query tiles, in 16-byte rows
+    const int kv_smem = KvNarrowSmem<DH>::alloc(list_cap);
+    if (kv_smem > 232448) return (int)cudaErrorInvalidValue;
+    auto dkdv = bwd_sm90_dkdv_narrow_kernel<DH>;
     err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, kv_smem);
     if (err != cudaSuccess) return (int)err;
-    dkdv<<<dim3(KH, B, Skp / T::KV_BK), THREADS, kv_smem, stream>>>(
-        tm_q_kv, tm_do_kv, tm_k_kv, tm_v_kv, l2, dl, sq, sk, pq, pk, bkv, dk16, dv16, Sk, Sqp,
-        Skp, H, KH, scale, scale_log2, causal, has_window, window);
-  }
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+    dkdv<<<ctas, THREADS, kv_smem, stream>>>(
+        tm_q_kv, tm_do_kv, tm_k_kv, tm_v_kv, l2, dl, sq, sk, pq, pk,
+        static_cast<const int8_t*>(blk_kv), static_cast<__nv_bfloat16*>(dk),
+        static_cast<__nv_bfloat16*>(dv), static_cast<int*>(counter), B, Sk, Sqp, Skp, H, KH, scale,
+        scale_log2, causal, has_window, window, list_cap);
+  } else {
+    const long long rows = (long long)B * H * Sqp;
+    constexpr int rows_per_block = DELTA_THREADS / delta_lanes<DH>();
+    bwd_sm90_delta_kernel<DH><<<(unsigned)((rows + rows_per_block - 1) / rows_per_block),
+                                DELTA_THREADS, 0, stream>>>(
+        static_cast<const __nv_bfloat16*>(out), static_cast<const __nv_bfloat16*>(d_out),
+        static_cast<const float*>(lse), static_cast<float*>(lse2), static_cast<float*>(delta), Sq,
+        Sqp, H, rows);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
 
-  auto dqk = bwd_sm90_dq_kernel<DH>;
-  constexpr int q_smem = DqSmem<DH>::ALLOC;
-  err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, q_smem);
-  if (err != cudaSuccess) return (int)err;
-  dqk<<<dim3(H, B, Sqp / T::DQ_BQ), THREADS, q_smem, stream>>>(
-      tm_q_dq, tm_do_dq, tm_k_dq, tm_v_dq, l2, dl, sq, sk, pq, pk,
-      static_cast<const int8_t*>(blk_dq), static_cast<__nv_bfloat16*>(dq), Sq, Sqp, Skp, H, KH,
-      scale, scale_log2, causal, has_window, window);
+    constexpr int kv_smem = KvSmem<DH>::ALLOC;
+    const int8_t* bkv = static_cast<const int8_t*>(blk_kv);
+    __nv_bfloat16 *dk16 = static_cast<__nv_bfloat16*>(dk), *dv16 = static_cast<__nv_bfloat16*>(dv);
+    if constexpr (DH > 128) {
+      auto dkdv = bwd_sm90_dkdv_split_kernel<DH>;
+      err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, kv_smem);
+      if (err != cudaSuccess) return (int)err;
+      float* parts = static_cast<float*>(part);
+      dkdv<<<dim3(KH * splits, B, Skp / T::KV_BK), THREADS, kv_smem, stream>>>(
+          tm_q_kv, tm_do_kv, tm_k_kv, tm_v_kv, l2, dl, sq, sk, pq, pk, bkv, dk16, dv16, Sk, Sqp,
+          Skp, H, KH, scale, scale_log2, causal, has_window, window, splits, parts);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+      if (splits > 1) {
+        const long long n = (long long)B * Sk * KH * DH;
+        const long long blocks = (2 * n / 4 + DELTA_THREADS - 1) / DELTA_THREADS;
+        bwd_sm90_kv_sum_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), DELTA_THREADS, 0,
+                                 stream>>>(parts, dk16, dv16, n, splits);
+      }
+    } else {
+      auto dkdv = bwd_sm90_dkdv_kernel<DH>;
+      err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, kv_smem);
+      if (err != cudaSuccess) return (int)err;
+      dkdv<<<dim3(KH, B, Skp / T::KV_BK), THREADS, kv_smem, stream>>>(
+          tm_q_kv, tm_do_kv, tm_k_kv, tm_v_kv, l2, dl, sq, sk, pq, pk, bkv, dk16, dv16, Sk, Sqp,
+          Skp, H, KH, scale, scale_log2, causal, has_window, window);
+    }
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+
+    auto dqk = bwd_sm90_dq_kernel<DH>;
+    constexpr int q_smem = DqSmem<DH>::ALLOC;
+    err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, q_smem);
+    if (err != cudaSuccess) return (int)err;
+    dqk<<<dim3(H, B, Sqp / T::DQ_BQ), THREADS, q_smem, stream>>>(
+        tm_q_dq, tm_do_dq, tm_k_dq, tm_v_dq, l2, dl, sq, sk, pq, pk,
+        static_cast<const int8_t*>(blk_dq), static_cast<__nv_bfloat16*>(dq), Sq, Sqp, Skp, H, KH,
+        scale, scale_log2, causal, has_window, window);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -990,7 +1671,9 @@ extern "C" {
 // per CTA, keys streamed).
 #define PFA_TILE(NAME, FIELD)                                                 \
   int packed_flash_attn_bwd_sm90_##NAME(int head_dim) {                      \
-    return head_dim == 256 ? Tiles<256>::FIELD : Tiles<128>::FIELD;           \
+    return head_dim == 256 ? Tiles<256>::FIELD                               \
+           : head_dim <= 64 ? Tiles<64>::FIELD                               \
+                            : Tiles<128>::FIELD;                             \
   }
 PFA_TILE(block_q, KV_BQ)
 PFA_TILE(block_k, KV_BK)
@@ -1001,16 +1684,19 @@ PFA_TILE(dq_block_k, DQ_BK)
 // bf16 q, out, d_out, dq (B,Sq,H,dh); k, v, dk, dv (B,Sk,KH,dh). lse is the
 // forward's fp32 (B,H,Sq) row log-sum-exp of the scaled scores, +inf on rows
 // with no visible key. seg/pos are int32 padded with zeros to (B, Sqp) and
-// (B, Skp), multiples of 128 (Skp of 64 at dh 256). blk_kv is the int8 tile
-// map at the dK/dV tiles, (B, Sqp/64, Skp/128) (Skp/64 at dh 256), and
-// blk_dq the map at the dQ tiles, (B, Sqp/128, Skp/128) (Skp/32 at dh 256):
-// 0 skip, 1 mask, 2 all visible.
-// lse2 and delta are fp32 (B,H,Sqp) scratch, written here. kv_splits (1 below
-// dh 256) divides the GQA group H / KH over that many dK/dV CTAs; when it is
-// more than 1, kv_part is fp32 (kv_splits, 2, B, Sk, KH, dh) scratch for their
-// parts of dk and dv. Launches three kernels on `stream` (four with splits);
-// returns 0, a cudaError_t, or a negative code of this file (see the error
-// string).
+// (B, Skp), multiples of 128 (Sqp of 64 at dh <= 64, Skp of 64 at dh 256).
+// blk_kv is the int8 tile map at the dK/dV tiles, (B, Sqp/64, Skp/128)
+// (Skp/64 at dh 256), and blk_dq the map at the dQ tiles, (B, Sqp/128,
+// Skp/128) (Sqp/64 at dh <= 64, Skp/32 at dh 256): 0 skip, 1 mask, 2 all
+// visible. lse2 and delta are fp32 (B,H,Sqp) scratch, written here. kv_splits
+// (1 below dh 256) divides the GQA group H / KH over that many dK/dV CTAs;
+// when it is more than 1, kv_part is fp32 (kv_splits, 2, B, Sk, KH, dh)
+// scratch for their parts of dk and dv. ctas (read at dh <= 64 only, at least
+// 1) is the number of persistent dK/dV CTAs, counter (there only) an int32
+// scratch they hand out their items by, and pair (there only) 1 to run the
+// dQ kernel on two map rows a CTA, 0 on one. Launches three kernels on
+// `stream` (four with splits, two at dh <= 64); returns 0, a cudaError_t, or
+// a negative code of this file (see the error string).
 int packed_flash_attn_bwd_sm90_launch(int head_dim, const void* q, const void* k, const void* v,
                                       const void* out, const void* d_out, const void* lse,
                                       const void* seg_q, const void* seg_k, const void* pos_q,
@@ -1018,13 +1704,14 @@ int packed_flash_attn_bwd_sm90_launch(int head_dim, const void* q, const void* k
                                       void* lse2, void* delta, void* dq, void* dk, void* dv,
                                       int B, int Sq, int Sk, int H, int KH, int Sqp, int Skp,
                                       float scale, int causal, int has_window, int window,
-                                      int kv_splits, void* kv_part, void* stream) {
+                                      int kv_splits, void* kv_part, int ctas, void* counter,
+                                      int pair, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define PFA_CASE(DH)                                                                           \
   if (head_dim == DH)                                                                          \
     return launch<DH>(q, k, v, out, d_out, lse, seg_q, seg_k, pos_q, pos_k, blk_kv, blk_dq,   \
                       lse2, delta, dq, dk, dv, B, Sq, Sk, H, KH, Sqp, Skp, scale, causal,      \
-                      has_window, window, kv_splits, kv_part, st);
+                      has_window, window, kv_splits, kv_part, ctas, counter, pair, st);
   PFA_CASE(16)
   PFA_CASE(32)
   PFA_CASE(64)

@@ -3,7 +3,10 @@
 Counterpart of `repro.kernels.packed_flash_attn`. Two CUDA C++ kernels for
 sm_90a, built by nvcc at first use and bound with ctypes, one per input type,
 both on the tensor cores: bf16 in `csrc/packed_flash_attn_sm90.cu` (wgmma fed
-by TMA through an mbarrier ring, 128 x 128 tiles, 128 x 64 at head_dim 256);
+by TMA through an mbarrier ring, 128 x 128 tiles, 128 x 64 at head_dim 256,
+64 x 128 at head_dim 64 and below, where a CTA takes one map row and splits
+its key walk between its two warpgroups, merging their softmaxes, or, on
+large grids, two map rows (`pair_rows`));
 fp32 in `csrc/packed_flash_attn.cu` (every product in 3xTF32 by mma.sync, 64
 query rows a CTA over 16-key stages copied ahead by cp.async, its tile map at
 64 x 16, walked as the fp32 backward's dQ kernel walks the same map; the walk
@@ -26,7 +29,10 @@ cores (`csrc/packed_flash_attn_bwd_sm90.cu`: wgmma fed by TMA, a dK/dV kernel
 at 64 x 128 tiles and a dQ kernel at 128 x 128; at head_dim 256 a dK/dV
 kernel at 64 x 64 whose two warpgroups split the products, its GQA group
 split over CTAs where the grid would leave SMs idle (`kv_splits`), and the
-dQ kernel at 128 x 32; both tile maps derived from one map by `coarsen`); fp32
+dQ kernel at 128 x 32; both tile maps derived from one map by `coarsen`; at
+head_dim 64 and below two launches, not three: a dQ kernel at 64 x 128 that
+also computes delta, then a dK/dV kernel on `dkdv_ctas` persistent CTAs that
+walks each key tile's compacted list of query tiles); fp32
 on the tensor cores too (`csrc/packed_flash_attn_bwd.cu`: every product in
 3xTF32 by mma.sync, each fp32 operand split into two TF32 parts, which holds
 the fp32 parity tolerance where one TF32 product does not; a dK/dV kernel
@@ -85,6 +91,9 @@ class Kernel:
 SM90 = Kernel("packed_flash_attn_sm90.cu", "packed_flash_attn_sm90", 128, 128,
               ("packed_flash_attn_sm90_kernel",))
 SM90_WIDE = Kernel(SM90.source, SM90.symbol, 128, 64, SM90.names)  # head_dim 256
+# head_dim <= 64: 64-row map rows, one a CTA whose two warpgroups take its key
+# tiles in turn, or two a CTA (`pair_rows`)
+SM90_NARROW = Kernel(SM90.source, SM90.symbol, 64, 128, ("packed_flash_attn_sm90_narrow_kernel",))
 FWD_TF32 = Kernel("packed_flash_attn.cu", "packed_flash_attn", 64, 16,
                   ("packed_flash_attn_tf32_kernel", "packed_flash_attn_tf32_merge_kernel"))
 # (the merge runs only where `fwd_splits` splits the key walk)
@@ -96,6 +105,12 @@ BWD_SM90_WIDE = Kernel(BWD_SM90.source, BWD_SM90.symbol, 64, 64,
                        ("bwd_sm90_delta_kernel", "bwd_sm90_dkdv_split_kernel",
                         "bwd_sm90_dq_kernel", "bwd_sm90_kv_sum_kernel"),
                        dq_tiles=(128, 32), split_rule="kv")
+# head_dim <= 64: dQ at 64 rows (two a CTA where `pair_rows` says so) with
+# the delta pass folded in, launched first, then dK/dV on `dkdv_ctas`
+# persistent CTAs
+BWD_SM90_NARROW = Kernel(BWD_SM90.source, BWD_SM90.symbol, 64, 128,
+                         ("bwd_sm90_dq_narrow_kernel", "bwd_sm90_dkdv_narrow_kernel"),
+                         dq_tiles=(64, 128))
 BWD_TF32 = Kernel("packed_flash_attn_bwd.cu", "packed_flash_attn_bwd", 32, 64,
                   ("bwd_tf32_delta_kernel", "bwd_tf32_dkdv_kernel", "bwd_tf32_dq_kernel",
                    "bwd_tf32_sum_kernel"),
@@ -115,7 +130,7 @@ def kernel_for(dtype, head_dim) -> Kernel:
     _checked_dims(dtype, head_dim)
     if dtype == torch.float32:
         return FWD_TF32
-    return SM90_WIDE if head_dim == 256 else SM90
+    return SM90_WIDE if head_dim == 256 else SM90_NARROW if head_dim <= 64 else SM90
 
 
 def backward_kernel_for(dtype, head_dim) -> Kernel:
@@ -123,7 +138,7 @@ def backward_kernel_for(dtype, head_dim) -> Kernel:
     _checked_dims(dtype, head_dim)
     if dtype == torch.float32:
         return BWD_TF32_WIDE if head_dim == 256 else BWD_TF32
-    return BWD_SM90_WIDE if head_dim == 256 else BWD_SM90
+    return BWD_SM90_WIDE if head_dim == 256 else BWD_SM90_NARROW if head_dim <= 64 else BWD_SM90
 
 
 def tile_sizes(dtype, head_dim):
@@ -254,6 +269,34 @@ def kv_splits(kern: Kernel, B, H, K, Skp, sms) -> int:
     return max(s for s in range(1, group + 1) if group % s == 0 and ctas * s <= wave)
 
 
+PAIR_WAVES = 2  # waves of 128-row CTAs from which the narrow kernels pair their map rows
+
+
+def pair_rows(kern: Kernel, B, H, nQ, sms) -> int:
+    """1 where the head_dim <= 64 bf16 forward, or the dQ kernel of that
+    width's backward, runs two of its 64-row map rows a CTA (pair mode: each
+    K/V tile serves 128 rows, as at the wider widths), at batch B, H heads
+    and nQ map rows: where its grid of H x B x ceil(nQ / 2) such CTAs fills
+    `PAIR_WAVES` waves of `sms` SMs or more (whisper's encoder: 768 CTAs at
+    4 x 1500, 512 at 1 x 4096). 0 (split mode: one map row a CTA, its key
+    walk split between the two warpgroups) on smaller grids (whisper's
+    decoder and cross-attention) and for every other kernel."""
+    if kern not in (SM90_NARROW, BWD_SM90_NARROW):
+        return 0
+    return int(H * B * -(-nQ // 2) >= PAIR_WAVES * sms)
+
+
+def dkdv_ctas(kern: Kernel, B, K, Skp, sms) -> int:
+    """How many persistent CTAs the head_dim <= 64 bf16 backward's dK/dV
+    kernel runs at batch B, K KV heads and Skp padded keys, on `sms` SMs:
+    one an SM, and no more than its work items (K x B x Skp / block_k key
+    tiles, which CTA c starts at item c and then takes from a counter in the
+    order of key tiles). 0 for a kernel that runs no persistent CTAs."""
+    if kern is not BWD_SM90_NARROW:
+        return 0
+    return min(sms, K * B * (Skp // kern.block_k))
+
+
 MIN_SPLIT_PAIRS = 2048  # (query, key) pairs of a split loop's CTA, at the least
 
 
@@ -308,9 +351,10 @@ def _sm_count(index) -> int:
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 # head_dim, q, k, v, seg_q, seg_k, pos_q, pos_k, blk_ok, out, lse, B, Sq, Sk, H, KH, nQ, nK,
-# scale, causal, has_window, window, then (fp32 only) splits, part, then stream
+# scale, causal, has_window, window, then (bf16) pair or (fp32) splits, part, then stream
 _FWD_HEAD = [_INT] + [_PTR] * 10 + [_INT] * 7 + [ctypes.c_float] + [_INT] * 3
-_FWD_ARGTYPES = {SM90.source: _FWD_HEAD + [_PTR], FWD_TF32.source: _FWD_HEAD + [_INT, _PTR, _PTR]}
+_FWD_ARGTYPES = {SM90.source: _FWD_HEAD + [_INT, _PTR],
+                 FWD_TF32.source: _FWD_HEAD + [_INT, _PTR, _PTR]}
 _BWD_ARGTYPES = {
     # head_dim, q, k, v, out, d_out, lse, seg_q, seg_k, pos_q, pos_k, blk_kv, blk_dq, stats,
     # dq, dk, dv, B, Sq, Sk, H, KH, Sqp, Skp, scale, causal, has_window, window, kv_splits,
@@ -319,9 +363,9 @@ _BWD_ARGTYPES = {
     + [_PTR, _INT, _PTR, _PTR],
     # head_dim, q, k, v, out, d_out, lse, seg_q, seg_k, pos_q, pos_k, blk_kv, blk_dq, lse2,
     # delta, dq, dk, dv, B, Sq, Sk, H, KH, Sqp, Skp, scale, causal, has_window, window,
-    # kv_splits, kv_part, stream
+    # kv_splits, kv_part, ctas, counter, pair, stream
     BWD_SM90.source: [_INT] + [_PTR] * 17 + [_INT] * 7 + [ctypes.c_float] + [_INT] * 4
-    + [_PTR] * 2,
+    + [_PTR, _INT, _PTR, _INT, _PTR],
 }
 
 
@@ -428,7 +472,9 @@ def packed_flash_attention(q, k, v, seg_q, seg_k, pos_q, pos_k, *,
     nq, nk = blk.shape[1], blk.shape[2]
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) if return_lse else None
-    tail, part = (), None  # the fp32 kernel's split walk, and its parts
+    tail, part = (), None  # the bf16 kernel's pair mode, or the fp32 kernel's split walk and parts
+    if kern.source == SM90.source:
+        tail = (pair_rows(kern, B, H, nq, _sm_count(q.device.index)),)
     if kern.source == FWD_TF32.source:
         splits = fwd_splits(kern, B, H, nq * bq, nk * bk, _sm_count(q.device.index))
         if splits > 1:  # outputs, then each row's max and sum
@@ -491,6 +537,12 @@ def packed_flash_attention_backward(q, k, v, out, lse, d_out, seg_q, seg_k, pos_
     tail = part(s_kv, 2, B, Sk, K, dh)
     if kern.source == BWD_SM90.source:  # lse there in log2 units; its dQ is never split
         bufs = (blk, blk_dq, stats[0], stats[1])
+        ctas = dkdv_ctas(kern, B, K, Skp, sms)
+        # the persistent dK/dV CTAs' item counter, which the dQ kernel zeroes
+        counter = torch.empty(1, dtype=torch.int32, device=q.device) if ctas else None
+        scratch.append(counter)
+        tail += (ctas, counter.data_ptr() if ctas else None,
+                 pair_rows(kern, B, H, Sqp // kern.block_q, sms))
     else:
         bufs = (blk, blk_dq, stats)
         tail += part(s_q, B, Sq, H, dh)

@@ -1033,6 +1033,129 @@ def test_gpu_cross_attention_through_autograd(cuda, rng, dtype):
     _check_grads(got, ref, dtype)
 
 
+# ---------------------------------------------- narrow heads (head_dim <= 64)
+# whisper-medium's five attention regimes (16/16 heads), at a reduced batch:
+# (name, B, Sq, Sk or None (self-attention), causal)
+WHISPER_REGIMES = [("encoder_serve", 2, 1500, None, False),
+                   ("encoder_train", 1, 1024, None, False),
+                   ("decoder_self_train", 1, 512, None, True),
+                   ("cross_train", 1, 256, 1024, False),
+                   ("cross_serve", 2, 64, 1500, False)]
+
+
+def _whisper_case(rng, device, regime, dh, H=16):
+    """(q, k, v, ids, kw) of one of whisper's regimes at head width `dh`: the
+    serving encoder one clip a row, the training encoder packed clips, the
+    decoder packed transcripts, the training cross-attention transcripts
+    over their clips with one transcript without its clip, the serving
+    cross-attention a 64-token prompt over its row's 1500 frames."""
+    name, B, Sq, Sk, causal = next(r for r in WHISPER_REGIMES if r[0] == regime)
+    if name == "cross_train":
+        ids = tuple(t(x).to(device) for x in cross_ids(rng, B, Sq, Sk, 3))
+    elif name == "cross_serve":
+        ones = [np.ones((B, S), np.int32) for S in (Sq, Sk)]
+        ids = tuple(t(x).to(device) for x in (
+            ones[0], ones[1], np.tile(np.arange(Sq, dtype=np.int32), (B, 1)),
+            np.tile(np.arange(Sk, dtype=np.int32), (B, 1))))
+    else:
+        doc_lens = [Sq] if name == "encoder_serve" else None
+        seg, pos = (t(x).to(device) for x in make_packed(rng, B, Sq, doc_lens=doc_lens))
+        ids = (seg, seg, pos, pos)
+    Sk = Sk or Sq
+    q = t(rng.normal(size=(B, Sq, H, dh)).astype(np.float32)).to(device, torch.bfloat16)
+    k, v = (t(rng.normal(size=(B, Sk, H, dh)).astype(np.float32)).to(device, torch.bfloat16)
+            for _ in range(2))
+    return q, k, v, ids, {"causal": causal, "window": None}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("regime", [r[0] for r in WHISPER_REGIMES])
+@pytest.mark.parametrize("dh", [16, 32, 64])
+def test_gpu_narrow_kernels_in_whisper_regimes(cuda, rng, regime, dh):
+    """The head_dim <= 64 bf16 kernels (64-row forward CTAs whose warpgroups
+    take the key tiles in turn; dQ with the delta pass, then the persistent
+    dK/dV) in each of whisper's regimes: forward and backward against the
+    plain version, rows without a visible key exactly 0 (lse +inf, dq 0),
+    keys no query sees dk and dv 0, two backward launches bit for bit."""
+    q, k, v, ids, kw = _whisper_case(rng, cuda, regime, dh)
+    assert pfa.kernel_for(torch.bfloat16, dh) is pfa.SM90_NARROW
+    assert backward_kernel_for(torch.bfloat16, dh) is pfa.BWD_SM90_NARROW
+    args = (q, k, v, *ids)
+    out, lse = packed_flash_attention(*args, **kw, return_lse=True)
+    ref = packed_attention_ref(*args, **kw)
+    np.testing.assert_allclose(n(out), n(ref), atol=TOL["bfloat16"], rtol=TOL["bfloat16"])
+    mask = attention_mask(*ids, **kw)
+    no_key, no_query = ~mask.any(-1), ~mask.any(1)
+    if regime == "cross_train":  # the transcript without its clip, besides the padding
+        assert bool((no_key & (ids[0] != 0)).any())
+    assert bool((out[no_key] == 0).all())
+    assert bool(torch.isposinf(lse.transpose(1, 2)[no_key]).all())
+    d_out = t(rng.normal(size=tuple(q.shape)).astype(np.float32)).to(cuda, torch.bfloat16)
+    first = packed_flash_attention_backward(*args[:3], out, lse, d_out, *args[3:], **kw)
+    second = packed_flash_attention_backward(*args[:3], out, lse, d_out, *args[3:], **kw)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    _check_grads(first, packed_attention_ref_backward(*args[:3], d_out, *args[3:], **kw),
+                 "bfloat16")
+    dq, dk, dv = first
+    assert bool((dq[no_key] == 0).all())
+    assert bool((dk[no_query] == 0).all()) and bool((dv[no_query] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("regime", [r[0] for r in WHISPER_REGIMES])
+@pytest.mark.parametrize("pair", [0, 1])
+def test_gpu_narrow_pair_and_split(cuda, rng, regime, pair, monkeypatch):
+    """The head_dim <= 64 forward and backward dQ kernels forced into each
+    mode in each of whisper's regimes: pair (two 64-row map rows a CTA, one
+    a warpgroup; an odd row count leaves a CTA's second warpgroup without a
+    row) and split (one row a CTA, the key walk split between the
+    warpgroups and merged): forward and backward against the plain version,
+    rows without a visible key exactly 0 (lse +inf, dq 0), two backward
+    launches bit for bit."""
+    q, k, v, ids, kw = _whisper_case(rng, cuda, regime, 64)
+    monkeypatch.setattr(pfa, "pair_rows", lambda *a: pair)
+    args = (q, k, v, *ids)
+    out, lse = packed_flash_attention(*args, **kw, return_lse=True)
+    np.testing.assert_allclose(n(out), n(packed_attention_ref(*args, **kw)),
+                               atol=TOL["bfloat16"], rtol=TOL["bfloat16"])
+    no_key = ~attention_mask(*ids, **kw).any(-1)
+    assert bool((out[no_key] == 0).all())
+    assert bool(torch.isposinf(lse.transpose(1, 2)[no_key]).all())
+    d_out = t(rng.normal(size=tuple(q.shape)).astype(np.float32)).to(cuda, torch.bfloat16)
+    first = packed_flash_attention_backward(*args[:3], out, lse, d_out, *args[3:], **kw)
+    second = packed_flash_attention_backward(*args[:3], out, lse, d_out, *args[3:], **kw)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    _check_grads(first, packed_attention_ref_backward(*args[:3], d_out, *args[3:], **kw),
+                 "bfloat16")
+    assert bool((first[0][no_key] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ctas", [1, 2, 3, 7])
+@pytest.mark.parametrize("regime,group", [("decoder_self_train", 1), ("cross_serve", 1),
+                                          ("decoder_self_train", 4)])
+def test_gpu_narrow_dkdv_forced_ctas(cuda, rng, regime, group, ctas, monkeypatch):
+    """The persistent dK/dV kernel forced onto 1, 2, 3 and 7 CTAs, so that
+    each walks many work items through both K/V buffers (and, with GQA
+    group 4, four query heads an item): gradients bit for bit those of the
+    default grid (one CTA an SM), and against the plain version."""
+    q, k, v, ids, kw = _whisper_case(rng, cuda, regime, 64)
+    if group > 1:
+        k, v = k[:, :, ::group].contiguous(), v[:, :, ::group].contiguous()
+    args = (q, k, v, *ids)
+    out, lse = packed_flash_attention(*args, **kw, return_lse=True)
+    d_out = t(rng.normal(size=tuple(q.shape)).astype(np.float32)).to(cuda, torch.bfloat16)
+    free = packed_flash_attention_backward(*args[:3], out, lse, d_out, *args[3:], **kw)
+    monkeypatch.setattr(pfa, "dkdv_ctas", lambda *a: ctas)
+    forced = packed_flash_attention_backward(*args[:3], out, lse, d_out, *args[3:], **kw)
+    for a, b in zip(free, forced):
+        assert torch.equal(a, b)
+    _check_grads(forced, packed_attention_ref_backward(*args[:3], d_out, *args[3:], **kw),
+                 "bfloat16")
+
+
 # ------------------------------------------------------------ recurrent mixers
 RECURRENT_MIXERS = [("jamba-1.5-large-398b", "mamba"), ("xlstm-1.3b", "mlstm"),
                     ("xlstm-1.3b", "slstm")]

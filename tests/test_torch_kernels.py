@@ -18,18 +18,22 @@ from repro.kernels.ref import packed_attention_ref as j_ref
 from repro_torch.kernels import build, ops
 from repro_torch.kernels.packed_flash_attn import (
     BWD_SM90,
+    BWD_SM90_NARROW,
     BWD_SM90_WIDE,
     BWD_TF32,
     BWD_TF32_WIDE,
     FWD_TF32,
     HEAD_DIMS,
     SM90,
+    SM90_NARROW,
     SM90_WIDE,
     _pad_all,
     backward_kernel_for,
     backward_tile_maps,
     block_metadata,
     coarsen,
+    dkdv_ctas,
+    pair_rows,
     fwd_splits,
     kernel_for,
     kv_splits,
@@ -348,8 +352,11 @@ def test_jax_window_skip_loses_visible_keys(rng):
 
 def test_kernel_choice_by_dtype():
     """bf16 takes the tensor-core sources (forward at 128-row tiles, 128 x 64 at
-    head_dim 256; backward with a dK/dV kernel at 64 x 128 and a dQ kernel at
-    128 x 128, at head_dim 256 64 x 64 and 128 x 32), each compiled at every
+    head_dim 256, 64 x 128 at head_dim 64 and below, whose kernel runs 64-row
+    CTAs; backward with a dK/dV kernel at 64 x 128 and a dQ kernel at
+    128 x 128, at head_dim 256 64 x 64 and 128 x 32, at head_dim 64 and below
+    the dQ kernel at 64 x 128 with the delta pass folded in and a persistent
+    dK/dV kernel at 64 x 128), each compiled at every
     head width, head_dim 80 included, with no path that pads the width;
     fp32 the 3xTF32 forward at 64 x 16 (the tiles of the fp32 backward's dQ
     kernel, whose walk it shares) and the 3xTF32 backward, a dK/dV kernel
@@ -357,10 +364,21 @@ def test_kernel_choice_by_dtype():
     other dtype or head width is refused. Needs no card."""
     import repro_torch.kernels.packed_flash_attn as pfa
 
-    for dh in (16, 32, 64, 80, 128):
+    for dh in (80, 128):
         assert kernel_for(torch.bfloat16, dh) is SM90
         assert tile_sizes(torch.bfloat16, dh) == (128, 128)
         assert backward_kernel_for(torch.bfloat16, dh) is BWD_SM90
+    for dh in (16, 32, 64):  # the narrow kernels: whisper-medium's head width and below
+        assert kernel_for(torch.bfloat16, dh) is SM90_NARROW
+        assert tile_sizes(torch.bfloat16, dh) == (64, 128)
+        assert backward_kernel_for(torch.bfloat16, dh) is BWD_SM90_NARROW
+    assert SM90_NARROW.source == SM90.source and SM90_NARROW.symbol == SM90.symbol
+    assert SM90_NARROW.names == ("packed_flash_attn_sm90_narrow_kernel",)
+    assert BWD_SM90_NARROW.source == BWD_SM90.source and BWD_SM90_NARROW.symbol == BWD_SM90.symbol
+    assert (BWD_SM90_NARROW.block_q, BWD_SM90_NARROW.block_k, BWD_SM90_NARROW.dq_tiles) == (
+        64, 128, (64, 128))
+    assert BWD_SM90_NARROW.names == ("bwd_sm90_dq_narrow_kernel", "bwd_sm90_dkdv_narrow_kernel")
+    assert BWD_SM90_NARROW.split_rule is None
     for name in ("PADDED_HEAD_DIMS", "run_head_dim", "_pad_head", "_unpad_head"):
         assert not hasattr(pfa, name), name
     # the C entry dispatches every width to its own instance
@@ -497,6 +515,206 @@ def test_wide_backward_tile_maps_keep_visible_pairs(window, doc_lens, pad):
         tiles = mask.reshape(1, Sqp // bq, bq, Skp // bk, bk)
         assert not bool((tiles.any(4).any(2) & (got == 0)).any())
     assert bool((blk == 0).any()) and bool((blk == 2).any()) and bool((blk_dq == 2).any())
+
+
+def _ballot_list(column):
+    """The narrow dK/dV kernel's list of a key tile's column of codes, as its
+    producer warp builds it: 32 codes a load, each lane's nonzero code
+    written at the count of nonzero codes below its lane (a ballot and a
+    prefix count), as qt << 2 | code."""
+    out, cnt = {}, 0
+    for q0 in range(0, len(column), 32):
+        codes = [int(column[qt]) if qt < len(column) else 0 for qt in range(q0, q0 + 32)]
+        nz = sum(1 << lane for lane, c in enumerate(codes) if c)
+        for lane, code in enumerate(codes):
+            if code:
+                out[cnt + bin(nz & ((1 << lane) - 1)).count("1")] = (q0 + lane) << 2 | code
+        cnt += bin(nz).count("1")
+    return [out[i] for i in range(cnt)]
+
+
+def _narrow_regime_ids(regime, rng):
+    """(ids, kw) of a regime the narrow backward meets: causal packed rows,
+    a window over position resets, non-causal cross-attention with a
+    transcript without its clip, ragged encoder rows with padding."""
+    if regime == "cross_orphan":
+        return cross_ids(rng, 2, 200, 777, 3), {"causal": False, "window": None}
+    S = {"causal": 1000, "windowed": 1000, "ragged": 333}[regime]
+    seg, pos = make_packed(rng, 2, S, doc_lens=[300, 200, 61, 400] if S == 1000 else None)
+    if regime == "ragged":
+        seg[1, S - 40:] = 0
+        pos[1, S - 40:] = 0
+    kw = {"causal": regime != "ragged", "window": 100 if regime == "windowed" else None}
+    return (seg, seg, pos, pos), kw
+
+
+@pytest.mark.parametrize("regime", ["causal", "windowed", "cross_orphan", "ragged"])
+def test_narrow_backward_tile_maps_keep_visible_pairs(regime):
+    """The head_dim <= 64 backward (`BWD_SM90_NARROW`): ids padded to 64
+    queries and 128 keys; one map at 64 x 128 serves its dQ and dK/dV
+    kernels. Against the dense mask: never 0 on a tile that holds a visible
+    pair, 2 exactly where every pair is visible; each key tile's list as the
+    dK/dV kernel's producer warp compacts it holds exactly the column's
+    nonzero tiles, in order, with their codes."""
+    ids, kw = _narrow_regime_ids(regime, np.random.default_rng(len(regime)))
+    ids = tuple(t(x) for x in ids)
+    padded, (blk, blk_dq) = backward_tile_maps(BWD_SM90_NARROW, *ids, **kw)
+    (B, Sq), Sk = ids[0].shape, ids[1].shape[1]
+    Sqp, Skp = padded[0].shape[1], padded[1].shape[1]
+    assert Sqp % 64 == 0 and Sqp - Sq < 64 and Skp % 128 == 0 and Skp - Sk < 128
+    assert blk.shape == (B, Sqp // 64, Skp // 128)
+    np.testing.assert_array_equal(blk.numpy(), blk_dq.numpy())
+    np.testing.assert_array_equal(blk.numpy(), tile_map(*padded, 64, 128, **kw).numpy())
+    mask = attention_mask(*padded, **kw)
+    tiles = mask.reshape(B, Sqp // 64, 64, Skp // 128, 128)
+    assert not bool((tiles.any(4).any(2) & (blk == 0)).any())
+    np.testing.assert_array_equal((blk == 2).numpy(), tiles.all(4).all(2).numpy())
+    assert bool((blk == 0).any()) and bool((blk != 0).any())
+    for b in range(B):
+        for kt in range(blk.shape[2]):
+            column = blk[b, :, kt].tolist()
+            assert _ballot_list(column) == [qt << 2 | c for qt, c in enumerate(column) if c]
+
+
+def _dkdv_items(B, K, Skp):
+    """The narrow dK/dV kernel's (key tile, KV head, batch) work items in the
+    order it hands them out, as its loop decodes item i: key tile
+    i // (K B), KV head i % (K B) // B, batch i % B. CTA c takes item c,
+    and each later item goes to the first CTA that asks (an atomic
+    counter)."""
+    return [(i // (K * B), i % (K * B) // B, i % B) for i in range(K * B * (Skp // 128))]
+
+
+@pytest.mark.parametrize("B,K,Skp", [(4, 16, 1536), (1, 16, 1024), (1, 16, 4096), (2, 4, 512),
+                                     (1, 1, 128)])
+def test_narrow_dkdv_items_cover_every_tile_once_heavy_first(B, K, Skp):
+    """The persistent dK/dV kernel's work order (`_dkdv_items`, a model of
+    its loop): every (key tile, KV head, batch) exactly once, in the order
+    of key tiles (early key tiles, which see the most queries under the
+    causal mask, first). `dkdv_ctas` gives one CTA an SM, at most one an
+    item, and 0 for every other kernel."""
+    order = _dkdv_items(B, K, Skp)
+    assert len(order) == len(set(order)) == K * B * (Skp // 128)
+    assert set(order) == {(kt, kh, b) for kt in range(Skp // 128) for kh in range(K)
+                          for b in range(B)}
+    assert [it[0] for it in order] == sorted(it[0] for it in order)
+    assert dkdv_ctas(BWD_SM90_NARROW, B, K, Skp, 132) == min(132, K * B * (Skp // 128))
+    for kern in (BWD_SM90, BWD_SM90_WIDE, BWD_TF32, BWD_TF32_WIDE):
+        assert dkdv_ctas(kern, B, K, Skp, 132) == 0
+
+
+def test_pair_rows_rule():
+    """The head_dim <= 64 bf16 forward and its backward's dQ kernel pair
+    their 64-row map rows two a CTA where that grid fills two waves of SMs
+    (whisper's encoder at 4 x 1500 and 1 x 4096), and run one a CTA, its key
+    walk split between the warpgroups, on smaller grids (the decoder at
+    1 x 1024, the training and serving cross-attention); no other kernel
+    takes the rule."""
+    for kern in (SM90_NARROW, BWD_SM90_NARROW):
+        assert pair_rows(kern, 4, 16, 24, 132) == 1   # encoder 4 x 1500: 768 CTAs
+        assert pair_rows(kern, 1, 16, 64, 132) == 1   # encoder 1 x 4096: 512
+        assert pair_rows(kern, 1, 16, 16, 132) == 0   # decoder, cross train: 128
+        assert pair_rows(kern, 4, 16, 1, 132) == 0    # cross serve: 64
+        assert pair_rows(kern, 1, 16, 33, 132) == 1   # an odd row count: 17 CTAs a head
+        assert pair_rows(kern, 1, 16, 31, 132) == 0   # 256 CTAs, under two waves
+    for kern in (SM90, SM90_WIDE, FWD_TF32, BWD_SM90, BWD_SM90_WIDE, BWD_TF32, BWD_TF32_WIDE):
+        assert pair_rows(kern, 4, 16, 24, 132) == 0
+
+
+def _narrow_forward_model(q, k, v, seg_q, seg_k, pos_q, pos_k, *, causal):
+    """numpy float32 model of the head_dim <= 64 bf16 forward's softmax: per
+    64-row tile, the visible 128-key tiles (`tile_map`'s nonzero codes) go
+    in turn to two (m, l, O) states (warpgroups 0 and 1), each an online
+    softmax in units of log2 with the scale folded into exp2 and P rounded
+    to bf16 before P V, as the kernel; then the kernel's merge: m the larger
+    max, each state scaled by exp2(m_w - m) (0 for a state that saw no
+    key), l and O summed; out O / l, 0 and lse +inf where l is 0."""
+    B, Sq, H, dh = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    scale_log2 = dh ** -0.5 * np.log2(np.e)
+    ids = [t(x) for x in (seg_q, seg_k, pos_q, pos_k)]
+    padded = [x.numpy() for x in _pad_all(*ids, 64, 128)]
+    codes = tile_map(*ids, 64, 128, causal=causal, window=None).numpy()
+    vis = attention_mask(*(t(x) for x in padded), causal=causal, window=None).numpy()
+    qp = np.zeros((B, padded[0].shape[1], H, dh), np.float32)
+    kp = np.zeros((B, padded[1].shape[1], K, dh), np.float32)
+    vp = np.zeros_like(kp)
+    qp[:, :Sq], kp[:, :Sk], vp[:, :Sk] = q, k, v
+    out = np.zeros_like(qp)
+    lse = np.full((B, H, qp.shape[1]), np.inf, np.float32)
+
+    def bf16(x):
+        return n(t(x).to(torch.bfloat16))
+    for b in range(B):
+        for h in range(H):
+            kh = h * K // H
+            for qt in range(codes.shape[1]):
+                rows = slice(64 * qt, 64 * qt + 64)
+                state = [[np.full(64, -np.inf, np.float32), np.zeros(64, np.float32),
+                          np.zeros((64, dh), np.float32)] for _ in range(2)]
+                visible = [kt for kt in range(codes.shape[2]) if codes[b, qt, kt]]
+                for i, kt in enumerate(visible):
+                    keys = slice(128 * kt, 128 * kt + 128)
+                    m, l, o = state[i % 2]
+                    s = qp[b, rows, h] @ kp[b, keys, kh].T
+                    s = np.where(vis[b, rows, keys], s, -np.inf).astype(np.float32)
+                    m_new = np.maximum(m, s.max(1))
+                    none = m_new == -np.inf
+                    corr = np.where(none, 1, np.exp2((m - m_new) * scale_log2))
+                    p = np.exp2(s * scale_log2 - np.where(none, 0, m_new * scale_log2)[:, None])
+                    state[i % 2] = [m_new, l * corr + p.sum(1),
+                                    o * corr[:, None] + bf16(p) @ vp[b, keys, kh]]
+                (m0, l0, o0), (m1, l1, o1) = state
+                m = np.maximum(m0, m1)
+                c0, c1 = (np.where(mw == -np.inf, 0, np.exp2((mw - m) * scale_log2))
+                          for mw in (m0, m1))
+                l, o = l0 * c0 + l1 * c1, o0 * c0[:, None] + o1 * c1[:, None]
+                out[b, rows, h] = np.where(l[:, None] > 0, o / np.where(l > 0, l, 1)[:, None], 0)
+                lse[b, h, rows] = np.where(l > 0, (m * scale_log2 + np.log2(
+                    np.where(l > 0, l, 1))) * np.log(2), np.inf)
+    return out[:, :Sq], lse[:, :, :Sq]
+
+
+@pytest.mark.parametrize("case", ["cross_orphan", "causal_packed"])
+def test_narrow_forward_merge_model_matches_jax_kernel(case):
+    """The head_dim <= 64 forward's split key walk and its (m, l, O) merge,
+    modelled in numpy, against the JAX Pallas kernel in interpret mode on
+    whisper-like ids: a transcript's queries over its clip's frames with one
+    transcript without its clip (odd and even counts of visible key tiles,
+    a row with none), and causal packed documents; rows without a visible
+    key exactly 0 in both, lse +inf there and the log-sum-exp of the
+    scores elsewhere."""
+    rng = np.random.default_rng(7)
+    H, dh = 2, 64
+    if case == "cross_orphan":
+        ids, causal = cross_ids(rng, 1, 100, 700, 2), False
+    else:
+        seg, pos = make_packed(rng, 1, 300, doc_lens=[150, 90, 60])
+        ids, causal = (seg, seg, pos, pos), True
+    Sq, Sk = ids[0].shape[1], ids[1].shape[1]
+    q = rng.normal(size=(1, Sq, H, dh))
+    k, v = (rng.normal(size=(1, Sk, H, dh)) for _ in range(2))
+    q, k, v = (np.asarray(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32)) for a in (q, k, v))
+    with np.errstate(invalid="ignore"):  # -inf - -inf where a state saw no key
+        out, lse = _narrow_forward_model(q, k, v, *ids, causal=causal)
+    jargs = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)] + [jnp.asarray(x) for x in ids]
+    kern = np.asarray(j_packed_attention(*jargs, block_q=64, block_k=128, interpret=True,
+                                         causal=causal), np.float32)
+    np.testing.assert_allclose(out, kern, atol=TOL["bfloat16"], rtol=TOL["bfloat16"])
+    mask = attention_mask(*(t(x) for x in ids), causal=causal, window=None).numpy()
+    empty = ~mask.any(-1)
+    assert empty.any() == (case == "cross_orphan")
+    assert np.all(out[empty] == 0) and np.all(kern[empty] == 0)
+    s = np.einsum("bqhd,bkhd->bhqk", q, k) * dh ** -0.5
+    s = np.where(mask[:, None], s, -np.inf)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        want = np.log(np.exp(s - s.max(-1, keepdims=True)).sum(-1)) + s.max(-1)
+    want = np.where(empty[:, None], np.inf, want)
+    np.testing.assert_allclose(lse, want, rtol=1e-5, atol=1e-5)
+    if case == "cross_orphan":  # both warpgroups walk tiles, and at least one row's count is odd
+        codes = tile_map(*(t(x) for x in ids), 64, 128, causal=False, window=None).numpy()
+        counts = (codes != 0).sum(-1)
+        assert (counts >= 2).any() and (counts % 2 == 1).any()
 
 
 def test_kv_splits_fill_one_wave():
