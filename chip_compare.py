@@ -2,7 +2,8 @@
 
     python3 chip_compare.py --trees _archive/parent . . _archive/parent \\
         [--arch h2o-danube-1.8b ...] [--head-dims 64 80 128] [--fp32-forward]
-        [--multimodal [bf16] [fp32]] [--skip-train] [--out FILE.json]
+        [--multimodal [bf16] [fp32]] [--multimodal-train ARCH ...] [--skip-train]
+        [--out FILE.json]
 
 Each tree is a checkout of this repository (for an older commit, a `git
 archive` unpacked into a git-ignored directory). For each tree in the order
@@ -24,9 +25,11 @@ regimes at head_dim 64 (16/16 heads), in the dtypes named (both when none
 is), forward and backward, the backward's time split by kernel. The full
 record also keeps each tree's ptxas registers and spills. Naming a tree
 twice, as parent, change, change, parent, shows the spread beside the
-difference. Prints one JSON summary per run and, as the last line, the
-summaries of all runs; `--out` also keeps every run's full record. Needs a
-CUDA card; exits nonzero without one or if any run fails.
+difference. `--multimodal-train whisper-medium` (or qwen2-vl-7b) adds that
+arch's train steps as chip_smoke's multimodal phase runs them. Prints one
+JSON summary per run and, as the last line, the summaries of all runs;
+`--out` also keeps every run's full record. Needs a CUDA card; exits
+nonzero without one or if any run fails.
 """
 from __future__ import annotations
 
@@ -131,6 +134,11 @@ for arch in opts["archs"] if opts["train"] else ():
     record["train"][arch] = cs.train_phase(get_arch(arch), device, layers=None,
                                            steps=cs.FAMILY_TRAIN_STEPS, fit=cs.FAMILY_TRAIN_FIT)
     torch.cuda.empty_cache()
+for arch in opts["multimodal_train"]:  # a VLM's cut to chip_smoke's depth, as its phase runs it
+    cfg = get_arch(arch)
+    record["train"][arch] = cs.multimodal_train_phase(
+        cfg, device, layers=None if cfg.enc_dec else cs.VLM_TRAIN_LAYERS)
+    torch.cuda.empty_cache()
 print("RESULT " + json.dumps(record), flush=True)
 """
 
@@ -184,6 +192,10 @@ def main(argv=None):
                     help="also time the kernels in whisper-medium's regimes (head_dim 64), "
                          "in these dtypes (both when none is named)")
     ap.add_argument("--skip-train", action="store_true", help="run no train steps")
+    ap.add_argument("--multimodal-train", nargs="*", default=[],
+                    choices=("qwen2-vl-7b", "whisper-medium"),
+                    help="also run chip_smoke's train phase of these VLM / encoder-decoder "
+                         "archs")
     ap.add_argument("--out", help="also write every run's full record to this JSON file")
     args = ap.parse_args(argv)
 
@@ -195,7 +207,7 @@ def main(argv=None):
     if unknown:
         ap.error(f"--arch {sorted(unknown)} not in {FAMILY_KERNEL_ARCHS}")
     opts = {"archs": args.arch, "head_dims": args.head_dims, "train": not args.skip_train,
-            "fp32_forward": args.fp32_forward,
+            "fp32_forward": args.fp32_forward, "multimodal_train": args.multimodal_train,
             "multimodal": (args.multimodal or ["bf16", "fp32"]) if args.multimodal is not None
             else []}
 

@@ -120,7 +120,17 @@ Phases, in one process; any failure exits nonzero:
              (seconds and GB/s beside the HBM bound, one leaf's codes and
              scales equal to the CPU's); qwen3-moe-30b-a3b cut to 3 layers,
              one step through the MoE layer's EP path and one through its
-             TP path, each held to the unsharded step's loss and routes.
+             TP path, each held to the unsharded step's loss and routes;
+ 15. roofline: the op counter (`roofline.counter`) on the meta device over
+             the steps timed above (qwen3-8b's 8-layer train step, its
+             4 x 2048 prefill, whisper-medium's train step), each's counted
+             FLOPs and bytes, H100 bound (`roofline.analysis.H100`, the
+             table this script's peaks read), measured seconds, bound share,
+             and predicted against measured peak memory; one real qwen3-8b
+             train step counted on the card, its matmul FLOPs equal to the
+             meta count and its attention FLOPs to `attention_bound`'s
+             visible pairs; the dry-run of qwen3-8b decode_32k on the
+             (16, 16) fake-group mesh in a subprocess, status `ok`.
 Prints the card's name and power limit first, a `kernels` JSON line before
 the last, and as the last line {"ok": true, "device": {...}}. Imports no JAX
 and nothing of the JAX package.
@@ -132,6 +142,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -142,10 +153,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
-PEAK_FP32_FLOPS = 67e12    # H100 SXM fp32 outside the tensor cores
-PEAK_3XTF32_FLOPS = 495e12 / 3  # fp32 products as three TF32 tensor-core products
-PEAK_BYTES = 3.35e12       # H100 SXM HBM3
+SRC = Path(__file__).resolve().parent / "src"
+sys.path.insert(0, str(SRC))  # the port, beside this script
+from repro_torch.roofline.analysis import H100  # noqa: E402  (the port's one table of peaks)
+
+PEAK_BF16_FLOPS = H100.peak_flops  # H100 SXM dense bf16 tensor-core rate
+PEAK_FP32_FLOPS = H100.peak_fp32_flops  # H100 SXM fp32 outside the tensor cores
+PEAK_3XTF32_FLOPS = H100.peak_tf32_flops / 3  # fp32 products as three TF32 products
+PEAK_BYTES = H100.hbm_bw  # H100 SXM HBM3
 SERVE_B, PROMPT, NEW_TOKENS = 4, 2048, 64
 FORWARD_BATCHES, FIT_BATCHES = 12, 8
 # training: 8 layers of full-width qwen3-8b fit one 80 GB card in fp32
@@ -3086,6 +3101,200 @@ def sharding_phase(record, device):
     rec["seconds"] = time.perf_counter() - t0
 
 
+def meta_like(batch):
+    """A dict of arrays or tensors as meta tensors of the same shapes and dtypes."""
+    return {k: torch.empty(tuple(v.shape), dtype=torch.as_tensor(v.flatten()[:0]).dtype,
+                           device="meta") for k, v in batch.items()}
+
+
+def tree_bytes(tree):
+    from repro_torch.train.optimizer import tree_leaves
+
+    return sum(nbytes(t) for t in tree_leaves(tree) if isinstance(t, torch.Tensor))
+
+
+def meta_train_count(cfg, opt, batch, microbatches):
+    """One train step of `cfg` (unsharded, remat) on the meta device under
+    the op counter -> (counter, bytes of the state and batch)."""
+    from repro_torch.roofline.counter import OpCounter
+    from repro_torch.train.train_step import build_train_step, init_train_state
+
+    state = init_train_state(0, cfg, opt, device="meta")
+    state["step"] = torch.zeros((), dtype=torch.int32)  # the optimizer reads it on the host
+    args = tree_bytes(state) + tree_bytes(batch)
+    with OpCounter() as c:
+        build_train_step(cfg, opt, microbatches=microbatches)(state, batch)
+    return c, args
+
+
+def counted_row(c, arg_bytes, seconds, peak_bytes):
+    """A counted step beside its measured time and peak memory: the H100
+    bound (the larger of the counted FLOPs over the bf16 peak and the
+    counted bytes over the HBM rate), its share of the measured seconds,
+    and the predicted peak (arguments + the counter's peak of the bytes the
+    step's ops held) against `max_memory_allocated`."""
+    t_ops, t_bytes = c.flops / PEAK_BF16_FLOPS, c.hbm_bytes / PEAK_BYTES
+    return {"flops": c.flops, "matmul_flops": c.matmul_flops,
+            "attention_flops": c.attention_flops, "hbm_bytes": c.hbm_bytes, "ops": sum(
+                c.calls.values()),
+            "bound_s": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes
+            else "bytes", "measured_s": seconds, "bound_share": max(t_ops, t_bytes) / seconds,
+            "predicted_peak_bytes": arg_bytes + c.peak_bytes,
+            "argument_bytes": arg_bytes, "temp_bytes": c.peak_bytes,
+            "max_memory_allocated_bytes": peak_bytes,
+            "predicted_over_measured_peak": (arg_bytes + c.peak_bytes) / peak_bytes}
+
+
+def op_dispatch_cost(device, calls=400, rounds=5):
+    """Host microseconds a call of the forward kernel through its PyTorch op
+    (`torch.ops.repro_torch.packed_attn_fwd`) and through the wrapper alone,
+    in turns, at a launch-bound shape (1 x 128, 4 heads, head_dim 64, bf16):
+    the least over `rounds` rounds of `calls` calls each, then a synchronize."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.packed_flash_attn import packed_flash_attention
+
+    g = torch.Generator(device=device).manual_seed(5)
+    q, k, v = (torch.randn((1, 128, 4, 64), generator=g, device=device).to(torch.bfloat16)
+               for _ in range(3))
+    seg = torch.ones((1, 128), dtype=torch.int32, device=device)
+    pos = torch.arange(128, dtype=torch.int32, device=device)[None]
+    ways = {"op": lambda: ops._FWD(q, k, v, seg, seg, pos, pos, True, None, None, False),
+            "wrapper": lambda: packed_flash_attention(q, k, v, seg, seg, pos, pos)}
+    best = {name: math.inf for name in ways}
+    for _ in range(rounds):
+        for name, call in ways.items():
+            call()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                call()
+            torch.cuda.synchronize()
+            best[name] = min(best[name], (time.perf_counter() - t0) / calls * 1e6)
+    return {"op_us": best["op"], "wrapper_us": best["wrapper"],
+            "op_extra_us": best["op"] - best["wrapper"]}
+
+
+def roofline_phase(record, device):
+    """Phase 15: the op counter and the dry-run on the card's machine.
+
+    Counts on the meta device the steps the script timed (qwen3-8b's
+    TRAIN_LAYERS-layer train step, its SERVE_B x PROMPT prefill, whisper's
+    train step) and sets each beside its measured seconds and peak memory;
+    counts one real qwen3-8b train step on the card under the counter, whose
+    matmul FLOPs must equal the meta count's and whose attention FLOPs must
+    equal `attention_bound`'s visible pairs for that batch (every layer of a
+    micro-batch: the forward twice, forward and remat, 2 products, and the
+    backward once, 5), with the train phase's launches; times a kernel call
+    through its op against the wrapper alone (`op_dispatch_cost`); and runs the
+    dry-run of qwen3-8b decode_32k on the (16, 16) fake-group mesh in a
+    subprocess, whose status must be `ok`."""
+    import tempfile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synth import SyntheticPackedDataset
+    from repro_torch.kernels.ref import attention_mask
+    from repro_torch.models.model import init_params
+    from repro_torch.roofline.counter import OpCounter
+    from repro_torch.train.optimizer import optimizer_for
+    from repro_torch.train.train_step import build_prefill_step, build_train_step, init_train_state
+
+    t0 = time.perf_counter()
+    res = record["roofline"] = {"card": record["card"]}
+    cfg = get_arch("qwen3-8b")
+    tcfg = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS)
+    opt = optimizer_for(tcfg, lr=1e-3)  # the spmd driver's
+    raw = SyntheticPackedDataset(tcfg, TRAIN_SEQ, TRAIN_BATCH, seed=0).batch_at(0)
+    train, meta = record["train"], {}
+    meta["train"], args = meta_train_count(tcfg, opt, meta_like(raw), TRAIN_MICROBATCHES)
+    res["qwen3-8b_train"] = counted_row(meta["train"], args, train["step_seconds_mean"],
+                                        train["max_memory_allocated_bytes"])
+    prompt, _ = serve_prompt(cfg, "meta")
+    params = init_params(cfg, dtype=torch.bfloat16, device="meta")
+    with OpCounter() as c, torch.no_grad():
+        build_prefill_step(cfg)(params, prompt)
+    serve = record["serve"]
+    res["qwen3-8b_prefill"] = counted_row(c, tree_bytes(params) + tree_bytes(prompt),
+                                          serve["prefill_seconds"],
+                                          serve["max_memory_allocated_bytes"])
+    del params
+    wcfg = get_arch("whisper-medium")
+    wtrain = record["multimodal"]["whisper-medium_train"]
+    c, args = meta_train_count(wcfg, optimizer_for(wcfg, lr=1e-3),
+                               meta_like(multimodal_train_batch(wcfg, 0)), TRAIN_MICROBATCHES)
+    res["whisper-medium_train"] = counted_row(c, args, wtrain["step_seconds_mean"],
+                                              wtrain["max_memory_allocated_bytes"])
+    for name in ("qwen3-8b_train", "qwen3-8b_prefill", "whisper-medium_train"):
+        log(f"roofline: {name} counted on meta", json.dumps(res[name]))
+
+    # one real step under the counter, against the meta count and the pairs
+    state = init_train_state(0, tcfg, opt, device=device)
+    batch = to_device(raw, device)
+    step = build_train_step(tcfg, opt, microbatches=TRAIN_MICROBATCHES)
+    torch.cuda.synchronize()
+    reset_counts()
+    t1 = time.perf_counter()
+    with OpCounter() as real:
+        step(state, batch)
+        torch.cuda.synchronize()
+    counted_s = time.perf_counter() - t1
+    launches = {**read_counts(), **{f"backward[{k}]": v
+                                    for k, v in read_backward_counts().items()}}
+    del state
+    torch.cuda.empty_cache()
+    want_launches = {k: v for k, v in train["launches_per_step"].items() if k != "plain_calls"}
+    n, calls = TRAIN_BATCH // TRAIN_MICROBATCHES, attention_calls(tcfg)
+    q_like = torch.empty((n, TRAIN_SEQ, tcfg.n_heads, tcfg.head_dim), dtype=torch.bfloat16,
+                         device="meta")
+    pairs_flops = 0.0
+    for i in range(TRAIN_MICROBATCHES):
+        seg = batch["segment_ids"][i * n:(i + 1) * n]
+        pos = torch.arange(TRAIN_SEQ, dtype=torch.int32, device=device).repeat(n, 1)
+        mask = attention_mask(seg, seg, pos, pos, causal=True, window=None)
+        pairs_flops += calls * (2 * attention_bound(q_like, mask, 2, 0)[2]
+                                + attention_bound(q_like, mask, 5, 0)[2])
+    res["qwen3-8b_train_counted_on_card"] = {
+        "flops": real.flops, "matmul_flops": real.matmul_flops,
+        "attention_flops": real.attention_flops, "hbm_bytes": real.hbm_bytes,
+        "meta_matmul_flops": meta["train"].matmul_flops,
+        "meta_attention_flops": meta["train"].attention_flops,
+        "attention_bound_flops": pairs_flops, "launches": launches,
+        "counted_step_seconds": counted_s}
+    log("roofline: qwen3-8b train counted on the card",
+        json.dumps(res["qwen3-8b_train_counted_on_card"]))
+    if real.matmul_flops != meta["train"].matmul_flops:
+        raise AssertionError(f"matmul FLOPs on the card {real.matmul_flops} != on meta "
+                             f"{meta['train'].matmul_flops}")
+    if real.attention_flops != pairs_flops:
+        raise AssertionError(f"attention FLOPs on the card {real.attention_flops} != "
+                             f"attention_bound's {pairs_flops}")
+    if launches != want_launches:
+        raise AssertionError(f"counted step launches {launches}, expected {want_launches}")
+
+    res["op_dispatch"] = op_dispatch_cost(device)
+    log("roofline: op dispatch", json.dumps(res["op_dispatch"]))
+
+    # the dry-run: a fake group of 256 ranks and meta tensors, in its own process
+    with tempfile.TemporaryDirectory() as out:
+        t1 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                               "qwen3-8b", "--shape", "decode_32k", "--out", out],
+                              capture_output=True, text=True, timeout=300,
+                              env={**os.environ, "PYTHONPATH": str(SRC)})
+        if proc.returncode != 0:
+            raise AssertionError(f"the dry-run failed ({proc.returncode}): "
+                                 f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+        rec = json.loads((Path(out) / "qwen3-8b__decode_32k__pod1__baseline.json").read_text())
+    if rec["status"] != "ok":
+        raise AssertionError(f"the dry-run's qwen3-8b decode_32k cell: {rec['status']}")
+    res["dryrun_qwen3-8b_decode_32k"] = {
+        "status": rec["status"], "seconds": time.perf_counter() - t1,
+        "trace_s": rec["trace_s"], "roofline": {k: rec["roofline"][k] for k in (
+            "bound", "compute_s", "memory_s", "collective_s")},
+        "hbm_model": rec["hbm_model"], "summary": proc.stdout.strip().splitlines()[-2:]}
+    log("roofline: dry-run", json.dumps(res["dryrun_qwen3-8b_decode_32k"]))
+    res["seconds"] = time.perf_counter() - t0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the full record to this JSON file")
@@ -3097,7 +3306,6 @@ def main(argv=None):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()
     log(smi[0])
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.configs import get_arch
     from repro_torch.configs.paper_models import PAPER_MODELS, PAPER_PARALLELISM
     from repro_torch.kernels import build
@@ -3210,6 +3418,9 @@ def main(argv=None):
     sharding_phase(record, device)
     torch.cuda.empty_cache()
     mark("sharding")
+    roofline_phase(record, device)
+    torch.cuda.empty_cache()
+    mark("roofline")
 
     record["kernels"] = kernel_entries(record)
     if args.out:

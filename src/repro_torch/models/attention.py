@@ -17,7 +17,7 @@ import torch
 from repro_torch.kernels.ops import packed_attention
 from repro_torch.kernels.ref import NEG_INF, attention_mask
 from repro_torch.models.layers import apply_rope, dense_init, head_rms_norm, rope_angles
-from repro_torch.parallel.sharding import NULL_POLICY
+from repro_torch.parallel.sharding import NULL_POLICY, mesh_block
 
 
 def init_attention(generator, cfg, *, dtype=torch.bfloat16, device="cuda"):
@@ -68,6 +68,86 @@ def _decode_attend(q, k, v, seg_k, pos_k, lengths, *, causal, window, scale):
     return _sdpa_dense(q, k.to(q.dtype), v.to(q.dtype), mask, scale)
 
 
+def _decode_merge_attend(q, k, v, mask, scale, reduce):
+    """`_sdpa_dense` over a part of the keys whose other parts other ranks
+    hold: each row's max, then its sum and output, are summed over the
+    holders by `reduce(x, op)` before the output is divided by the sum.
+    A row that sees no key here gets 0 from this part."""
+    B, Sq, H, dh = q.shape
+    K = k.shape[2]
+    qg = q.reshape(B, Sq, K, H // K, dh)
+    scores = torch.einsum("bqkrd,btkd->bkrqt", qg, k).float() * scale
+    scores = scores.masked_fill(~mask[:, None, None], NEG_INF)
+    m = reduce(scores.amax(dim=-1, keepdim=True), "max")
+    p = torch.exp(scores - m).masked_fill(~mask[:, None, None], 0.0)
+    lo = torch.cat([p.sum(dim=-1), torch.einsum("bkrqt,btkd->bkrqd", p, v.float()).flatten(3)],
+                   dim=-1)
+    lo = reduce(lo, "sum")
+    out = lo[..., Sq:].unflatten(-1, (Sq, dh)) / lo[..., :Sq, None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, dh).to(q.dtype)
+
+
+def sharded_decode(policy, q, k_new, v_new, cache, lengths, *, causal, window, scale):
+    """One decode step's cache write and attention over DTensors, the cache
+    placed by `launch.specs.cache_shardings`, through `local_map`.
+
+    The cache keeps its placement: its batch over the dp axes, and its
+    slots (`kv_seq`) or else its kv heads over tp (over every axis for a
+    batch too small to split). Each rank writes the new K/V, position by
+    position, only into the slots of its own range, and attends its q heads
+    (split as the cache's kv heads are) over its own keys. Where the slots
+    are split, each rank's partial max, then its partial sum and output,
+    are merged over the ranks that hold the slots by all-reduces (the
+    exchange GSPMD emits for the reference); DTensor left to itself would
+    gather the whole cache. Out: (B, S, H, dh), placed as q's local map."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = policy.mesh
+    cp = cache["k"].placements
+    dims = {d: [i for i, pl in enumerate(cp) if pl == Shard(d)] for d in (0, 1, 2)}
+    T = cache["k"].shape[1]
+    n, block = mesh_block(mesh, dims[1])
+    lo_slot, Tl = block * (T // n), T // n
+
+    qp = [Shard(0) if i in dims[0] else Shard(2) if i in dims[2] else Replicate()
+          for i in range(mesh.ndim)]  # q, the new K/V and the output: batch and heads
+    lp = [Shard(0) if i in dims[0] else Replicate() for i in range(mesh.ndim)]
+
+    def reduce(x, op):
+        for i in dims[1]:
+            x = funcol.all_reduce(x, op, (mesh, i))
+        return x
+
+    def local(q, k_new, v_new, ck, cv, cpos, lengths):
+        B, S = q.shape[:2]
+        rows = torch.arange(B, device=q.device)
+        for j in range(S):  # each new position into its ring slot, where it is this rank's
+            at = lengths + j
+            slot = at % T - lo_slot
+            mine = (slot >= 0) & (slot < Tl)
+            slot = slot.clamp(0, Tl - 1)
+            ck[rows, slot] = torch.where(mine[:, None, None], k_new[:, j].to(ck.dtype),
+                                         ck[rows, slot])
+            cv[rows, slot] = torch.where(mine[:, None, None], v_new[:, j].to(cv.dtype),
+                                         cv[rows, slot])
+            cpos[rows, slot] = torch.where(mine, at.to(torch.int32), cpos[rows, slot])
+        pos_q = lengths[:, None] + torch.arange(S, device=q.device)[None]
+        seg_q = torch.ones((B, S), dtype=torch.int32, device=q.device)
+        mask = attention_mask(seg_q, (cpos >= 0).to(torch.int32), pos_q, cpos.clamp_min(0),
+                              causal=causal, window=window)
+        if not dims[1]:
+            return _sdpa_dense(q, ck.to(q.dtype), cv.to(q.dtype), mask, scale)
+        return _decode_merge_attend(q, ck.to(q.dtype), cv.to(q.dtype), mask, scale, reduce)
+
+    return local_map(local, out_placements=qp,
+                     in_placements=(qp, qp, qp, cp, cache["v"].placements,
+                                    cache["pos"].placements, lp),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        q, k_new, v_new, cache["k"], cache["v"], cache["pos"], lengths)
+
+
 def _kv_for_local_heads(k, v, H, h0, Hl):
     """The kv heads that q heads h0..h0+Hl-1 of H read (head h reads kv head
     h*K//H), so that the kernel's own map over the local heads, h*K'//Hl,
@@ -102,11 +182,9 @@ def sharded_packed_attention(policy, q, k, v, seg_q, seg_k, pos_q, pos_k, **kw):
     h0 = None
     if Shard(2) in qp and Shard(2) not in kp:
         tp_dim = [i for i, pl in enumerate(qp) if pl == Shard(2)]
-        Hl = H // math.prod(policy.mesh.size(i) for i in tp_dim)
-        rank = 0
-        for i in tp_dim:  # the rank's block of heads, major mesh dim first
-            rank = rank * policy.mesh.size(i) + policy.mesh.get_local_rank(i)
-        h0 = rank * Hl
+        n, block = mesh_block(policy.mesh, tp_dim)
+        Hl = H // n
+        h0 = block * Hl
         grad_kp = [Partial() if i in tp_dim else pl for i, pl in enumerate(kp)]
         k, v = (t.redistribute(policy.mesh, kp).to_local(grad_placements=grad_kp)
                 for t in (k, v))
@@ -120,6 +198,23 @@ def sharded_packed_attention(policy, q, k, v, seg_q, seg_k, pos_q, pos_k, **kw):
     return local_map(local, out_placements=qp, in_placements=(qp, kp, kp, ip, ik, ip, ik),
                      device_mesh=policy.mesh, redistribute_inputs=True)(
         q, k, v, seg_q, seg_k, pos_q, pos_k)
+
+
+def _project(policy, x, w, n, heads_axis):
+    """x (B,S,D) @ w (D,n,dh) -> (B,S,n,dh). Under a mesh the product's
+    flat n*dh dim is first placed as its heads are (split over tp only where
+    n divides, and then in whole heads), so the view never cuts a head
+    across ranks as DTensor's own choice of product layout can; the weight
+    is gathered after its view to (D, n*dh), so the backward places its
+    gradient as the flat weight is placed and the view back holds too."""
+    B, S, D = x.shape
+    dh = w.shape[-1]
+    w = policy.gathered(w.reshape(D, n * dh))
+    if policy.mesh is None:
+        return (x @ w.to(x.dtype)).view(B, S, n, dh)
+    y = (x @ w.to(x.dtype)).redistribute(
+        policy.mesh, policy.placements_for(("batch", "seq", heads_axis), (B, S, n)))
+    return y.view(B, S, n, dh)
 
 
 def attention(cfg, spec, p, x, md, cache=None, policy=NULL_POLICY):
@@ -153,7 +248,7 @@ def attention(cfg, spec, p, x, md, cache=None, policy=NULL_POLICY):
     causal = md.get("causal", True)
     kx = md.get("cross_x")  # the encoder output, for cross-attention
 
-    q = (x @ p["wq"].reshape(D, H * dh).to(x.dtype)).view(B, S, H, dh)
+    q = _project(policy, x, p["wq"], H, "heads")
     if cache is not None and "k_const" in cache:
         # decode over the constant cross K/V; the query is not qk-normed here,
         # as in the reference (prefill's is)
@@ -164,8 +259,8 @@ def attention(cfg, spec, p, x, md, cache=None, policy=NULL_POLICY):
     else:
         src = kx if kx is not None else x
         Sk = src.shape[1]
-        k = (src @ p["wk"].reshape(D, K * dh).to(x.dtype)).view(B, Sk, K, dh)
-        v = (src @ p["wv"].reshape(D, K * dh).to(x.dtype)).view(B, Sk, K, dh)
+        k = _project(policy, src, p["wk"], K, "kv_heads")
+        v = _project(policy, src, p["wv"], K, "kv_heads")
         if cfg.qk_norm:
             q = head_rms_norm(q, p["q_norm"])
             k = head_rms_norm(k, p["k_norm"])
@@ -191,17 +286,21 @@ def attention(cfg, spec, p, x, md, cache=None, policy=NULL_POLICY):
             # layers T = min(2 * window, max_len), and a slot is overwritten
             # once its position is out of the window (the mask drops it first)
             idx = md["lengths"]
-            rows = torch.arange(B, device=x.device)
-            slot = idx % cache["k"].shape[1]
-            cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
-            cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
-            cache["pos"][rows, slot] = idx.to(torch.int32)
-            pos_arr = cache["pos"]  # -1: an empty slot
-            out = _decode_attend(q, cache["k"], cache["v"], (pos_arr >= 0).to(torch.int32),
-                                 pos_arr.clamp_min(0), idx, causal=causal, window=window,
-                                 scale=scale)
+            if policy.mesh is not None:
+                out = sharded_decode(policy, q, k, v, cache, idx, causal=causal, window=window,
+                                     scale=scale)
+            else:
+                rows = torch.arange(B, device=x.device)
+                slot = idx % cache["k"].shape[1]
+                cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
+                cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
+                cache["pos"][rows, slot] = idx.to(torch.int32)
+                pos_arr = cache["pos"]  # -1: an empty slot
+                out = _decode_attend(q, cache["k"], cache["v"], (pos_arr >= 0).to(torch.int32),
+                                     pos_arr.clamp_min(0), idx, causal=causal, window=window,
+                                     scale=scale)
             new_cache = cache
 
     out = policy.constrain(out, "batch", "seq", "heads", "head_dim")
-    y = out.reshape(B, S, H * dh) @ p["wo"].reshape(H * dh, D).to(x.dtype)
+    y = out.reshape(B, S, H * dh) @ policy.gathered(p["wo"].reshape(H * dh, D)).to(x.dtype)
     return y, new_cache

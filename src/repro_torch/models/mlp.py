@@ -23,7 +23,8 @@ def mlp_axes(cfg):
 
 
 def mlp(cfg, p, x, policy=NULL_POLICY):
-    h = x @ p["w_gate"].to(x.dtype)
-    u = x @ p["w_up"].to(x.dtype)
+    w_gate, w_up, w_down = (policy.gathered(p[k]) for k in ("w_gate", "w_up", "w_down"))
+    h = x @ w_gate.to(x.dtype)
+    u = x @ w_up.to(x.dtype)
     h = policy.constrain(F.silu(h) * u, "batch", "seq", "ffn")
-    return h @ p["w_down"].to(x.dtype)
+    return h @ w_down.to(x.dtype)

@@ -43,7 +43,7 @@ from repro_torch.models.xlstm import (
     slstm,
     slstm_axes,
 )
-from repro_torch.parallel.sharding import NULL_POLICY, arange_rows_like
+from repro_torch.parallel.sharding import NULL_POLICY, arange_rows_like, mesh_block
 
 MIXER_INIT = {"attn": init_attention, "mamba": init_mamba, "mlstm": init_mlstm,
               "slstm": init_slstm}
@@ -186,12 +186,41 @@ def _run_layers(cfg, layers, x, md, caches=None, *, remat=False, period=None,
 
 
 # ----------------------------------------------------------------- embed
-def embed_tokens(cfg, params, tokens, compute_dtype=torch.bfloat16):
-    return params["embed"][tokens.long()].to(compute_dtype)
+def embed_tokens(cfg, params, tokens, compute_dtype=torch.bfloat16, policy=NULL_POLICY):
+    """The token embeddings (B,S,D). Under a mesh each rank looks its tokens
+    up in its own rows of the table (vocab split over tp, its FSDP shards
+    gathered), 0 for a token outside them, and the ranks' rows are summed
+    over tp (out Partial there): neither the table nor its gradient is ever
+    whole on a rank, as DTensor's own lookup would make it."""
+    if policy.mesh is None:
+        return params["embed"][tokens.long()].to(compute_dtype)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    table = policy.gathered(params["embed"])
+    mesh, V = policy.mesh, table.shape[0]
+    split = [i for i, pl in enumerate(table.placements) if pl == Shard(0)]
+    n, block = mesh_block(mesh, split)
+    lo, rows = block * (V // n), V // n
+    tp = policy.batch_placements(tokens.dim())
+    out = [Partial() if i in split else pl for i, pl in enumerate(tp)]
+    # the table's gradient from each rank's own tokens: summed where they are split
+    grad = [Partial() if isinstance(pl, Replicate) and isinstance(t, Shard) else pl
+            for pl, t in zip(table.placements, tp)]
+
+    def local(table, tokens):
+        idx = tokens.long() - lo
+        mine = (idx >= 0) & (idx < rows)
+        return table[idx.clamp(0, rows - 1)] * mine[..., None].to(table.dtype)
+
+    x = local_map(local, out_placements=out, in_placements=(None, tp), device_mesh=mesh,
+                  redistribute_inputs=True)(table.to_local(grad_placements=grad), tokens)
+    return x.to(compute_dtype).redistribute(mesh, [Replicate() if isinstance(pl, Partial) else pl
+                                                   for pl in out])
 
 
 def lm_logits(cfg, params, x, policy=NULL_POLICY):
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    w = policy.gathered(params["embed"].T if cfg.tie_embeddings else params["lm_head"])
     return policy.constrain(x @ w.to(x.dtype), "batch", "seq", "vocab")
 
 
@@ -222,10 +251,10 @@ def _encoder_md(cfg, params, batch, compute_dtype, remat):
 def _hidden(cfg, params, batch, compute_dtype, collect, remat=False, policy=NULL_POLICY):
     if cfg.enc_dec:
         md = _encoder_md(cfg, params, batch, compute_dtype, remat)
-        x = embed_tokens(cfg, params, batch["dec_tokens"], compute_dtype)
+        x = embed_tokens(cfg, params, batch["dec_tokens"], compute_dtype, policy)
     else:
         md = _default_md(batch)
-        x = embed_tokens(cfg, params, batch["tokens"], compute_dtype)
+        x = embed_tokens(cfg, params, batch["tokens"], compute_dtype, policy)
         if cfg.vlm and "vision_embeds" in batch:  # in place of the first S_vis embeddings
             vis = batch["vision_embeds"].to(compute_dtype)
             x = torch.cat([vis, x[:, vis.shape[1]:]], dim=1)
@@ -265,6 +294,22 @@ def forward_train(cfg, params, batch, *, remat=True, compute_dtype=torch.bfloat1
     return lm_logits(cfg, params, x, policy), aux
 
 
+def _label_logits(policy, logits, labels):
+    """logits (B,S,V) at labels (B,S). Under a mesh each rank reads its own
+    rows (`local_map`): DTensor's own gather would first gather every row
+    of the batch onto every rank."""
+    def pick(logits, labels):
+        return logits.gather(-1, labels[..., None])[..., 0]
+    if policy.mesh is None:
+        return pick(logits, labels)
+    from torch.distributed.tensor.experimental import local_map
+
+    rows = policy.placements_for(("batch", "seq"), tuple(labels.shape))
+    return local_map(pick, out_placements=rows, in_placements=(
+        policy.placements_for(("batch", "seq", None), tuple(logits.shape)), rows),
+        device_mesh=policy.mesh, redistribute_inputs=True)(logits, labels)
+
+
 def loss_fn(cfg, params, batch, **fw_kwargs):
     """NLL over labels >= 0 plus 1e-4 z-loss -> (total, metrics)."""
     logits, aux = forward_train(cfg, params, batch, **fw_kwargs)
@@ -272,9 +317,10 @@ def loss_fn(cfg, params, batch, **fw_kwargs):
     mask = (labels >= 0).float()
     labels_c = labels.clamp_min(0).long()
     # whole rows of logits on every rank of a mesh: the gather reads them
-    logits = fw_kwargs.get("policy", NULL_POLICY).constrain(logits.float(), "batch", "seq", None)
+    policy = fw_kwargs.get("policy", NULL_POLICY)
+    logits = policy.constrain(logits.float(), "batch", "seq", None)
     lse = torch.logsumexp(logits, dim=-1)
-    ll = logits.gather(-1, labels_c[..., None])[..., 0]
+    ll = _label_logits(policy, logits, labels_c)
     nll = (lse - ll) * mask
     denom = mask.sum().clamp_min(1.0)
     loss = nll.sum() / denom
@@ -283,14 +329,15 @@ def loss_fn(cfg, params, batch, **fw_kwargs):
     return total, {"loss": loss, "zloss": zloss, "moe_aux": aux["moe_aux"], "ntokens": mask.sum()}
 
 
-def prefill_forward(cfg, params, batch, *, compute_dtype=torch.bfloat16):
+def prefill_forward(cfg, params, batch, *, compute_dtype=torch.bfloat16, policy=NULL_POLICY):
     """Inference prefill: last-position logits (B,1,V) + per-layer K/V caches
     of length S (an encoder-decoder's also hold each layer's cross K/V over
     the encoder output, under "cross"). Only the last position goes through
-    the LM head."""
-    x, caches = _hidden(cfg, params, batch, compute_dtype, collect=True)
+    the LM head. Under a `policy` with a mesh the parameters and the batch
+    are DTensors, as in `forward_train`, and so are the caches."""
+    x, caches = _hidden(cfg, params, batch, compute_dtype, collect=True, policy=policy)
     x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
-    return lm_logits(cfg, params, x), caches
+    return lm_logits(cfg, params, x, policy), caches
 
 
 # ----------------------------------------------------------------- decode
@@ -364,11 +411,14 @@ def extend_cache(cfg, prefill_caches, max_len):
     return cache
 
 
-def serve_forward(cfg, params, cache, batch, *, compute_dtype=torch.bfloat16):
+def serve_forward(cfg, params, cache, batch, *, compute_dtype=torch.bfloat16,
+                  policy=NULL_POLICY):
     """One decode step. batch: tokens (B,1), lengths (B,) current positions;
     an encoder-decoder's also cross_segment_ids and cross_positions (B,S_enc),
     the ids of its cross caches' encoder positions. With M-RoPE the step's
     position is `lengths` on all three axes, as the reference's.
+    Under a `policy` with a mesh the parameters, the cache (placed by
+    `launch.specs.cache_shardings`) and the batch are DTensors.
 
     Returns (logits (B,1,V), cache), the cache updated in place.
     """
@@ -386,7 +436,8 @@ def serve_forward(cfg, params, cache, batch, *, compute_dtype=torch.bfloat16):
     if cfg.enc_dec:
         md["cross_segment_ids"] = batch["cross_segment_ids"]
         md["cross_positions"] = batch["cross_positions"]
-    x = embed_tokens(cfg, params, tokens, compute_dtype)
-    x, cache = _run_layers(cfg, params["layers"], x, md, caches=cache)
+    x = policy.constrain(embed_tokens(cfg, params, tokens, compute_dtype, policy), "batch", None,
+                         None)
+    x, cache = _run_layers(cfg, params["layers"], x, md, caches=cache, policy=policy)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return lm_logits(cfg, params, x), cache
+    return lm_logits(cfg, params, x, policy), cache

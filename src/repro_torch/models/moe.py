@@ -140,7 +140,8 @@ def _moe_sharded(cfg, p, x, policy):
     names = mesh_axis_names(mesh)
     dp = [a for a in policy.dp_axes if mesh.size(names.index(a)) > 1] if policy.shard_batch else []
     if len(dp) > 1:
-        raise NotImplementedError(f"MoE tokens split over more than one dp axis {dp}")
+        raise NotImplementedError(f"MoE tokens split over more than one dp axis {dp} are not "
+                                  "ported yet (ROADMAP Queue 1 item 4)")
     E, tp_n = cfg.n_experts, policy.tp
     ep = bool(policy.expert_parallel and tp and E % tp_n == 0)
     split = ep or bool(tp and cfg.moe_d_ff % tp_n == 0)  # anything split over tp is summed

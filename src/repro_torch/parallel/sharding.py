@@ -215,6 +215,22 @@ class ShardingPolicy:
         return {k: distribute_tensor(v, self.mesh, self.batch_placements(v.dim()))
                 for k, v in batch.items()}
 
+    def gathered(self, w):
+        """The DTensor weight w as a step multiplies with it: its FSDP shards
+        (over the dp axes) gathered, its split over tp kept. Each rank then
+        multiplies its own rows by the whole weight, as the reference's FSDP
+        does, and the backward reduce-scatters the weight's gradient onto its
+        shards (DTensor left to choose may instead gather the activations
+        and all-reduce partial products). w itself without a mesh."""
+        if self.mesh is None:
+            return w
+        from torch.distributed.tensor import Replicate
+
+        names = mesh_axis_names(self.mesh)
+        placements = [Replicate() if names[i] in self.dp_axes else pl
+                      for i, pl in enumerate(w.placements)]
+        return w.redistribute(self.mesh, placements)
+
     def constrain(self, x, *axes):
         """Redistribute the DTensor x to its logical axes' placements (the
         reference's `with_sharding_constraint`); x itself without a mesh."""
@@ -234,6 +250,15 @@ def policy_for_mesh(mesh, **kw) -> ShardingPolicy:
     dp = tuple(a for a in names if a in ("pod", "data", "replica", "fsdp"))
     tp = "model" if "model" in names else None
     return ShardingPolicy(mesh=mesh, dp_axes=dp, tp_axis=tp, **kw)
+
+
+def mesh_block(mesh, dims):
+    """(blocks, this rank's block) of a tensor dim split over the DeviceMesh
+    dims `dims`, major mesh dim first, as DTensor splits it."""
+    n, block = 1, 0
+    for i in dims:
+        n, block = n * mesh.size(i), block * mesh.size(i) + mesh.get_local_rank(i)
+    return n, block
 
 
 def gather(tree):

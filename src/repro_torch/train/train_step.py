@@ -6,14 +6,14 @@ bf16 compute, fp32 gradients. Under a `ShardingPolicy` with a mesh the train
 state is DTensors placed by the reference's rules (`sharding_for_state`),
 each micro-batch is split over the dp axes (`batch_spec`), and the forward,
 the loss, the clip and the optimizer's in-place update act on DTensors; the
-dense and MoE families train so (the recurrent, VLM and encoder-decoder ones
-wait, ROADMAP Queue 1). The reference's `use_scan` and `flash_chunk` have no
-counterpart here (the attention kernel takes every length).
+dense and MoE families train and serve so (the recurrent, VLM and
+encoder-decoder ones wait, ROADMAP Queue 1). The reference's `use_scan` and
+`flash_chunk` have no counterpart here (the attention kernel takes every
+length).
 """
 from __future__ import annotations
 
 import contextlib
-import math
 
 import torch
 
@@ -24,7 +24,7 @@ from repro_torch.models.model import (
     prefill_forward,
     serve_forward,
 )
-from repro_torch.parallel.sharding import NULL_POLICY, mesh_sizes, tree_map_axes
+from repro_torch.parallel.sharding import NULL_POLICY, tree_map_axes
 from repro_torch.train.optimizer import tree_leaves, tree_map
 
 
@@ -114,7 +114,7 @@ def check_shardable(cfg):
     if cfg.vlm or cfg.enc_dec or any(s.mixer != "attn" for s in cfg.period):
         kind = "VLM" if cfg.vlm else "encoder-decoder" if cfg.enc_dec else "recurrent"
         raise NotImplementedError(f"{cfg.arch_id}: the {kind} family under a mesh is not "
-                                  "ported yet (ROADMAP Queue 1)")
+                                  "ported yet (ROADMAP Queue 1 item 4)")
 
 
 def global_norm(tree):
@@ -132,7 +132,7 @@ def build_train_step(cfg, optimizer, *, policy=NULL_POLICY, microbatches=1, rema
     if sharded:
         check_shardable(cfg)
         from torch.distributed.tensor import DTensor
-        from torch.distributed.tensor.experimental import implicit_replication
+    replicating = _replicating(policy)
 
     def train_step(state, batch):
         params = state["params"]
@@ -143,9 +143,7 @@ def build_train_step(cfg, optimizer, *, policy=NULL_POLICY, microbatches=1, rema
         for p in tree_leaves(params):
             p.grad = None
         loss_sum = ntokens = 0.0
-        # under a mesh, the model's own plain tensors (position rows, masks)
-        # count as replicated
-        with implicit_replication() if sharded else contextlib.nullcontext():
+        with replicating():
             for i in range(microbatches):
                 mb = policy.distribute_batch({k: v[i * n:(i + 1) * n] for k, v in batch.items()})
                 total, metrics = loss_fn(cfg, params, mb, remat=remat,
@@ -173,43 +171,54 @@ def build_train_step(cfg, optimizer, *, policy=NULL_POLICY, microbatches=1, rema
     return train_step
 
 
-def _local_steps(policy, name):
-    """Serving under a mesh: at one rank every shard is the whole tensor, so
-    the step runs the unsharded functions on the local tensors; across ranks
-    it waits for `launch/specs.py`'s cache shardings (ROADMAP Queue 1)."""
-    ranks = math.prod(mesh_sizes(policy.mesh).values())
-    if ranks > 1:
-        raise NotImplementedError(f"{name} under a mesh of {ranks} ranks is not ported yet "
-                                  "(ROADMAP Queue 1: launch/specs.py's cache shardings)")
+def _replicating(policy):
+    """Under a mesh, the model's own plain tensors (position rows, masks)
+    count as replicated; the dense and MoE families alone shard."""
     if policy.mesh is None:
-        return lambda tree: tree
-    from torch.distributed.tensor import DTensor
-    return lambda tree: tree_map(lambda x: x.to_local() if isinstance(x, DTensor) else x, tree)
+        return contextlib.nullcontext
+    from torch.distributed.tensor.experimental import implicit_replication
+    return implicit_replication
 
 
 def build_serve_step(cfg, *, sample="greedy", compute_dtype=torch.bfloat16,
                      policy=NULL_POLICY):
     """serve_step(params, cache, batch) -> (next_tokens, logits, cache). The
     cache (`init_cache`/`extend_cache`) may mix the rings of sliding-window
-    layers with the full caches of global ones."""
+    layers with the full caches of global ones. Under a policy with a mesh
+    (the dense and MoE families) the parameters are DTensors placed by the
+    sharding rules, the cache is placed by `launch.specs.cache_shardings`
+    (`launch.specs.place_cache`), the batch by `distribute_batch`, and each
+    rank writes and attends its own part of the cache
+    (`models.attention.sharded_decode`)."""
     if sample != "greedy":
         raise ValueError(f"sampling '{sample}' is not supported; only 'greedy'")
-    local = _local_steps(policy, "build_serve_step")
+    if policy.mesh is not None:
+        check_shardable(cfg)
+    replicating = _replicating(policy)
 
     def serve_step(params, cache, batch):
-        logits, cache = serve_forward(cfg, local(params), cache, batch,
-                                      compute_dtype=compute_dtype)
-        next_tokens = logits[:, -1].argmax(dim=-1).to(torch.int32)
+        with replicating():
+            logits, cache = serve_forward(cfg, params, cache, batch,
+                                          compute_dtype=compute_dtype, policy=policy)
+            # whole rows of the last logits on every rank of a mesh: argmax reads them
+            last = policy.constrain(logits[:, -1], "batch", None)
+            next_tokens = last.argmax(dim=-1).to(torch.int32)
         return next_tokens, logits, cache
 
     return serve_step
 
 
 def build_prefill_step(cfg, *, compute_dtype=torch.bfloat16, policy=NULL_POLICY):
-    """prefill_step(params, batch) -> (last_logits, caches)."""
-    local = _local_steps(policy, "build_prefill_step")
+    """prefill_step(params, batch) -> (last_logits, caches); under a policy
+    with a mesh, through `attention.sharded_packed_attention` as training,
+    the caches DTensors."""
+    if policy.mesh is not None:
+        check_shardable(cfg)
+    replicating = _replicating(policy)
 
     def prefill_step(params, batch):
-        return prefill_forward(cfg, local(params), batch, compute_dtype=compute_dtype)
+        with replicating():
+            return prefill_forward(cfg, params, batch, compute_dtype=compute_dtype,
+                                   policy=policy)
 
     return prefill_step

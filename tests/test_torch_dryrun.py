@@ -1,0 +1,123 @@
+"""The port's dry-run (`repro_torch.launch.dryrun`) on the CPU.
+
+Reduced cells (`cfg_overrides`, as the reference's `run_cell` allows) on a
+small fake-group mesh in place of the production one, (2, 2) or (2, 2, 2),
+run in one subprocess (the fake default process group is the process's): a
+train, a prefill and a decode cell of qwen3-8b and a decode cell of
+qwen3-moe are `ok` with the record's keys, their `compute_s` is the counted
+flops over the H100's peak, and the counted attention FLOPs are the kernel
+ops' visible pairs; a VLM cell and the MoE layer over a pod axis are
+`not_ported`, naming their ROADMAP item. `skipped` follows each config's
+`shape_skips`, and the CLI prints its summary line.
+"""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+from repro_torch.configs import ASSIGNED_ARCHS, SHAPES_BY_NAME, get_arch
+from repro_torch.launch.dryrun import run_cell
+from repro_torch.roofline.analysis import H100
+
+ROOT = Path(__file__).resolve().parents[1]
+SMALL = {"n_layers": 2, "d_model": 64, "n_heads": 4, "n_kv_heads": 2, "head_dim": 16,
+         "d_ff": 128, "vocab_size": 512}
+MOE = {**SMALL, "n_experts": 4, "moe_top_k": 2, "moe_d_ff": 64}
+CELLS = {
+    "train": ("qwen3-8b", "train_4k", SMALL, False),
+    "prefill": ("qwen3-8b", "prefill_32k", SMALL, False),
+    "decode": ("qwen3-8b", "decode_32k", SMALL, False),
+    "moe-decode": ("qwen3-moe-30b-a3b", "decode_32k", MOE, False),
+    "vlm": ("qwen2-vl-7b", "train_4k", {**SMALL, "mrope_sections": (2, 3, 3)}, False),
+    "moe-pod": ("qwen3-moe-30b-a3b", "prefill_32k", MOE, True),
+}
+RUN = r"""
+import json, sys
+from repro_torch.launch import dryrun
+# small meshes of the production ones' axes
+dryrun.production_mesh_shape = lambda multi_pod=False: (
+    ((2, 2, 2), ("pod", "data", "model")) if multi_pod else ((2, 2), ("data", "model")))
+cells = json.loads(sys.argv[1])
+out = {name: dryrun.run_cell(arch, shape, cfg_overrides=over, multi_pod=mp, microbatches=2)
+       for name, (arch, shape, over, mp) in cells.items()}
+print("RESULT " + json.dumps(out))
+"""
+KEYS = {"arch", "shape", "multi_pod", "tag", "status", "accum_dtype", "n_devices", "mesh",
+        "trace_s", "memory_analysis", "counter", "roofline", "hbm_model"}
+ROOFLINE_KEYS = {"compute_s", "memory_s", "collective_s", "bound", "flops_per_device",
+                 "matmul_flops_per_device", "hbm_bytes_per_device",
+                 "collective_bytes_per_device", "collective_breakdown", "model_flops_total",
+                 "model_flops_per_device", "useful_flops_ratio", "roofline_fraction"}
+
+
+def _env():
+    return {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"}
+
+
+@pytest.fixture(scope="module")
+def records():
+    r = subprocess.run([sys.executable, "-c", RUN, json.dumps(CELLS)], env=_env(),
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-4000:]
+    return json.loads(next(x for x in r.stdout.splitlines() if x.startswith("RESULT "))[7:])
+
+
+@pytest.mark.parametrize("name", ["train", "prefill", "decode", "moe-decode"])
+def test_reduced_cell_has_the_record(records, name):
+    rec = records[name]
+    assert rec["status"] == "ok", rec.get("reason")
+    assert KEYS <= set(rec) and ROOFLINE_KEYS <= set(rec["roofline"])
+    assert rec["n_devices"] == 4 and rec["mesh"] == {"data": 2, "model": 2}
+    assert rec["accum_dtype"] == "float32"
+    mem, hbm = rec["memory_analysis"], rec["hbm_model"]
+    assert mem["argument_bytes"] > 0 and mem["temp_bytes"] > 0
+    assert hbm["per_device_bytes"] == mem["argument_bytes"] + mem["temp_bytes"]
+    assert hbm["capacity_bytes"] == int(H100.hbm_bytes) and hbm["fits"]
+    c, r = rec["counter"], rec["roofline"]
+    assert r["compute_s"] == c["flops"] / H100.peak_flops
+    assert r["memory_s"] == c["hbm_bytes"] / H100.hbm_bw
+    assert r["collective_s"] == c["total_collective_bytes"] / H100.ici_bw
+    assert r["flops_per_device"] == c["flops"] >= c["matmul_flops"] > 0
+    assert c["total_collective_bytes"] > 0  # FSDP gathers, tp reduces
+
+
+def test_train_cell_counts_the_kernel_ops_visible_pairs(records):
+    """train_4k at 256 x 4096 on (2, 2): 2 micro-batches of 128 rows, 64 a
+    data rank, 2 of the 4 heads a model rank; each layer runs the forward
+    kernel twice (remat) and the backward once: 2 + 2 + 5 products of 2 *
+    dh per visible pair (one causal document a row) and head."""
+    S = 4096
+    pairs = 64 * S * (S + 1) // 2
+    want = 2 * 2 * 9 * 2 * 16 * 2 * pairs  # micro-batches, layers, products, 2*dh, heads
+    assert records["train"]["counter"]["attention_flops"] == want
+    assert records["decode"]["counter"]["attention_flops"] == 0  # decode attends densely
+
+
+def test_unported_families_and_meshes_name_their_item(records):
+    for name, what in (("vlm", "VLM family"), ("moe-pod", "more than one dp axis")):
+        rec = records[name]
+        assert rec["status"] == "not_ported" and what in rec["reason"], rec
+        assert "ROADMAP Queue 1 item 4" in rec["reason"]
+
+
+def test_skipped_follows_shape_skips():
+    for arch in ASSIGNED_ARCHS:
+        for shape in get_arch(arch).shape_skips:
+            rec = run_cell(arch, shape)
+            assert rec["status"] == "skipped"
+            assert rec["reason"] == get_arch(arch).shape_skips[shape]
+    assert any(get_arch(a).shape_skips for a in ASSIGNED_ARCHS)
+    assert set(SHAPES_BY_NAME) >= {s for a in ASSIGNED_ARCHS for s in get_arch(a).shape_skips}
+
+
+def test_cli_prints_the_summary(tmp_path):
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "qwen3-8b",
+                        "--shape", "long_500k", "--both-meshes", "--out", str(tmp_path)],
+                       env=_env(), capture_output=True, text=True, timeout=120, cwd=ROOT)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.splitlines()[-1] == "[dryrun] done ok=0 skip=2 not_ported=0 fail=0"
+    assert json.loads((tmp_path / "qwen3-8b__long_500k__pod2__baseline.json").read_text())[
+        "status"] == "skipped"

@@ -1294,3 +1294,44 @@ def test_gpu_int8_compressor_matches_cpu(cuda):
     for a, b in zip(comp.roundtrip_with_feedback(x, r),
                     comp.roundtrip_with_feedback(x.cuda(), r.cuda())):
         assert torch.equal(a, b.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_kernel_ops_pass_opcheck(cuda, rng, dtype):
+    """`torch.library.opcheck` on both kernel ops (schema, autograd
+    registration, fake implementation against the kernel, AOT dispatch):
+    the forward with and without its log-sum-exp, then the backward."""
+    q, k, v, *ids = _args(rng, cuda, 2, 200, 4, 2, 64, dtype, doc_lens=[120, 80])
+    for need_lse in (True, False):
+        torch.library.opcheck(torch.ops.repro_torch.packed_attn_fwd.default,
+                              (q, k, v, *ids, True, 48 if need_lse else None, None, need_lse))
+    out, lse = torch.ops.repro_torch.packed_attn_fwd(q, k, v, *ids, True, None, None, True)
+    d_out = torch.randn_like(out)
+    torch.library.opcheck(torch.ops.repro_torch.packed_attn_bwd.default,
+                          (q, k, v, out, lse, d_out, *ids, True, None, None))
+
+
+@pytest.mark.gpu
+def test_gpu_kernel_ops_launch_and_count_visible_pairs(cuda, rng):
+    """Through `ops.packed_attention` under autograd each op launches its
+    kernel once; the op counter counts each call's visible pairs from the
+    ids on the card (2 products forward, 5 backward), and the meta path
+    gives the same shapes."""
+    from repro_torch.roofline.counter import OpCounter
+
+    q, k, v, *ids = _args(rng, cuda, 2, 256, 4, 2, 64, "bfloat16", doc_lens=[100, 156])
+    q.requires_grad_(True)
+    before = (_launches(), sum(packed_flash_attention_backward.launches.values()))
+    with OpCounter() as c:
+        out = ops.packed_attention(q, k, v, *ids, causal=True)
+        out.backward(torch.ones_like(out))
+    torch.cuda.synchronize()
+    assert (_launches(), sum(packed_flash_attention_backward.launches.values())) == \
+        (before[0] + 1, before[1] + 1)
+    pairs = int(attention_mask(*ids, causal=True, window=None).sum())
+    assert c.flops_by_op["repro_torch.packed_attn_fwd"] == 2 * 2 * 64 * 4 * pairs
+    assert c.flops_by_op["repro_torch.packed_attn_bwd"] == 5 * 2 * 64 * 4 * pairs
+    meta = [x.detach().to("meta") for x in (q, k, v, *ids)]
+    m_out, m_lse = torch.ops.repro_torch.packed_attn_fwd(*meta, True, None, None, True)
+    assert (m_out.shape, m_out.dtype, m_lse.shape) == (out.shape, out.dtype, (2, 4, 256))

@@ -38,6 +38,8 @@ assert {"repro_torch.models.moe", "repro_torch.configs.qwen3_moe_30b_a3b",
 assert {"repro_torch.models.ssm", "repro_torch.models.xlstm", "repro_torch.configs.xlstm_1_3b",
         "repro_torch.configs.jamba_1_5_large_398b"} <= set(names)
 assert {"repro_torch.parallel.sharding", "repro_torch.train.compression"} <= set(names)
+assert {"repro_torch.launch.specs", "repro_torch.launch.dryrun", "repro_torch.roofline.analysis",
+        "repro_torch.roofline.counter"} <= set(names)
 """
 
 

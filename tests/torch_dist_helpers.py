@@ -218,15 +218,9 @@ def _one_rank_case(mesh, case):
     build_serve_step with the DTensor parameters."""
     from repro_torch.bridge import params_from_jax
     from repro_torch.configs import get_arch, reduced
-    from repro_torch.models.model import extend_cache
     from repro_torch.parallel.sharding import NULL_POLICY, gather, policy_for_mesh
     from repro_torch.train.optimizer import make_optimizer, tree_leaves
-    from repro_torch.train.train_step import (
-        build_prefill_step,
-        build_serve_step,
-        build_train_step,
-        place_state,
-    )
+    from repro_torch.train.train_step import build_train_step, place_state
 
     cfg = reduced(get_arch(case["arch"]), **case["over"])
     policy = policy_for_mesh(mesh)
@@ -253,16 +247,58 @@ def _one_rank_case(mesh, case):
         served = {}
         for key, params, pol in (("plain", plain["params"], NULL_POLICY),
                                  ("sharded", sharded["params"], policy)):
-            logits, caches = build_prefill_step(cfg, compute_dtype=torch.float32, policy=pol)(
-                params, prompt)
-            cache = extend_cache(cfg, caches, prompt["tokens"].shape[1] + 1)
-            nxt, dec, _ = build_serve_step(cfg, compute_dtype=torch.float32, policy=pol)(
-                params, cache, {"tokens": logits[:, -1].argmax(-1, keepdim=True).int(),
-                                "lengths": torch.full((logits.shape[0],),
-                                                      prompt["tokens"].shape[1])})
-            served[key] = (logits.numpy(), dec.numpy(), nxt.numpy())
-    out["served"] = served
+            served[key] = _served(cfg, pol, params, prompt, 1)
+    out["served"] = {k: (v["prefill"], v["logits"][0], v["tokens"][0])
+                     for k, v in served.items()}
     return out
+
+
+def _served(cfg, policy, params, prompt, steps, max_len=None):
+    """Prefill of `prompt`, then `steps` greedy decode steps over a max_len
+    cache (prompt + steps by default), under `policy`: the caches gathered
+    whole after prefill, extended, and placed by `specs.cache_shardings`
+    -> whole numpy prefill logits, each step's logits and tokens, and the
+    placements of the first layer's K cache after the last step."""
+    from repro_torch.launch.specs import place_cache
+    from repro_torch.models.model import extend_cache
+    from repro_torch.parallel.sharding import gather
+    from repro_torch.train.train_step import build_prefill_step, build_serve_step
+
+    B, S = prompt["tokens"].shape
+    logits, caches = build_prefill_step(cfg, compute_dtype=torch.float32, policy=policy)(
+        params, policy.distribute_batch(prompt))
+    logits = gather(logits)
+    cache = place_cache(policy, extend_cache(cfg, gather(caches), max_len or S + steps))
+    step = build_serve_step(cfg, compute_dtype=torch.float32, policy=policy)
+    out = {"prefill": logits.numpy(), "logits": [], "tokens": []}
+    tokens = logits[:, -1].argmax(-1, keepdim=True).int()
+    for i in range(steps):
+        batch = {"tokens": tokens, "lengths": torch.full((B,), S + i, dtype=torch.int32)}
+        nxt, dec, cache = step(params, cache, policy.distribute_batch(batch))
+        tokens = gather(nxt)[:, None]
+        out["logits"].append(gather(dec).numpy())
+        out["tokens"].append(tokens[:, 0].numpy())
+    out["cache_placements"] = repr(getattr(cache[0]["mixer"]["k"], "placements", None))
+    return out
+
+
+def _serve_case(mesh, case):
+    """Prefill + greedy decode of a reduced model from the port's seeded
+    fp32 init, under the case's policy on this mesh and unsharded, from
+    the same prompt -> both `_served` records."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models.model import init_params, param_axes
+    from repro_torch.parallel.sharding import NULL_POLICY, policy_for_mesh
+
+    cfg = reduced(get_arch(case["arch"]), **case["over"])
+    policy = policy_for_mesh(mesh, **case["policy"])
+    params = init_params(cfg, case["seed"], dtype=torch.float32, device="cpu")
+    prompt = {k: torch.from_numpy(v) for k, v in case["prompt"].items()}
+    with torch.no_grad():
+        return {key: _served(cfg, pol, p, prompt, case["steps"], case["max_len"])
+                for key, pol, p in (("plain", NULL_POLICY, params),
+                                    ("sharded", policy,
+                                     policy.distribute(params, param_axes(cfg))))}
 
 
 def _driver_case(mesh, case):
@@ -276,7 +312,7 @@ def _driver_case(mesh, case):
 
 
 CASES = {"step": _step_case, "moe_layer": _moe_layer_case, "placements": _placements_case,
-         "one_rank": _one_rank_case, "driver": _driver_case}
+         "one_rank": _one_rank_case, "driver": _driver_case, "serve": _serve_case}
 
 
 def mesh_cases(rank, world, shape, cases):
