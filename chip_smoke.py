@@ -118,9 +118,20 @@ Phases, in one process; any failure exits nonzero:
              busy share and peak memory beside the train phase's; the
              int8 error-feedback compressor over that step's gradients
              (seconds and GB/s beside the HBM bound, one leaf's codes and
-             scales equal to the CPU's); qwen3-moe-30b-a3b cut to 3 layers,
-             one step through the MoE layer's EP path and one through its
-             TP path, each held to the unsharded step's loss and routes;
+             scales equal to the CPU's); the same for the VLM and
+             encoder-decoder families: the fp32 parity of reduced
+             qwen2-vl-7b and whisper-medium (real head widths), then
+             qwen2-vl-7b cut to 8 layers and whisper-medium at full depth,
+             3 steps each of the multimodal phase's batches, held to that
+             phase's losses; serving on the mesh at full depth (qwen3-8b,
+             qwen2-vl-7b, whisper-medium: prefill, then 8 greedy steps, the
+             cache placed by `launch.specs.place_cache`, the cross caches
+             too) with the unsharded serve phases' tokens, prefill logits
+             within 2e-2 and decode logits within 5e-2 of theirs, decode ms
+             a step beside theirs; qwen3-moe-30b-a3b cut to 3 layers on a
+             (1, 1, 1) (pod, data, model) mesh, one step through the MoE
+             layer's EP path and one through its TP path, each held to the
+             unsharded step's loss and routes;
  15. roofline: the op counter (`roofline.counter`) on the meta device over
              the steps timed above (qwen3-8b's 8-layer train step, its
              4 x 2048 prefill, whisper-medium's train step), each's counted
@@ -140,6 +151,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -266,6 +278,15 @@ ROUTER_GAP = 1e-5  # least gap between a router's k-th and (k+1)-th probability
 # leaf's max, then full-width qwen3-8b (TRAIN_LAYERS) for SHARD_STEPS steps
 # of the train phase's batches; the compressor's block
 SHARD_PARITY_STEPS, SHARD_STEPS, TOL_SHARD, COMPRESS_BLOCK = 3, 5, 1e-5, 256
+# then the same for the VLM and encoder-decoder families: the fp32 parity
+# of each, qwen2-vl-7b cut to VLM_TRAIN_LAYERS and whisper-medium at full
+# depth for SHARD_FAMILY_STEPS steps of the multimodal phase's batches (a
+# warm-up, the profiled step, one more), and serving on the mesh at full
+# depth (qwen3-8b too): prefill and SHARD_NEW_TOKENS greedy steps held to
+# the unsharded serve phases (at 16 steps, with whisper's profile tracing
+# host operators, the new parts took 124 s and the whole script 1052.1 s on
+# an NVIDIA H100 80GB HBM3 at 700 W: cut to stay under its 1000 s target)
+SHARD_FAMILIES, SHARD_FAMILY_STEPS, SHARD_NEW_TOKENS = ("qwen2-vl-7b", "whisper-medium"), 3, 8
 LOOP_PROFILE_SCALE = 4  # `loop_profile` runs a layer on a quarter of the path's positions
 
 
@@ -638,7 +659,7 @@ def tf32_split_ms(call, kern, chosen, kv_iters, dq_iters, tol, ref):
     return res
 
 
-def parity_model(cfg):
+def parity_model(cfg, index=0):
     """The fp32 parity path's model (reduced, at the real head width, and
     with M-RoPE at the real sections, which sum to its half) and its batch:
     packed documents; a VLM's rows open with a PARITY_SEQ / 8 vision span
@@ -648,7 +669,8 @@ def parity_model(cfg):
     only to 2 lr; at S / 8, 0.06%), an encoder-decoder's hold PARITY_SEQ
     frames of clips and their transcripts in PARITY_SEQ / 4 decoder
     positions. An mLSTM model runs chunks of PARITY_SEQ / 4 positions, so
-    its documents cross chunk ends and start mid-chunk."""
+    its documents cross chunk ends and start mid-chunk. `index` picks the
+    batch of the same seeded stream (0: the parity path's)."""
     from repro_torch.configs import reduced
     from repro_torch.data.multimodal import enc_dec_batch, vlm_batch
     from repro_torch.data.synth import SyntheticPackedDataset
@@ -658,13 +680,13 @@ def parity_model(cfg):
     if small.enc_dec:
         return small, enc_dec_batch(small, PARITY_SEQ, PARITY_SEQ // small.dec_ratio,
                                     PARITY_BATCH, seed=0,
-                                    clip_frames=(PARITY_SEQ // 6, PARITY_SEQ // 2))
+                                    clip_frames=(PARITY_SEQ // 6, PARITY_SEQ // 2), index=index)
     if small.vlm:
         return small, vlm_batch(small, PARITY_SEQ, PARITY_BATCH, seed=0,
-                                vision_len=PARITY_SEQ // 8, grid=(4, PARITY_SEQ // 32), mu=4.0,
-                                sigma=0.8)
+                                vision_len=PARITY_SEQ // 8, grid=(4, PARITY_SEQ // 32),
+                                index=index, mu=4.0, sigma=0.8)
     return small, SyntheticPackedDataset(small, PARITY_SEQ, PARITY_BATCH, seed=0, mu=4.0,
-                                         sigma=0.8).batch_at(0)
+                                         sigma=0.8).batch_at(index)
 
 
 def attention_calls(cfg):
@@ -1592,7 +1614,7 @@ def appended(cfg, batch, fed):
 
 
 def serve_phase(cfg, params, device, *, new_tokens=NEW_TOKENS, check_last=False, max_len=None,
-                profile_prefill=True):
+                profile_prefill=True, keep=None):
     """The main path: prefill through the kernel, then greedy decode (over
     ring caches for sliding-window layers; an encoder-decoder's decoder
     over the prefill's constant cross caches) of the `serve_prompt`
@@ -1610,7 +1632,10 @@ def serve_phase(cfg, params, device, *, new_tokens=NEW_TOKENS, check_last=False,
     layers is profiled on the device alone; without `profile_prefill` its
     prefill is not profiled (the caller composes its device time: a
     profile's processing of xlstm-1.3b's 320 k launches took about a
-    minute)."""
+    minute). A `keep` dict gets what the sharded serving of the sharding
+    phase is held to: the tokens, the prefill's last logits and the first
+    SHARD_NEW_TOKENS decode steps' logits (float32, on the host) and the
+    cache's slots."""
     from repro_torch.kernels.packed_flash_attn import kernel_for
     from repro_torch.models.model import cache_len, extend_cache, forward_train, serve_forward
     from repro_torch.train.optimizer import tree_map
@@ -1645,7 +1670,7 @@ def serve_phase(cfg, params, device, *, new_tokens=NEW_TOKENS, check_last=False,
         # recurrent states and writes attention slots in place)
         state0 = tree_map(lambda x: x.float().clone(), cache) if own_decode else None
         tok = last_logits[:, -1].argmax(-1).to(torch.int32)
-        first_tok, generated, first_logits = tok, [tok], None
+        first_tok, generated, first_logits, kept = tok, [tok], None, []
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for i in range(new_tokens):
@@ -1654,6 +1679,8 @@ def serve_phase(cfg, params, device, *, new_tokens=NEW_TOKENS, check_last=False,
                                                             "lengths": lengths, **extra})
             if first_logits is None:
                 first_logits = logits[:, 0].clone()
+            if keep is not None and i < SHARD_NEW_TOKENS:
+                kept.append(logits[:, 0])
             generated.append(tok)
         torch.cuda.synchronize()
         t_decode = time.perf_counter() - t0
@@ -1667,6 +1694,10 @@ def serve_phase(cfg, params, device, *, new_tokens=NEW_TOKENS, check_last=False,
             raise AssertionError(f"main path launches {by_source} and {plain}, expected "
                                  f"{calls} of {kern.source if kern else 'no source'} only")
         out = torch.stack(generated, 1)
+        if keep is not None:
+            keep.update(tokens=out.cpu(), prefill=last_logits[:, 0].float().cpu(),
+                        decode=[x.float().cpu() for x in kept], max_len=max_len)
+        del kept
         if out.shape != (SERVE_B, new_tokens + 1) or not all(
                 bool(torch.isfinite(x.float()).all()) for x in (first_logits, logits)):
             raise AssertionError("decode output has the wrong shape or non-finite logits")
@@ -2808,14 +2839,15 @@ def multimodal_train_phase(cfg, device, *, layers=None, steps=FAMILY_TRAIN_STEPS
     return res
 
 
-def multimodal_phases(record, device):
+def multimodal_phases(record, device, served):
     """The VLM and encoder-decoder families, into `record["multimodal"]`:
     the kernels in whisper-medium's regimes (`multimodal_kernel_phase`); the
     fp32 parity paths of reduced qwen2-vl-7b (head_dim 128, M-RoPE at its
     real sections) and whisper-medium (head_dim 64) into
     `record["fp32_path"]`; qwen2-vl-7b serving at full depth (28 layers)
     and training cut to VLM_TRAIN_LAYERS; whisper-medium serving and
-    training at full depth (24 + 24 layers)."""
+    training at full depth (24 + 24 layers). `served` gets each serving's
+    `keep` (`serve_phase`) under its arch."""
     from repro_torch.configs import get_arch
     from repro_torch.models.model import init_params
     from repro_torch.train.optimizer import tree_leaves
@@ -2832,12 +2864,14 @@ def multimodal_phases(record, device):
         log(f"{arch}: {cfg.n_layers} layers (+{cfg.n_enc_layers} encoder), d_model "
             f"{cfg.d_model}, {sum(p.numel() for p in tree_leaves(params))} parameters, "
             f"init {time.perf_counter() - t0:.1f} s")
+        keep = served.setdefault(arch, {})
         if cfg.enc_dec:
             mm[f"{arch}_serve"] = serve_phase(cfg, params, device, new_tokens=NEW_TOKENS,
-                                              check_last=True, max_len=WHISPER_MAX_TARGET)
+                                              check_last=True, max_len=WHISPER_MAX_TARGET,
+                                              keep=keep)
         else:
             mm[f"{arch}_serve"] = serve_phase(cfg, params, device, new_tokens=PAPER_NEW_TOKENS,
-                                              check_last=True)
+                                              check_last=True, keep=keep)
         del params
         torch.cuda.empty_cache()
         mm[f"{arch}_train"] = multimodal_train_phase(
@@ -2862,21 +2896,22 @@ def one_rank_mesh(device):
     return make_mesh((1, 1), ("data", "model"))
 
 
-def sharded_parity(policy, device):
-    """The fp32 parity model (reduced qwen3-8b at head_dim 128, 2 x
-    PARITY_SEQ) for SHARD_PARITY_STEPS steps unsharded and on the mesh, from
-    the same seed and batches: the largest difference of a loss (relative)
-    and of a parameter (over its leaf's max), and whether all are equal bit
-    for bit."""
+def sharded_parity(policy, device, arch="qwen3-8b"):
+    """The fp32 parity model of `arch` (`parity_model`: reduced, at the real
+    head width, 2 x PARITY_SEQ; qwen3-8b at head_dim 128, qwen2-vl-7b with
+    M-RoPE at its real sections, whisper-medium's encoder, decoder and
+    cross-attention at head_dim 64) for SHARD_PARITY_STEPS steps unsharded
+    and on the mesh, from the same seed and batches: the largest difference
+    of a loss (relative) and of a parameter (over its leaf's max), whether
+    all are equal bit for bit, and the same kernel launches."""
     from repro_torch.configs import get_arch
-    from repro_torch.data.synth import SyntheticPackedDataset
     from repro_torch.kernels.packed_flash_attn import BWD_TF32, FWD_TF32
     from repro_torch.parallel.sharding import NULL_POLICY, gather
     from repro_torch.train.optimizer import make_optimizer, tree_leaves
     from repro_torch.train.train_step import build_train_step, init_train_state
 
-    small, _ = parity_model(get_arch("qwen3-8b"))
-    ds = SyntheticPackedDataset(small, PARITY_SEQ, PARITY_BATCH, seed=0, mu=4.0, sigma=0.8)
+    small, _ = parity_model(get_arch(arch))
+    batches = [parity_model(get_arch(arch), i)[1] for i in range(SHARD_PARITY_STEPS)]
     runs = {}
     for name, pol in (("plain", NULL_POLICY), ("sharded", policy)):
         opt = make_optimizer("adamw", lr=1e-3)
@@ -2884,44 +2919,50 @@ def sharded_parity(policy, device):
         step = build_train_step(small, opt, policy=pol, microbatches=PARITY_MICROBATCHES,
                                 compute_dtype=torch.float32)
         reset_counts()
-        losses = [float(step(state, to_device(ds.batch_at(i), device))[1]["loss"])
-                  for i in range(SHARD_PARITY_STEPS)]
+        losses = [float(step(state, to_device(b, device))[1]["loss"]) for b in batches]
         torch.cuda.synchronize()
         runs[name] = (losses, [p.detach() for p in tree_leaves(gather(state["params"]))],
                       {**read_counts(), **read_backward_counts()})
     (l0, p0, c0), (l1, p1, c1) = runs["plain"], runs["sharded"]
     calls = attention_calls(small) * PARITY_MICROBATCHES * SHARD_PARITY_STEPS
     if c1 != c0 or c1[FWD_TF32.source] != 2 * calls or c1[BWD_TF32.source] != calls:
-        raise AssertionError(f"sharded fp32 steps launch {c1}, the unsharded ones {c0}")
-    res = {"steps": SHARD_PARITY_STEPS, "losses": l1, "losses_unsharded": l0,
+        raise AssertionError(f"{arch}: sharded fp32 steps launch {c1}, the unsharded ones {c0}")
+    res = {"arch": arch, "layers": small.n_layers, "enc_layers": small.n_enc_layers,
+           "head_dim": small.head_dim, "steps": SHARD_PARITY_STEPS, "losses": l1,
+           "losses_unsharded": l0,
            "loss_max_rel": max(abs(a - b) / abs(b) for a, b in zip(l1, l0)),
            "param_max_rel": max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
                                 for a, b in zip(p1, p0)),
            "bit_for_bit": l1 == l0 and all(torch.equal(a, b) for a, b in zip(p1, p0)),
            "launches": c1, "tol": TOL_SHARD}
     if not (res["loss_max_rel"] <= TOL_SHARD and res["param_max_rel"] <= TOL_SHARD):
-        raise AssertionError(f"sharded fp32 steps vs unsharded: {res}")
+        raise AssertionError(f"{arch}: sharded fp32 steps vs unsharded: {res}")
     return res
 
 
-def sharded_train(cfg, policy, device, train):
-    """Full-width `cfg` cut to TRAIN_LAYERS, SHARD_STEPS steps of the train
-    phase's batches through `build_train_step(..., policy=policy)`: step 0's
-    loss against `loss_fn`, every loss against the train phase's (`train`,
-    the unsharded driver on the same seed and batches), exact launches a
-    step, zero plain calls; step seconds, the profile of step
-    TRAIN_PROFILED_STEP and the peak memory. Returns (result, the last
-    step's gradients as local tensors): the optimizer state is freed."""
+def sharded_train(cfg, policy, device, train, *, layers=TRAIN_LAYERS, steps=SHARD_STEPS,
+                  batch_at=None, host_ops=True):
+    """Full-width `cfg` cut to `layers` (None: full depth), `steps` steps of
+    the unsharded train phase's batches (`batch_at(i)`; by default the
+    synthetic token batches of the seed the train phase reads) through
+    `build_train_step(..., policy=policy)`: step 0's loss against
+    `loss_fn`, every loss against the train phase's (`train`, the unsharded
+    run on the same seed and batches), exact launches a step, zero plain
+    calls; step seconds, the profile of step TRAIN_PROFILED_STEP (host
+    operators traced with `host_ops`, as the unsharded phase traces them)
+    and the peak memory. Returns (result, the last step's gradients as
+    local tensors): the optimizer state is freed."""
     from repro_torch.data.synth import SyntheticPackedDataset
     from repro_torch.models.model import init_params, loss_fn
     from repro_torch.train.optimizer import optimizer_for, tree_leaves
     from repro_torch.train.train_step import build_train_step, init_train_state
 
-    tcfg = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS)
-    B, S, mb = TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICROBATCHES
-    ds = SyntheticPackedDataset(tcfg, S, B, seed=0)
+    tcfg = cfg if layers is None else dataclasses.replace(cfg, n_layers=layers)
+    B, mb = TRAIN_BATCH, TRAIN_MICROBATCHES
+    if batch_at is None:
+        batch_at = SyntheticPackedDataset(tcfg, TRAIN_SEQ, B, seed=0).batch_at
     params = init_params(tcfg, 0, dtype=torch.float32, device=device)
-    batch, n = to_device(ds.batch_at(0), device), B // mb
+    batch, n = to_device(batch_at(0), device), B // mb
     with torch.no_grad():
         loss0_fn = sum(float(loss_fn(tcfg, params, {k: v[i * n:(i + 1) * n]
                                                     for k, v in batch.items()})[0])
@@ -2937,14 +2978,15 @@ def sharded_train(cfg, policy, device, train):
     plain, undo = counting_plain_calls()
     losses, times, per_step, prof = [], [], [], None
     try:
-        for it in range(SHARD_STEPS):
-            b = to_device(ds.batch_at(it), device)
+        for it in range(steps):
+            b = to_device(batch_at(it), device)
             reset_counts()
             plain["plain_calls"] = 0
             t0 = time.perf_counter()
             if it == TRAIN_PROFILED_STEP:
                 out = []
-                prof = device_profile(lambda: out.append(step(state, b)[1]), 1)
+                prof = device_profile(lambda: out.append(step(state, b)[1]), 1,
+                                      host_ops=host_ops)
                 metrics = out.pop()
             else:
                 metrics = step(state, b)[1]
@@ -2958,17 +3000,19 @@ def sharded_train(cfg, policy, device, train):
     peak = torch.cuda.max_memory_allocated()
     for i, got in enumerate(per_step):
         if got != want:
-            raise AssertionError(f"sharded train step {i}: launches {got}, expected {want}")
+            raise AssertionError(f"{tcfg.arch_id} sharded train step {i}: launches {got}, "
+                                 f"expected {want}")
     rel = [abs(a - b) / abs(b) for a, b in zip(losses, train["losses"])]
     loss0_rel = abs(losses[0] - loss0_fn) / abs(loss0_fn)
     if not (loss0_rel <= 1e-3 and max(rel) <= 1e-3 and all(map(math.isfinite, losses))):
-        raise AssertionError(f"sharded losses {losses} vs the train phase's "
-                             f"{train['losses'][:SHARD_STEPS]}, step 0 vs loss_fn {loss0_fn}")
+        raise AssertionError(f"{tcfg.arch_id} sharded losses {losses} vs the train phase's "
+                             f"{train['losses'][:steps]}, step 0 vs loss_fn {loss0_fn}")
     steady = [t for i, t in enumerate(times) if i >= TRAIN_WARMUP and i != TRAIN_PROFILED_STEP]
     prof["busy_share"] = prof["device_seconds_per_call"] / prof["profiled_wall_seconds_per_call"]
     tp = train["profile"]
-    res = {"layers": tcfg.n_layers, "steps": SHARD_STEPS, "losses": losses,
-           "losses_train_phase": train["losses"][:SHARD_STEPS], "loss_max_rel": max(rel),
+    res = {"arch": cfg.arch_id, "layers": tcfg.n_layers, "enc_layers": tcfg.n_enc_layers,
+           "steps": steps, "losses": losses,
+           "losses_train_phase": train["losses"][:steps], "loss_max_rel": max(rel),
            "step0_loss_fn": loss0_fn, "step0_loss_rel": loss0_rel, "step_seconds": times,
            "step_seconds_mean": sum(steady) / len(steady),
            "train_phase_step_seconds_mean": train["step_seconds_mean"],
@@ -2980,6 +3024,93 @@ def sharded_train(cfg, policy, device, train):
     del state, opt, step
     torch.cuda.empty_cache()
     return res, grads
+
+
+def sharded_serve(cfg, policy, device, ref):
+    """`cfg` at full depth served on the mesh as `serve_phase` serves it
+    unsharded: the same `serve_prompt` prompts and seed-0 bf16 weights
+    (placed by the sharding rules), prefill through
+    `build_prefill_step(..., policy=)`, its caches extended to the
+    unsharded run's slots and placed by `launch.specs.place_cache` (an
+    encoder-decoder's constant cross caches too), then SHARD_NEW_TOKENS
+    greedy steps through `build_serve_step(..., policy=)`. Held to the
+    unsharded run (`ref`, `serve_phase`'s keep): every token equal, the
+    prefill's last logits within TOL_PREFILL_REL and each step's within
+    TOL_DECODE_REL; prefill launches the bf16 kernel once an attention call
+    (through `local_map`), decode none, no plain call. Records prefill
+    seconds and decode ms a step (step 0, DTensor's first dispatch of each
+    op, apart)."""
+    from repro_torch.kernels.packed_flash_attn import kernel_for
+    from repro_torch.launch.specs import place_cache
+    from repro_torch.models.model import extend_cache, init_params, param_axes
+    from repro_torch.parallel.sharding import gather
+    from repro_torch.train.train_step import build_prefill_step, build_serve_step
+
+    n = SHARD_NEW_TOKENS
+    params = policy.distribute(init_params(cfg, seed=0, dtype=torch.bfloat16, device=device),
+                               param_axes(cfg))
+    batch, extra = serve_prompt(cfg, device)
+    P = row_ids(cfg, batch).shape[1]
+    prefill_step, serve_step = build_prefill_step(cfg, policy=policy), build_serve_step(
+        cfg, policy=policy)
+    calls, kern = attention_calls(cfg), kernel_for(torch.bfloat16, cfg.head_dim)
+    plain, undo = counting_plain_calls()
+    try:
+        with torch.no_grad():
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            last, caches = prefill_step(params, policy.distribute_batch(batch))
+            last = gather(last)[:, -1]
+            torch.cuda.synchronize()
+            t_prefill = time.perf_counter() - t0
+            prefill_launches = read_counts()
+            cache = place_cache(policy, extend_cache(cfg, gather(caches), ref["max_len"]))
+            del caches
+            tok = last.argmax(-1).to(torch.int32)
+            generated, logits, marks = [tok], [], []
+            reset_counts()
+            for i in range(n):
+                if i < 2:  # step 0 timed alone, then the rest
+                    torch.cuda.synchronize()
+                    marks.append(time.perf_counter())
+                lengths = torch.full((SERVE_B,), P + i, dtype=torch.int32, device=device)
+                nxt, step_logits, cache = serve_step(params, cache, policy.distribute_batch(
+                    {"tokens": tok[:, None], "lengths": lengths, **extra}))
+                tok = gather(nxt)
+                logits.append(gather(step_logits)[:, 0])
+                generated.append(tok)
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            decode_launches = read_counts()
+            slots = cache[0]["mixer"]["k"].shape[1]
+            placed = {k: [str(p) for p in v.placements] for k, v in (
+                ("k", cache[0]["mixer"]["k"]), *((("k_const", cache[0]["cross"]["k_const"]),)
+                                                 if cfg.enc_dec else ()))}
+    finally:
+        undo()
+    del params, cache
+    tokens = torch.stack(generated, 1).cpu()
+    e_prefill = rel_err(last.cpu(), ref["prefill"])
+    e_decode = [rel_err(a.cpu(), b) for a, b in zip(logits, ref["decode"])]
+    res = {"arch": cfg.arch_id, "layers": cfg.n_layers, "enc_layers": cfg.n_enc_layers,
+           "prompt": P, "new_tokens": n, "cache_slots": slots, "cache_placements": placed,
+           "tokens_equal": torch.equal(tokens, ref["tokens"][:, :n + 1]),
+           "prefill_rel_err": e_prefill, "decode_rel_err_max": max(e_decode),
+           "prefill_seconds": t_prefill, "decode_ms_first_step": (marks[1] - marks[0]) * 1e3,
+           "decode_ms_per_token": (marks[2] - marks[1]) / (n - 1) * 1e3,
+           "prefill_launches": prefill_launches, "decode_launches": decode_launches,
+           "plain_calls": plain["plain_calls"]}
+    if not (prefill_launches[kern.source] == sum(prefill_launches.values()) == calls
+            and sum(decode_launches.values()) == 0 and plain["plain_calls"] == 0):
+        raise AssertionError(f"{cfg.arch_id} sharded serving launches {res}, expected {calls} "
+                             f"of {kern.source} in prefill only")
+    if not (res["tokens_equal"] and e_prefill <= TOL_PREFILL_REL
+            and max(e_decode) <= TOL_DECODE_REL):
+        raise AssertionError(f"{cfg.arch_id} sharded serving vs unsharded: {res}; tokens "
+                             f"{tokens.tolist()} vs {ref['tokens'][:, :n + 1].tolist()}")
+    torch.cuda.empty_cache()
+    return res
 
 
 def compression_check(grads, device):
@@ -3073,19 +3204,29 @@ def sharded_moe(mesh, device):
     return out
 
 
-def sharding_phase(record, device):
-    """Phase 14: the sharded step on a (1, 1) mesh of a one-rank NCCL group
-    (each part in the module's docstring). Destroys the group after."""
+def sharding_phase(record, device, served):
+    """Phase 14: the sharded step and serving on a (1, 1) mesh of a one-rank
+    NCCL group, and the MoE layer on a (1, 1, 1) (pod, data, model) mesh of
+    the same group (each part in the module's docstring); `served` holds
+    the unsharded serve phases' tokens and logits by arch. Destroys the
+    group after."""
     import torch.distributed as dist
     from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_mesh
     from repro_torch.parallel.sharding import policy_for_mesh
 
     t0 = time.perf_counter()
     mesh = one_rank_mesh(device)
+    mm = record["multimodal"]
+
+    def mark(part):
+        rec["seconds_by_part"][part] = time.perf_counter() - t0
+        log(f"sharding: {rec['seconds_by_part'][part]:.1f} s after {part}")
     try:
         policy = policy_for_mesh(mesh)
         rec = record["sharding"] = {"mesh": {"shape": list(mesh.shape),
-                                             "axes": list(mesh.mesh_dim_names)}}
+                                             "axes": list(mesh.mesh_dim_names)},
+                                    "seconds_by_part": {}}
         rec["fp32_parity"] = sharded_parity(policy, device)
         log("sharding: fp32 parity", json.dumps(rec["fp32_parity"]))
         rec["train"], grads = sharded_train(get_arch("qwen3-8b"), policy, device, record["train"])
@@ -3094,8 +3235,31 @@ def sharding_phase(record, device):
         rec["compression"] = compression_check(grads, device)
         del grads
         log("sharding: compression", json.dumps(rec["compression"]))
-        rec["moe"] = sharded_moe(mesh, device)
+        mark("qwen3-8b")
+        for arch in SHARD_FAMILIES:
+            cfg = get_arch(arch)
+            rec[f"{arch}_fp32_parity"] = sharded_parity(policy, device, arch)
+            log(f"sharding: {arch} fp32 parity", json.dumps(rec[f"{arch}_fp32_parity"]))
+            rec[f"{arch}_train"], _ = sharded_train(
+                cfg, policy, device, mm[f"{arch}_train"], steps=SHARD_FAMILY_STEPS,
+                layers=None if cfg.enc_dec else VLM_TRAIN_LAYERS,
+                batch_at=functools.partial(multimodal_train_batch, cfg), host_ops=False)
+            log(f"sharding: {arch} train", json.dumps({k: v for k, v in
+                                                       rec[f"{arch}_train"].items()
+                                                       if k != "profile"}))
+            mark(f"{arch} parity and train")
+        for arch in ("qwen3-8b",) + SHARD_FAMILIES:
+            rec[f"{arch}_serve"] = sharded_serve(get_arch(arch), policy, device, served[arch])
+            rec[f"{arch}_serve"]["unsharded_decode_ms_per_token"] = (
+                record["serve"] if arch == "qwen3-8b" else mm[f"{arch}_serve"])[
+                    "decode_ms_per_token"]
+            log(f"sharding: {arch} serve", json.dumps(rec[f"{arch}_serve"]))
+        mark("serving")
+        pod = make_mesh((1, 1, 1), ("pod", "data", "model"))
+        rec["moe"] = sharded_moe(pod, device)
+        rec["moe"]["mesh"] = {"shape": list(pod.shape), "axes": list(pod.mesh_dim_names)}
         log("sharding: moe", json.dumps(rec["moe"]))
+        mark("moe")
     finally:
         dist.destroy_process_group()
     rec["seconds"] = time.perf_counter() - t0
@@ -3367,7 +3531,8 @@ def main(argv=None):
         f"init {time.perf_counter() - t0:.1f} s")
 
     record["forward"] = forward_phase(cfg, params, device)
-    record["serve"] = serve_phase(cfg, params, device)
+    served = {}  # what the sharded serving of phase 14 is held to, by arch
+    record["serve"] = serve_phase(cfg, params, device, keep=served.setdefault(cfg.arch_id, {}))
     mark("forward+serve")
     del params  # the train phase needs the card's memory
     torch.cuda.empty_cache()
@@ -3411,11 +3576,12 @@ def main(argv=None):
 
     moe_phases(record, device)
     mark("moe")
-    multimodal_phases(record, device)
+    multimodal_phases(record, device, served)
     mark("multimodal")
     recurrent_phases(record, device)
     mark("recurrent")
-    sharding_phase(record, device)
+    sharding_phase(record, device, served)
+    del served
     torch.cuda.empty_cache()
     mark("sharding")
     roofline_phase(record, device)

@@ -18,11 +18,14 @@ shapes) and the counter's peak of the bytes the step's ops held
 (`temp_bytes`); `hbm_model` fits them against one H100's 80 GB.
 
 `status` is `ok`, `skipped` (the config's `shape_skips`), `not_ported` (a
-family or mesh the sharded steps do not take yet: the NotImplementedError's
-text) or `error` (a traceback, from `main`). Training accumulates gradients
-in float32 (`accum_dtype`); the reference accumulates in bf16 above 5e10
-parameters (`src/repro/launch/dryrun.py:53`), which the port has no option
-for, so grok-1's per-rank memory differs from the reference's.
+family the sharded steps do not take yet, the recurrent ones, jamba and
+xlstm: the NotImplementedError's text) or `error` (a traceback, from
+`main`). Every other family runs on both meshes: the dense, the MoE (its
+tokens over (pod, data) on (2, 16, 16)), the VLM and the encoder-decoder.
+Training accumulates gradients in float32 (`accum_dtype`); the reference
+accumulates in bf16 above 5e10 parameters (`src/repro/launch/dryrun.py:53`),
+which the port has no option for, so grok-1's per-rank memory differs from
+the reference's.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-8b --shape train_4k
@@ -62,18 +65,19 @@ def production_mesh_shape(multi_pod=False):
 
 
 def fake_mesh(shape, axes):
-    """A `cpu` DeviceMesh of `shape` over a fake process group of as many
-    ranks, this process rank 0 (the default group is made anew when its
-    size differs)."""
+    """A `cpu` DeviceMesh of `shape` over a new fake process group of as
+    many ranks, this process rank 0. The default group is made anew for
+    every mesh: two meshes of one shape made over one group, then a mesh of
+    another shape, then the first shape again, left DTensor resolving a
+    subgroup of a destroyed group."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
     world = math.prod(shape)
-    if dist.is_initialized() and (dist.get_backend() != "fake" or dist.get_world_size() != world):
+    if dist.is_initialized():
         dist.destroy_process_group()
-    if not dist.is_initialized():
-        dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
     return init_device_mesh("cpu", tuple(shape), mesh_dim_names=tuple(axes))
 
 

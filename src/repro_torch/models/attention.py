@@ -5,7 +5,10 @@ Counterpart of `repro.models.attention.attention`. Prefill and the packed
 forward, causal or not (the encoder), self- or cross-attention, go through
 `kernels.ops.packed_attention` (the Hopper kernel on the card) with the KV
 heads un-repeated; decode is dense masked attention over the cache in plain
-PyTorch, as the reference computes it in jnp.
+PyTorch, as the reference computes it in jnp. Under a mesh the kernel runs
+on each rank's heads (`sharded_packed_attention`), and decode writes and
+reads each rank's part of the cache (`sharded_decode`; the cross cache,
+read only, `sharded_cross_decode`).
 """
 from __future__ import annotations
 
@@ -87,6 +90,36 @@ def _decode_merge_attend(q, k, v, mask, scale, reduce):
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, dh).to(q.dtype)
 
 
+def _decode_layout(mesh, cache_placements):
+    """The layout a decode step reads from its cache's placements (batch
+    over the dp axes; slots, `kv_seq`, or else kv heads over tp; or slots
+    over every axis): {tensor dim: the mesh dims that split it} for the
+    batch (0), slots (1) and kv heads (2); the placements of q, the new K/V
+    and the output (batch and heads split as the cache's) and of `lengths`
+    (batch); and `attend(q, k, v, mask, scale)`, the dense attention over
+    this rank's keys, whose softmax parts are merged over the mesh dims
+    that split the slots by all-reduces (`_decode_merge_attend`)."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import Replicate, Shard
+
+    dims = {d: [i for i, pl in enumerate(cache_placements) if pl == Shard(d)] for d in (0, 1, 2)}
+    qp = [Shard(0) if i in dims[0] else Shard(2) if i in dims[2] else Replicate()
+          for i in range(mesh.ndim)]
+    lp = [Shard(0) if i in dims[0] else Replicate() for i in range(mesh.ndim)]
+
+    def reduce(x, op):
+        for i in dims[1]:
+            x = funcol.all_reduce(x, op, (mesh, i))
+        return x
+
+    def attend(q, k, v, mask, scale):
+        k, v = k.to(q.dtype), v.to(q.dtype)
+        if not dims[1]:
+            return _sdpa_dense(q, k, v, mask, scale)
+        return _decode_merge_attend(q, k, v, mask, scale, reduce)
+    return dims, qp, lp, attend
+
+
 def sharded_decode(policy, q, k_new, v_new, cache, lengths, *, causal, window, scale):
     """One decode step's cache write and attention over DTensors, the cache
     placed by `launch.specs.cache_shardings`, through `local_map`.
@@ -100,25 +133,14 @@ def sharded_decode(policy, q, k_new, v_new, cache, lengths, *, causal, window, s
     are merged over the ranks that hold the slots by all-reduces (the
     exchange GSPMD emits for the reference); DTensor left to itself would
     gather the whole cache. Out: (B, S, H, dh), placed as q's local map."""
-    import torch.distributed._functional_collectives as funcol
-    from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
     mesh = policy.mesh
     cp = cache["k"].placements
-    dims = {d: [i for i, pl in enumerate(cp) if pl == Shard(d)] for d in (0, 1, 2)}
+    dims, qp, lp, attend = _decode_layout(mesh, cp)
     T = cache["k"].shape[1]
     n, block = mesh_block(mesh, dims[1])
     lo_slot, Tl = block * (T // n), T // n
-
-    qp = [Shard(0) if i in dims[0] else Shard(2) if i in dims[2] else Replicate()
-          for i in range(mesh.ndim)]  # q, the new K/V and the output: batch and heads
-    lp = [Shard(0) if i in dims[0] else Replicate() for i in range(mesh.ndim)]
-
-    def reduce(x, op):
-        for i in dims[1]:
-            x = funcol.all_reduce(x, op, (mesh, i))
-        return x
 
     def local(q, k_new, v_new, ck, cv, cpos, lengths):
         B, S = q.shape[:2]
@@ -137,15 +159,46 @@ def sharded_decode(policy, q, k_new, v_new, cache, lengths, *, causal, window, s
         seg_q = torch.ones((B, S), dtype=torch.int32, device=q.device)
         mask = attention_mask(seg_q, (cpos >= 0).to(torch.int32), pos_q, cpos.clamp_min(0),
                               causal=causal, window=window)
-        if not dims[1]:
-            return _sdpa_dense(q, ck.to(q.dtype), cv.to(q.dtype), mask, scale)
-        return _decode_merge_attend(q, ck.to(q.dtype), cv.to(q.dtype), mask, scale, reduce)
+        return attend(q, ck, cv, mask, scale)
 
     return local_map(local, out_placements=qp,
                      in_placements=(qp, qp, qp, cp, cache["v"].placements,
                                     cache["pos"].placements, lp),
                      device_mesh=mesh, redistribute_inputs=True)(
         q, k_new, v_new, cache["k"], cache["v"], cache["pos"], lengths)
+
+
+def sharded_cross_decode(policy, q, cache, seg_k, pos_k, lengths, *, scale):
+    """A decode step's cross-attention over the constant cross cache
+    {"k_const", "v_const"} (B, S_enc, K, dh), DTensors placed by
+    `launch.specs.cache_shardings`, through `local_map`: the read-only
+    counterpart of `sharded_decode`. Each rank attends its q heads (split
+    as the cache's kv heads are) over its own encoder positions, whose ids
+    (seg_k, pos_k (B, S_enc)) it reads where its slots lie; where the cache's
+    `kv_seq` is split, the ranks' softmax parts are merged by all-reduces,
+    as DTensor left to itself would gather the whole cache. It writes
+    nothing. Out: (B, S, H, dh), placed as q's local map."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = policy.mesh
+    cp = cache["k_const"].placements
+    dims, qp, lp, attend = _decode_layout(mesh, cp)
+    # the ids of the encoder positions: the batch's rows, the cache's slots
+    ip = [Shard(0) if i in dims[0] else Shard(1) if i in dims[1] else Replicate()
+          for i in range(mesh.ndim)]
+
+    def local(q, ck, cv, seg_k, pos_k, lengths):
+        B, S = q.shape[:2]
+        pos_q = lengths[:, None] + torch.arange(S, device=q.device)[None]
+        seg_q = torch.ones((B, S), dtype=torch.int32, device=q.device)
+        mask = attention_mask(seg_q, seg_k, pos_q, pos_k, causal=False, window=None)
+        return attend(q, ck, cv, mask, scale)
+
+    return local_map(local, out_placements=qp,
+                     in_placements=(qp, cp, cache["v_const"].placements, ip, ip, lp),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        q, cache["k_const"], cache["v_const"], seg_k, pos_k, lengths)
 
 
 def _kv_for_local_heads(k, v, H, h0, Hl):
@@ -252,9 +305,13 @@ def attention(cfg, spec, p, x, md, cache=None, policy=NULL_POLICY):
     if cache is not None and "k_const" in cache:
         # decode over the constant cross K/V; the query is not qk-normed here,
         # as in the reference (prefill's is)
-        out = _decode_attend(q, cache["k_const"], cache["v_const"], md["cross_segment_ids"],
-                             md["cross_positions"], md["lengths"], causal=False, window=None,
-                             scale=scale)
+        if policy.mesh is not None:
+            out = sharded_cross_decode(policy, q, cache, md["cross_segment_ids"],
+                                       md["cross_positions"], md["lengths"], scale=scale)
+        else:
+            out = _decode_attend(q, cache["k_const"], cache["v_const"], md["cross_segment_ids"],
+                                 md["cross_positions"], md["lengths"], causal=False,
+                                 window=None, scale=scale)
         new_cache = cache
     else:
         src = kx if kx is not None else x

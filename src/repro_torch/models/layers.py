@@ -59,8 +59,10 @@ def rope_angles(positions, head_dim, theta, sections=None):
         return positions.float()[..., None] * inv_freq
     if sum(sections) != half:
         raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to head_dim // 2 = {half}")
-    axis = torch.repeat_interleave(torch.arange(len(sections), device=positions.device),
-                                   torch.tensor(sections, device=positions.device))
+    # each frequency slot's position axis, from a list (a meta tensor, as
+    # the dry-run's, holds no repeat counts)
+    axis = torch.tensor([i for i, n in enumerate(sections) for _ in range(n)],
+                        device=positions.device)
     return positions.float()[..., axis] * inv_freq
 
 

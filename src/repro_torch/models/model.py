@@ -140,8 +140,8 @@ def param_axes(cfg):
 # ----------------------------------------------------------------- layers
 def apply_layer(cfg, spec, p, x, md, cache=None, policy=NULL_POLICY):
     mix_cache = cache.get("mixer") if cache else None
-    # a policy with a mesh reaches only attention and the FFN: the other
-    # mixers refuse a mesh (`train_step.check_shardable`)
+    # a policy with a mesh reaches only attention (self and cross) and the
+    # FFN: the recurrent mixers refuse a mesh (`train_step.check_shardable`)
     kw = {"policy": policy} if spec.mixer == "attn" else {}
     h, new_mix = MIXER_FN[spec.mixer](cfg, spec, p["mixer"], rms_norm(x, p["norm1"], cfg.norm_eps),
                                       md, cache=mix_cache, **kw)
@@ -150,7 +150,7 @@ def apply_layer(cfg, spec, p, x, md, cache=None, policy=NULL_POLICY):
     if "cross" in p:  # a decoder layer over the encoder output md["enc_out"]
         cmd = {**md, "cross_x": md.get("enc_out")}
         h, new_cross = attention(cfg, spec, p["cross"], rms_norm(x, p["norm_cross"], cfg.norm_eps),
-                                 cmd, cache=cache.get("cross") if cache else None)
+                                 cmd, cache=cache.get("cross") if cache else None, policy=policy)
         x = x + h
         if new_cross is not None:  # prefill's K/V, or decode's constant cache
             new_cache = {**(new_cache or {}), "cross": new_cross}
@@ -231,16 +231,17 @@ def _default_md(batch):
             "abs_positions": arange_rows_like(seg), "causal": True}
 
 
-def _encoder_md(cfg, params, batch, compute_dtype, remat):
+def _encoder_md(cfg, params, batch, compute_dtype, remat, policy=NULL_POLICY):
     """Run the non-causal encoder over the frame embeddings, then `enc_norm`;
     returns the decoder's metadata, which carries the encoder output and
-    its ids for the cross-attention."""
-    enc_x = batch["frame_embeds"].to(compute_dtype)
+    its ids for the cross-attention. Under a mesh the encoder's input is
+    constrained as the decoder's is, as the reference constrains it."""
+    enc_x = policy.constrain(batch["frame_embeds"].to(compute_dtype), "batch", "seq", None)
     enc_pos = arange_rows_like(batch["enc_segment_ids"])
     enc_md = {"segment_ids": batch["enc_segment_ids"], "positions": batch["enc_positions"],
               "abs_positions": enc_pos, "causal": False}
     enc_out, _ = _run_layers(cfg, params["enc_layers"], enc_x, enc_md, remat=remat,
-                             period=(cfg.period[0],))
+                             period=(cfg.period[0],), policy=policy)
     seg = batch["dec_segment_ids"]
     return {"segment_ids": seg, "positions": batch["dec_positions"],
             "abs_positions": arange_rows_like(seg), "causal": True,
@@ -250,12 +251,14 @@ def _encoder_md(cfg, params, batch, compute_dtype, remat):
 
 def _hidden(cfg, params, batch, compute_dtype, collect, remat=False, policy=NULL_POLICY):
     if cfg.enc_dec:
-        md = _encoder_md(cfg, params, batch, compute_dtype, remat)
+        md = _encoder_md(cfg, params, batch, compute_dtype, remat, policy)
         x = embed_tokens(cfg, params, batch["dec_tokens"], compute_dtype, policy)
     else:
         md = _default_md(batch)
         x = embed_tokens(cfg, params, batch["tokens"], compute_dtype, policy)
         if cfg.vlm and "vision_embeds" in batch:  # in place of the first S_vis embeddings
+            # (under a mesh after `embed_tokens` has summed its vocab shards
+            # over tp: the vision rows are whole on every rank, never summed)
             vis = batch["vision_embeds"].to(compute_dtype)
             x = torch.cat([vis, x[:, vis.shape[1]:]], dim=1)
     if collect:

@@ -22,13 +22,15 @@ Under a sharding policy with a mesh, `_moe_sharded` is the counterpart of
 the reference's `shard_map` TP/EP path: it works on each rank's local
 shards with explicit collectives (DTensor redistributes at its edges), not
 on DTensor propagation through the dispatch. The tokens are split over the
-dp axes; the expert FFN width over tp (per-expert TP), or with
-`policy.expert_parallel` and E % tp == 0 the experts (EP); the FSDP'd
-dmodel axis of the expert weights is gathered, each rank computes its
-experts' outputs for its tokens, and the partial outputs are summed over
-tp. As in the reference, each data shard routes, ranks and caps its own
-tokens (`_moe_math` on the local batch, capacity from its T): the buffer
-is (E_l, C_local, D), and at dp 1 the layer is the single-device one.
+dp axes (over both of a (pod, data) mesh, pod-major, as the reference's
+`P(("pod", "data"), None, None)`); the expert FFN width over tp
+(per-expert TP), or with `policy.expert_parallel` and E % tp == 0 the
+experts (EP); the FSDP'd dmodel axis of the expert weights is gathered
+over every dp axis, each rank computes its experts' outputs for its
+tokens, and the partial outputs are summed over tp. As in the reference,
+each data shard routes, ranks and caps its own tokens (`_moe_math` on the
+local batch, capacity from its T): the buffer is (E_l, C_local, D), and at
+dp 1 the layer is the single-device one.
 """
 from __future__ import annotations
 
@@ -139,16 +141,14 @@ def _moe_sharded(cfg, p, x, policy):
     mesh, tp = policy.mesh, policy.tp_axis
     names = mesh_axis_names(mesh)
     dp = [a for a in policy.dp_axes if mesh.size(names.index(a)) > 1] if policy.shard_batch else []
-    if len(dp) > 1:
-        raise NotImplementedError(f"MoE tokens split over more than one dp axis {dp} are not "
-                                  "ported yet (ROADMAP Queue 1 item 4)")
     E, tp_n = cfg.n_experts, policy.tp
     ep = bool(policy.expert_parallel and tp and E % tp_n == 0)
     split = ep or bool(tp and cfg.moe_d_ff % tp_n == 0)  # anything split over tp is summed
 
     def placed(dims, partial=()):
-        """Placements: tensor dim dims[a] over mesh axis a, Partial over the
-        axes in `partial`, the rest replicated."""
+        """Placements: tensor dim dims[a] over mesh axis a (a dim over two
+        axes split major mesh axis first), Partial over the axes in
+        `partial`, the rest replicated."""
         pl = [Replicate()] * len(names)
         for a, d in dims.items():
             pl[names.index(a)] = Shard(d)
@@ -162,7 +162,9 @@ def _moe_sharded(cfg, p, x, policy):
             grad_placements=placed(grad_dims, grad_partial))
 
     tp_partial = (tp,) if split and tp_n > 1 else ()
-    x_dims = {dp[0]: 0} if dp else {}
+    # the tokens over every dp axis, the major (pod) one first, as the
+    # reference's P(("pod", "data"), None, None) splits them
+    x_dims = {a: 0 for a in dp}
     xl = local(x, x_dims, tp_partial)
     # every rank's gradient of a gathered weight covers its own tokens: summed over dp
     w_dims = ({tp: 0} if ep else ({tp: 2} if split else {}))

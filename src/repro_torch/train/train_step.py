@@ -6,8 +6,8 @@ bf16 compute, fp32 gradients. Under a `ShardingPolicy` with a mesh the train
 state is DTensors placed by the reference's rules (`sharding_for_state`),
 each micro-batch is split over the dp axes (`batch_spec`), and the forward,
 the loss, the clip and the optimizer's in-place update act on DTensors; the
-dense and MoE families train and serve so (the recurrent, VLM and
-encoder-decoder ones wait, ROADMAP Queue 1). The reference's `use_scan` and
+dense, MoE, VLM and encoder-decoder families train and serve so (the
+recurrent ones wait, ROADMAP Queue 1). The reference's `use_scan` and
 `flash_chunk` have no counterpart here (the attention kernel takes every
 length).
 """
@@ -110,10 +110,10 @@ def place_state(policy, cfg, optimizer, state):
 
 
 def check_shardable(cfg):
-    """The families the sharded step holds: dense and MoE attention LMs."""
-    if cfg.vlm or cfg.enc_dec or any(s.mixer != "attn" for s in cfg.period):
-        kind = "VLM" if cfg.vlm else "encoder-decoder" if cfg.enc_dec else "recurrent"
-        raise NotImplementedError(f"{cfg.arch_id}: the {kind} family under a mesh is not "
+    """The families the sharded step holds: the attention LMs (dense, MoE,
+    VLM and encoder-decoder); a model with a recurrent mixer refuses."""
+    if any(s.mixer != "attn" for s in cfg.period):
+        raise NotImplementedError(f"{cfg.arch_id}: the recurrent family under a mesh is not "
                                   "ported yet (ROADMAP Queue 1 item 4)")
 
 
@@ -173,7 +173,7 @@ def build_train_step(cfg, optimizer, *, policy=NULL_POLICY, microbatches=1, rema
 
 def _replicating(policy):
     """Under a mesh, the model's own plain tensors (position rows, masks)
-    count as replicated; the dense and MoE families alone shard."""
+    count as replicated."""
     if policy.mesh is None:
         return contextlib.nullcontext
     from torch.distributed.tensor.experimental import implicit_replication
@@ -185,11 +185,12 @@ def build_serve_step(cfg, *, sample="greedy", compute_dtype=torch.bfloat16,
     """serve_step(params, cache, batch) -> (next_tokens, logits, cache). The
     cache (`init_cache`/`extend_cache`) may mix the rings of sliding-window
     layers with the full caches of global ones. Under a policy with a mesh
-    (the dense and MoE families) the parameters are DTensors placed by the
-    sharding rules, the cache is placed by `launch.specs.cache_shardings`
-    (`launch.specs.place_cache`), the batch by `distribute_batch`, and each
-    rank writes and attends its own part of the cache
-    (`models.attention.sharded_decode`)."""
+    (every family but the recurrent ones) the parameters are DTensors placed
+    by the sharding rules, the cache is placed by
+    `launch.specs.cache_shardings` (`launch.specs.place_cache`), the batch by
+    `distribute_batch`, and each rank writes and attends its own part of the
+    cache (`models.attention.sharded_decode`; an encoder-decoder's constant
+    cross cache, read only, `models.attention.sharded_cross_decode`)."""
     if sample != "greedy":
         raise ValueError(f"sampling '{sample}' is not supported; only 'greedy'")
     if policy.mesh is not None:

@@ -3,12 +3,14 @@
 Reduced cells (`cfg_overrides`, as the reference's `run_cell` allows) on a
 small fake-group mesh in place of the production one, (2, 2) or (2, 2, 2),
 run in one subprocess (the fake default process group is the process's): a
-train, a prefill and a decode cell of qwen3-8b and a decode cell of
-qwen3-moe are `ok` with the record's keys, their `compute_s` is the counted
-flops over the H100's peak, and the counted attention FLOPs are the kernel
-ops' visible pairs; a VLM cell and the MoE layer over a pod axis are
-`not_ported`, naming their ROADMAP item. `skipped` follows each config's
-`shape_skips`, and the CLI prints its summary line.
+train, a prefill and a decode cell of qwen3-8b, a decode cell of qwen3-moe,
+a VLM train cell (M-RoPE), the MoE layer over the (pod, data) axes, and an
+encoder-decoder's train and decode cells (reduced whisper-medium) are `ok`
+with the record's keys, their `compute_s` is the counted flops over the
+H100's peak, and the counted attention FLOPs are the kernel ops' visible
+pairs; a recurrent cell (reduced xlstm-1.3b) is `not_ported`, naming its
+ROADMAP item. `skipped` follows each config's `shape_skips`, and the CLI
+prints its summary line.
 """
 import json
 import os
@@ -26,6 +28,7 @@ ROOT = Path(__file__).resolve().parents[1]
 SMALL = {"n_layers": 2, "d_model": 64, "n_heads": 4, "n_kv_heads": 2, "head_dim": 16,
          "d_ff": 128, "vocab_size": 512}
 MOE = {**SMALL, "n_experts": 4, "moe_top_k": 2, "moe_d_ff": 64}
+ENC_DEC = {**SMALL, "n_enc_layers": 2}
 CELLS = {
     "train": ("qwen3-8b", "train_4k", SMALL, False),
     "prefill": ("qwen3-8b", "prefill_32k", SMALL, False),
@@ -33,7 +36,12 @@ CELLS = {
     "moe-decode": ("qwen3-moe-30b-a3b", "decode_32k", MOE, False),
     "vlm": ("qwen2-vl-7b", "train_4k", {**SMALL, "mrope_sections": (2, 3, 3)}, False),
     "moe-pod": ("qwen3-moe-30b-a3b", "prefill_32k", MOE, True),
+    "enc-dec": ("whisper-medium", "train_4k", ENC_DEC, False),
+    "enc-dec-decode": ("whisper-medium", "decode_32k", ENC_DEC, False),
+    "recurrent": ("xlstm-1.3b", "decode_32k", SMALL, False),
 }
+MESHES = {False: (4, {"data": 2, "model": 2}), True: (8, {"pod": 2, "data": 2, "model": 2})}
+OK_CELLS = [name for name in CELLS if name != "recurrent"]
 RUN = r"""
 import json, sys
 from repro_torch.launch import dryrun
@@ -65,12 +73,12 @@ def records():
     return json.loads(next(x for x in r.stdout.splitlines() if x.startswith("RESULT "))[7:])
 
 
-@pytest.mark.parametrize("name", ["train", "prefill", "decode", "moe-decode"])
+@pytest.mark.parametrize("name", OK_CELLS)
 def test_reduced_cell_has_the_record(records, name):
     rec = records[name]
     assert rec["status"] == "ok", rec.get("reason")
     assert KEYS <= set(rec) and ROOFLINE_KEYS <= set(rec["roofline"])
-    assert rec["n_devices"] == 4 and rec["mesh"] == {"data": 2, "model": 2}
+    assert (rec["n_devices"], rec["mesh"]) == MESHES[CELLS[name][3]]
     assert rec["accum_dtype"] == "float32"
     mem, hbm = rec["memory_analysis"], rec["hbm_model"]
     assert mem["argument_bytes"] > 0 and mem["temp_bytes"] > 0
@@ -97,10 +105,9 @@ def test_train_cell_counts_the_kernel_ops_visible_pairs(records):
 
 
 def test_unported_families_and_meshes_name_their_item(records):
-    for name, what in (("vlm", "VLM family"), ("moe-pod", "more than one dp axis")):
-        rec = records[name]
-        assert rec["status"] == "not_ported" and what in rec["reason"], rec
-        assert "ROADMAP Queue 1 item 4" in rec["reason"]
+    rec = records["recurrent"]
+    assert rec["status"] == "not_ported" and "recurrent family" in rec["reason"], rec
+    assert "ROADMAP Queue 1 item 4" in rec["reason"]
 
 
 def test_skipped_follows_shape_skips():

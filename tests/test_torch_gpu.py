@@ -1278,6 +1278,52 @@ def test_gpu_one_rank_mesh_step_matches_unsharded(nccl_mesh, arch, kw):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2-vl-7b", "whisper-medium"])
+def test_gpu_one_rank_mesh_family_step_matches_unsharded(nccl_mesh, arch):
+    """The VLM and encoder-decoder families' sharded train step on the
+    card's (1, 1) NCCL mesh against the unsharded step: 2 fp32 steps of
+    reduced `arch` at its real head width (qwen2-vl's M-RoPE at its real
+    sections; whisper's encoder, decoder and cross-attention at head_dim
+    64) on `data.multimodal` batches, losses to 1e-5 relative, parameters
+    to 1e-5 of each leaf's max, the same kernel launches (the fp32
+    kernels through `local_map`)."""
+    from repro_torch.data.multimodal import enc_dec_batch, vlm_batch
+    from repro_torch.parallel.sharding import NULL_POLICY, gather, policy_for_mesh
+    from repro_torch.train.train_step import init_train_state
+
+    full = get_arch(arch)
+    cfg = reduced(full, head_dim=full.head_dim, mrope_sections=full.mrope_sections)
+    if cfg.enc_dec:
+        batches = [enc_dec_batch(cfg, 128, 32, 4, seed=0, clip_frames=(32, 64), index=i)
+                   for i in range(2)]
+    else:
+        batches = [vlm_batch(cfg, 128, 4, seed=0, vision_len=16, grid=(4, 4), index=i, mu=3.6,
+                             sigma=0.8) for i in range(2)]
+    runs = {}
+    for name, pol in (("plain", NULL_POLICY), ("sharded", policy_for_mesh(nccl_mesh))):
+        opt = make_optimizer("adamw", lr=1e-3)
+        state = init_train_state(0, cfg, opt, device=nccl_mesh.device_type, policy=pol)
+        step = build_train_step(cfg, opt, policy=pol, microbatches=2,
+                                compute_dtype=torch.float32)
+        before = (dict(packed_flash_attention.launches),
+                  dict(packed_flash_attention_backward.launches))
+        losses = [float(step(state, {k: t(v).cuda() for k, v in b.items()})[1]["loss"])
+                  for b in batches]
+        torch.cuda.synchronize()
+        launches = [{k: c[k] - b[k] for k in c} for c, b in
+                    zip((packed_flash_attention.launches,
+                         packed_flash_attention_backward.launches), before)]
+        runs[name] = (losses, [n(p) for p in tree_leaves(gather(state["params"]))], launches)
+    (l0, p0, c0), (l1, p1, c1) = runs["plain"], runs["sharded"]
+    np.testing.assert_allclose(l1, l0, rtol=1e-5)
+    for a, b in zip(p1, p0):
+        assert np.abs(a - b).max() <= 1e-5 * np.abs(b).max()
+    calls = cfg.n_layers + (cfg.n_enc_layers + cfg.n_layers if cfg.enc_dec else 0)
+    assert c1 == c0 and c1[0][FWD_TF32.source] == 2 * 2 * 2 * calls
+    assert c1[1][BWD_TF32.source] == 2 * 2 * calls
+
+
+@pytest.mark.gpu
 def test_gpu_int8_compressor_matches_cpu(cuda):
     """The int8 error-feedback compressor on the card gives the CPU's codes,
     scales, dequantized values and residuals bit for bit (a scale divided

@@ -30,8 +30,9 @@ CPU:
   * the driver: `torchrun --nproc-per-node 2 ... --tp 2` trains sharded
     on the CPU; a checkpoint saved on (2,2) resumes on (2,1) and the
     losses go on;
-  * the recurrent, VLM and encoder-decoder families refuse a mesh
-    (NotImplementedError naming ROADMAP Queue 1).
+  * the recurrent families refuse a mesh (NotImplementedError naming
+    ROADMAP Queue 1); the VLM and encoder-decoder ones take it
+    (tests/test_torch_sharding_families.py).
 
 Every spawned group starts when the first test that needs one asks, all at
 once, and each rank's collectives time out (`torch_dist_helpers`).
@@ -290,22 +291,24 @@ def test_placements_from_specs():
 
 
 def test_refusals_name_the_roadmap():
-    """Under a mesh the recurrent, VLM and enc-dec families refuse the train
-    step and serving; the dense family builds all three (serving across
-    ranks: tests/test_torch_serve_mesh.py)."""
+    """Under a mesh only the recurrent families (xlstm, jamba) refuse the
+    train step and serving; the dense, VLM and enc-dec families build all
+    three (serving across ranks: tests/test_torch_serve_mesh.py and
+    tests/test_torch_sharding_families.py)."""
     pol = ShardingPolicy(mesh=FakeMesh(2, 2), dp_axes=("data",), tp_axis="model")
     opt = make_optimizer("adamw")
-    for arch in ["xlstm-1.3b", "jamba-1.5-large-398b", "qwen2-vl-7b", "whisper-medium"]:
+    for arch in ["xlstm-1.3b", "jamba-1.5-large-398b"]:
         cfg = t_reduced(t_get_arch(arch))
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
             build_train_step(cfg, opt, policy=pol)
         for build in (build_serve_step, build_prefill_step):
             with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
                 build(cfg, policy=pol)
-    cfg = t_reduced(t_get_arch("qwen3-8b"))
-    build_train_step(cfg, opt, policy=pol)  # the dense family builds
-    build_serve_step(cfg, policy=pol)
-    build_prefill_step(cfg, policy=pol)
+    for arch in ["qwen3-8b", "qwen2-vl-7b", "whisper-medium"]:
+        cfg = t_reduced(t_get_arch(arch))
+        build_train_step(cfg, opt, policy=pol)
+        build_serve_step(cfg, policy=pol)
+        build_prefill_step(cfg, policy=pol)
 
 
 @pytest.mark.parametrize("H,K,tp", [(4, 1, 2), (32, 4, 8), (32, 8, 2), (6, 3, 2), (6, 2, 3),

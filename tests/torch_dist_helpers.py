@@ -135,9 +135,13 @@ def _numpy(tree_leaves_list):
 def _step_case(mesh, case):
     """len(batches) fp32 steps of the sharded train step from the case's
     numpy parameters -> losses, grad norms, token counts, each step's
-    clipped gradients, the final parameters and optimizer state (whole)."""
+    clipped gradients, the final parameters and optimizer state (whole);
+    with the case's "routes", also this rank's MoE routes of every call of
+    the first step (run without remat then, whose recompute would record
+    some calls twice)."""
     from repro_torch.bridge import params_from_jax
     from repro_torch.configs import get_arch, reduced
+    from repro_torch.models import moe
     from repro_torch.parallel.sharding import gather, policy_for_mesh
     from repro_torch.train.optimizer import make_optimizer, tree_leaves
     from repro_torch.train.train_step import build_train_step, place_state
@@ -152,17 +156,27 @@ def _step_case(mesh, case):
     state = {"params": params, "opt": opt.init(params, period=len(cfg.period)),
              "step": torch.zeros((), dtype=torch.int32)}
     state = place_state(policy, cfg, opt, state)
+    routes = case.get("routes", False)
     step = build_train_step(cfg, opt, policy=policy, microbatches=case["microbatches"],
-                            clip_norm=case["clip_norm"], compute_dtype=torch.float32)
+                            clip_norm=case["clip_norm"], compute_dtype=torch.float32,
+                            remat=not routes)
     out = {"loss": [], "grad_norm": [], "ntokens": [], "grads": []}
-    for batch in case["batches"]:
-        state, m = step(state, _tensor_batch(batch))
+    for i, batch in enumerate(case["batches"]):
+        moe.moe_ffn.routes = [] if routes and i == 0 else None
+        try:
+            state, m = step(state, _tensor_batch(batch))
+            if moe.moe_ffn.routes is not None:
+                out["routes"] = [{k: r[k].numpy() for k in ("experts", "kept")}
+                                 for r in moe.moe_ffn.routes]
+        finally:
+            moe.moe_ffn.routes = None
         for k in ("loss", "grad_norm", "ntokens"):
             out[k].append(float(m[k]))
         out["grads"].append(_numpy(gather([p.grad for p in tree_leaves(state["params"])])))
     out["params"] = _numpy(tree_leaves(gather(state["params"])))
     out["opt"] = _numpy(tree_leaves(gather(state["opt"])))
     out["step"] = int(state["step"])
+    out["coords"] = mesh.get_coordinate()
     return out
 
 
@@ -254,17 +268,22 @@ def _one_rank_case(mesh, case):
 
 
 def _served(cfg, policy, params, prompt, steps, max_len=None):
-    """Prefill of `prompt`, then `steps` greedy decode steps over a max_len
-    cache (prompt + steps by default), under `policy`: the caches gathered
-    whole after prefill, extended, and placed by `specs.cache_shardings`
-    -> whole numpy prefill logits, each step's logits and tokens, and the
-    placements of the first layer's K cache after the last step."""
+    """Prefill of `prompt` (an encoder-decoder's: frames and decoder
+    tokens), then `steps` greedy decode steps over a max_len cache (prompt
+    + steps by default), under `policy`: the caches gathered whole after
+    prefill, extended, and placed by `specs.cache_shardings` -> whole numpy
+    prefill logits, each step's logits and tokens, and the placements of
+    the first layer's K cache (and cross K cache) after the last step."""
     from repro_torch.launch.specs import place_cache
     from repro_torch.models.model import extend_cache
-    from repro_torch.parallel.sharding import gather
+    from repro_torch.parallel.sharding import arange_rows_like, gather
     from repro_torch.train.train_step import build_prefill_step, build_serve_step
 
-    B, S = prompt["tokens"].shape
+    B, S = prompt["dec_tokens" if cfg.enc_dec else "tokens"].shape
+    extra = {}
+    if cfg.enc_dec:  # the ids of the cross caches' encoder positions
+        extra = {"cross_segment_ids": prompt["enc_segment_ids"],
+                 "cross_positions": arange_rows_like(prompt["enc_segment_ids"])}
     logits, caches = build_prefill_step(cfg, compute_dtype=torch.float32, policy=policy)(
         params, policy.distribute_batch(prompt))
     logits = gather(logits)
@@ -273,12 +292,15 @@ def _served(cfg, policy, params, prompt, steps, max_len=None):
     out = {"prefill": logits.numpy(), "logits": [], "tokens": []}
     tokens = logits[:, -1].argmax(-1, keepdim=True).int()
     for i in range(steps):
-        batch = {"tokens": tokens, "lengths": torch.full((B,), S + i, dtype=torch.int32)}
+        batch = {"tokens": tokens, "lengths": torch.full((B,), S + i, dtype=torch.int32),
+                 **extra}
         nxt, dec, cache = step(params, cache, policy.distribute_batch(batch))
         tokens = gather(nxt)[:, None]
         out["logits"].append(gather(dec).numpy())
         out["tokens"].append(tokens[:, 0].numpy())
     out["cache_placements"] = repr(getattr(cache[0]["mixer"]["k"], "placements", None))
+    if cfg.enc_dec:
+        out["cross_placements"] = repr(getattr(cache[0]["cross"]["k_const"], "placements", None))
     return out
 
 
@@ -315,16 +337,17 @@ CASES = {"step": _step_case, "moe_layer": _moe_layer_case, "placements": _placem
          "one_rank": _one_rank_case, "driver": _driver_case, "serve": _serve_case}
 
 
-def mesh_cases(rank, world, shape, cases):
-    """Every case on the `("data", "model")` mesh of `shape`, in order:
+def mesh_cases(rank, world, shape, cases, names=("data", "model")):
+    """Every case on the mesh of `shape` named `names`, in order:
     {name: rank 0's result} ({name: result} of every rank for the cases
-    whose result differs by rank: moe_layer, placements)."""
+    whose result differs by rank: moe_layer, placements, and a step case
+    that records its routes)."""
     from torch.distributed.device_mesh import init_device_mesh
 
-    mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+    mesh = init_device_mesh("cpu", shape, mesh_dim_names=tuple(names))
     out = {}
     for name, case in cases.items():
         result = CASES[case["kind"]](mesh, case)
-        if rank == 0 or case["kind"] in ("moe_layer", "placements"):
+        if rank == 0 or case["kind"] in ("moe_layer", "placements") or case.get("routes"):
             out[name] = result
     return out
