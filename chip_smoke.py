@@ -101,7 +101,8 @@ Phases, in one process; any failure exits nonzero:
              bit for bit, gradients held to the layer in fp32;
              xlstm-1.3b (48 layers) serves 4 x 2048 + 64 greedy steps (the
              first held to the port's fp32 decode step: the reference's
-             mLSTM decode drops the conv window) and trains at full depth;
+             mLSTM decode drops the conv window) and trains cut to one
+             period (8 layers);
              jamba-1.5-large-398b cut to 4 layers serves 4 x 2048 + 16 steps
              (1 attention launch a prefill, the MoE serve checks); each with
              device time, busy share, launches per layer and step, and its
@@ -131,7 +132,15 @@ Phases, in one process; any failure exits nonzero:
              a step beside theirs; qwen3-moe-30b-a3b cut to 3 layers on a
              (1, 1, 1) (pod, data, model) mesh, one step through the MoE
              layer's EP path and one through its TP path, each held to the
-             unsharded step's loss and routes;
+             unsharded step's loss and routes; the recurrent families: the
+             fp32 parity of reduced xlstm-1.3b and jamba-1.5-large-398b
+             (Adafactor, weight seed 1), serving of xlstm-1.3b (48 layers)
+             and jamba cut to 4 layers held to phase 13's tokens and logits
+             (decode's busy share profiled), xlstm-1.3b cut to one period (7
+             mLSTM layers and an sLSTM) trained 2 steps of 1 x 1024 on the
+             mesh and unsharded (losses and gradients equal), jamba's Mamba
+             layer forward and backward on the mesh against unsharded, and
+             each recurrent mixer's kernels a layer on the mesh and not;
  15. roofline: the op counter (`roofline.counter`) on the meta device over
              the steps timed above (qwen3-8b's 8-layer train step, its
              4 x 2048 prefill, whisper-medium's train step), each's counted
@@ -140,8 +149,11 @@ Phases, in one process; any failure exits nonzero:
              and predicted against measured peak memory; one real qwen3-8b
              train step counted on the card, its matmul FLOPs equal to the
              meta count and its attention FLOPs to `attention_bound`'s
-             visible pairs; the dry-run of qwen3-8b decode_32k on the
-             (16, 16) fake-group mesh in a subprocess, status `ok`.
+             visible pairs; xlstm-1.3b's one-period train step at 1 x 256
+             counted on meta (its loops run a few iterations, counted as
+             all) and on the card (whole), matmul FLOPs equal; the dry-run
+             of qwen3-8b decode_32k and of xlstm-1.3b long_500k on the
+             (16, 16) fake-group mesh in subprocesses, status `ok`.
 Prints the card's name and power limit first, a `kernels` JSON line before
 the last, and as the last line {"ok": true, "device": {...}}. Imports no JAX
 and nothing of the JAX package.
@@ -253,10 +265,10 @@ WHISPER_FRAMES, WHISPER_PROMPT, WHISPER_MAX_TARGET = 1500, 64, 448
 WHISPER_TRAIN_FRAMES, WHISPER_CLIPS = 4096, (300, 1500)
 MM_CROSS_QUERIES = 64  # the serving cross-attention's decoder prompt
 # the recurrent families: xlstm-1.3b at full depth (48 layers: 42 mLSTM, 6
-# sLSTM; 1.95 B) serves 4 x 2048 + 64 greedy steps and trains (AdamW, 16
-# bytes a parameter: 31 GB of state) for XLSTM_TRAIN_STEPS steps of one
-# 1 x 4096 micro-batch (a step runs ~2.5 M eager launches, most of them the
-# sLSTM loops forward, recomputed and backward); jamba-1.5-large-398b at full width
+# sLSTM; 1.95 B) serves 4 x 2048 + 64 greedy steps and trains cut to its
+# first period (AdamW, 16 bytes a parameter) for XLSTM_TRAIN_STEPS steps of
+# one 1 x 4096 micro-batch (a full-depth step runs ~2.5 M eager launches,
+# most of them the sLSTM loops forward, recomputed and backward); jamba-1.5-large-398b at full width
 # cut to its period's first JAMBA_LAYERS layers (Mamba+MoE, Mamba+dense,
 # Mamba+MoE, attention+dense: 23.02 B, 46 GB of bf16 weights) serves 4 x
 # 2048 + 16 steps (its training waits for sharding: one MoE layer alone is
@@ -266,8 +278,12 @@ MM_CROSS_QUERIES = 64  # the serving cross-attention's decoder prompt
 XLSTM_TRAIN_STEPS, JAMBA_LAYERS, TOL_MAMBA_GRAD = 2, 4, 2e-2
 # its first step is its warm-up: 2 steps keep the whole command under 1000 s
 # (with 3 and the sharding phase it took 978.1 s on an NVIDIA H100 80GB HBM3
-# at 700 W)
-XLSTM_TRAIN_WARMUP = 1
+# at 700 W); it trains cut to its first period, XLSTM_TRAIN_LAYERS layers (7
+# mLSTM, 1 sLSTM): at full depth its 2 steps took 224 s of a 1332.3 s
+# command once the recurrent sharding parts came (NVIDIA H100 80GB HBM3,
+# 700 W), and its layers' training profiles run on 1 / XLSTM_TRAIN_SCALE of
+# its positions
+XLSTM_TRAIN_WARMUP, XLSTM_TRAIN_LAYERS, XLSTM_TRAIN_SCALE = 1, 8, 8
 RECURRENT = ("mamba", "mlstm", "slstm")
 # each recurrent mixer's loop, by module and name (`loop_profile` times it alone)
 SCANS = {"mamba": ("repro_torch.models.ssm", "selective_scan"),
@@ -287,6 +303,15 @@ SHARD_PARITY_STEPS, SHARD_STEPS, TOL_SHARD, COMPRESS_BLOCK = 3, 5, 1e-5, 256
 # host operators, the new parts took 124 s and the whole script 1052.1 s on
 # an NVIDIA H100 80GB HBM3 at 700 W: cut to stay under its 1000 s target)
 SHARD_FAMILIES, SHARD_FAMILY_STEPS, SHARD_NEW_TOKENS = ("qwen2-vl-7b", "whisper-medium"), 3, 8
+# then the recurrent families: the fp32 parity of reduced xlstm-1.3b and
+# jamba-1.5-large-398b, serving on the mesh (xlstm-1.3b at full depth, jamba
+# cut to JAMBA_LAYERS), xlstm-1.3b cut to one period (7 mLSTM layers and an
+# sLSTM) trained SHARD_RECURRENT_STEPS steps of 1 x SHARD_XLSTM_SEQ on the
+# mesh and unsharded, and jamba's Mamba layer forward and backward on the mesh
+SHARD_RECURRENT_STEPS, SHARD_XLSTM_SEQ = 2, 512
+# phase 15 counts that xlstm cut's step at 1 x ROOFLINE_XLSTM_SEQ on meta (its
+# loops scaled) and on the card (whole)
+ROOFLINE_XLSTM_SEQ = 256
 LOOP_PROFILE_SCALE = 4  # `loop_profile` runs a layer on a quarter of the path's positions
 
 
@@ -2467,14 +2492,18 @@ def kernel_entries(record):
               others=(f"{jam}_bf16",), head_dim=128),
         # jamba-1.5-large-398b's heads (64/8, group 8): one attention layer a period
         entry("packed_flash_attention[64/8 heads]", SM90.source, fk[f"{jam}_bf16"],
-              {f"{jam} serve": served(rec[f"{jam}_serve"])}, head_dim=128),
+              {f"{jam} serve": served(rec[f"{jam}_serve"]),
+               f"{jam} sharded serve": record["sharding"][f"{jam}_serve"]["prefill_launches"][
+                   SM90.source]}, head_dim=128),
         entry("packed_flash_attention[GQA group 6]", SM90.source, fk["grok-1-314b_bf16"],
               {"grok-1-314b serve": served(moe["grok-1-314b_serve"])}, head_dim=128),
         # fp32: the parity paths, at head_dim 128, 256 and 80, each at its 2 x 256 batch
         *(entry(f"packed_flash_attention[float32{tag}]", FWD_TF32.source, fp32[arch]["kernel"],
-                {f"{a} parity": fp32[a]["launches"][FWD_TF32.source]
-                 + fp32[a]["train_step_launches"][FWD_TF32.source]
-                 for a in (arch, qmoe, vl, jam) if a == arch or arch == "qwen3-8b"},
+                {**{f"{a} parity": fp32[a]["launches"][FWD_TF32.source]
+                    + fp32[a]["train_step_launches"][FWD_TF32.source]
+                    for a in (arch, qmoe, vl, jam) if a == arch or arch == "qwen3-8b"},
+                 **({f"{jam} sharded parity": record["sharding"][f"{jam}_fp32_parity"][
+                     "launches"][FWD_TF32.source]} if arch == "qwen3-8b" else {})},
                 others=others, head_dim=fp32[arch]["head_dim"],
                 wrapper_device_ms=fp32[arch]["kernel"]["wrapper_device_ms"],
                 **{key: fp32[arch]["kernel"][key] for key in (
@@ -2534,8 +2563,10 @@ def kernel_entries(record):
                               ("tiles", "dq_tiles", "ms_by_kernel")}),
         entry("packed_flash_attention_backward[float32]", BWD_TF32.source,
               per_launch(kern["fp32_parity_bwd"]),
-              {f"{a} parity": fp32[a]["train_step_backward_launches"][BWD_TF32.source]
-               for a in ("qwen3-8b", qmoe, vl, jam)},
+              {**{f"{a} parity": fp32[a]["train_step_backward_launches"][BWD_TF32.source]
+                  for a in ("qwen3-8b", qmoe, vl, jam)},
+               f"{jam} sharded parity": record["sharding"][f"{jam}_fp32_parity"]["launches"][
+                   BWD_TF32.source]},
               others=("llama2-7b_fp32_bwd", "qwen2.5-7b_fp32_bwd", f"{qmoe}_fp32_bwd",
                       "grok-1-314b_fp32_bwd", f"{jam}_fp32_bwd"), head_dim=128,
               **fp32_bwd_extra(per_launch(kern["fp32_parity_bwd"])),
@@ -2596,15 +2627,16 @@ def moe_phases(record, device):
             torch.cuda.empty_cache()
 
 
-def recurrent_phases(record, device):
+def recurrent_phases(record, device, served):
     """The recurrent families, into `record`: the fp32 parity paths of
     reduced xlstm-1.3b (AdamW) and reduced jamba-1.5-large-398b (the fp32
     attention kernels at head_dim 128, the full config's Adafactor) into
     `record["fp32_path"]`; then (`record["recurrent"]`) jamba's Mamba layer
     (`mamba_layer_phase`), xlstm-1.3b serving at full depth, jamba cut to
-    JAMBA_LAYERS serving, and xlstm-1.3b training at full depth for
-    XLSTM_TRAIN_STEPS steps, each with its loops' launches per layer and
-    share of the path's device time (`loop_profile`, `loop_shares`)."""
+    JAMBA_LAYERS serving, and xlstm-1.3b cut to XLSTM_TRAIN_LAYERS training
+    for XLSTM_TRAIN_STEPS steps, each with its loops' launches per layer and
+    share of the path's device time (`loop_profile`, `loop_shares`). `served`
+    gets each serving's `keep` (`serve_phase`) under its arch."""
     from repro_torch.configs import get_arch
     from repro_torch.models.model import init_params
     from repro_torch.train.optimizer import tree_leaves
@@ -2635,7 +2667,7 @@ def recurrent_phases(record, device):
             f"{sum(p.numel() for p in tree_leaves(params))} parameters, "
             f"init {time.perf_counter() - t0:.1f} s")
         serve = serve_phase(cfg, params, device, new_tokens=new_tokens,
-                            profile_prefill=profiled)
+                            profile_prefill=profiled, keep=served.setdefault(cfg.arch_id, {}))
         del params
         torch.cuda.empty_cache()
         mark(f"{cfg.arch_id} serve")
@@ -2657,14 +2689,16 @@ def recurrent_phases(record, device):
     # is composed from its layers' profiles (`loop_profile`: a layer runs
     # forward, then remat's recompute and the backward), the LM head, loss
     # and AdamW left out
-    train = train_phase(xcfg, device, layers=None, steps=XLSTM_TRAIN_STEPS, fit=None, batch=1,
-                        microbatches=1, profile=False, warmup=XLSTM_TRAIN_WARMUP)
+    train = train_phase(xcfg, device, layers=XLSTM_TRAIN_LAYERS, steps=XLSTM_TRAIN_STEPS,
+                        fit=None, batch=1, microbatches=1, profile=False,
+                        warmup=XLSTM_TRAIN_WARMUP)
     torch.cuda.empty_cache()
     mark(f"{xcfg.arch_id} train")
-    loops = loop_profile(xcfg, device, 1, TRAIN_SEQ, train=True)
-    train["profile"] = composed_profile(xcfg, loops, ("layer_forward", "layer_train"),
+    xcut = dataclasses.replace(xcfg, n_layers=XLSTM_TRAIN_LAYERS)
+    loops = loop_profile(xcfg, device, 1, TRAIN_SEQ, train=True, scale=XLSTM_TRAIN_SCALE)
+    train["profile"] = composed_profile(xcut, loops, ("layer_forward", "layer_train"),
                                         train["step_seconds_mean"])
-    train["loops"] = {"step": loop_shares(xcfg, loops, train["profile"],
+    train["loops"] = {"step": loop_shares(xcut, loops, train["profile"],
                                           passes={"scan_forward": 1, "scan_train": 1}),
                       "by_mixer": loops}
     log(f"{xcfg.arch_id} train loops", json.dumps(train["loops"]["step"]))
@@ -2896,14 +2930,17 @@ def one_rank_mesh(device):
     return make_mesh((1, 1), ("data", "model"))
 
 
-def sharded_parity(policy, device, arch="qwen3-8b"):
+def sharded_parity(policy, device, arch="qwen3-8b", optimizer="adamw", seed=0, layers=None):
     """The fp32 parity model of `arch` (`parity_model`: reduced, at the real
     head width, 2 x PARITY_SEQ; qwen3-8b at head_dim 128, qwen2-vl-7b with
     M-RoPE at its real sections, whisper-medium's encoder, decoder and
-    cross-attention at head_dim 64) for SHARD_PARITY_STEPS steps unsharded
-    and on the mesh, from the same seed and batches: the largest difference
-    of a loss (relative) and of a parameter (over its leaf's max), whether
-    all are equal bit for bit, and the same kernel launches."""
+    cross-attention at head_dim 64, xlstm-1.3b's mLSTM and sLSTM layers,
+    jamba's Mamba, MoE and attention layers) for SHARD_PARITY_STEPS steps of
+    `optimizer` (Adafactor with bf16 momentum, as `fp32_phase` runs it)
+    unsharded and on the mesh, from the same weight seed and batches: the
+    largest difference of a loss (relative) and of a parameter (over its
+    leaf's max), whether all are equal bit for bit, and the same kernel
+    launches; with `layers`, the parity model cut to that depth."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels.packed_flash_attn import BWD_TF32, FWD_TF32
     from repro_torch.parallel.sharding import NULL_POLICY, gather
@@ -2911,11 +2948,14 @@ def sharded_parity(policy, device, arch="qwen3-8b"):
     from repro_torch.train.train_step import build_train_step, init_train_state
 
     small, _ = parity_model(get_arch(arch))
+    if layers is not None:
+        small = dataclasses.replace(small, n_layers=layers)
     batches = [parity_model(get_arch(arch), i)[1] for i in range(SHARD_PARITY_STEPS)]
     runs = {}
     for name, pol in (("plain", NULL_POLICY), ("sharded", policy)):
-        opt = make_optimizer("adamw", lr=1e-3)
-        state = init_train_state(0, small, opt, device=device, policy=pol)
+        opt = make_optimizer(optimizer, lr=1e-3, momentum_dtype=(
+            torch.bfloat16 if optimizer == "adafactor" else torch.float32))
+        state = init_train_state(seed, small, opt, device=device, policy=pol)
         step = build_train_step(small, opt, policy=pol, microbatches=PARITY_MICROBATCHES,
                                 compute_dtype=torch.float32)
         reset_counts()
@@ -2928,7 +2968,8 @@ def sharded_parity(policy, device, arch="qwen3-8b"):
     if c1 != c0 or c1[FWD_TF32.source] != 2 * calls or c1[BWD_TF32.source] != calls:
         raise AssertionError(f"{arch}: sharded fp32 steps launch {c1}, the unsharded ones {c0}")
     res = {"arch": arch, "layers": small.n_layers, "enc_layers": small.n_enc_layers,
-           "head_dim": small.head_dim, "steps": SHARD_PARITY_STEPS, "losses": l1,
+           "head_dim": small.head_dim, "optimizer": optimizer, "seed": seed,
+           "steps": SHARD_PARITY_STEPS, "losses": l1,
            "losses_unsharded": l0,
            "loss_max_rel": max(abs(a - b) / abs(b) for a, b in zip(l1, l0)),
            "param_max_rel": max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
@@ -3026,7 +3067,7 @@ def sharded_train(cfg, policy, device, train, *, layers=TRAIN_LAYERS, steps=SHAR
     return res, grads
 
 
-def sharded_serve(cfg, policy, device, ref):
+def sharded_serve(cfg, policy, device, ref, *, profile_decode=False):
     """`cfg` at full depth served on the mesh as `serve_phase` serves it
     unsharded: the same `serve_prompt` prompts and seed-0 bf16 weights
     (placed by the sharding rules), prefill through
@@ -3037,9 +3078,11 @@ def sharded_serve(cfg, policy, device, ref):
     unsharded run (`ref`, `serve_phase`'s keep): every token equal, the
     prefill's last logits within TOL_PREFILL_REL and each step's within
     TOL_DECODE_REL; prefill launches the bf16 kernel once an attention call
-    (through `local_map`), decode none, no plain call. Records prefill
-    seconds and decode ms a step (step 0, DTensor's first dispatch of each
-    op, apart)."""
+    (through `local_map`; none in a model without attention), decode none,
+    no plain call. Records prefill seconds, decode ms a step (step 0,
+    DTensor's first dispatch of each op, apart), the placements of the
+    first layer's cache and the peak memory; with `profile_decode`, the
+    busy share of 2 decode steps profiled on the device alone."""
     from repro_torch.kernels.packed_flash_attn import kernel_for
     from repro_torch.launch.specs import place_cache
     from repro_torch.models.model import extend_cache, init_params, param_axes
@@ -3053,8 +3096,10 @@ def sharded_serve(cfg, policy, device, ref):
     P = row_ids(cfg, batch).shape[1]
     prefill_step, serve_step = build_prefill_step(cfg, policy=policy), build_serve_step(
         cfg, policy=policy)
-    calls, kern = attention_calls(cfg), kernel_for(torch.bfloat16, cfg.head_dim)
+    calls = attention_calls(cfg)
+    kern = kernel_for(torch.bfloat16, cfg.head_dim) if calls else None
     plain, undo = counting_plain_calls()
+    torch.cuda.reset_peak_memory_stats()
     try:
         with torch.no_grad():
             reset_counts()
@@ -3083,12 +3128,19 @@ def sharded_serve(cfg, policy, device, ref):
             torch.cuda.synchronize()
             marks.append(time.perf_counter())
             decode_launches = read_counts()
-            slots = cache[0]["mixer"]["k"].shape[1]
+            slots = next((c["mixer"]["k"].shape[1] for c in cache if "k" in c["mixer"]), None)
             placed = {k: [str(p) for p in v.placements] for k, v in (
-                ("k", cache[0]["mixer"]["k"]), *((("k_const", cache[0]["cross"]["k_const"]),)
-                                                 if cfg.enc_dec else ()))}
+                *cache[0]["mixer"].items(), *((("k_const", cache[0]["cross"]["k_const"]),)
+                                              if cfg.enc_dec else ()))}
+            prof = None
+            if profile_decode:  # the last step again, on the device alone
+                step_batch = policy.distribute_batch({"tokens": tok[:, None],
+                                                      "lengths": lengths + 1, **extra})
+                prof = device_profile(lambda: serve_step(params, cache, step_batch), 2,
+                                      host_ops=False)
     finally:
         undo()
+    peak = torch.cuda.max_memory_allocated()
     del params, cache
     tokens = torch.stack(generated, 1).cpu()
     e_prefill = rel_err(last.cpu(), ref["prefill"])
@@ -3100,17 +3152,207 @@ def sharded_serve(cfg, policy, device, ref):
            "prefill_seconds": t_prefill, "decode_ms_first_step": (marks[1] - marks[0]) * 1e3,
            "decode_ms_per_token": (marks[2] - marks[1]) / (n - 1) * 1e3,
            "prefill_launches": prefill_launches, "decode_launches": decode_launches,
-           "plain_calls": plain["plain_calls"]}
-    if not (prefill_launches[kern.source] == sum(prefill_launches.values()) == calls
+           "plain_calls": plain["plain_calls"], "max_memory_allocated_bytes": peak,
+           "decode_profile": prof}
+    if prof is not None:
+        prof["busy_share"] = prof["device_seconds_per_call"] / (res["decode_ms_per_token"] / 1e3)
+    if not ((kern is None or prefill_launches[kern.source] == calls)
+            and sum(prefill_launches.values()) == calls
             and sum(decode_launches.values()) == 0 and plain["plain_calls"] == 0):
         raise AssertionError(f"{cfg.arch_id} sharded serving launches {res}, expected {calls} "
-                             f"of {kern.source} in prefill only")
+                             f"of {kern and kern.source} in prefill only")
     if not (res["tokens_equal"] and e_prefill <= TOL_PREFILL_REL
             and max(e_decode) <= TOL_DECODE_REL):
         raise AssertionError(f"{cfg.arch_id} sharded serving vs unsharded: {res}; tokens "
                              f"{tokens.tolist()} vs {ref['tokens'][:, :n + 1].tolist()}")
     torch.cuda.empty_cache()
     return res
+
+
+def sharded_recurrent_train(cfg, policy, device, loops):
+    """xlstm-1.3b at full width cut to its first period (7 mLSTM layers, an
+    sLSTM), SHARD_RECURRENT_STEPS AdamW steps (fp32 masters, bf16 compute,
+    remat) of one 1 x SHARD_XLSTM_SEQ micro-batch each, unsharded and on the
+    mesh from the same seed and batches: every loss and the last step's
+    gradients equal (TOL_SHARD of each leaf's max), exact launches (none:
+    no attention) and no plain call. Records each run's step seconds (the
+    last step's: the first warms up), peak memory, and a busy share whose
+    device time is composed from `loops` (`loop_profile`'s layers at 1 x
+    TRAIN_SEQ / XLSTM_TRAIN_SCALE, forward and train, the LM head, loss and
+    AdamW left out): a profile of the step's ~30 k launches would take
+    longer than the steps."""
+    from repro_torch.data.synth import SyntheticPackedDataset
+    from repro_torch.parallel.sharding import NULL_POLICY
+    from repro_torch.train.optimizer import optimizer_for, tree_leaves
+    from repro_torch.train.train_step import build_train_step, init_train_state
+
+    tcfg = dataclasses.replace(cfg, n_layers=len(cfg.period))
+    if TRAIN_SEQ // XLSTM_TRAIN_SCALE != SHARD_XLSTM_SEQ:
+        raise AssertionError("the layers' profiles are not at the cut's length")
+    data = SyntheticPackedDataset(tcfg, SHARD_XLSTM_SEQ, 1, seed=0)
+    runs = {}
+    plain, undo = counting_plain_calls()
+    try:
+        for name, pol in (("unsharded", NULL_POLICY), ("sharded", policy)):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            opt = optimizer_for(tcfg, lr=1e-3)
+            state = init_train_state(0, tcfg, opt, device=device, policy=pol)
+            step = build_train_step(tcfg, opt, policy=pol, microbatches=1, remat=True)
+            losses, times = [], []
+            reset_counts()
+            for it in range(SHARD_RECURRENT_STEPS):
+                b = to_device(data.batch_at(it), device)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(float(step(state, b)[1]["loss"]))
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            grads = [x.grad.to_local() if pol is policy else x.grad
+                     for x in tree_leaves(state["params"])]
+            runs[name] = {"losses": losses, "step_seconds": times,
+                          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+                          "launches": sum({**read_counts(), **read_backward_counts()}.values()),
+                          "grads": [g.detach().clone() for g in grads]}
+            del state, opt, step, grads
+    finally:
+        undo()
+    u, sh = runs["unsharded"], runs["sharded"]
+    grad_rel = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                   for a, b in zip(sh.pop("grads"), u.pop("grads"), strict=True))
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(sh["losses"], u["losses"]))
+    for r in (u, sh):  # the layers' profiles are scaled to TRAIN_SEQ: back to the cut's
+        r["step_seconds_last"] = r["step_seconds"][-1]
+        prof = composed_profile(tcfg, loops, ("layer_forward", "layer_train"), 1.0)
+        for key in ("device_seconds_per_call", "kernels_per_call"):
+            prof[key] /= XLSTM_TRAIN_SCALE
+        prof["busy_share"] = prof["device_seconds_per_call"] / r["step_seconds_last"]
+        r["profile"], r["busy_share"] = prof, prof["busy_share"]
+    res = {"arch": cfg.arch_id, "layers": tcfg.n_layers, "tokens": SHARD_XLSTM_SEQ,
+           "steps": SHARD_RECURRENT_STEPS, "unsharded": u, "sharded": sh,
+           "loss_max_rel": loss_rel, "grad_max_rel": grad_rel,
+           "bit_for_bit": loss_rel == 0 and grad_rel == 0, "plain_calls": plain["plain_calls"],
+           "sharded_over_unsharded": sh["step_seconds_last"] / u["step_seconds_last"]}
+    if not (loss_rel <= TOL_SHARD and grad_rel <= TOL_SHARD and u["launches"] == sh["launches"]
+            == 0 and plain["plain_calls"] == 0 and all(map(math.isfinite, sh["losses"]))):
+        raise AssertionError(f"{cfg.arch_id} sharded train vs unsharded: {res}")
+    torch.cuda.empty_cache()
+    return res
+
+
+def sharded_mamba_layer(cfg, policy, device):
+    """jamba's period position 1 (Mamba + dense FFN) as `mamba_layer_phase`
+    builds it (the same seed, fp32 masters, bf16 compute, 1 x TRAIN_SEQ
+    packed documents): the forward and the backward of sum(out * r)
+    unsharded and on the mesh (parameters placed by their logical axes, the
+    input and the ids as a batch), each run twice (the first warms up):
+    output and every gradient equal (TOL_SHARD of each leaf's max),
+    CUDA-event milliseconds of both beside each other."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.models.model import apply_layer, init_layer, layer_axes
+    from repro_torch.parallel.sharding import NULL_POLICY
+    from repro_torch.train.optimizer import tree_leaves
+
+    spec = cfg.period[1]
+    g = torch.Generator(device=device)
+    g.manual_seed(6)
+    p = init_layer(g, cfg, spec, dtype=torch.float32, device=device)
+    md = packed_md(cfg, 1, TRAIN_SEQ, device)
+    x = torch.randn((1, TRAIN_SEQ, cfg.d_model), generator=g, device=device)
+    r = torch.randn((1, TRAIN_SEQ, cfg.d_model), generator=g, device=device)
+
+    def run(pol):
+        pp = pol.distribute(p, layer_axes(cfg, spec))
+        leaves = tree_leaves(pp)
+        for leaf in leaves:
+            leaf.requires_grad_(True)
+        mdp = {**md, **pol.distribute_batch({k: md[k] for k in ("segment_ids", "positions",
+                                                                "abs_positions")})}
+        xi, ri = (pol.distribute_batch({"x": t})["x"] for t in (x.to(torch.bfloat16), r))
+        out = ms = None
+        for _ in range(2):
+            xi = xi.detach().requires_grad_(True)
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            with implicit_replication() if pol.mesh is not None else contextlib.nullcontext():
+                events[0].record()
+                out, _ = apply_layer(cfg, spec, pp, xi, mdp, policy=pol)
+                events[1].record()
+                grads = torch.autograd.grad((out.float() * ri).sum(), [xi] + leaves)
+                events[2].record()
+            torch.cuda.synchronize()
+            ms = (events[0].elapsed_time(events[1]), events[1].elapsed_time(events[2]))
+
+        def local(t):
+            return (t.to_local() if isinstance(t, DTensor) else t).detach()
+        return local(out), [local(gr) for gr in grads], ms
+    (o0, g0, ms0), (o1, g1, ms1) = run(NULL_POLICY), run(policy)
+    errs = [float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30))
+            for a, b in zip([o1] + g1, [o0] + g0, strict=True)]
+    res = {"arch": cfg.arch_id, "period_position": 1, "spec": f"{spec.mixer}+{spec.ffn}",
+           "tokens": TRAIN_SEQ, "output_and_grads_max_rel": max(errs),
+           "bit_for_bit": torch.equal(o1, o0) and all(torch.equal(a, b) for a, b in zip(g1, g0)),
+           "forward_event_ms": {"unsharded": ms0[0], "sharded": ms1[0]},
+           "backward_event_ms": {"unsharded": ms0[1], "sharded": ms1[1]}, "tol": TOL_SHARD}
+    if not max(errs) <= TOL_SHARD:
+        raise AssertionError(f"{cfg.arch_id} sharded Mamba layer vs unsharded: {res}")
+    torch.cuda.empty_cache()
+    return res
+
+
+def sharded_layer_launches(cfg, policy, device, *, S=128):
+    """Kernels one layer of each recurrent mixer of `cfg` launches (its
+    first spec without MoE; bf16 weights, forward in inference on 1 x S
+    packed documents), unsharded and on the mesh (the device profiled
+    alone), and those of its scan alone (`SCANS`, called on the inputs the
+    layer handed it): the loops run on local shards, so both launch the
+    same kernels."""
+    import importlib
+
+    from repro_torch.models.model import apply_layer, init_layer, layer_axes
+    from repro_torch.parallel.sharding import NULL_POLICY
+
+    g = torch.Generator(device=device)
+    g.manual_seed(3)
+    md = packed_md(cfg, 1, S, device)
+    out = {}
+    for kind in [m for m in RECURRENT if any(sp.mixer == m for sp in cfg.period)]:
+        spec = next(sp for sp in sorted(cfg.period, key=lambda sp: sp.ffn == "moe")
+                    if sp.mixer == kind)
+        module, name = SCANS[kind]
+        mod = importlib.import_module(module)
+        scan, calls = getattr(mod, name), []
+
+        def counting(*args):
+            calls.append(1)
+            return scan(*args)
+        x = torch.randn((1, S, cfg.d_model), generator=g, device=device).to(torch.bfloat16)
+        row = {"spec": f"{spec.mixer}+{spec.ffn}", "positions": S}
+        with torch.no_grad():
+            p = init_layer(g, cfg, spec, dtype=torch.bfloat16, device=device)
+            for tag, pol in (("unsharded", NULL_POLICY), ("sharded", policy)):
+                pp = pol.distribute(p, layer_axes(cfg, spec))
+                mdp = {**md, **pol.distribute_batch({k: md[k] for k in (
+                    "segment_ids", "positions", "abs_positions")})}
+                xp = pol.distribute_batch({"x": x})["x"]
+
+                def layer():
+                    return apply_layer(cfg, spec, pp, xp, mdp, policy=pol)
+                setattr(mod, name, counting)
+                try:
+                    layer()  # warm-up
+                    row[f"{tag}_scan_calls"] = len(calls)
+                    calls.clear()
+                finally:
+                    setattr(mod, name, scan)
+                row[tag] = device_profile(layer, 1, host_ops=False)["kernels_per_call"]
+        row["equal"] = row["unsharded"] == row["sharded"]
+        out[kind] = row
+        del p
+    torch.cuda.empty_cache()
+    log(f"sharding: {cfg.arch_id} launches a layer", json.dumps(out))
+    return out
 
 
 def compression_check(grads, device):
@@ -3204,6 +3446,60 @@ def sharded_moe(mesh, device):
     return out
 
 
+def recurrent_sharding(record, rec, policy, device, served):
+    """Phase 14's recurrent families on the mesh, into `rec`: the fp32 parity
+    of reduced xlstm-1.3b (AdamW) and reduced jamba-1.5-large-398b
+    (Adafactor, weight seed 1, as phase 13 runs them), each cut to one
+    period; serving of xlstm-1.3b
+    at full depth and jamba cut to JAMBA_LAYERS held to phase 13's
+    (`served`), with decode's busy share; the xlstm-1.3b cut's train steps
+    on the mesh and unsharded (`sharded_recurrent_train`, its device time
+    composed from phase 13's layers at 1 x 1024); jamba's Mamba layer
+    forward and backward (`sharded_mamba_layer`); and each mixer's kernels
+    a layer on the mesh and unsharded (`sharded_layer_launches`)."""
+    from repro_torch.configs import get_arch
+
+    rr = record["recurrent"]
+    xcfg, jcfg = get_arch("xlstm-1.3b"), get_arch("jamba-1.5-large-398b")
+    jcut = dataclasses.replace(jcfg, n_layers=JAMBA_LAYERS, period=jcfg.period[:JAMBA_LAYERS])
+    t0 = time.perf_counter()
+
+    def mark(part):
+        rec["seconds_by_recurrent_part"][part] = time.perf_counter() - t0
+        log(f"sharding: {rec['seconds_by_recurrent_part'][part]:.1f} s into the recurrent "
+            f"parts after {part}")
+    rec["seconds_by_recurrent_part"] = {}
+    # each parity model cut to one period (phase 13's holds two): every mixer
+    # once, the sLSTM loops half as many
+    for arch, kw in (("xlstm-1.3b", {}), ("jamba-1.5-large-398b",
+                                          {"optimizer": "adafactor", "seed": 1})):
+        rec[f"{arch}_fp32_parity"] = sharded_parity(policy, device, arch, **kw,
+                                                    layers=len(get_arch(arch).period))
+        log(f"sharding: {arch} fp32 parity", json.dumps(rec[f"{arch}_fp32_parity"]))
+    mark("fp32 parity")
+    for cfg in (xcfg, jcut):
+        res = rec[f"{cfg.arch_id}_serve"] = sharded_serve(cfg, policy, device,
+                                                          served[cfg.arch_id],
+                                                          profile_decode=True)
+        ref = rr[f"{cfg.arch_id}_serve"]
+        res["unsharded"] = {"prefill_seconds": ref["prefill_seconds"],
+                            "decode_ms_per_token": ref["decode_ms_per_token"],
+                            "decode_busy_share": ref["decode_profile"]["busy_share"],
+                            "max_memory_allocated_bytes": ref["max_memory_allocated_bytes"]}
+        res["launches_a_layer"] = sharded_layer_launches(cfg, policy, device)
+        log(f"sharding: {cfg.arch_id} serve", json.dumps(res))
+        mark(f"{cfg.arch_id} serve")
+    rec[f"{xcfg.arch_id}_train"] = sharded_recurrent_train(
+        xcfg, policy, device, rr[f"{xcfg.arch_id}_train"]["loops"]["by_mixer"])
+    log(f"sharding: {xcfg.arch_id} train", json.dumps(rec[f"{xcfg.arch_id}_train"]))
+    mark(f"{xcfg.arch_id} train")
+    rec["mamba_layer"] = sharded_mamba_layer(jcfg, policy, device)
+    rec["mamba_layer"]["unsharded_phase_13"] = {
+        k: rr["mamba_layer"][k] for k in ("forward_event_ms", "backward_event_ms")}
+    log("sharding: mamba layer", json.dumps(rec["mamba_layer"]))
+    mark("mamba layer")
+
+
 def sharding_phase(record, device, served):
     """Phase 14: the sharded step and serving on a (1, 1) mesh of a one-rank
     NCCL group, and the MoE layer on a (1, 1, 1) (pod, data, model) mesh of
@@ -3255,6 +3551,8 @@ def sharding_phase(record, device, served):
                     "decode_ms_per_token"]
             log(f"sharding: {arch} serve", json.dumps(rec[f"{arch}_serve"]))
         mark("serving")
+        recurrent_sharding(record, rec, policy, device, served)
+        mark("recurrent")
         pod = make_mesh((1, 1, 1), ("pod", "data", "model"))
         rec["moe"] = sharded_moe(pod, device)
         rec["moe"]["mesh"] = {"shape": list(pod.shape), "axes": list(pod.mesh_dim_names)}
@@ -3349,9 +3647,10 @@ def roofline_phase(record, device):
     equal `attention_bound`'s visible pairs for that batch (every layer of a
     micro-batch: the forward twice, forward and remat, 2 products, and the
     backward once, 5), with the train phase's launches; times a kernel call
-    through its op against the wrapper alone (`op_dispatch_cost`); and runs the
-    dry-run of qwen3-8b decode_32k on the (16, 16) fake-group mesh in a
-    subprocess, whose status must be `ok`."""
+    through its op against the wrapper alone (`op_dispatch_cost`); counts
+    xlstm-1.3b's one-period step on meta and on the card (`recurrent_count`);
+    and runs the dry-run of qwen3-8b decode_32k and xlstm-1.3b long_500k on
+    the (16, 16) fake-group mesh in subprocesses, whose status must be `ok`."""
     import tempfile
 
     from repro_torch.configs import get_arch
@@ -3436,27 +3735,74 @@ def roofline_phase(record, device):
 
     res["op_dispatch"] = op_dispatch_cost(device)
     log("roofline: op dispatch", json.dumps(res["op_dispatch"]))
+    res["xlstm-1.3b_train_loops"] = recurrent_count(device)
+    log("roofline: xlstm-1.3b train counted", json.dumps(res["xlstm-1.3b_train_loops"]))
 
     # the dry-run: a fake group of 256 ranks and meta tensors, in its own process
-    with tempfile.TemporaryDirectory() as out:
-        t1 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-                               "qwen3-8b", "--shape", "decode_32k", "--out", out],
-                              capture_output=True, text=True, timeout=300,
-                              env={**os.environ, "PYTHONPATH": str(SRC)})
-        if proc.returncode != 0:
-            raise AssertionError(f"the dry-run failed ({proc.returncode}): "
-                                 f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
-        rec = json.loads((Path(out) / "qwen3-8b__decode_32k__pod1__baseline.json").read_text())
-    if rec["status"] != "ok":
-        raise AssertionError(f"the dry-run's qwen3-8b decode_32k cell: {rec['status']}")
-    res["dryrun_qwen3-8b_decode_32k"] = {
-        "status": rec["status"], "seconds": time.perf_counter() - t1,
-        "trace_s": rec["trace_s"], "roofline": {k: rec["roofline"][k] for k in (
-            "bound", "compute_s", "memory_s", "collective_s")},
-        "hbm_model": rec["hbm_model"], "summary": proc.stdout.strip().splitlines()[-2:]}
-    log("roofline: dry-run", json.dumps(res["dryrun_qwen3-8b_decode_32k"]))
+    for arch, shape in (("qwen3-8b", "decode_32k"), ("xlstm-1.3b", "long_500k")):
+        with tempfile.TemporaryDirectory() as out:
+            t1 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                                   arch, "--shape", shape, "--out", out],
+                                  capture_output=True, text=True, timeout=300,
+                                  env={**os.environ, "PYTHONPATH": str(SRC)})
+            if proc.returncode != 0:
+                raise AssertionError(f"the dry-run failed ({proc.returncode}): "
+                                     f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+            rec = json.loads((Path(out) / f"{arch}__{shape}__pod1__baseline.json").read_text())
+        if rec["status"] != "ok":
+            raise AssertionError(f"the dry-run's {arch} {shape} cell: {rec['status']}")
+        res[f"dryrun_{arch}_{shape}"] = {
+            "status": rec["status"], "seconds": time.perf_counter() - t1,
+            "trace_s": rec["trace_s"], "roofline": {k: rec["roofline"][k] for k in (
+                "bound", "compute_s", "memory_s", "collective_s")},
+            "hbm_model": rec["hbm_model"], "summary": proc.stdout.strip().splitlines()[-2:]}
+        log("roofline: dry-run", json.dumps(res[f"dryrun_{arch}_{shape}"]))
     res["seconds"] = time.perf_counter() - t0
+
+
+def recurrent_count(device):
+    """xlstm-1.3b at full width cut to its first period (7 mLSTM layers, an
+    sLSTM), one AdamW train step (remat) of 1 x ROOFLINE_XLSTM_SEQ packed
+    documents counted on the meta device, where each loop over chunks or
+    positions runs `counter.SAMPLE` iterations counted as all of them, and
+    on the card under the counter, where the loops run whole: their matmul
+    FLOPs must be equal (the scaling is exact for the products), and the
+    meta count's other terms are set beside the card's."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synth import SyntheticPackedDataset
+    from repro_torch.roofline.counter import OpCounter
+    from repro_torch.train.optimizer import optimizer_for
+    from repro_torch.train.train_step import build_train_step, init_train_state
+
+    cfg = get_arch("xlstm-1.3b")
+    tcfg = dataclasses.replace(cfg, n_layers=len(cfg.period))
+    opt = optimizer_for(tcfg, lr=1e-3)
+    raw = SyntheticPackedDataset(tcfg, ROOFLINE_XLSTM_SEQ, 1, seed=0).batch_at(0)
+    t1 = time.perf_counter()
+    meta, args = meta_train_count(tcfg, opt, meta_like(raw), 1)
+    meta_s = time.perf_counter() - t1
+    state = init_train_state(0, tcfg, opt, device=device)
+    step = build_train_step(tcfg, opt, microbatches=1)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with OpCounter() as real:
+        step(state, to_device(raw, device))
+        torch.cuda.synchronize()
+    card_s = time.perf_counter() - t1
+    del state, step
+    torch.cuda.empty_cache()
+    res = {"layers": tcfg.n_layers, "tokens": ROOFLINE_XLSTM_SEQ,
+           "meta": {k: v for k, v in meta.as_dict().items() if not k.startswith("top_")},
+           "card": {k: v for k, v in real.as_dict().items() if not k.startswith("top_")},
+           "meta_count_seconds": meta_s, "card_count_seconds": card_s,
+           "argument_bytes": args}
+    res["flops_meta_over_card"] = meta.flops / real.flops
+    res["hbm_bytes_meta_over_card"] = meta.hbm_bytes / real.hbm_bytes
+    if meta.matmul_flops != real.matmul_flops or not meta.scaled_loops:
+        raise AssertionError(f"xlstm-1.3b step: matmul FLOPs on meta (loops scaled) "
+                             f"{meta.matmul_flops} != on the card {real.matmul_flops}: {res}")
+    return res
 
 
 def main(argv=None):
@@ -3578,7 +3924,7 @@ def main(argv=None):
     mark("moe")
     multimodal_phases(record, device, served)
     mark("multimodal")
-    recurrent_phases(record, device)
+    recurrent_phases(record, device, served)
     mark("recurrent")
     sharding_phase(record, device, served)
     del served

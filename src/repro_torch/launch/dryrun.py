@@ -18,10 +18,12 @@ shapes) and the counter's peak of the bytes the step's ops held
 (`temp_bytes`); `hbm_model` fits them against one H100's 80 GB.
 
 `status` is `ok`, `skipped` (the config's `shape_skips`), `not_ported` (a
-family the sharded steps do not take yet, the recurrent ones, jamba and
-xlstm: the NotImplementedError's text) or `error` (a traceback, from
-`main`). Every other family runs on both meshes: the dense, the MoE (its
-tokens over (pod, data) on (2, 16, 16)), the VLM and the encoder-decoder.
+step that raises NotImplementedError, with its text; no family does) or
+`error` (a traceback, from `main`). Every family runs on both meshes: the
+dense, the MoE (its tokens over (pod, data) on (2, 16, 16)), the VLM, the
+encoder-decoder, and the recurrent and hybrid ones (xlstm, jamba), whose
+loops over positions or chunks run on local shards and, on meta tensors,
+run a few iterations counted as all (`roofline.counter.scan`).
 Training accumulates gradients in float32 (`accum_dtype`); the reference
 accumulates in bf16 above 5e10 parameters (`src/repro/launch/dryrun.py:53`),
 which the port has no option for, so grok-1's per-rank memory differs from

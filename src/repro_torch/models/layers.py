@@ -96,3 +96,22 @@ def causal_conv1d(x, w, b, segment_ids=None):
                                                                         device=x.device))
         out = out + shifted * w[:, -1 - j]
     return out + b
+
+
+def local_conv1d(policy, x, w, b, segment_ids=None):
+    """`causal_conv1d` of x (B,S,C) over an inner width C (`"dinner"`): under
+    a mesh on each rank's rows and channels (`ShardingPolicy.run_local`),
+    never splitting the sequence."""
+    rows = ("batch", None, "dinner")
+    return policy.run_local(lambda *a: (causal_conv1d(*a),),
+                            (rows, ("dinner", None), ("dinner",), ("batch", None)),
+                            ((rows, tuple(x.shape)),), x, w, b, segment_ids)[0]
+
+
+def doc_keep(segment_ids, like):
+    """(B,S) bool, False where a packed document starts (the recurrences'
+    state resets there); all True without segment ids (like's rows)."""
+    if segment_ids is None:
+        return torch.ones(like.shape[:2], dtype=torch.bool, device=like.device)
+    S = segment_ids.shape[1]
+    return segment_ids == F.pad(segment_ids, (1, 0), value=-1)[:, :S]

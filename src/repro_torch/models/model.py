@@ -140,11 +140,8 @@ def param_axes(cfg):
 # ----------------------------------------------------------------- layers
 def apply_layer(cfg, spec, p, x, md, cache=None, policy=NULL_POLICY):
     mix_cache = cache.get("mixer") if cache else None
-    # a policy with a mesh reaches only attention (self and cross) and the
-    # FFN: the recurrent mixers refuse a mesh (`train_step.check_shardable`)
-    kw = {"policy": policy} if spec.mixer == "attn" else {}
     h, new_mix = MIXER_FN[spec.mixer](cfg, spec, p["mixer"], rms_norm(x, p["norm1"], cfg.norm_eps),
-                                      md, cache=mix_cache, **kw)
+                                      md, cache=mix_cache, policy=policy)
     x = x + h
     new_cache = {"mixer": new_mix} if new_mix is not None else None
     if "cross" in p:  # a decoder layer over the encoder output md["enc_out"]

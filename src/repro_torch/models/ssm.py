@@ -10,6 +10,14 @@ as the reference's `h·decay·keep`), and the input (dt·xc)·B; these are the
 reference's elementwise float32 operations, so the loop is left one
 multiply, one add and one product with C a position (three launches).
 Decode keeps a (conv window, ssm state) cache and costs O(1) a token.
+
+Under a `ShardingPolicy` with a mesh the projections are DTensor products
+(the weights' FSDP shards gathered), and the causal conv and the scan run
+on each rank's local shards (`ShardingPolicy.run_local`): its rows (batch
+over dp) and its inner channels (d_inner over tp, where it divides). The
+scan is exact so split: each channel's state is its own, and y = h·C sums
+over N only; B and C, sums over d_inner, reach it whole over tp. The
+sequence is never split inside it. Decode runs on the DTensors.
 """
 from __future__ import annotations
 
@@ -18,7 +26,9 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import causal_conv1d, dense_init
+from repro_torch.models.layers import dense_init, doc_keep, local_conv1d
+from repro_torch.parallel.sharding import NULL_POLICY, placed_as
+from repro_torch.roofline.counter import scan
 
 # elements of one block of the hoisted (B, positions, d_inner, N) terms: 512 MiB in float32
 SCAN_BLOCK_ELEMENTS = 1 << 27
@@ -61,22 +71,28 @@ def mamba_axes(cfg):
             "A_log": ("dinner", None), "D_skip": ("dinner",), "w_out": ("dinner", "dmodel")}
 
 
-def _ssm_inputs(p, xc, dtype):
+def _ssm_inputs(p, xc, dtype, policy):
     """dt (softplus, float32), B and C (float32) of the conv output xc; the
     weights cast to the compute dtype, then to xc's (float32 in a decode
     step over a float32 conv window, as the reference promotes)."""
     def w(name):
-        return p[name].to(dtype).to(xc.dtype)
+        return policy.gathered(p[name]).to(dtype).to(xc.dtype)
     dt = F.softplus(((xc @ w("w_dt")) @ w("dt_proj")).float() + p["dt_bias"])
     return dt, (xc @ w("w_B")).float(), (xc @ w("w_C")).float()
 
 
-def _projections(cfg, p, x, segment_ids):
+def _projections(cfg, p, x, segment_ids, policy):
     dtype = x.dtype
-    xin = x @ p["w_x"].to(dtype)
-    z = x @ p["w_z"].to(dtype)
-    xc = F.silu(causal_conv1d(xin, p["conv_w"].to(dtype), p["conv_b"].to(dtype), segment_ids))
-    return (xin, z, xc, *_ssm_inputs(p, xc, dtype))
+    xin = x @ policy.gathered(p["w_x"]).to(dtype)
+    z = x @ policy.gathered(p["w_z"]).to(dtype)
+    xc = F.silu(local_conv1d(policy, xin, p["conv_w"].to(dtype), p["conv_b"].to(dtype),
+                             segment_ids))
+    return (xin, z, xc, *_ssm_inputs(p, xc, dtype, policy))
+
+
+def _mamba_step(h, decay_t, inp_t, c_t):
+    h = h * decay_t + inp_t
+    return h, torch.bmm(h, c_t)
 
 
 def selective_scan(A, dt, Bm, Cm, xc, keep):
@@ -100,13 +116,17 @@ def selective_scan(A, dt, Bm, Cm, xc, keep):
         s1 = min(S, s0 + block)
         decay = torch.exp(dt[:, s0:s1, :, None] * A + log_keep[:, s0:s1])
         inp = (dt[:, s0:s1] * xc[:, s0:s1])[..., None] * Bm[:, s0:s1, None, :]
-        for t, (decay_t, inp_t) in enumerate(zip(decay.unbind(1), inp.unbind(1))):
-            h = h * decay_t + inp_t
-            ys.append(torch.bmm(h, Ccols[s0 + t]))
+        h, y = scan(_mamba_step, h, (decay.unbind(1), inp.unbind(1), Ccols[s0:s1]))
+        ys += y
     return torch.cat(ys, dim=-1).transpose(1, 2), h
 
 
-def mamba(cfg, spec, p, x, md, cache=None):
+def _local_scan(A, dt, Bm, Cm, xc, seg):
+    """`selective_scan` on one rank's shards, its keep from the segment ids."""
+    return selective_scan(A, dt, Bm, Cm, xc, doc_keep(seg, dt).float())
+
+
+def mamba(cfg, spec, p, x, md, cache=None, policy=NULL_POLICY):
     """Returns (out (B,S,D), new_cache).
 
     cache: None for the packed forward and prefill (with md['collect_state'],
@@ -114,40 +134,43 @@ def mamba(cfg, spec, p, x, md, cache=None):
     'ssm': the state after the last position (B,di,N)}); else that cache,
     and x is one token (B,1,D): the conv reads the window, tap K-1 the
     current step, in the promoted dtype of window and x, as the reference's.
+    Under a `policy` with a mesh, x, the weights and the cache are DTensors
+    (the module's docstring).
     """
     B, S, D = x.shape
-    K = cfg.mamba_d_conv
+    K, N = cfg.mamba_d_conv, cfg.mamba_d_state
     dtype = x.dtype
     A = -torch.exp(p["A_log"].float())  # (di, N)
+    w_out = policy.gathered(p["w_out"]).to(dtype)
 
     if cache is not None:
         conv_st, h = cache["conv"], cache["ssm"]  # (B,K-1,di), (B,di,N)
-        xin = x @ p["w_x"].to(dtype)
-        z = x @ p["w_z"].to(dtype)
+        xin = x @ policy.gathered(p["w_x"]).to(dtype)
+        z = x @ policy.gathered(p["w_z"]).to(dtype)
         wdt = torch.promote_types(conv_st.dtype, dtype)
         window = torch.cat([conv_st.to(wdt), xin.to(wdt)], dim=1)  # (B,K,di)
         conv_w = p["conv_w"].to(dtype).to(wdt)  # (di,K)
         xc = torch.einsum("bki,ik->bi", window, conv_w) + p["conv_b"].to(dtype).to(wdt)
         xc = F.silu(xc)[:, None]  # (B,1,di)
-        dt, Bm, Cm = (t[:, 0] for t in _ssm_inputs(p, xc, dtype))
+        dt, Bm, Cm = (t[:, 0] for t in _ssm_inputs(p, xc, dtype, policy))
         decay = torch.exp(dt[..., None] * A)
         xc0 = xc[:, 0].float()
         h = h * decay + (dt * xc0)[..., None] * Bm[:, None, :]
         y = torch.einsum("bin,bn->bi", h, Cm) + p["D_skip"] * xc0
         y = (y.to(dtype) * F.silu(z[:, 0]))[:, None]
-        return y @ p["w_out"].to(dtype), {"conv": window[:, 1:], "ssm": h}
+        return y @ w_out, placed_as({"conv": window[:, 1:], "ssm": h}, cache)
 
     seg = md.get("segment_ids")
-    xin, z, xc, dt, Bm, Cm = _projections(cfg, p, x, seg)
-    if seg is not None:  # 0 where a document starts: the state resets
-        keep = (seg == F.pad(seg, (1, 0), value=-1)[:, :S]).float()
-    else:
-        keep = torch.ones((B, S), dtype=torch.float32, device=x.device)
+    xin, z, xc, dt, Bm, Cm = _projections(cfg, p, x, seg, policy)
     xcf = xc.float()
-    ys, h_last = selective_scan(A, dt, Bm, Cm, xcf, keep)
+    di = xcf.shape[-1]
+    rows, inner = ("batch", None, "dinner"), ("batch", None, None)
+    ys, h_last = policy.run_local(
+        _local_scan, (("dinner", None), rows, inner, inner, rows, ("batch", None)),
+        ((rows, (B, S, di)), (("batch", "dinner", None), (B, di, N))), A, dt, Bm, Cm, xcf, seg)
     y = ys + p["D_skip"] * xcf
-    y = y.to(dtype) * F.silu(z)
-    out = y @ p["w_out"].to(dtype)
+    y = policy.constrain(y.to(dtype) * F.silu(z), "batch", "seq", "dinner")
+    out = y @ w_out
     new_cache = {"conv": xin[:, -(K - 1):], "ssm": h_last} if md.get("collect_state") else None
     return out, new_cache
 

@@ -231,6 +231,34 @@ class ShardingPolicy:
                       for i, pl in enumerate(w.placements)]
         return w.redistribute(self.mesh, placements)
 
+    def run_local(self, fn, in_axes, out_axes, *args):
+        """fn(*args) on each rank's local shards, through `local_map`: the
+        argument i placed by its logical axes `in_axes[i]` (None for an
+        argument that is not a tensor, or is None), the outputs (fn returns
+        a tuple) placed by `out_axes`, one (axes, shape) each. An argument
+        replicated over a mesh dim over which an output is split gets its
+        gradient there as a partial sum (each rank's part of the whole): the
+        ranks computed different parts. Without a mesh, fn(*args) with each
+        tensor that asks for a gradient passed as a view of itself: its
+        gradient is then summed inside fn before it joins the argument's
+        other uses, as `local_map`'s hand-over sums it, so that a one-rank
+        mesh gives the unsharded step's numbers bit for bit."""
+        if self.mesh is None:
+            return fn(*(a.view_as(a) if isinstance(a, torch.Tensor) and a.requires_grad else a
+                        for a in args))
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        from torch.distributed.tensor.experimental import local_map
+
+        ins = tuple(None if ax is None or a is None else self.placements_for(ax, a.shape)
+                    for ax, a in zip(in_axes, args, strict=True))
+        outs = tuple(self.placements_for(ax, shape) for ax, shape in out_axes)
+        split = {i for pl in outs for i, p in enumerate(pl) if isinstance(p, Shard)}
+        grads = tuple(None if pl is None else [
+            Partial() if i in split and isinstance(p, Replicate) else p for i, p in enumerate(pl)]
+            for pl in ins)
+        return local_map(fn, out_placements=outs, in_placements=ins, in_grad_placements=grads,
+                         device_mesh=self.mesh, redistribute_inputs=True)(*args)
+
     def constrain(self, x, *axes):
         """Redistribute the DTensor x to its logical axes' placements (the
         reference's `with_sharding_constraint`); x itself without a mesh."""
@@ -259,6 +287,16 @@ def mesh_block(mesh, dims):
     for i in dims:
         n, block = n * mesh.size(i), block * mesh.size(i) + mesh.get_local_rank(i)
     return n, block
+
+
+def placed_as(tree, like):
+    """Each DTensor of `tree` placed as the same key's of `like` (a decode
+    step's new state as its cache was placed, so that the cache keeps its
+    layout from step to step); a plain tensor as it is."""
+    from torch.distributed.tensor import DTensor
+
+    return {k: v.redistribute(like[k].device_mesh, like[k].placements)
+            if isinstance(v, DTensor) else v for k, v in tree.items()}
 
 
 def gather(tree):

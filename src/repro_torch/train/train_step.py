@@ -5,9 +5,9 @@ optimizer update. Mixed precision as the reference: fp32 master parameters,
 bf16 compute, fp32 gradients. Under a `ShardingPolicy` with a mesh the train
 state is DTensors placed by the reference's rules (`sharding_for_state`),
 each micro-batch is split over the dp axes (`batch_spec`), and the forward,
-the loss, the clip and the optimizer's in-place update act on DTensors; the
-dense, MoE, VLM and encoder-decoder families train and serve so (the
-recurrent ones wait, ROADMAP Queue 1). The reference's `use_scan` and
+the loss, the clip and the optimizer's in-place update act on DTensors;
+every family trains and serves so (the dense, MoE, VLM, encoder-decoder,
+recurrent and hybrid ones). The reference's `use_scan` and
 `flash_chunk` have no counterpart here (the attention kernel takes every
 length).
 """
@@ -94,7 +94,6 @@ def place_state(policy, cfg, optimizer, state):
     the step plain. Without a mesh, `state` itself."""
     if policy.mesh is None:
         return state
-    check_shardable(cfg)
     from torch.distributed.tensor import distribute_tensor
 
     def place(tree, placements):
@@ -107,14 +106,6 @@ def place_state(policy, cfg, optimizer, state):
     placements = sharding_for_state(policy, cfg, optimizer)[0]
     return {"params": place(state["params"], placements["params"]),
             "opt": place(state["opt"], placements["opt"]), "step": state["step"]}
-
-
-def check_shardable(cfg):
-    """The families the sharded step holds: the attention LMs (dense, MoE,
-    VLM and encoder-decoder); a model with a recurrent mixer refuses."""
-    if any(s.mixer != "attn" for s in cfg.period):
-        raise NotImplementedError(f"{cfg.arch_id}: the recurrent family under a mesh is not "
-                                  "ported yet (ROADMAP Queue 1 item 4)")
 
 
 def global_norm(tree):
@@ -130,7 +121,6 @@ def build_train_step(cfg, optimizer, *, policy=NULL_POLICY, microbatches=1, rema
     (replicated) tensors."""
     sharded = policy.mesh is not None
     if sharded:
-        check_shardable(cfg)
         from torch.distributed.tensor import DTensor
     replicating = _replicating(policy)
 
@@ -185,16 +175,14 @@ def build_serve_step(cfg, *, sample="greedy", compute_dtype=torch.bfloat16,
     """serve_step(params, cache, batch) -> (next_tokens, logits, cache). The
     cache (`init_cache`/`extend_cache`) may mix the rings of sliding-window
     layers with the full caches of global ones. Under a policy with a mesh
-    (every family but the recurrent ones) the parameters are DTensors placed
-    by the sharding rules, the cache is placed by
+    the parameters are DTensors placed by the sharding rules, the cache is placed by
     `launch.specs.cache_shardings` (`launch.specs.place_cache`), the batch by
     `distribute_batch`, and each rank writes and attends its own part of the
     cache (`models.attention.sharded_decode`; an encoder-decoder's constant
-    cross cache, read only, `models.attention.sharded_cross_decode`)."""
+    cross cache, read only, `models.attention.sharded_cross_decode`); a
+    recurrent layer's state steps on the DTensors."""
     if sample != "greedy":
         raise ValueError(f"sampling '{sample}' is not supported; only 'greedy'")
-    if policy.mesh is not None:
-        check_shardable(cfg)
     replicating = _replicating(policy)
 
     def serve_step(params, cache, batch):
@@ -211,10 +199,8 @@ def build_serve_step(cfg, *, sample="greedy", compute_dtype=torch.bfloat16,
 
 def build_prefill_step(cfg, *, compute_dtype=torch.bfloat16, policy=NULL_POLICY):
     """prefill_step(params, batch) -> (last_logits, caches); under a policy
-    with a mesh, through `attention.sharded_packed_attention` as training,
-    the caches DTensors."""
-    if policy.mesh is not None:
-        check_shardable(cfg)
+    with a mesh, through `attention.sharded_packed_attention` and the
+    recurrences' local scans as training, the caches DTensors."""
     replicating = _replicating(policy)
 
     def prefill_step(params, batch):

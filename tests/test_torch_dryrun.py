@@ -5,12 +5,15 @@ small fake-group mesh in place of the production one, (2, 2) or (2, 2, 2),
 run in one subprocess (the fake default process group is the process's): a
 train, a prefill and a decode cell of qwen3-8b, a decode cell of qwen3-moe,
 a VLM train cell (M-RoPE), the MoE layer over the (pod, data) axes, and an
-encoder-decoder's train and decode cells (reduced whisper-medium) are `ok`
-with the record's keys, their `compute_s` is the counted flops over the
-H100's peak, and the counted attention FLOPs are the kernel ops' visible
-pairs; a recurrent cell (reduced xlstm-1.3b) is `not_ported`, naming its
-ROADMAP item. `skipped` follows each config's `shape_skips`, and the CLI
-prints its summary line.
+encoder-decoder's train and decode cells (reduced whisper-medium), and the
+recurrent families' cells (reduced xlstm-1.3b decode, and train_4k over a
+whole period with its sLSTM layer; reduced jamba prefill_32k over Mamba
+layers and an attention layer) are `ok` with the record's keys, their
+`compute_s` is the counted flops over the H100's peak, and the counted
+attention FLOPs are the kernel ops' visible pairs. The recurrent train and
+prefill cells finish in seconds because their loops run SAMPLE iterations
+and are counted whole (`roofline.counter.scan`). `skipped` follows each
+config's `shape_skips`, and the CLI prints its summary line.
 """
 import json
 import os
@@ -39,9 +42,14 @@ CELLS = {
     "enc-dec": ("whisper-medium", "train_4k", ENC_DEC, False),
     "enc-dec-decode": ("whisper-medium", "decode_32k", ENC_DEC, False),
     "recurrent": ("xlstm-1.3b", "decode_32k", SMALL, False),
+    # one period each: 7 mLSTM layers and an sLSTM; Mamba + MoE, Mamba, Mamba
+    # + MoE, attention
+    "recurrent-train": ("xlstm-1.3b", "train_4k", {**SMALL, "n_layers": 8}, False),
+    "hybrid-prefill": ("jamba-1.5-large-398b", "prefill_32k", {**MOE, "n_layers": 4}, False),
 }
 MESHES = {False: (4, {"data": 2, "model": 2}), True: (8, {"pod": 2, "data": 2, "model": 2})}
-OK_CELLS = [name for name in CELLS if name != "recurrent"]
+OK_CELLS = list(CELLS)
+SCALED_CELLS = ("recurrent-train", "hybrid-prefill")
 RUN = r"""
 import json, sys
 from repro_torch.launch import dryrun
@@ -105,9 +113,21 @@ def test_train_cell_counts_the_kernel_ops_visible_pairs(records):
 
 
 def test_unported_families_and_meshes_name_their_item(records):
+    """No family is left unported: the recurrent cell, once `not_ported`,
+    runs `ok` with the record's keys."""
     rec = records["recurrent"]
-    assert rec["status"] == "not_ported" and "recurrent family" in rec["reason"], rec
-    assert "ROADMAP Queue 1 item 4" in rec["reason"]
+    assert rec["status"] == "ok", rec.get("reason")
+    assert KEYS <= set(rec) and ROOFLINE_KEYS <= set(rec["roofline"])
+
+
+@pytest.mark.parametrize("name", SCALED_CELLS)
+def test_recurrent_cells_count_their_loops_scaled(records, name):
+    """The train_4k and prefill_32k cells ran their loops in part (every
+    layer's, each micro-batch's), the decode cell's one-position steps
+    whole."""
+    layers = CELLS[name][2]["n_layers"]
+    assert records[name]["counter"]["scaled_loops"] >= layers
+    assert records["recurrent"]["counter"]["scaled_loops"] == 0
 
 
 def test_skipped_follows_shape_skips():

@@ -13,8 +13,15 @@ ops with a shape-only path (`repro_torch.kernels.ops`), on the CPU:
   * on the meta device the kernel ops' FLOPs equal `chip_smoke.attention_bound`'s
     count for one causal document a row, a window and a non-causal call, and
     on tensors with data the pairs the ids make visible;
-  * the fake outputs' shapes and dtypes equal the plain version's on the CPU.
+  * the fake outputs' shapes and dtypes equal the plain version's on the CPU;
+  * the recurrences' loops (`counter.scan`): one Mamba, mLSTM and sLSTM
+    layer at S = 64 (mLSTM chunks of 4), forward and forward + backward,
+    counted on meta with SAMPLE iterations of each loop run and scaled
+    against the whole loop: FLOPs and HBM bytes equal, the peak within 2%;
+    matmul FLOPs equal to the same layer's on CPU tensors, where the hint
+    runs the whole loop and leaves the outputs bit for bit.
 """
+import contextlib
 import importlib.util
 import json
 import os
@@ -29,11 +36,14 @@ import torch
 
 from repro.configs import ASSIGNED_ARCHS, SHAPES_BY_NAME, get_arch
 from repro.roofline import analysis as j_analysis
-from repro_torch.configs import get_arch as t_get_arch
+from repro_torch.configs import get_arch as t_get_arch, reduced as t_reduced
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import attention_mask, packed_attention_ref
+from repro_torch.models.model import apply_layer, init_layer
+from repro_torch.roofline import counter
 from repro_torch.roofline.analysis import H100, model_flops, roofline_terms
 from repro_torch.roofline.counter import OpCounter
+from repro_torch.train.optimizer import tree_leaves, tree_map
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -216,3 +226,59 @@ def test_cpu_tensors_take_the_plain_version():
         out = ops.packed_attention(q, k, v, *ids)
     assert not [n for n in c.calls if n.startswith("repro_torch.")]
     torch.testing.assert_close(out, packed_attention_ref(q, k, v, *ids), rtol=0, atol=0)
+
+
+# one layer of each recurrent mixer: (arch, period position)
+LOOPS = {"mamba": ("jamba-1.5-large-398b", 1), "mlstm": ("xlstm-1.3b", 0),
+         "slstm": ("xlstm-1.3b", 7)}
+LOOP_S = 64
+
+
+def _loop_layer(mixer, device, train, sample, *, count=True):
+    """One layer of `mixer` at LOOP_S positions (2 rows, documents of 20
+    and 44) on `device`, counted (with `count`) with `counter.SAMPLE` =
+    `sample` (None: the whole loop) -> (counter, output, gradients)."""
+    arch, pos = LOOPS[mixer]
+    cfg = t_reduced(t_get_arch(arch), mlstm_chunk=4)
+    spec = cfg.period[pos]
+    g = torch.Generator().manual_seed(0)
+    p = tree_map(lambda w: w.to(device).requires_grad_(train),
+                 init_layer(g, cfg, spec, dtype=torch.float32, device="cpu"))
+    x = torch.randn((2, LOOP_S, cfg.d_model), generator=g).to(device)
+    seg = torch.tensor([[1] * 20 + [2] * 44] * 2, dtype=torch.int32, device=device)
+    pos_ = torch.arange(LOOP_S, dtype=torch.int32, device=device).repeat(2, 1)
+    md = {"segment_ids": seg, "positions": pos_, "abs_positions": pos_, "causal": True}
+    saved = counter.SAMPLE
+    counter.SAMPLE = sample if sample is not None else 10 ** 9
+    try:
+        with (OpCounter() if count else contextlib.nullcontext()) as c, \
+                torch.set_grad_enabled(train):
+            out, _ = apply_layer(cfg, spec, p, x, md)
+            grads = torch.autograd.grad(out.square().sum(), tree_leaves(p)) if train else ()
+    finally:
+        counter.SAMPLE = saved
+    return c, out, grads
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["forward", "train"])
+@pytest.mark.parametrize("mixer", list(LOOPS))
+def test_scaled_loops_count_as_the_whole_loop(mixer, train):
+    whole, _, _ = _loop_layer(mixer, "meta", train, None)
+    scaled, _, _ = _loop_layer(mixer, "meta", train, counter.SAMPLE)
+    assert scaled.scaled_loops > 0 and whole.scaled_loops == 0
+    assert scaled.flops == pytest.approx(whole.flops, rel=1e-12)
+    assert scaled.matmul_flops == pytest.approx(whole.matmul_flops, rel=1e-12)
+    assert scaled.hbm_bytes == pytest.approx(whole.hbm_bytes, rel=1e-12)
+    assert scaled.peak_bytes == pytest.approx(whole.peak_bytes, rel=2e-2)
+    cpu, _, _ = _loop_layer(mixer, "cpu", train, counter.SAMPLE)
+    assert cpu.matmul_flops == whole.matmul_flops
+
+
+@pytest.mark.parametrize("mixer", list(LOOPS))
+def test_the_loop_hint_leaves_real_tensors_alone(mixer):
+    """On CPU tensors, counted or not, the layer runs its whole loop: the
+    same outputs and gradients bit for bit."""
+    _, out, grads = _loop_layer(mixer, "cpu", True, counter.SAMPLE)
+    _, out0, grads0 = _loop_layer(mixer, "cpu", True, counter.SAMPLE, count=False)
+    assert torch.equal(out, out0)
+    assert all(torch.equal(a, b) for a, b in zip(grads, grads0, strict=True))

@@ -30,9 +30,9 @@ CPU:
   * the driver: `torchrun --nproc-per-node 2 ... --tp 2` trains sharded
     on the CPU; a checkpoint saved on (2,2) resumes on (2,1) and the
     losses go on;
-  * the recurrent families refuse a mesh (NotImplementedError naming
-    ROADMAP Queue 1); the VLM and encoder-decoder ones take it
-    (tests/test_torch_sharding_families.py).
+  * every family's step builders take a mesh: the dense ones, the VLM and
+    encoder-decoder ones (tests/test_torch_sharding_families.py) and the
+    recurrent ones (tests/test_torch_sharding_recurrent.py).
 
 Every spawned group starts when the first test that needs one asks, all at
 once, and each rank's collectives time out (`torch_dist_helpers`).
@@ -291,20 +291,16 @@ def test_placements_from_specs():
 
 
 def test_refusals_name_the_roadmap():
-    """Under a mesh only the recurrent families (xlstm, jamba) refuse the
-    train step and serving; the dense, VLM and enc-dec families build all
-    three (serving across ranks: tests/test_torch_serve_mesh.py and
-    tests/test_torch_sharding_families.py)."""
+    """Under a mesh no family refuses any more: the dense, VLM, enc-dec and
+    recurrent families (xlstm, jamba, once refused with a NotImplementedError
+    naming ROADMAP Queue 1) build the train step, serving and prefill
+    (across ranks: tests/test_torch_serve_mesh.py,
+    tests/test_torch_sharding_families.py and
+    tests/test_torch_sharding_recurrent.py)."""
     pol = ShardingPolicy(mesh=FakeMesh(2, 2), dp_axes=("data",), tp_axis="model")
     opt = make_optimizer("adamw")
-    for arch in ["xlstm-1.3b", "jamba-1.5-large-398b"]:
-        cfg = t_reduced(t_get_arch(arch))
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            build_train_step(cfg, opt, policy=pol)
-        for build in (build_serve_step, build_prefill_step):
-            with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-                build(cfg, policy=pol)
-    for arch in ["qwen3-8b", "qwen2-vl-7b", "whisper-medium"]:
+    for arch in ["qwen3-8b", "qwen2-vl-7b", "whisper-medium", "xlstm-1.3b",
+                 "jamba-1.5-large-398b"]:
         cfg = t_reduced(t_get_arch(arch))
         build_train_step(cfg, opt, policy=pol)
         build_serve_step(cfg, policy=pol)

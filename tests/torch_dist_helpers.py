@@ -273,7 +273,8 @@ def _served(cfg, policy, params, prompt, steps, max_len=None):
     + steps by default), under `policy`: the caches gathered whole after
     prefill, extended, and placed by `specs.cache_shardings` -> whole numpy
     prefill logits, each step's logits and tokens, and the placements of
-    the first layer's K cache (and cross K cache) after the last step."""
+    the first layer's first cache leaf (its K cache; Mamba's conv window,
+    an mLSTM's C) and cross K cache after the last step."""
     from repro_torch.launch.specs import place_cache
     from repro_torch.models.model import extend_cache
     from repro_torch.parallel.sharding import arange_rows_like, gather
@@ -298,7 +299,8 @@ def _served(cfg, policy, params, prompt, steps, max_len=None):
         tokens = gather(nxt)[:, None]
         out["logits"].append(gather(dec).numpy())
         out["tokens"].append(tokens[:, 0].numpy())
-    out["cache_placements"] = repr(getattr(cache[0]["mixer"]["k"], "placements", None))
+    first = next(iter(cache[0]["mixer"].values()))
+    out["cache_placements"] = repr(getattr(first, "placements", None))
     if cfg.enc_dec:
         out["cross_placements"] = repr(getattr(cache[0]["cross"]["k_const"], "placements", None))
     return out
@@ -333,8 +335,51 @@ def _driver_case(mesh, case):
     return train.run_spmd(reduced(get_arch(args.arch)), args)["losses"]
 
 
+def _local_types_case(mesh, case):
+    """One forward and backward of the case's reduced model under its policy,
+    each recurrence's scan (`ssm.selective_scan`, `xlstm.mlstm_scan`,
+    `xlstm.slstm_scan`) recording the types of its tensor arguments ->
+    {scan: sorted type names}."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models import ssm, xlstm
+    from repro_torch.models.model import init_params, loss_fn, param_axes
+    from repro_torch.parallel.sharding import policy_for_mesh
+    from repro_torch.train.optimizer import tree_leaves
+
+    cfg = reduced(get_arch(case["arch"]), **case["over"])
+    policy = policy_for_mesh(mesh, **case["policy"])
+    params = policy.distribute(init_params(cfg, 0, dtype=torch.float32, device="cpu"),
+                               param_axes(cfg))
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    seen, saved = {}, {}
+
+    def recording(mod, name):
+        fn = saved[name] = getattr(mod, name)
+
+        def record(*args):
+            seen.setdefault(name, set()).update(type(a).__name__ for a in args
+                                                if isinstance(a, torch.Tensor))
+            return fn(*args)
+        setattr(mod, name, record)
+    scans = ((ssm, "selective_scan"), (xlstm, "mlstm_scan"), (xlstm, "slstm_scan"))
+    for mod, name in scans:
+        recording(mod, name)
+    try:
+        from torch.distributed.tensor.experimental import implicit_replication
+        with implicit_replication():
+            total, _ = loss_fn(cfg, params, policy.distribute_batch(_tensor_batch(case["batch"])),
+                               compute_dtype=torch.float32, policy=policy)
+            total.backward()
+    finally:
+        for mod, name in scans:
+            setattr(mod, name, saved[name])
+    return {k: sorted(v) for k, v in seen.items()}
+
+
 CASES = {"step": _step_case, "moe_layer": _moe_layer_case, "placements": _placements_case,
-         "one_rank": _one_rank_case, "driver": _driver_case, "serve": _serve_case}
+         "one_rank": _one_rank_case, "driver": _driver_case, "serve": _serve_case,
+         "local_types": _local_types_case}
 
 
 def mesh_cases(rank, world, shape, cases, names=("data", "model")):
