@@ -108,7 +108,12 @@ Phases, in one process; any failure exits nonzero:
              device time, busy share, launches per layer and step, and its
              loops' share of the device time;
  14. sharding: a one-rank NCCL process group and its (1, 1) (data, model)
-             mesh: the sharded train step (DTensor state placed by the
+             mesh: phase 8's model, plan and fail-stop through the pipeline
+             driver for 6 steps with every stage on its own mesh (the
+             one-rank (1, 1) mesh), losses equal to phase 8's first 6 bit
+             for bit, launches a step equal, the migration identity, step
+             seconds, busy share and peak memory beside phase 8's; the
+             sharded train step (DTensor state placed by the
              sharding rules, the kernels through `local_map`) on the fp32
              parity model against the unsharded step (3 steps, parameters
              to 1e-5 of each leaf's max, bit for bit or not); full-width
@@ -222,6 +227,11 @@ PIPE_SPECS = {
 # 85.5e9 bytes); the engine trains on NLL alone, as the reference's
 PIPE_SPECS["qwen3-moe-30b-a3b"] = {**PIPE_SPECS["qwen3-8b"], "layers": 3}
 PIPE_PLAN = PIPE_SPECS["qwen3-8b"]["plan"]  # the checkpoint phase's plan
+# phase 14's pipeline on stage meshes: phase 8's model, plan and fail-stop
+# for its first 6 steps, every stage on the one-rank (1, 1) mesh; its losses
+# are held to phase 8's first 6 bit for bit
+STAGE_MESH_SPEC = {**PIPE_SPECS["qwen3-8b"], "steps": 6, "failslow": None, "reconfigs": [4],
+                   "checked": (), "profiled": 2}
 TOL_PIPE_LOSS_REL, TOL_MIGRATION = 1e-3, 1e-5
 # the dense family: each arch's attention widths on its packed train shape
 FAMILY_KERNEL_ARCHS = ("gemma3-1b", "gemma3-4b", "h2o-danube-1.8b", "llama2-7b", "qwen2.5-7b",
@@ -2132,7 +2142,7 @@ def pipeline_phase(cfg, device, spec):
     for i, got in enumerate(per_step):
         if got != want:
             raise AssertionError(f"pipeline step {i}: launches {got}, expected {want}")
-    engine_total = diff(total, check_launches)
+    engine_total = {k: v - check_launches.get(k, 0) for k, v in total.items()}
     if len(per_step) != steps or engine_total != {k: v * steps for k, v in want.items()}:
         raise AssertionError(f"pipeline run: {len(per_step)} steps, launches {engine_total} "
                              f"(besides {check_launches} of the loss_fn checks)")
@@ -2154,6 +2164,10 @@ def pipeline_phase(cfg, device, spec):
     # migration identity: F and B of (mb 0, stage 1, replica 0) on replica 1,
     # optimizer off, on the final plan; the same loss
     engine = engines[0]
+    stage_meshes = {f"dp{r},pp{st}": {"ranks": list(engine.ranks[(r, st)]),
+                                      "shape": list(engine.meshes[(r, st)].shape),
+                                      "tp": engine.policies[(r, st)].tp}
+                    for r, st in engine.ranks} if engine.spmd else None
     migration = None
     if R > 1:
         engine.optimizer = None
@@ -2184,7 +2198,9 @@ def pipeline_phase(cfg, device, spec):
            "first_step_after": dict(zip(segments[1:], (times[r] for r in reconfigs))),
            "adaptations": result["adaptations"],
            "loss_checks": checks, "loss_tol_rel": TOL_PIPE_LOSS_REL, "migration": migration,
-           "launches_per_step": want, "launches": engine_total, "check_launches": check_launches,
+           "launches_per_step": want, "launches_by_step": per_step[:steps],
+           "launches": engine_total, "check_launches": check_launches,
+           "spmd": stage_meshes is not None, "stage_meshes": stage_meshes,
            "max_memory_allocated_bytes": peak, "max_memory_reserved_bytes": reserved,
            "profiled_step": profiled, "profile": prof}
     if prof:
@@ -2459,7 +2475,8 @@ def kernel_entries(record):
         entry("packed_flash_attention", SM90.source, kern["serving"],
               {"qwen3-8b serve": served(record["serve"]),
                "qwen3-8b train": fwd(record["train"], SM90.source),
-               "qwen3-8b pipeline": fwd(record["pipeline"], SM90.source)},
+               "qwen3-8b pipeline": fwd(record["pipeline"], SM90.source),
+               "qwen3-8b stage-mesh pipeline": fwd(record["sharding"]["pipeline"], SM90.source)},
               head_dim=128, wrapper_device_ms=kern["serving"]["wrapper_device_ms"]),
         entry("packed_flash_attention[GQA group 1]", SM90.source, fk["llama2-7b_bf16"],
               {"llama2-7b serve": served(fam["llama2-7b_serve"]),
@@ -2527,7 +2544,9 @@ def kernel_entries(record):
         entry("packed_flash_attention_backward", BWD_SM90.source,
               per_launch(kern["train_bwd"]),
               {"qwen3-8b train": bwd(record["train"], BWD_SM90.source),
-               "qwen3-8b pipeline": bwd(record["pipeline"], BWD_SM90.source)},
+               "qwen3-8b pipeline": bwd(record["pipeline"], BWD_SM90.source),
+               "qwen3-8b stage-mesh pipeline": bwd(record["sharding"]["pipeline"],
+                                                   BWD_SM90.source)},
               head_dim=128, train_step_ms_per_launch=train_bwd_ms),
         entry("packed_flash_attention_backward[GQA group 8]", BWD_SM90.source,
               fk[f"{qmoe}_bf16_bwd"],
@@ -3500,6 +3519,41 @@ def recurrent_sharding(record, rec, policy, device, served):
     mark("mamba layer")
 
 
+def stage_mesh_pipeline(record, device):
+    """Phase 14's ResiHP runtime on stage meshes: `pipeline_phase` under the
+    one-rank process group, so that the engine runs each stage as an SPMD
+    program on its own (data, model) mesh (DTensor leaves of the master,
+    the stage policy, boundary tensors handed over and the DP reduce as one
+    all-reduce of a flat buffer); every stage is the (1, 1) mesh over rank
+    0. Phase 8's model, plan and fail-stop for STAGE_MESH_SPEC's 6 steps:
+    the losses equal phase 8's first 6 bit for bit, each step's launches
+    phase 8's; step seconds, busy share and peak memory beside phase 8's."""
+    from repro_torch.configs import get_arch
+
+    res = pipeline_phase(get_arch("qwen3-8b"), device, STAGE_MESH_SPEC)
+    ref = record["pipeline"]
+    n = STAGE_MESH_SPEC["steps"]
+    if not res["spmd"] or any(m["shape"] != [1, 1] or m["ranks"] != [0]
+                              for m in res["stage_meshes"].values()):
+        raise AssertionError(f"stage meshes: {res['stage_meshes']}")
+    if res["losses"] != ref["losses"][:n]:
+        raise AssertionError(f"stage-mesh losses {res['losses']} against phase 8's "
+                             f"{ref['losses'][:n]}")
+    if res["launches_by_step"] != ref["launches_by_step"][:n]:
+        raise AssertionError(f"stage-mesh launches {res['launches_by_step']} against phase 8's "
+                             f"{ref['launches_by_step'][:n]}")
+    busy = res["profile"].get("busy_share")
+    res["against_unmeshed"] = {
+        "losses_equal": True, "launches_equal": True,
+        "step_seconds_mean": [res["step_seconds_mean"], ref["step_seconds_mean"]],
+        "busy_share": [busy, ref["profile"].get("busy_share")],
+        "max_memory_allocated_gb": [res["max_memory_allocated_bytes"] / 1e9,
+                                    ref["max_memory_allocated_bytes"] / 1e9]}
+    log("sharding: stage-mesh pipeline against phase 8 (meshed, unmeshed)",
+        json.dumps(res["against_unmeshed"]))
+    return res
+
+
 def sharding_phase(record, device, served):
     """Phase 14: the sharded step and serving on a (1, 1) mesh of a one-rank
     NCCL group, and the MoE layer on a (1, 1, 1) (pod, data, model) mesh of
@@ -3523,6 +3577,10 @@ def sharding_phase(record, device, served):
         rec = record["sharding"] = {"mesh": {"shape": list(mesh.shape),
                                              "axes": list(mesh.mesh_dim_names)},
                                     "seconds_by_part": {}}
+        torch.cuda.empty_cache()
+        rec["pipeline"] = stage_mesh_pipeline(record, device)
+        torch.cuda.empty_cache()
+        mark("stage-mesh pipeline")
         rec["fp32_parity"] = sharded_parity(policy, device)
         log("sharding: fp32 parity", json.dumps(rec["fp32_parity"]))
         rec["train"], grads = sharded_train(get_arch("qwen3-8b"), policy, device, record["train"])

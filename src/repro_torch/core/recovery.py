@@ -4,8 +4,14 @@ Fig. 8), counterpart of `repro.core.recovery`.
 The planning half (`LayerMove`, `TransferPlan`, `layer_state_bytes`,
 `transfer_plan`) is plain Python, copied from the reference. The moving half
 places live state onto the new plan's devices with `Tensor.to`: on one card
-every stage's device group is that card and the move is a no-op; across
-cards it is the point-to-point copy of Fig. 7. The three Fig. 8 cases:
+every stage's device group is that card and the move is a no-op. Under a
+process group (the pipeline driver on a world of ranks) every rank holds
+the whole fp32 master and optimizer state on its own device, as the
+reference's controller does, so the driver places it onto that device (no
+leaf moves) and the engine's `apply_plan` onto the new stage meshes is the
+live recovery: `transfer_plan`'s moves and bytes stay modelled. Only a
+master sharded per stage would make them the point-to-point copies of
+Fig. 7. The three Fig. 8 cases:
 
   (a) a DP replica lost, params DP-replicated -> survivors already hold the
       state; recovery places it onto the surviving devices (peer copy).

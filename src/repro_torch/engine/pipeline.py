@@ -3,40 +3,71 @@ of `repro.engine.pipeline`.
 
 The Scheduler emits per-stage instruction streams (Forward / Backward /
 SendAct / RecvAct / reduce); a lightweight interpreter executes them against
-per-stage device groups. This is the engine that runs ParallelPlans end to
-end: kill a device, the Scheduler re-plans, recovery moves the state,
-training resumes.
+per-stage meshes. This is the engine that runs ParallelPlans end to end:
+kill a device, the Scheduler re-plans, recovery moves the state, training
+resumes.
+
+Two forms of one interpreter:
+  * under an initialised process group, each stage runs as an SPMD
+    program on its own `(data, model)` `DeviceMesh` over the world ranks its
+    plan devices map onto (`launch.mesh.stage_ranks`, `make_stage_mesh`),
+    with the reference's stage policy (`sharding.stage_policy`): a stage's
+    TP degree is computed by that many ranks, and the uneven TP a fail-stop
+    leaves runs as planned. Every rank holds the whole fp32 master, as the
+    reference's controller does, and takes its block of each stage leaf as
+    a DTensor with no communication (on a one-rank mesh the leaf shares the
+    master's storage). Every rank walks the same global order of events; a
+    rank computes an event only where it is in the executing stage's mesh,
+    and a rank in no stage still walks the order and joins the collectives;
+  * without one, each stage runs whole on the first device of its group
+    (`launch.mesh.stage_devices`) with no policy: the unsharded engine.
 
 Key properties, as the reference's:
-  * per-stage device groups over explicit device sets (`launch.mesh`); a
-    stage runs whole on the first device of its group, so on one card TP is
-    emulated, as in the reference on fewer devices than its plan;
-  * stage boundaries move activations and their gradients with `Tensor.to`
-    (a no-op on one card);
+  * stage boundaries move activations (at F) and their gradients (at B)
+    onto the executing stage of the next event that reads them: under a
+    process group destination rank j of that stage receives the whole
+    (replicated) tensor from source rank j % tp_src (`dist.isend` /
+    `dist.recv`; a rank that is in both stages keeps its own copy), and
+    wraps it as a replicated DTensor on its mesh; unsharded, `Tensor.to`
+    (a no-op on one card). Fig. 7's scatter/gather, each byte crossing
+    once, is not ported;
   * F runs the stage under `torch.no_grad()` (the forward kernel without its
     row log-sum-exp); B recomputes the stage forward under autograd and runs
     its backward (the forward kernel with the log-sum-exp, then the backward
     kernel) — activation recomputation, as the reference's `jax.vjp`: only
     boundary activations are stored;
-  * replicas read the same parameter tensors (they are synchronized), and
-    gradients accumulate per (replica, stage) in `grad_acc`: B points each
-    stage leaf's `.grad` at that (replica, stage)'s buffer, so autograd adds
-    each leaf's gradient into it as soon as it is formed, and takes the
-    buffers back after it; a stage's gradient never exists twice;
+  * the last stage's loss reads the labels of its logits through
+    `model._label_logits`, on vocab-sharded logits too; the global
+    (nll, tokens) is one all-reduce over the world, to which the (0, 0)
+    rank of each executing last stage contributes;
+  * gradients accumulate per executing stage in `grad_acc`: B points each
+    stage leaf's `.grad` at that stage's buffer, so autograd adds each
+    leaf's gradient into it as soon as it is formed, and takes the buffers
+    back after it; a stage's gradient never exists twice;
   * with tied embeddings the last stage reads `embed` too, and the update
     sums the first and last stages' gradients of it;
-  * the DP reduce sums the replicas' gradients in replica order on the
-    device, into the first replica's buffers, scales by 1 / total tokens and
-    updates: exact averaging over every token of every replica. Every sum
-    of two gradient lists checks that they pair the same leaves (count and
+  * the DP reduce sums the stages' gradients in replica order, scales by
+    1 / total tokens and updates: exact averaging over every token of every
+    replica. Under a process group each stage's gradients are first made
+    whole on its ranks (`full_tensor`), each rank sums in replica order the
+    stages whose (0, 0) rank it is, and one all-reduce over the world of a
+    flat buffer gives every rank the same sum; every rank then updates its
+    own full master, so the replicas stay equal bit for bit. Every sum of
+    two gradient lists checks that they pair the same leaves (count and
     shapes) and raises otherwise, as the reference's `jax.tree.map` does;
+    replica 0's layer partition is read for every replica, as the
+    reference's `_apply_grads` reads it;
   * micro-batch migration executes a chunk on a peer replica's stage (the
-    same math, since replicas are synchronized — Fig. 6b).
+    same math, since replicas are synchronized — Fig. 6b); under a process
+    group the chunk's activation and gradient cross to the peer's ranks. A
+    chunk placed on a stage with other layers is refused before any event,
+    where the reference's accumulation refuses it.
 
 There is no gradient clipping, as in the reference's engine.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -44,21 +75,42 @@ import torch
 from repro_torch.core.detector.dag_sim import ChunkId
 from repro_torch.core.scheduler.plan import ParallelPlan
 from repro_torch.engine.schedules import make_schedule
-from repro_torch.launch.mesh import canonical, default_devices, make_stage_mesh
+from repro_torch.launch.mesh import (
+    canonical,
+    default_devices,
+    make_stage_mesh,
+    stage_devices,
+    stage_ranks,
+)
 from repro_torch.models.layers import rms_norm
-from repro_torch.models.model import apply_layer, embed_tokens, init_params, lm_logits
+from repro_torch.models.model import (
+    _label_logits,
+    apply_layer,
+    embed_tokens,
+    init_params,
+    lm_logits,
+    param_axes,
+)
+from repro_torch.parallel.sharding import (
+    NULL_POLICY,
+    arange_rows_like,
+    mesh_block,
+    stage_policy,
+    tree_map_axes,
+)
 from repro_torch.train.optimizer import tree_leaves, tree_map
 
 
-def _mb_loss(cfg, logits, labels):
+def _mb_loss(policy, logits, labels):
     """-> (nll_sum, n_tokens): summed so the host can form the exact global
-    token-weighted mean across micro-batches and replicas."""
+    token-weighted mean across micro-batches and replicas. Under a mesh the
+    logits' rows are made whole (vocab gathered over tp) before the label
+    gather, as `model.loss_fn` makes them."""
     mask = (labels >= 0).float()
     labels_c = labels.clamp_min(0).long()
-    logits = logits.float()
+    logits = policy.constrain(logits.float(), "batch", "seq", None)
     lse = torch.logsumexp(logits, dim=-1)
-    ll = logits.gather(-1, labels_c[..., None])[..., 0]
-    nll = (lse - ll) * mask
+    nll = (lse - _label_logits(policy, logits, labels_c)) * mask
     return nll.sum(), mask.sum()
 
 
@@ -91,118 +143,215 @@ def zip_leaves(a, b, what):
     return zip(a, b)
 
 
+def stage_part(cfg, plan, tree, r, s):
+    """The part of `tree` (in the master's structure: the parameters, or
+    their logical axes) that stage s of replica r holds: its layers, the
+    embedding on the first stage (and on the last with tied embeddings: the
+    LM head reads it), the final norm and the LM head on the last."""
+    part = {"layers": [tree["layers"][l] for l in plan.replicas[r].stages[s].layers]}
+    last = s == plan.replicas[r].pp - 1
+    if s == 0 or (last and cfg.tie_embeddings):
+        part["embed"] = tree["embed"]
+    if last:
+        part["final_norm"] = tree["final_norm"]
+        if "lm_head" in tree:
+            part["lm_head"] = tree["lm_head"]
+    return part
+
+
+def _replicated(mesh, t):
+    """t, whole on this rank, as a DTensor replicated over `mesh` (no
+    communication)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+def _block(policy, axes, master):
+    """This rank's block of the master leaf as a DTensor leaf placed by the
+    policy, taken with no communication: a view of the master where the
+    block is contiguous (the whole leaf on a one-rank mesh)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    placements = policy.placements_for(axes, tuple(master.shape))
+    local = master.detach()
+    for dim in range(master.dim()):
+        split = [i for i, pl in enumerate(placements) if pl == Shard(dim)]
+        if split:
+            n, block = mesh_block(policy.mesh, split)
+            size = master.shape[dim] // n
+            local = local.narrow(dim, block * size, size)
+    return DTensor.from_local(local.contiguous(), policy.mesh, placements,
+                              run_check=False).requires_grad_(True)
+
+
 class PipelineEngine:
     """Executes one ParallelPlan with real per-stage computation.
 
     `params` (optional) are the fp32 master weights to start from, in the
     port's layout (`bridge.params_from_jax` carries the JAX engine's); else
     they are drawn from `seed`. `compute_dtype` is the stages' compute type
-    (bf16, as the reference; the parity tests pass float32)."""
+    (bf16, as the reference; the parity tests pass float32). Under an
+    initialised default process group each stage runs on its own mesh of the
+    world's ranks; `devices` is then this rank's device (the current card
+    under NCCL, else the CPU, by default), and every rank of the world must
+    build the engine and run each iteration on the same batch."""
 
     def __init__(self, cfg, plan: ParallelPlan, *, optimizer=None, seed=0, devices=None,
                  params=None, compute_dtype=torch.bfloat16):
+        import torch.distributed as dist
+
         self.cfg = cfg
         self.optimizer = optimizer
-        self.devices = [canonical(d) for d in devices] if devices else default_devices()
+        self.spmd = dist.is_available() and dist.is_initialized()
+        if self.spmd:
+            self.rank, self.world = dist.get_rank(), dist.get_world_size()
+            home = (canonical(devices[0]) if devices else canonical("cuda")
+                    if dist.get_backend() == "nccl" else torch.device("cpu"))
+            self.devices = [home]
+        else:
+            self.devices = [canonical(d) for d in devices] if devices else default_devices()
+            home = self.devices[0]
         self.compute_dtype = compute_dtype
-        home = self.devices[0]
         if params is None:
             params = init_params(cfg, seed, dtype=torch.float32, device=home)
         # full list-layout params (fp32 master), shared by every replica
         self.params_full = _sorted(tree_map(lambda v: v.detach().to(home).requires_grad_(True),
                                             params))
+        self.axes_full = param_axes(cfg)
         self.opt_state = optimizer.init(self.params_full) if optimizer else None
         self.step = 0
         self.plan = None
         self.meshes: dict = {}
+        self.ranks: dict = {}
+        self.policies: dict = {}
+        self.made_meshes: dict = {}  # stage meshes by their ranks, kept across plans
         self.apply_plan(plan)
 
     # ----------------------------------------------------------- plan mgmt
-    def _mesh_for(self, stage_plan):
-        devs = [self.devices[d % len(self.devices)] for d in stage_plan.devices]
-        return make_stage_mesh(devs, 1, len(devs))
-
     def apply_plan(self, plan: ParallelPlan):
-        """(Re)build the per-stage device groups for a plan — the analogue of
-        'destroy and rebuild communication groups'."""
+        """(Re)build the per-stage meshes (device groups without a process
+        group) and policies for a plan — the analogue of 'destroy and rebuild
+        communication groups'. Under a process group every rank makes every
+        stage's mesh in plan order; a stage over the ranks of a mesh made
+        before, for this plan or an earlier one, takes that mesh (no new
+        group)."""
         self.plan = plan
-        self.meshes = {}
+        self.meshes, self.ranks, self.policies = {}, {}, {}
         for r, rep in enumerate(plan.replicas):
             for s, st in enumerate(rep.stages):
-                if st.devices:
-                    self.meshes[(r, s)] = self._mesh_for(st)
+                if not st.devices:
+                    continue
+                if self.spmd:
+                    ranks = stage_ranks(st.devices, self.world)
+                    if ranks not in self.made_meshes:
+                        self.made_meshes[ranks] = make_stage_mesh(ranks, 1, len(ranks))
+                    mesh = self.made_meshes[ranks]
+                    self.ranks[(r, s)] = ranks
+                    self.policies[(r, s)] = stage_policy(mesh, self.cfg)
+                else:
+                    mesh = stage_devices(self.devices[d % len(self.devices)] for d in st.devices)
+                    self.policies[(r, s)] = NULL_POLICY
+                self.meshes[(r, s)] = mesh
 
-    def stage_device(self, r: int, s: int) -> torch.device:
+    def _live(self, r, s):
         if (r, s) not in self.meshes:
             raise RuntimeError(
                 f"stage (dp{r},pp{s}) has no devices in plan {self.plan.summary()}: a dead "
                 "stage cannot run (recover its state and adapt the plan first)")
-        return self.meshes[(r, s)][0]
+
+    def stage_device(self, r: int, s: int) -> torch.device:
+        """The device stage (r, s) computes on here: the first of its group,
+        or, under a process group, this rank's."""
+        self._live(r, s)
+        return self.devices[0] if self.spmd else self.meshes[(r, s)][0]
+
+    def member(self, r: int, s: int) -> bool:
+        """Whether this rank computes stage (r, s) (always, without a process
+        group)."""
+        self._live(r, s)
+        return not self.spmd or self.rank in self.ranks[(r, s)]
+
+    def leads(self, r: int, s: int) -> bool:
+        """Whether this rank is stage (r, s)'s (0, 0) rank, the one that
+        contributes its loss and gradients to the world's sums."""
+        return not self.spmd or self.rank == self.ranks[(r, s)][0]
 
     def stage_params(self, r: int, s: int):
-        """Stage layer params + (first/last extras), placed on the stage's
-        device (the same tensors where they already live there)."""
-        st = self.plan.replicas[r].stages[s]
+        """Stage layer params + (first/last extras). Without a process group
+        the master's tensors placed on the stage's device (the same tensors
+        where they already live there); under one, DTensor leaves on the
+        stage's mesh placed by its policy (`_block`), or None on a rank
+        outside the stage."""
+        if not self.member(r, s):
+            return None
+        part = stage_part(self.cfg, self.plan, self.params_full, r, s)
+        if self.spmd:
+            axes = stage_part(self.cfg, self.plan, self.axes_full, r, s)
+            pol = self.policies[(r, s)]
+            return tree_map_axes(lambda ax, v: _block(pol, ax, v), axes, part)
         dev = self.stage_device(r, s)
-
-        def place(v):
-            return v if v.device == dev else v.detach().to(dev).requires_grad_(True)
-
-        p = {"layers": [tree_map(place, self.params_full["layers"][l]) for l in st.layers]}
-        last = s == self.plan.replicas[r].pp - 1
-        if s == 0 or (last and self.cfg.tie_embeddings):  # the LM head reads a tied embed
-            p["embed"] = place(self.params_full["embed"])
-        if last:
-            p["final_norm"] = place(self.params_full["final_norm"])
-            if "lm_head" in self.params_full:
-                p["lm_head"] = place(self.params_full["lm_head"])
-        return p
+        return tree_map(lambda v: v if v.device == dev else v.detach().to(dev).requires_grad_(True),
+                        part)
 
     # ----------------------------------------------------- stage functions
-    def _md(self, batch_mb):
-        seg = batch_mb["segment_ids"]
-        B, S = seg.shape
-        return {
-            "segment_ids": seg,
-            "positions": batch_mb["positions"],
-            "abs_positions": torch.arange(S, dtype=torch.int32, device=seg.device).repeat(B, 1),
-            "causal": True,
-        }
+    def _inputs(self, key, mb):
+        """The micro-batch as stage `key` reads it: (md, tokens, labels),
+        replicated DTensors on its mesh under a process group."""
+        if self.spmd:
+            mb = {k: _replicated(self.meshes[key], v) for k, v in mb.items()}
+        seg = mb["segment_ids"]
+        md = {"segment_ids": seg, "positions": mb["positions"],
+              "abs_positions": arange_rows_like(seg), "causal": True}
+        return md, mb["tokens"], mb["labels"]
 
-    def _stage_apply(self, r, s, p, x, md, *, tokens=None, labels=None):
-        cfg = self.cfg
-        st = self.plan.replicas[r].stages[s]
+    def _replicating(self):
+        """Under a process group, the model's own plain tensors (position
+        rows, masks) count as replicated, as in the sharded train step."""
+        if not self.spmd:
+            return contextlib.nullcontext()
+        from torch.distributed.tensor.experimental import implicit_replication
+        return implicit_replication()
+
+    def _stage_apply(self, key, p, x, md, tokens, labels):
+        cfg, pol = self.cfg, self.policies[key]
+        r, s = key
         if s == 0:
-            x = embed_tokens(cfg, p, tokens, self.compute_dtype)
-        for i, l in enumerate(st.layers):
-            x, _ = apply_layer(cfg, cfg.layer_spec(l), p["layers"][i], x, md)
+            x = embed_tokens(cfg, p, tokens, self.compute_dtype, pol)
+        for i, l in enumerate(self.plan.replicas[r].stages[s].layers):
+            x, _ = apply_layer(cfg, cfg.layer_spec(l), p["layers"][i], x, md, policy=pol)
         if s == self.plan.replicas[r].pp - 1:
             x = rms_norm(x, p["final_norm"], cfg.norm_eps)
-            return _mb_loss(cfg, lm_logits(cfg, p, x), labels)
+            return _mb_loss(pol, lm_logits(cfg, p, x, pol), labels)
         return x
 
-    def _fwd(self, r, s, p, x, md, tokens=None, labels=None):
-        with torch.no_grad():
-            return self._stage_apply(r, s, p, x, md, tokens=tokens, labels=labels)
+    def _fwd(self, key, p, x, mb):
+        with torch.no_grad(), self._replicating():
+            out = self._stage_apply(key, p, x, *self._inputs(key, mb))
+        if isinstance(out, tuple) and self.spmd:  # the last stage's (nll_sum, n_tokens)
+            out = tuple(o.full_tensor() for o in out)
+        return out
 
-    def _bwd(self, r, s, p, x, md, g, acc, tokens=None, labels=None):
+    def _bwd(self, key, p, x, mb, g, acc):
         """Recompute the stage under autograd and add its parameter gradients
         into `acc` (a gradient tree of the stage's structure, or None for a
         new one) in place; -> (the gradient tree, grad of the boundary input
-        or None for stage 0). The leaves' `.grad` are the tree's buffers
-        only while the backward runs: replicas share the leaves."""
+        (replicated under a process group) or None for stage 0). `g` is the
+        gradient of the stage's output, None on the last stage (its nll sum,
+        whose gradient is 1). The leaves' `.grad` are the tree's buffers
+        only while the backward runs: unsharded, replicas share the leaves."""
         leaves = tree_leaves(p)
         bufs = ([b for _, b in zip_leaves(leaves, tree_leaves(acc), "gradient accumulation")]
                 if acc is not None else [None] * len(leaves))
         for leaf, buf in zip(leaves, bufs):
             leaf.grad = buf
         try:
-            with torch.enable_grad():
+            with torch.enable_grad(), self._replicating():
                 if x is not None:
                     x = x.detach().requires_grad_(True)
-                out = self._stage_apply(r, s, p, x, md, tokens=tokens, labels=labels)
+                out = self._stage_apply(key, p, x, *self._inputs(key, mb))
                 if isinstance(out, tuple):  # last stage: (nll_sum, n_tokens); n_tokens is constant
-                    out, g = out[0], g[0]
+                    out = out[0]
                 torch.autograd.backward(out, grad_tensors=g,
                                         inputs=leaves + ([x] if x is not None else []))
             grads = [leaf.grad for leaf in leaves]
@@ -210,47 +359,105 @@ class PipelineEngine:
             for leaf in leaves:
                 leaf.grad = None
         if any(gr is None for gr in grads):
-            raise RuntimeError(f"stage (dp{r},pp{s}): a parameter got no gradient")
-        return _like(p, grads), (x.grad if x is not None else None)
+            raise RuntimeError(f"stage (dp{key[0]},pp{key[1]}): a parameter got no gradient")
+        x_grad = None if x is None else x.grad
+        if x_grad is not None and self.spmd:
+            x_grad = _replicated(self.meshes[key], x_grad.full_tensor())
+        return _like(p, grads), x_grad
+
+    # ------------------------------------------------------------ transfer
+    def _hand_off(self, t, src, dst, like, sends):
+        """Move the boundary tensor t from stage src's executor to stage
+        dst's -> the tensor there (None on a rank outside dst). Under a
+        process group destination rank j receives the whole tensor from
+        source rank j % tp_src, and a rank in both stages keeps its own;
+        every rank calls this at the same event. `like` is (shape, dtype)
+        of the tensor; each send's handle joins `sends`."""
+        if not self.spmd:
+            return t.to(self.stage_device(*dst))
+        import torch.distributed as dist
+
+        self._live(*src)
+        self._live(*dst)
+        src_ranks, dst_ranks = self.ranks[src], self.ranks[dst]
+        local = None
+        if self.rank in src_ranks:
+            local = t.full_tensor().contiguous()
+            if (tuple(local.shape), local.dtype) != like:
+                raise RuntimeError(f"stage (dp{src[0]},pp{src[1]}) hands over "
+                                   f"{tuple(local.shape)} {local.dtype}, expected {like}")
+            for j, d in enumerate(dst_ranks):
+                if d not in src_ranks and src_ranks[j % len(src_ranks)] == self.rank:
+                    sends.append((dist.isend(local, d), local))
+        if self.rank not in dst_ranks:
+            return None
+        if local is None:
+            local = torch.empty(like[0], dtype=like[1], device=self.devices[0])
+            dist.recv(local, src_ranks[dst_ranks.index(self.rank) % len(src_ranks)])
+        return _replicated(self.meshes[dst], local)
+
+    def _take(self, store, key, dst, like, sends):
+        """store[key] = (holder stage, tensor), moved onto stage dst's
+        executor where it is held elsewhere -> the tensor there."""
+        holder, t = store[key]
+        if holder != dst:
+            t = self._hand_off(t, holder, dst, like, sends)
+            store[key] = (dst, t)
+        return t
 
     # -------------------------------------------------------- interpreter
     def run_iteration(self, batch, *, placement: Optional[dict] = None):
         """One training iteration: interpret the schedule's instruction
-        streams per (replica, stage). Returns (mean_loss, grad_acc).
+        streams per (replica, stage). Returns (mean_loss, grad_acc), the
+        same loss on every rank.
 
         placement: optional {ChunkId -> (replica, stage)} micro-batch
-        migration overrides from the Scheduler (Fig. 6b). With an optimizer,
-        the first replica's entries of `grad_acc` hold the reduced, scaled
-        gradient after the update.
+        migration overrides from the Scheduler (Fig. 6b). `grad_acc` holds
+        each executing stage's accumulated gradient (this rank's stages
+        under a process group); with an optimizer, after the update, its
+        first replica's entries hold the reduced, scaled gradient (under a
+        process group on every rank, and only those).
         """
         plan = self.plan
         placement = placement or {}
+        for cid, ex in placement.items():  # a chunk runs only where its own layers are
+            own = plan.replicas[cid.replica].stages[cid.stage]
+            there = plan.replicas[ex[0]].stages[ex[1]]
+            if own.layers != there.layers:
+                raise ValueError(
+                    f"gradient accumulation: {cid.kind} of mb {cid.mb} of stage "
+                    f"(dp{cid.replica},pp{cid.stage}) (layers {own.layers}) placed on stage "
+                    f"(dp{ex[0]},pp{ex[1]}) (layers {there.layers})")
         dp, pp, n_mb = plan.dp, plan.replicas[0].pp, plan.microbatches
-        B = batch["tokens"].shape[0]
+        B, S = batch["tokens"].shape[:2]
         if B % (dp * n_mb):
             raise ValueError(f"batch {B} does not split into {dp} replicas x {n_mb} micro-batches")
         mb_size = B // (dp * n_mb)
+        like = ((mb_size, S, self.cfg.d_model), self.compute_dtype)  # a boundary tensor
 
         def mb_slice(r, m):
             lo = (r * n_mb + m) * mb_size
-            return {k: v[lo: lo + mb_size] for k, v in batch.items()}
+            return {k: batch[k][lo: lo + mb_size]
+                    for k in ("tokens", "segment_ids", "positions", "labels")}
 
         params = {}
         for r in range(dp):
             for s in range(pp):
                 params[(r, s)] = self.stage_params(r, s)
 
-        acts: dict = {}  # (r, m, s) -> boundary activation into stage s
-        grads_in: dict = {}  # (r, m, s) -> gradient flowing into stage s's output
-        losses = []
+        acts: dict = {}  # (r, m, s) -> (holder stage, boundary activation into stage s)
+        grads_in: dict = {}  # (r, m, s) -> (holder stage, gradient into stage s's output)
+        losses = []  # (nll_sum, n_tokens) this rank contributes
         grad_acc: dict = {}
+        sends: list = []
 
         schedules = {}
         for r in range(dp):
             schedules.update(make_schedule(plan.schedule, pp, n_mb, replica=r))
 
         # topological interpretation: round-robin over executors, running the
-        # head instruction when its inputs are available (host = orchestrator)
+        # head instruction when its inputs are available (host = orchestrator);
+        # under a process group every rank walks this same order
         queues = {e: list(order) for e, order in schedules.items()}
         progress = True
         while any(queues.values()):
@@ -262,80 +469,138 @@ class PipelineEngine:
                     continue
                 cid = q[0]
                 r, s, m = cid.replica, cid.stage, cid.mb
-                exec_rs = placement.get(cid, (r, s))
-                mb = mb_slice(r, m)
-                md = self._md(mb)
+                ex = placement.get(cid, (r, s))
                 if cid.kind == "F":
                     if s > 0 and (r, m, s) not in acts:
                         continue
-                    out = self._fwd(exec_rs[0], s, params[exec_rs], acts.get((r, m, s)), md,
-                                    tokens=mb["tokens"] if s == 0 else None,
-                                    labels=mb["labels"] if s == pp - 1 else None)
+                    x = self._take(acts, (r, m, s), ex, like, sends) if s > 0 else None
+                    out = self._fwd(ex, params[ex], x, mb_slice(r, m)) if self.member(*ex) else None
                     if s == pp - 1:
-                        losses.append(out)  # (nll_sum, n_tokens)
-                        grads_in[(r, m, s)] = (torch.ones((), device=out[0].device), None)
+                        if out is not None and self.leads(*ex):
+                            losses.append(out)
+                        grads_in[(r, m, s)] = (ex, None)
                     else:  # SendAct -> RecvAct, onto the next stage's executor
                         nxt = placement.get(ChunkId("F", m, s + 1, r), (r, s + 1))
-                        acts[(r, m, s + 1)] = out.to(self.stage_device(*nxt))
+                        acts[(r, m, s + 1)] = (nxt, self._hand_off(out, ex, nxt, like, sends))
                 elif cid.kind == "B":
                     if (r, m, s) not in grads_in:
                         continue
-                    grad_acc[(r, s)], x_grad = self._bwd(
-                        exec_rs[0], s, params[exec_rs], acts.get((r, m, s)), md,
-                        grads_in.pop((r, m, s)), grad_acc.get((r, s)),
-                        tokens=mb["tokens"] if s == 0 else None,
-                        labels=mb["labels"] if s == pp - 1 else None)
-                    if s > 0:
-                        grads_in[(r, m, s - 1)] = x_grad.to(self.stage_device(r, s - 1))
+                    g = self._take(grads_in, (r, m, s), ex, like, sends) if s < pp - 1 else None
+                    x = self._take(acts, (r, m, s), ex, like, sends) if s > 0 else None
+                    del grads_in[(r, m, s)]
                     acts.pop((r, m, s), None)
+                    x_grad = None
+                    if self.member(*ex):
+                        grad_acc[ex], x_grad = self._bwd(ex, params[ex], x, mb_slice(r, m), g,
+                                                         grad_acc.get(ex))
+                    if s > 0:  # onto the executor of the previous stage's B
+                        prv = placement.get(ChunkId("B", m, s - 1, r), (r, s - 1))
+                        grads_in[(r, m, s - 1)] = (prv, self._hand_off(x_grad, ex, prv, like,
+                                                                       sends))
                 # W chunks: weight grads were folded into B here
                 q.pop(0)
                 progress = True
 
+        for work, _ in sends:
+            work.wait()
         nll_total = sum(float(l[0]) for l in losses)
         ntok_total = sum(float(l[1]) for l in losses)
+        if self.spmd:  # the world's sums; every rank gets the same
+            import torch.distributed as dist
+
+            sums = torch.tensor([nll_total, ntok_total], dtype=torch.float64,
+                                device=self.devices[0])
+            dist.all_reduce(sums)
+            nll_total, ntok_total = sums.tolist()
         loss = nll_total / max(ntok_total, 1.0)
-        self._apply_grads(grad_acc, ntok_total)
+        if self.optimizer is not None:
+            grad_acc = self._apply_grads(grad_acc, ntok_total)
         return float(loss), grad_acc
 
     # ------------------------------------------------------------- update
     def _apply_grads(self, grad_acc, total_tokens):
-        """DP-reduce per-stage grads on the device, scatter into the full
-        tree (a tied embed's gradient is the sum of the first and last
-        stages'), update."""
-        if self.optimizer is None:
-            return
+        """DP-reduce per-stage grads (`_local_reduce`, or `_world_reduce`
+        under a process group), scale them, scatter them into the full tree
+        (a tied embed's gradient is the sum of the first and last stages'),
+        update. -> grad_acc with its first replica's entries the reduced,
+        scaled gradient."""
         plan = self.plan
-        dp, pp = plan.dp, plan.replicas[0].pp
+        pp = plan.replicas[0].pp
         scale = 1.0 / max(total_tokens, 1.0)
+        reduced = self._world_reduce(grad_acc) if self.spmd else self._local_reduce(grad_acc)
         full = {k: None for k in self.params_full}
         full["layers"] = [None] * len(self.params_full["layers"])
         for s in range(pp):
-            st = plan.replicas[0].stages[s]
-            reduced = None
-            for r in range(dp):
-                g = grad_acc.get((r, s))
-                if g is None:
-                    continue
-                if reduced is None:
-                    reduced = g
-                else:
-                    for a, b in zip_leaves(tree_leaves(reduced), tree_leaves(g),
-                                           f"DP reduce of stage {s}"):
-                        a.add_(b.to(a.device))
-            if reduced is None:
+            red = reduced.get(s)
+            if red is None:
                 continue
-            for a in tree_leaves(reduced):
+            for a in tree_leaves(red):
                 a.mul_(scale)
-            for i, l in enumerate(st.layers):
-                full["layers"][l] = reduced["layers"][i]
+            for i, l in enumerate(plan.replicas[0].stages[s].layers):
+                full["layers"][l] = red["layers"][i]
             for k in ("embed", "final_norm", "lm_head"):
-                if k in reduced:
-                    full[k] = reduced[k] if full[k] is None else full[k].add_(reduced[k])
-        full = _fill(full, self.params_full)
-        self.optimizer.update(full, self.opt_state, self.params_full,
+                if k in red:
+                    full[k] = red[k] if full[k] is None else full[k].add_(red[k])
+        self.optimizer.update(_fill(full, self.params_full), self.opt_state, self.params_full,
                               torch.tensor(self.step, dtype=torch.int32))
         self.step += 1
+        grad_acc.update({(0, s): red for s, red in reduced.items()})
+        return grad_acc
+
+    def _local_reduce(self, grad_acc):
+        """{stage: the sum over replicas of its gradients in grad_acc whose
+        stage this rank leads (all, without a process group), in replica
+        order, in place in the first one's buffers}."""
+        plan = self.plan
+        reduced = {}
+        for s in range(plan.replicas[0].pp):
+            for r in range(plan.dp):
+                g = grad_acc.get((r, s))
+                if g is None or not self.leads(r, s):
+                    continue
+                if s not in reduced:
+                    reduced[s] = g
+                    continue
+                for a, b in zip_leaves(tree_leaves(reduced[s]), tree_leaves(g),
+                                       f"DP reduce of stage {s}"):
+                    a.add_(b.to(a.device))
+        return reduced
+
+    def _world_reduce(self, grad_acc):
+        """{stage: the sum over replicas of its gradients}, the same on every
+        rank, emptying grad_acc: each stage's gradients made whole on its
+        ranks (collectives inside its mesh, in plan order), this rank's
+        `_local_reduce` of them, then one all-reduce over the world of a
+        flat buffer in replica 0's layout."""
+        import torch.distributed as dist
+
+        plan = self.plan
+        pp = plan.replicas[0].pp
+        whole = {}
+        for key in sorted(grad_acc):
+            whole[key] = tree_map(lambda g: g.full_tensor(), grad_acc.pop(key))
+        part = self._local_reduce(whole)
+        whole.clear()  # the summed-in and other ranks' gradients go before the flat buffer
+        layout = {s: stage_part(self.cfg, plan, self.params_full, 0, s) for s in range(pp)}
+        flat = torch.zeros(sum(v.numel() for s in layout for v in tree_leaves(layout[s])),
+                           dtype=torch.float32, device=self.devices[0])
+        reduced, offset = {}, 0
+        for s in range(pp):
+            ref = tree_leaves(layout[s])
+            mine = tree_leaves(part.pop(s)) if s in part else None
+            if mine is not None:
+                zip_leaves(mine, ref, f"DP reduce of stage {s}")
+            views = []
+            for i, v in enumerate(ref):
+                view = flat[offset: offset + v.numel()].view(v.shape)
+                offset += v.numel()
+                if mine is not None:
+                    view.copy_(mine[i])
+                    mine[i] = None  # its buffer goes as soon as it is copied
+                views.append(view)
+            reduced[s] = _like(layout[s], views)
+        dist.all_reduce(flat)
+        return reduced
 
 
 def _fill(grads, params):

@@ -1,18 +1,21 @@
-"""Meshes and stage device groups (counterpart of `repro.launch.mesh`).
+"""Meshes and stage meshes (counterpart of `repro.launch.mesh`).
 
 `make_mesh` builds the `(data, model)` `DeviceMesh` the spmd driver shards
 the train state and step over (`parallel.sharding`), over the default
 process group's devices: one rank per card under NCCL, or CPU ranks under
 gloo.
 
-The reference also builds a (data, model) mesh per pipeline stage. The
-port's counterpart there is the stage's device group, a list of
-`torch.device`: plan device `d` runs on `devices[d % len(devices)]`, and a
-group that maps two plan devices onto one card degrades to its unique
-devices, as the reference's engine does on fewer devices than its plan
-(`PipelineEngine._mesh_for`). On one card every stage runs whole on that
-card and TP is emulated; sharding a stage across cards (per-stage meshes
-and policies) is not ported yet.
+The pipeline engine builds one `(data, model)` mesh per stage, as the
+reference's engine does (`PipelineEngine._mesh_for`). Under a process group
+plan device `d` runs on world rank `d % world` (`stage_ranks`), and
+`make_stage_mesh` builds the stage's `DeviceMesh` over those ranks: a
+stage's TP degree is then computed by that many ranks. A stage that maps
+two plan devices onto one rank degrades to its first rank, as the
+reference's engine on fewer devices than its plan. On one card every plan
+device maps onto rank 0, so every stage runs on the same one-rank (1, 1)
+mesh. Without a process group the engine keeps the device-list form
+(`stage_devices`): plan device `d` runs on `devices[d % len(devices)]`,
+and a stage runs whole on the first device of its group.
 """
 from __future__ import annotations
 
@@ -26,8 +29,11 @@ def make_mesh(shape, axes=("data", "model")):
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
-    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return init_device_mesh(device_type, tuple(shape), mesh_dim_names=tuple(axes))
+    return init_device_mesh(_device_type(dist), tuple(shape), mesh_dim_names=tuple(axes))
+
+
+def _device_type(dist):
+    return "cuda" if dist.get_backend() == "nccl" else "cpu"
 
 
 def default_devices():
@@ -45,10 +51,33 @@ def canonical(device) -> torch.device:
     return device
 
 
-def make_stage_mesh(devices, dp, tp):
+def stage_devices(devices):
     """The device group of one pipeline stage from an explicit device list
-    (dp * tp entries, repeats allowed), degraded to its unique devices."""
-    devices = [canonical(d) for d in devices]
-    if len(devices) != dp * tp:
-        raise ValueError(f"{len(devices)} devices for a ({dp}, {tp}) stage mesh")
-    return list(dict.fromkeys(devices))
+    (repeats allowed): its unique devices, in order. Without a process
+    group the stage runs on the first."""
+    return list(dict.fromkeys(canonical(d) for d in devices))
+
+
+def stage_ranks(plan_devices, world) -> tuple:
+    """The world ranks of one pipeline stage: plan device `d` runs on rank
+    `d % world`; a stage that maps two plan devices onto one rank degrades
+    to its first rank (the reference's `uniq[:1]`)."""
+    ranks = [d % world for d in plan_devices]
+    uniq = list(dict.fromkeys(ranks))
+    return tuple(ranks if len(uniq) == len(ranks) else uniq[:1])
+
+
+def make_stage_mesh(ranks, dp, tp):
+    """The `(data, model)` `DeviceMesh` of shape `(dp, tp)` of one pipeline
+    stage over `ranks` of the default process group. Making one is
+    collective: every rank of the world makes every stage's mesh, in the
+    same order, whether it is a member or not (each mesh dim's groups are
+    `new_group`s of the whole world)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    ranks = [int(r) for r in ranks]
+    if len(ranks) != dp * tp:
+        raise ValueError(f"{len(ranks)} ranks for a ({dp}, {tp}) stage mesh")
+    return DeviceMesh(_device_type(dist), torch.tensor(ranks).view(dp, tp),
+                      mesh_dim_names=("data", "model"))

@@ -10,10 +10,12 @@ the ResiHP stack, as in the reference:
                Iteration times + pack stats stream to the Eq. 1 predictor
                and the Detector.
   * pipeline — the ResiHP runtime: a ParallelPlan (`--dp/--pp/--tp`)
-               executed by PipelineEngine with per-stage device groups;
-               failure injection (`--inject-failstop`, `--inject-failslow`)
-               triggers the full detect -> adapt -> recover -> resume path
-               in-process. Every plan device maps onto `--device`.
+               executed by PipelineEngine; failure injection
+               (`--inject-failstop`, `--inject-failslow`) triggers the full
+               detect -> adapt -> recover -> resume path in-process. At
+               world size 1 every plan device maps onto `--device`; under
+               `torchrun` plan device d runs on rank d % N and each stage
+               on its own mesh of ranks (real TP groups).
 
 `--ckpt-dir/--ckpt-interval/--resume` checkpoint and restart either mode.
 
@@ -23,6 +25,9 @@ Examples:
       --reduced --tp 2 --steps 4 --seq-len 64
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --mode pipeline \
       --dp 2 --pp 2 --tp 2 --steps 6 --seq-len 64 --inject-failstop 3:5 --device cpu
+  PYTHONPATH=src torchrun --nproc-per-node 8 -m repro_torch.launch.train --device cpu \
+      --reduced --mode pipeline --dp 2 --pp 2 --tp 2 --steps 6 --seq-len 64 \
+      --inject-failstop 3:5
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --arch gemma3-1b \
       --mode pipeline --dp 1 --pp 2 --steps 4 --seq-len 64 --device cpu
 """
@@ -98,32 +103,44 @@ def _check_feedable(cfg):
 
 
 # ---------------------------------------------------------------- spmd mode
-def spmd_policy(args):
-    """(policy, device) of this rank, as the reference's driver builds its
-    mesh: at world size 1 (`WORLD_SIZE` unset or 1) NULL_POLICY on
-    `args.device`, whatever `--tp` says; under `torchrun` with a world of N,
-    the process group (NCCL for cuda, gloo for cpu), then the
-    `(N // tp, tp)` `(data, model)` mesh and its policy."""
+def _rank_device(args):
+    """(this rank's device, the world size): at world size 1 (`WORLD_SIZE`
+    unset or 1) `args.device`; under `torchrun` with a world of N, the
+    process group (NCCL for cuda, gloo for cpu), initialised here unless it
+    is already, and `cuda:LOCAL_RANK` for cuda."""
     device = torch.device(args.device)
     world = int(os.environ.get("WORLD_SIZE", "1"))
-    tp = args.tp if args.tp is not None else 1
     if world == 1:
-        return NULL_POLICY, device
-    if tp < 1 or world % tp:
-        raise ValueError(f"--tp {tp} does not divide the world size {world}")
+        return device, world
     if device.type == "cuda":
         device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
         torch.cuda.set_device(device)
     if not dist.is_initialized():
         dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
                                 timeout=datetime.timedelta(minutes=10))
+    return device, world
+
+
+def spmd_policy(args):
+    """(policy, device) of this rank, as the reference's driver builds its
+    mesh: at world size 1 NULL_POLICY on `args.device`, whatever `--tp`
+    says; under `torchrun` with a world of N (`_rank_device`), the
+    `(N // tp, tp)` `(data, model)` mesh and its policy."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    tp = args.tp if args.tp is not None else 1
+    if world > 1 and (tp < 1 or world % tp):
+        raise ValueError(f"--tp {tp} does not divide the world size {world}")
+    device, world = _rank_device(args)
+    if world == 1:
+        return NULL_POLICY, device
     return policy_for_mesh(make_mesh((world // tp, tp), ("data", "model"))), device
 
 
-def _save(ckpt, state, step, extra, policy):
-    """ckpt.maybe_save of the whole state: under a mesh every rank gathers
-    it (`full_tensor`) and rank 0 writes it."""
-    if policy.mesh is None:
+def _save(ckpt, state, step, extra, spread):
+    """ckpt.maybe_save of the whole state: where it is spread over a world
+    (`spread`) every rank gathers it (`full_tensor`; plain tensors stay as
+    they are) and rank 0 writes it, the others waiting at a barrier."""
+    if not spread:
         ckpt.maybe_save(state, step, extra=extra)
     elif ckpt.due(step):
         full = gather(state)
@@ -185,7 +202,7 @@ def run_spmd(cfg, args):
         losses.append(loss)
         times.append(dt)
         if ckpt:
-            _save(ckpt, state, it + 1, {"loss": loss}, policy)
+            _save(ckpt, state, it + 1, {"loss": loss}, policy.mesh is not None)
         if (it % max(args.steps // 10, 1) == 0 or it == args.steps - 1) and lead:
             print(f"[train] step {it} loss {loss:.4f} {dt*1e3:.0f} ms", flush=True)
     return {"losses": losses, "times": times, "detector": detector.stats.as_dict()}
@@ -207,9 +224,27 @@ def run_pipeline(cfg, args):
     """The ResiHP runtime. Returns {"losses", "reconfigs"} as the reference,
     plus each step's seconds ("times"), each adaptation's plan, notes, layer
     moves and measured recovery seconds ("adaptations") and the final plan
-    ("plan")."""
+    ("plan").
+
+    At world size 1 every plan device maps onto `--device` and the engine
+    runs each stage whole there. Under `torchrun` with a world of N (or in a
+    process group its caller initialised) every rank runs this driver on the
+    same batches: plan device d runs on rank d % N, each stage as an SPMD
+    program on its own mesh (`engine.pipeline`), on `cuda:LOCAL_RANK` or
+    the CPU. Every rank holds the whole fp32 master and optimizer state, so
+    live recovery (Fig. 8a, 8c) is `apply_plan` onto the new stage meshes,
+    and `transfer_plan`'s layer moves and bytes stay modelled: only a master
+    sharded per stage would make them real copies. Rank 0 prints and writes
+    each checkpoint (the others wait at a barrier); every rank restores the
+    same one (Fig. 8b)."""
     _check_feedable(cfg)
-    device = torch.device(args.device)
+    device, _ = _rank_device(args)
+    spread = dist.is_initialized()
+    lead = not spread or dist.get_rank() == 0  # the rank that prints
+
+    def say(msg):
+        if lead:
+            print(msg, flush=True)
     dp, pp, tp = (getattr(args, k) if getattr(args, k) is not None else v
                   for k, v in PIPELINE_DEFAULTS.items())
     opt = optimizer_for(cfg, lr=args.lr)  # per layer: the engine trains the list layout
@@ -238,28 +273,28 @@ def run_pipeline(cfg, args):
     if ckpt and ckpt.has_checkpoint() and args.resume:
         full, start, _ = ckpt.restore_latest(target=_engine_state(engine), shardings=device)
         _load_state(engine, full, step=True)
-        print(f"[train] resumed from step {start}", flush=True)
+        say(f"[train] resumed from step {start}")
 
     losses, times, reconfigs, adaptations = [], [], [], []
     for it in range(start, args.steps):
         now = float(it)
         if it in injections:
             dev = injections[it]
-            print(f"[inject] fail-stop device {dev} at step {it}", flush=True)
+            say(f"[inject] fail-stop device {dev} at step {it}")
             controller.speeds[dev] = 0.0
             controller.pending.append(FailureReport("fail-stop", (dev,), it, now))
         if it in slow_inj:
             dev, f = slow_inj[it]
-            print(f"[inject] fail-slow device {dev} -> {f} at step {it}", flush=True)
+            say(f"[inject] fail-slow device {dev} -> {f} at step {it}")
             controller.speeds[dev] = f
             controller.pending.append(FailureReport("fail-slow", ((dev, f),), it, now))
 
         adaptation = controller.adapt(now)
         if adaptation is not None:
             old_plan = engine.plan
-            print(f"[adapt] {adaptation.plan.summary()}", flush=True)
+            say(f"[adapt] {adaptation.plan.summary()}")
             for note in adaptation.notes:
-                print(f"        {note}", flush=True)
+                say(f"        {note}")
             t0 = time.perf_counter()
             state, tp_, restored = recover_state(
                 cfg, _engine_state(engine), old_plan=old_plan, new_plan=adaptation.plan,
@@ -268,10 +303,10 @@ def run_pipeline(cfg, args):
             engine.apply_plan(adaptation.plan)
             _sync(device)
             recover_s = time.perf_counter() - t0
-            print(f"[recover] {len(tp_.moves)} layer moves, "
-                  f"{tp_.total_bytes/1e6:.1f} MB, est {tp_.seconds():.2f}s on IB", flush=True)
+            say(f"[recover] {len(tp_.moves)} layer moves, "
+                f"{tp_.total_bytes/1e6:.1f} MB, est {tp_.seconds():.2f}s on IB")
             if restored is not None:
-                print(f"[recover] restored checkpoint step {restored} (Fig. 8b)", flush=True)
+                say(f"[recover] restored checkpoint step {restored} (Fig. 8b)")
             reconfigs.append(it)
             adaptations.append({
                 "step": it, "plan": adaptation.plan.summary(), "notes": list(adaptation.notes),
@@ -289,10 +324,10 @@ def run_pipeline(cfg, args):
         losses.append(loss)
         times.append(dt)
         if ckpt:
-            ckpt.maybe_save(_engine_state(engine), it + 1, extra={"loss": loss})
+            _save(ckpt, _engine_state(engine), it + 1, {"loss": loss}, spread)
         if it % max(args.steps // 10, 1) == 0 or it == args.steps - 1:
-            print(f"[train] step {it} loss {loss:.4f} {dt*1e3:.0f} ms "
-                  f"plan={engine.plan.summary()}", flush=True)
+            say(f"[train] step {it} loss {loss:.4f} {dt*1e3:.0f} ms "
+                f"plan={engine.plan.summary()}")
     return {"losses": losses, "reconfigs": reconfigs, "times": times,
             "adaptations": adaptations, "plan": engine.plan.summary()}
 
@@ -335,10 +370,12 @@ def main(argv=None):
             cfg = reduce_cfg(get_arch(args.arch), n_layers=max(cfg.n_layers, 2 * pp, 4))
     print(f"[train] arch={cfg.arch_id} params={cfg.param_count()/1e6:.1f}M "
           f"mode={args.mode} device={args.device}", flush=True)
+    owned = not dist.is_initialized()  # else the caller's group: it stays
     result = run_spmd(cfg, args) if args.mode == "spmd" else run_pipeline(cfg, args)
-    if dist.is_initialized():  # a torchrun world: rank 0 writes
+    if dist.is_initialized():  # a world: rank 0 writes
         rank = dist.get_rank()
-        dist.destroy_process_group()
+        if owned:
+            dist.destroy_process_group()
         if rank:
             return result
     if args.out:

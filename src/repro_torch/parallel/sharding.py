@@ -280,6 +280,20 @@ def policy_for_mesh(mesh, **kw) -> ShardingPolicy:
     return ShardingPolicy(mesh=mesh, dp_axes=dp, tp_axis=tp, **kw)
 
 
+def stage_policy(mesh, cfg) -> ShardingPolicy:
+    """The policy of one pipeline stage's `(data, model)` mesh, the
+    reference engine's (`PipelineEngine.apply_plan`): `policy_for_mesh`
+    without a batch split, attention split over tp by heads where tp
+    divides `n_heads`, else by head_dim where it divides `head_dim`, else
+    not split. NULL_POLICY without a mesh."""
+    pol = policy_for_mesh(mesh, shard_batch=False)
+    if mesh is None:
+        return pol
+    tp = pol.tp
+    rule = "heads" if cfg.n_heads % tp == 0 else "head_dim" if cfg.head_dim % tp == 0 else None
+    return pol.replace(attn_shard=rule)
+
+
 def mesh_block(mesh, dims):
     """(blocks, this rank's block) of a tensor dim split over the DeviceMesh
     dims `dims`, major mesh dim first, as DTensor splits it."""

@@ -316,7 +316,8 @@ def test_gradient_sums_refuse_mismatched_leaves():
     """`zip_leaves` raises on another count or shape of leaves, and so does
     the engine where a sum would pair different leaves: the DP reduce of
     replicas whose stages hold different layers, and the accumulation of a
-    micro-batch migrated onto a stage with other layers."""
+    micro-batch migrated onto a stage with other layers (with an optimizer
+    or without)."""
     a, b = [torch.zeros(2), torch.zeros(3)], [torch.zeros(2)]
     with pytest.raises(ValueError, match="2 leaves against 1"):
         list(zip_leaves(a, b, "test"))
@@ -341,6 +342,10 @@ def test_gradient_sums_refuse_mismatched_leaves():
                          devices=CPU, params=params, compute_dtype=torch.float32)
     # micro-batch 1 of replica 0, stage 0 (layers 0, 1) run on replica 1's stage 0 (layer 0)
     placement = {ChunkId(kind, 1, 0, 0): (1, 0) for kind in ("F", "B")}
+    with pytest.raises(ValueError, match="gradient accumulation"):
+        eng.run_iteration(batch, placement=placement)
+    eng.optimizer = _Recorder().opt
+    eng.opt_state = eng.optimizer.init(eng.params_full)
     with pytest.raises(ValueError, match="gradient accumulation"):
         eng.run_iteration(batch, placement=placement)
     assert all(p.grad is None for p in tree_leaves(eng.params_full))

@@ -1,4 +1,6 @@
-"""Spawned `gloo` ranks for the port's sharding tests (tests/test_torch_sharding.py).
+"""Spawned `gloo` ranks for the port's sharding tests (tests/test_torch_sharding.py
+and its siblings) and its pipeline engine on stage meshes
+(tests/test_torch_pipeline_mesh.py).
 
 `launch(fn, world, *args)` starts `world` CPU processes, each of which joins
 a process group over `tcp://localhost:<free port>` (every collective times
@@ -396,3 +398,180 @@ def mesh_cases(rank, world, shape, cases, names=("data", "model")):
         if rank == 0 or case["kind"] in ("moe_layer", "placements") or case.get("routes"):
             out[name] = result
     return out
+
+
+# ------------------------------------------------------- pipeline workers
+PIPE_ARCH, PIPE_LAYERS, PIPE_SEQ = "qwen3-8b", 4, 64  # the reference engine tests' model
+
+
+def _pipe_cfg(**over):
+    from repro_torch.configs import get_arch, reduced
+    return reduced(get_arch(PIPE_ARCH), **{"n_layers": PIPE_LAYERS, **over})
+
+
+def _stage_view(engine):
+    """{"dp{r},pp{s}": (ranks, this rank's mesh coordinate or None)}."""
+    def coord(mesh):
+        c = mesh.get_coordinate()
+        return None if c is None else list(c)
+    return {f"dp{r},pp{s}": (list(engine.ranks[(r, s)]), coord(engine.meshes[(r, s)]))
+            for r, s in engine.ranks}
+
+
+def _failstop_plan(cfg, plan):
+    """The Scheduler's plan after the fail-stop of plan device 5."""
+    from repro_torch.core.scheduler.repartition import costs_for_arch
+    from repro_torch.core.scheduler.scheduler import Scheduler
+
+    speeds = {d: 1.0 for d in plan.devices}
+    speeds[5] = 0.0
+    return Scheduler(layer_costs=costs_for_arch(cfg, PIPE_SEQ)).adapt(plan, speeds,
+                                                                      failed={5}).plan
+
+
+def _pipe_meshes_case(rank, world, case):
+    """dp2/pp2/tp2 (8 plan devices) on this world: each stage's ranks and
+    this rank's coordinates, before and after the fail-stop of device 5;
+    whether stages r0s0 and r1s0 share one mesh; whether applying each plan
+    again made no new mesh."""
+    import torch
+
+    from repro_torch.core.scheduler.plan import initial_plan
+    from repro_torch.engine.pipeline import PipelineEngine
+
+    cfg = _pipe_cfg()
+    plan = initial_plan(PIPE_LAYERS, dp=2, pp=2, tp=2, microbatches=2)
+    eng = PipelineEngine(cfg, plan, devices=["cpu"], compute_dtype=torch.float32)
+    out = {"before": _stage_view(eng), "shared": eng.meshes[(0, 0)] is eng.meshes[(1, 0)]}
+    meshes, made = dict(eng.meshes), len(eng.made_meshes)
+    eng.apply_plan(plan)
+    reused = all(eng.meshes[k] is m for k, m in meshes.items())
+    after = _failstop_plan(cfg, plan)
+    eng.apply_plan(after)
+    out["after"] = _stage_view(eng)
+    meshes, made_after = dict(eng.meshes), len(eng.made_meshes)
+    eng.apply_plan(after)
+    out["reused"] = reused and all(eng.meshes[k] is m for k, m in meshes.items()) and len(
+        eng.made_meshes) == made_after
+    out["meshes_made"] = [made, made_after]
+    out["plan_after"] = after.summary()
+    return out
+
+
+def _master_digest(engine):
+    import hashlib
+
+    h = hashlib.sha256()
+    for x in _tree_leaves(engine.params_full):
+        h.update(x.detach().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _tree_leaves(tree):
+    from repro_torch.train.optimizer import tree_leaves
+    return tree_leaves(tree)
+
+
+def _my_stages(engine):
+    """[(r, s, tp, local shape of layer 0's wq)] of the stages this rank
+    computes."""
+    out = []
+    for r, s in sorted(engine.meshes):
+        if engine.member(r, s):
+            wq = engine.stage_params(r, s)["layers"][0]["mixer"]["wq"]
+            local = wq.to_local() if hasattr(wq, "to_local") else wq
+            out.append((r, s, engine.policies[(r, s)].tp, tuple(local.shape)))
+    return out
+
+
+def _pipe_failstop_case(rank, world, case):
+    """The case's numpy weights (of the model with the case's `over`), fp32,
+    AdamW lr 5e-3, the case's plan (dp2/pp2/tp2 by default): one step per
+    batch, the fail-stop of device 5 applied before step `fault_at` (None:
+    none); the single-process engine where no process group is initialised
+    (`single_process`) -> losses, plans, whether it ran on stage meshes, the
+    first stage's attention split, this rank's stages before and after, a
+    digest of its final master."""
+    import torch
+
+    from repro_torch.bridge import params_from_jax
+    from repro_torch.core.scheduler.plan import initial_plan
+    from repro_torch.engine.pipeline import PipelineEngine
+    from repro_torch.train.optimizer import make_optimizer
+
+    cfg = _pipe_cfg(**case.get("over", {}))
+    plan = initial_plan(PIPE_LAYERS, **case.get("plan", {"dp": 2, "pp": 2, "tp": 2}),
+                        microbatches=2)
+    eng = PipelineEngine(cfg, plan, optimizer=make_optimizer("adamw", lr=5e-3), devices=["cpu"],
+                         params=params_from_jax(case["params"], dtype=torch.float32,
+                                                device="cpu"),
+                         compute_dtype=torch.float32)
+    out = {"losses": [], "plans": [plan.summary()], "spmd": eng.spmd,
+           "attn_shard": eng.policies[(0, 0)].attn_shard}
+    if eng.spmd:
+        out["stages_before"] = _my_stages(eng)
+    for i, batch in enumerate(case["batches"]):
+        if i == case["fault_at"]:
+            eng.apply_plan(_failstop_plan(cfg, plan))
+            out["plans"].append(eng.plan.summary())
+        out["losses"].append(eng.run_iteration(_tensor_batch(batch))[0])
+    if eng.spmd:
+        out["stages_after"] = _my_stages(eng)
+    out["digest"] = _master_digest(eng)
+    return out
+
+
+def _pipe_migration_case(rank, world, case):
+    """The reference's migration identity on this world: dp2/pp2/tp2 in
+    bf16, no optimizer, the loss of one batch as planned and with F and B
+    of (mb 0, stage 1, replica 0) on replica 1 -> both losses."""
+    from repro_torch.bridge import params_from_jax
+    from repro_torch.core.detector.dag_sim import ChunkId
+    from repro_torch.core.scheduler.plan import initial_plan
+    from repro_torch.engine.pipeline import PipelineEngine
+
+    import torch
+
+    plan = initial_plan(PIPE_LAYERS, dp=2, pp=2, tp=2, microbatches=2)
+    eng = PipelineEngine(_pipe_cfg(), plan, devices=["cpu"],
+                         params=params_from_jax(case["params"], dtype=torch.float32,
+                                                device="cpu"))
+    batch = _tensor_batch(case["batch"])
+    base, _ = eng.run_iteration(batch)
+    placement = {ChunkId("F", 0, 1, 0): (1, 1), ChunkId("B", 0, 1, 0): (1, 1)}
+    migrated, _ = eng.run_iteration(batch, placement=placement)
+    return {"base": base, "migrated": migrated}
+
+
+def _pipe_driver_case(rank, world, case):
+    """`launch.train.main` in pipeline mode on every rank, once per argv in
+    `case["runs"]` -> each run's result."""
+    from repro_torch.launch import train
+
+    return [train.main(argv) for argv in case["runs"]]
+
+
+PIPELINE_CASES = {"meshes": _pipe_meshes_case, "failstop": _pipe_failstop_case,
+                  "migration": _pipe_migration_case, "driver": _pipe_driver_case}
+
+
+def single_process(case):
+    """`case` in this process, which has no process group, on one thread as
+    a rank computes: the single-process engine -> its result."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        raise RuntimeError("the single-process engine runs where no process group is initialised")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return PIPELINE_CASES[case["kind"]](0, 1, case)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def pipeline_cases(rank, world, cases):
+    """Every case of the pipeline engine on stage meshes, in order, on this
+    world (no mesh of its own: the engine makes its stages') -> {name:
+    result}, every rank's."""
+    return {name: PIPELINE_CASES[case["kind"]](rank, world, case) for name, case in cases.items()}
