@@ -46,13 +46,21 @@ Phases, in one process; any failure exits nonzero:
              masters + AdamW, bf16 compute, remat) trained for 20 steps by
              the port's spmd driver, through the bf16 forward and backward
              kernels, with the Eq. 1 fit and the Detector on the step times;
+             then step 0 again with bf16 gradient accumulation (the
+             reference's `accum_dtype` above 5e10 parameters), its
+             gradients within 2e-2 of each leaf's max abs of the fp32 step
+             0's, its peak memory beside the fp32 run's;
   8. pipeline the ResiHP runtime: the same model (8 layers) under a dp=2,
              pp=2, tp=2 plan (8 plan devices on the one card) trained for 12
              steps by the port's pipeline driver, with a fail-stop injected
              at step 4 and a fail-slow at step 8: detect -> adapt -> recover
              -> resume, each checked step's loss held to `loss_fn` on the
-             same parameters and batch, exact launches per step, and the
-             migration identity;
+             same parameters and batch, exact launches per step, the
+             migration identity, and Algorithm 1's migrator
+             (`ProgressAwareMigrator` on the fail-slow adaptation's
+             `migrator_kwargs`, executor (0, 1) at speed 0.3, delta 0)
+             placing one more iteration on the final plan: at least one
+             chunk moved, the loss within 1e-5 of the unplaced one;
   9. checkpoint the pipeline driver's restart on the fp32 parity model (6
              steps straight against 3 + save + restart + 3) and a Fig. 8b
              recovery from the checkpoint onto the card, bit for bit;
@@ -112,7 +120,9 @@ Phases, in one process; any failure exits nonzero:
              driver for 6 steps with every stage on its own mesh (the
              one-rank (1, 1) mesh), losses equal to phase 8's first 6 bit
              for bit, launches a step equal, the migration identity, step
-             seconds, busy share and peak memory beside phase 8's; the
+             seconds, busy share and peak memory beside phase 8's, each
+             step's hand-off bytes (Fig. 7's rule: none on one rank) beside
+             `p2p_cost_bytes`; the
              sharded train step (DTensor state placed by the
              sharding rules, the kernels through `local_map`) on the fp32
              parity model against the unsharded step (3 steps, parameters
@@ -210,10 +220,14 @@ TRAIN_PROFILED_STEP = 1  # after the warm-up step 0; Eq. 1 and the Detector skip
 # layers runs the paper's small plan (Table 3: tp4 dp2 pp2, 16 plan devices)
 # through the same faults.
 PIPE_SEQ, PIPE_MICROBATCHES = 4096, 2
+# qwen3-8b's run ends with Algorithm 1's migrator placing one more iteration
+# on the final plan ("migrator": the executor whose speed is set, the speed,
+# Algorithm 1's delta; at the fail-slow's own speeds and `run_pipeline`'s delta 1
+# it moves nothing)
 PIPE_SPECS = {
     "qwen3-8b": {"layers": 8, "plan": {"dp": 2, "pp": 2, "tp": 2}, "steps": 12,
                  "failstop": "4:5", "failslow": "8:1@0.3", "reconfigs": [4, 8],
-                 "checked": (0, 4, 8, 11), "profiled": 2},
+                 "checked": (0, 4, 8, 11), "profiled": 2, "migrator": ((0, 1), 0.3, 0)},
     "gemma3-1b": {"layers": None, "plan": {"dp": 1, "pp": 2, "tp": 1}, "steps": 4,
                   "failstop": None, "failslow": None, "reconfigs": [], "checked": (0,),
                   "profiled": None},
@@ -225,13 +239,13 @@ PIPE_SPECS = {
 # qwen3-8b's plan and faults (the fail-stop's repartition 2/1 -> 1/2, the
 # fail-slow's TP 2 -> 1; at 4 layers it peaked at 83.13 GB of the card's
 # 85.5e9 bytes); the engine trains on NLL alone, as the reference's
-PIPE_SPECS["qwen3-moe-30b-a3b"] = {**PIPE_SPECS["qwen3-8b"], "layers": 3}
+PIPE_SPECS["qwen3-moe-30b-a3b"] = {**PIPE_SPECS["qwen3-8b"], "layers": 3, "migrator": None}
 PIPE_PLAN = PIPE_SPECS["qwen3-8b"]["plan"]  # the checkpoint phase's plan
 # phase 14's pipeline on stage meshes: phase 8's model, plan and fail-stop
 # for its first 6 steps, every stage on the one-rank (1, 1) mesh; its losses
 # are held to phase 8's first 6 bit for bit
 STAGE_MESH_SPEC = {**PIPE_SPECS["qwen3-8b"], "steps": 6, "failslow": None, "reconfigs": [4],
-                   "checked": (), "profiled": 2}
+                   "checked": (), "profiled": 2, "migrator": None}
 TOL_PIPE_LOSS_REL, TOL_MIGRATION = 1e-3, 1e-5
 # the dense family: each arch's attention widths on its packed train shape
 FAMILY_KERNEL_ARCHS = ("gemma3-1b", "gemma3-4b", "h2o-danube-1.8b", "llama2-7b", "qwen2.5-7b",
@@ -1878,7 +1892,7 @@ def counting_regimes():
 
 def train_phase(cfg, device, *, layers=TRAIN_LAYERS, steps=TRAIN_STEPS, fit=TRAIN_FIT,
                 batch=TRAIN_BATCH, microbatches=TRAIN_MICROBATCHES, profile=True,
-                warmup=TRAIN_WARMUP):
+                warmup=TRAIN_WARMUP, accum_check=False):
     """The training path: a model at full width, cut to `layers` layers (None:
     full depth), trained for `steps` steps of `batch` rows of TRAIN_SEQ in
     `microbatches` micro-batches by the port's spmd driver
@@ -1888,7 +1902,8 @@ def train_phase(cfg, device, *, layers=TRAIN_LAYERS, steps=TRAIN_STEPS, fit=TRAI
     (the first `warmup` left out of the steady ones), the Eq. 1 fit (on `fit` steps after the warm-up, held out on the rest;
     None: no fit) and the Detector's statistics; with `profile`, the device
     profile of step TRAIN_PROFILED_STEP (on the device alone for a model
-    with recurrent layers)."""
+    with recurrent layers); with `accum_check`, step 0 again with bf16
+    gradient accumulation (`bf16_accumulation_step`)."""
     import repro_torch.launch.train as driver
     from repro_torch.core.detector.predictor import MicroBatchTimePredictor
     from repro_torch.data.packing import pack_stats
@@ -1939,6 +1954,8 @@ def train_phase(cfg, device, *, layers=TRAIN_LAYERS, steps=TRAIN_STEPS, fit=TRAI
                 flags = [bool(torch.isfinite(p.grad).all() & (p.grad != 0).any())
                          for p in tree_leaves(state["params"])]
                 step0.update(leaves=len(flags), leaves_with_finite_nonzero_grad=sum(flags))
+                if accum_check:  # what the bf16 accumulation's step 0 is held to
+                    step0["grads"] = [p.grad.to("cpu") for p in tree_leaves(state["params"])]
             return state, metrics
 
         return step
@@ -2010,7 +2027,65 @@ def train_phase(cfg, device, *, layers=TRAIN_LAYERS, steps=TRAIN_STEPS, fit=TRAI
     if prof is not None:
         prof["busy_share"] = (prof["device_seconds_per_call"]
                               / prof["profiled_wall_seconds_per_call"])
+    if accum_check:
+        torch.cuda.empty_cache()
+        res["bf16_accumulation"] = bf16_accumulation_step(
+            tcfg, args, ds.batch_at(0), step0.pop("grads"), losses[0], peak, device, want)
     log("train", json.dumps(res))
+    return res
+
+
+def bf16_accumulation_step(cfg, args, batch, fp32_grads, fp32_loss, fp32_peak, device, want):
+    """Step 0 of the train phase again (`run_spmd`'s seed, optimizer and
+    micro-batches, the same batch) through `build_train_step(...,
+    accum_dtype=torch.bfloat16)`, the reference's accumulation above 5e10
+    parameters: its loss beside the fp32 step's, every leaf's finite
+    nonzero clipped gradient within TOL_BF16 of that leaf's max abs of the
+    fp32 step 0's (`fp32_grads`, on the host), its launches (counted from
+    0 around the step) those of a train step (`want`), and its peak
+    allocated memory beside the fp32 run's."""
+    from repro_torch.train.optimizer import optimizer_for, tree_leaves
+    from repro_torch.train.train_step import build_train_step, init_train_state
+
+    opt = optimizer_for(cfg, lr=args.lr)
+    state = init_train_state(args.seed, cfg, opt, device=device)
+    step = build_train_step(cfg, opt, microbatches=args.microbatches, remat=True,
+                            accum_dtype=torch.bfloat16)
+    batch = to_device(batch, device)
+    plain, undo = counting_plain_calls()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    try:
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        loss = float(metrics["loss"])
+        seconds = time.perf_counter() - t0
+        launches = {**read_counts(), **{f"backward[{k}]": v
+                                        for k, v in read_backward_counts().items()},
+                    "plain_calls": plain["plain_calls"]}
+    finally:
+        undo()
+    peak = torch.cuda.max_memory_allocated()
+    if launches != want:
+        raise AssertionError(f"bf16 accumulation step: launches {launches}, expected {want}")
+    errs, leaves = [], tree_leaves(state["params"])
+    for p, ref in zip(leaves, fp32_grads, strict=True):
+        ref = ref.to(device)
+        if not bool(torch.isfinite(p.grad).all() & (p.grad != 0).any()):
+            raise AssertionError(f"bf16 accumulation: a leaf of shape {tuple(p.shape)} has no "
+                                 "finite nonzero gradient")
+        errs.append(float((p.grad - ref).abs().max()) / max(float(ref.abs().max()), 1e-30))
+    del state, fp32_grads
+    if not max(errs) <= TOL_BF16:
+        raise AssertionError(f"bf16 accumulation: gradients {max(errs)} of their leaf's max "
+                             f"abs from the fp32 step's (tol {TOL_BF16})")
+    res = {"accum_dtype": "bfloat16", "loss": loss, "fp32_loss": fp32_loss,
+           "loss_rel": abs(loss - fp32_loss) / abs(fp32_loss), "grad_norm": float(
+               metrics["grad_norm"]), "leaves": len(leaves), "max_grad_err_of_leaf_max": max(errs),
+           "tol": TOL_BF16, "step_seconds": seconds, "launches": launches,
+           "max_memory_allocated_bytes": peak, "fp32_run_max_memory_allocated_bytes": fp32_peak}
+    log("train bf16 accumulation", json.dumps(res))
     return res
 
 
@@ -2044,9 +2119,11 @@ def pipeline_phase(cfg, device, spec):
     and fail-slow injections. Checks the reconfiguration steps and plans,
     every step's launches, the engine's loss against `loss_fn` on the same
     parameters and batch before the update at the checked steps, and then,
-    with two replicas or more, the migration identity; reports step times
-    around each reconfiguration, the planning and recovery overheads and
-    peak memory."""
+    with two replicas or more, the migration identity and, where the spec
+    names a `migrator`, Algorithm 1's placement (`migrator_check`); reports
+    step times around each reconfiguration, the planning and recovery
+    overheads, peak memory and, on stage meshes, each step's hand-off bytes
+    (`hand_off_bytes`)."""
     import repro_torch.launch.train as driver
     from repro_torch.core.detector.dag_sim import ChunkId
     from repro_torch.data.synth import SyntheticPackedDataset
@@ -2072,9 +2149,18 @@ def pipeline_phase(cfg, device, spec):
     def diff(after, before):
         return {k: v - before[k] for k, v in after.items()}
 
-    per_step, checks, engines, prof, engine_seconds = [], [], [], {}, []
-    check_launches = {}
-    Engine = driver.PipelineEngine
+    per_step, checks, engines, prof, engine_seconds, hand_offs = [], [], [], {}, [], []
+    check_launches, adaptations = {}, []
+    Engine, Controller = driver.PipelineEngine, driver.ResiHPController
+
+    class KeptController(Controller):
+        """`run_pipeline`'s controller, keeping each adaptation with its Scheduler."""
+
+        def adapt(self, now=0.0):
+            adaptation = super().adapt(now)
+            if adaptation is not None:
+                adaptations.append((self.scheduler, adaptation))
+            return adaptation
 
     class CheckedEngine(Engine):
         """The driver's engine, with each step's launches counted and, at the
@@ -2112,6 +2198,7 @@ def pipeline_phase(cfg, device, spec):
             torch.cuda.synchronize()
             engine_seconds.append(time.perf_counter() - t0)
             per_step.append(diff(counts(), before))
+            hand_offs.append(hand_off_bytes(self, tcfg))
             if ref is not None:
                 checks.append({"step": step, "engine_loss": loss, "loss_fn": ref,
                                "rel": abs(loss - ref) / abs(ref), "plan": self.plan.summary()})
@@ -2119,7 +2206,7 @@ def pipeline_phase(cfg, device, spec):
 
     plain, undo_plain = counting_plain_calls()
     lse, undo_lse = counting_lse_calls()
-    driver.PipelineEngine = CheckedEngine
+    driver.PipelineEngine, driver.ResiHPController = CheckedEngine, KeptController
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -2128,7 +2215,7 @@ def pipeline_phase(cfg, device, spec):
         torch.cuda.synchronize()
         total = counts()
     finally:
-        driver.PipelineEngine = Engine
+        driver.PipelineEngine, driver.ResiHPController = Engine, Controller
         undo_plain()
         undo_lse()
     peak, reserved = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
@@ -2180,6 +2267,9 @@ def pipeline_phase(cfg, device, spec):
             raise AssertionError(f"migration identity: {base} vs {migrated}")
         migration = {"base": base, "migrated": migrated, "abs": abs(base - migrated),
                      "tol": TOL_MIGRATION}
+        if spec.get("migrator"):
+            migration["migrator"] = migrator_check(engine, adaptations[-1], batch, base,
+                                                   *spec["migrator"], counts, diff)
     del engine, engines[:]
 
     def steady(lo, hi):  # step 0 warms up; the profiled step carries the profiler's host cost
@@ -2201,6 +2291,7 @@ def pipeline_phase(cfg, device, spec):
            "launches_per_step": want, "launches_by_step": per_step[:steps],
            "launches": engine_total, "check_launches": check_launches,
            "spmd": stage_meshes is not None, "stage_meshes": stage_meshes,
+           "hand_off_bytes": hand_offs[:steps] if stage_meshes is not None else None,
            "max_memory_allocated_bytes": peak, "max_memory_reserved_bytes": reserved,
            "profiled_step": profiled, "profile": prof}
     if prof:
@@ -2212,6 +2303,63 @@ def pipeline_phase(cfg, device, spec):
             f"recover + apply_plan {ad['recover_seconds']:.6f} s")
     log(f"pipeline {cfg.arch_id} step seconds: {times}")
     log("pipeline", json.dumps(res))
+    return res
+
+
+def hand_off_bytes(engine, cfg):
+    """The engine's last iteration's hand-offs under a process group: the
+    bytes this rank sent by point-to-point and Fig. 7's `p2p_cost_bytes`
+    of each hand-off (one boundary tensor: a 1 x PIPE_SEQ bf16 micro-batch
+    of d_model), summed; None for the unsharded engine."""
+    from repro_torch.core.scheduler.p2p import p2p_cost_bytes
+
+    if not engine.spmd:
+        return None
+    tensor = PIPE_SEQ * cfg.d_model * 2
+    return {"hand_offs": len(engine.hand_offs),
+            "sent_bytes": sum(sent for _, _, sent in engine.hand_offs),
+            "p2p_cost_bytes": sum(p2p_cost_bytes(tensor, len(engine.ranks[a]),
+                                                 len(engine.ranks[b]))
+                                  for a, b, _ in engine.hand_offs)}
+
+
+def migrator_check(engine, kept, batch, base, slow, speed, delta, counts, diff):
+    """Algorithm 1 driving the engine: the port's `ProgressAwareMigrator` on
+    the last adaptation's `migrator_kwargs` (the final plan; chunk costs F
+    1, B 2, W 0.5 scaled by the adaptation's layer shares and speeds, with
+    executor `slow`'s speed set to `speed` and Algorithm 1's `delta`), its
+    migrations executed as a placement (`engine_placement`) on the batch
+    the migration identity ran, optimizer off; the loss held to `base`
+    within TOL_MIGRATION and at least one chunk moved; the iteration's
+    launches counted on their own."""
+    from repro_torch.core.scheduler.migration import ProgressAwareMigrator, engine_placement
+
+    scheduler, adaptation = kept
+    if adaptation.plan.summary() != engine.plan.summary():
+        raise AssertionError(f"migrator: the adaptation's plan {adaptation.plan.summary()} is "
+                             f"not the engine's {engine.plan.summary()}")
+    speeds = {**adaptation.stage_speeds, slow: speed}
+    kw = scheduler.migrator_kwargs(
+        dataclasses.replace(adaptation, stage_speeds=speeds), n_mb=engine.plan.microbatches,
+        chunk_base_cost=lambda cid: {"F": 1.0, "B": 2.0, "W": 0.5}[cid.kind])
+    sim = ProgressAwareMigrator(**{**kw, "delta": delta}).run()
+    placement = engine_placement(sim.migrations)
+    if sim.status != "ok" or not sim.migrations:
+        raise AssertionError(f"migrator: {sim.status}, moved {sim.migrations}")
+    before = counts()
+    placed = engine.run_iteration(batch, placement=placement)[0]
+    torch.cuda.synchronize()
+    launches = diff(counts(), before)
+    if not abs(base - placed) <= TOL_MIGRATION:
+        raise AssertionError(f"migrator placement: {base} vs {placed}")
+    res = {"plan": engine.plan.summary(), "slow_executor": list(slow), "speed": speed,
+           "delta": delta, "stage_speeds": {f"dp{r},pp{s}": v for (r, s), v in speeds.items()},
+           "moved": [{"time": ev.time, "chunk": repr(ev.chunk), "src": list(ev.src),
+                      "dst": list(ev.dst), "reason": ev.reason} for ev in sim.migrations],
+           "placement": {repr(c): list(d) for c, d in placement.items()},
+           "makespan": sim.makespan, "base": base, "placed": placed, "abs": abs(base - placed),
+           "tol": TOL_MIGRATION, "launches": launches}
+    log("pipeline migrator placement", json.dumps(res))
     return res
 
 
@@ -2466,6 +2614,8 @@ def kernel_entries(record):
     def served(res):
         return res["main_path_launches_by_source"][SM90.source]
 
+    migrator = record["pipeline"]["migration"]["migrator"]  # runs of their own (phases 7, 8)
+    bf16_step = record["train"]["bf16_accumulation"]
     train_prof = record["train"]["profile"]  # the backward's device time inside the train step
     train_bwd_ms = (train_prof["group_shares"]["attention_backward"]
                     * train_prof["device_seconds_per_call"] * 1e3
@@ -2476,7 +2626,9 @@ def kernel_entries(record):
               {"qwen3-8b serve": served(record["serve"]),
                "qwen3-8b train": fwd(record["train"], SM90.source),
                "qwen3-8b pipeline": fwd(record["pipeline"], SM90.source),
-               "qwen3-8b stage-mesh pipeline": fwd(record["sharding"]["pipeline"], SM90.source)},
+               "qwen3-8b stage-mesh pipeline": fwd(record["sharding"]["pipeline"], SM90.source),
+               "qwen3-8b migrator placement": fwd(migrator, SM90.source),
+               "qwen3-8b train, bf16 accumulation": fwd(bf16_step, SM90.source)},
               head_dim=128, wrapper_device_ms=kern["serving"]["wrapper_device_ms"]),
         entry("packed_flash_attention[GQA group 1]", SM90.source, fk["llama2-7b_bf16"],
               {"llama2-7b serve": served(fam["llama2-7b_serve"]),
@@ -2546,7 +2698,9 @@ def kernel_entries(record):
               {"qwen3-8b train": bwd(record["train"], BWD_SM90.source),
                "qwen3-8b pipeline": bwd(record["pipeline"], BWD_SM90.source),
                "qwen3-8b stage-mesh pipeline": bwd(record["sharding"]["pipeline"],
-                                                   BWD_SM90.source)},
+                                                   BWD_SM90.source),
+               "qwen3-8b migrator placement": bwd(migrator, BWD_SM90.source),
+               "qwen3-8b train, bf16 accumulation": bwd(bf16_step, BWD_SM90.source)},
               head_dim=128, train_step_ms_per_launch=train_bwd_ms),
         entry("packed_flash_attention_backward[GQA group 8]", BWD_SM90.source,
               fk[f"{qmoe}_bf16_bwd"],
@@ -3527,7 +3681,9 @@ def stage_mesh_pipeline(record, device):
     all-reduce of a flat buffer); every stage is the (1, 1) mesh over rank
     0. Phase 8's model, plan and fail-stop for STAGE_MESH_SPEC's 6 steps:
     the losses equal phase 8's first 6 bit for bit, each step's launches
-    phase 8's; step seconds, busy share and peak memory beside phase 8's."""
+    phase 8's; step seconds, busy share and peak memory beside phase 8's;
+    each step's hand-off bytes beside Fig. 7's `p2p_cost_bytes`: every
+    stage's rank holds each boundary tensor, so none is sent."""
     from repro_torch.configs import get_arch
 
     res = pipeline_phase(get_arch("qwen3-8b"), device, STAGE_MESH_SPEC)
@@ -3542,6 +3698,12 @@ def stage_mesh_pipeline(record, device):
     if res["launches_by_step"] != ref["launches_by_step"][:n]:
         raise AssertionError(f"stage-mesh launches {res['launches_by_step']} against phase 8's "
                              f"{ref['launches_by_step'][:n]}")
+    sent = [h["sent_bytes"] for h in res["hand_off_bytes"]]
+    log("sharding: stage-mesh hand-offs by step (count, bytes sent, p2p_cost_bytes)",
+        json.dumps([[h["hand_offs"], h["sent_bytes"], h["p2p_cost_bytes"]]
+                    for h in res["hand_off_bytes"]]))
+    if len(sent) != n or any(sent):
+        raise AssertionError(f"stage-mesh hand-offs on one rank sent bytes: {sent}")
     busy = res["profile"].get("busy_share")
     res["against_unmeshed"] = {
         "losses_equal": True, "launches_equal": True,
@@ -3940,7 +4102,7 @@ def main(argv=None):
     mark("forward+serve")
     del params  # the train phase needs the card's memory
     torch.cuda.empty_cache()
-    record["train"] = train_phase(cfg, device)
+    record["train"] = train_phase(cfg, device, accum_check=True)
     torch.cuda.empty_cache()
     mark("train")
     record["pipeline"] = pipeline_phase(cfg, device, PIPE_SPECS["qwen3-8b"])

@@ -24,13 +24,16 @@ Two forms of one interpreter:
 
 Key properties, as the reference's:
   * stage boundaries move activations (at F) and their gradients (at B)
-    onto the executing stage of the next event that reads them: under a
-    process group destination rank j of that stage receives the whole
-    (replicated) tensor from source rank j % tp_src (`dist.isend` /
-    `dist.recv`; a rank that is in both stages keeps its own copy), and
-    wraps it as a replicated DTensor on its mesh; unsharded, `Tensor.to`
-    (a no-op on one card). Fig. 7's scatter/gather, each byte crossing
-    once, is not ported;
+    onto the executing stage of the next event that reads them. Under a
+    process group by Fig. 7's scatter/gather (`core.scheduler.p2p`): the
+    tensor is cut into N = max(tp_src, tp_dst) chunks along d_model, chunk
+    c goes once (`dist.isend` / `dist.recv`) from source rank
+    c·tp_src//N to destination rank c·tp_dst//N, and the destination stage
+    all-gathers them over its `model` axis into a replicated DTensor; a
+    destination rank that is in both stages holds the whole tensor and
+    receives nothing, and where every destination rank does, nothing
+    moves. `hand_offs` keeps each hand-off's bytes this rank sent in the
+    last iteration. Unsharded, `Tensor.to` (a no-op on one card);
   * F runs the stage under `torch.no_grad()` (the forward kernel without its
     row log-sum-exp); B recomputes the stage forward under autograd and runs
     its backward (the forward kernel with the log-sum-exp, then the backward
@@ -73,6 +76,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.detector.dag_sim import ChunkId
+from repro_torch.core.scheduler.p2p import chunk_slices, p2p_mapping
 from repro_torch.core.scheduler.plan import ParallelPlan
 from repro_torch.engine.schedules import make_schedule
 from repro_torch.launch.mesh import (
@@ -167,6 +171,20 @@ def _replicated(mesh, t):
     return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
 
 
+def boundary_routes(tp_src, tp_dst, width):
+    """[(source index, destination index, slice of the last dim)]: Fig. 7's
+    symmetric mapping of a boundary tensor of `width` columns between stage
+    groups of tp_src and tp_dst ranks, each chunk once; None for a pair the
+    rule does not cover (N = max(tp_src, tp_dst) not a multiple of both
+    degrees, or `width` not a multiple of N: degrees outside Eq. 3's powers
+    of two), which the hand-off moves whole."""
+    n = max(tp_src, tp_dst)
+    if n % tp_src or n % tp_dst or width % n:
+        return None
+    cuts = chunk_slices(width, tp_src, tp_dst)
+    return [(a, b, cuts[c]) for a, b, c in p2p_mapping(tp_src, tp_dst)]
+
+
 def _block(policy, axes, master):
     """This rank's block of the master leaf as a DTensor leaf placed by the
     policy, taken with no communication: a view of the master where the
@@ -226,6 +244,7 @@ class PipelineEngine:
         self.ranks: dict = {}
         self.policies: dict = {}
         self.made_meshes: dict = {}  # stage meshes by their ranks, kept across plans
+        self.hand_offs: list = []  # the last iteration's (src, dst, bytes this rank sent)
         self.apply_plan(plan)
 
     # ----------------------------------------------------------- plan mgmt
@@ -368,11 +387,17 @@ class PipelineEngine:
     # ------------------------------------------------------------ transfer
     def _hand_off(self, t, src, dst, like, sends):
         """Move the boundary tensor t from stage src's executor to stage
-        dst's -> the tensor there (None on a rank outside dst). Under a
-        process group destination rank j receives the whole tensor from
-        source rank j % tp_src, and a rank in both stages keeps its own;
-        every rank calls this at the same event. `like` is (shape, dtype)
-        of the tensor; each send's handle joins `sends`."""
+        dst's -> the tensor there (None on a rank outside dst); every rank
+        calls this at the same event. Under a process group by Fig. 7's
+        rule (`boundary_routes`): each chunk goes once, from its source
+        rank to its destination rank, unless that rank is in src and holds
+        the whole tensor already; then, where some destination rank is not
+        in src, the destination stage all-gathers its chunks over its
+        `model` axis. A pair of degrees the rule does not cover goes whole:
+        destination rank j receives the tensor from source rank j % tp_src.
+        Which rank sends, receives and gathers follows from the plan alone.
+        `like` is (shape, dtype) of the tensor; each send's handle joins
+        `sends`, and its bytes this hand-off's entry of `hand_offs`."""
         if not self.spmd:
             return t.to(self.stage_device(*dst))
         import torch.distributed as dist
@@ -380,21 +405,48 @@ class PipelineEngine:
         self._live(*src)
         self._live(*dst)
         src_ranks, dst_ranks = self.ranks[src], self.ranks[dst]
-        local = None
+        shape, dtype = like
+        routes = boundary_routes(len(src_ranks), len(dst_ranks), shape[-1])
+        if routes is None:  # whole: destination j from source j % tp_src
+            routes = [(j % len(src_ranks), j, slice(0, shape[-1])) for j in range(len(dst_ranks))]
+        crossing = any(dst_ranks[b] not in src_ranks for _, b, _ in routes)
+        sent, local = 0, None
         if self.rank in src_ranks:
             local = t.full_tensor().contiguous()
             if (tuple(local.shape), local.dtype) != like:
                 raise RuntimeError(f"stage (dp{src[0]},pp{src[1]}) hands over "
                                    f"{tuple(local.shape)} {local.dtype}, expected {like}")
-            for j, d in enumerate(dst_ranks):
-                if d not in src_ranks and src_ranks[j % len(src_ranks)] == self.rank:
-                    sends.append((dist.isend(local, d), local))
+            me = src_ranks.index(self.rank)
+            for a, b, cut in routes:
+                if a == me and dst_ranks[b] not in src_ranks:
+                    chunk = local[..., cut].contiguous()
+                    sends.append((dist.isend(chunk, dst_ranks[b]), chunk))
+                    sent += chunk.numel() * chunk.element_size()
+        self.hand_offs.append((src, dst, sent))
         if self.rank not in dst_ranks:
             return None
-        if local is None:
-            local = torch.empty(like[0], dtype=like[1], device=self.devices[0])
-            dist.recv(local, src_ranks[dst_ranks.index(self.rank) % len(src_ranks)])
-        return _replicated(self.meshes[dst], local)
+        mesh = self.meshes[dst]
+        if not crossing:  # every destination rank holds the whole tensor
+            return _replicated(mesh, local)
+        j = dst_ranks.index(self.rank)
+        mine = [(a, cut) for a, b, cut in routes if b == j]
+        if local is not None:
+            block = local[..., mine[0][1].start: mine[-1][1].stop]
+        else:
+            parts = []
+            for a, cut in mine:
+                part = torch.empty(shape[:-1] + (cut.stop - cut.start,), dtype=dtype,
+                                   device=self.devices[0])
+                dist.recv(part, src_ranks[a])
+                parts.append(part)
+            block = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+        if block.shape[-1] == shape[-1]:  # the whole tensor: nothing to gather
+            return _replicated(mesh, block)
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        split = DTensor.from_local(block.contiguous(), mesh, [Replicate(), Shard(len(shape) - 1)],
+                                   run_check=False)
+        return split.redistribute(mesh, [Replicate()] * mesh.ndim)
 
     def _take(self, store, key, dst, like, sends):
         """store[key] = (holder stage, tensor), moved onto stage dst's
@@ -450,6 +502,7 @@ class PipelineEngine:
         losses = []  # (nll_sum, n_tokens) this rank contributes
         grad_acc: dict = {}
         sends: list = []
+        self.hand_offs = []
 
         schedules = {}
         for r in range(dp):

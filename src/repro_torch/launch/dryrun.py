@@ -24,10 +24,9 @@ dense, the MoE (its tokens over (pod, data) on (2, 16, 16)), the VLM, the
 encoder-decoder, and the recurrent and hybrid ones (xlstm, jamba), whose
 loops over positions or chunks run on local shards and, on meta tensors,
 run a few iterations counted as all (`roofline.counter.scan`).
-Training accumulates gradients in float32 (`accum_dtype`); the reference
-accumulates in bf16 above 5e10 parameters (`src/repro/launch/dryrun.py:53`),
-which the port has no option for, so grok-1's per-rank memory differs from
-the reference's.
+Training accumulates gradients in bf16 above 5e10 parameters (grok-1,
+jamba) and in float32 below, as the reference's dry-run does
+(`accum_dtype_for`); each record names the type (`accum_dtype`).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-8b --shape train_4k
@@ -56,7 +55,11 @@ from repro_torch.train.train_step import (
     build_train_step,
 )
 
-ACCUM_DTYPE = "float32"
+
+def accum_dtype_for(cfg):
+    """The train step's gradient accumulation type for a cell: bf16 above
+    5e10 parameters, else float32 (the reference's rule)."""
+    return torch.bfloat16 if cfg.param_count() > 5e10 else torch.float32
 
 
 def production_mesh_shape(multi_pod=False):
@@ -101,7 +104,8 @@ def step_fn_for_cell(cfg, shape, policy, opt, *, microbatches=None, remat=True):
     if shape.kind == "train":
         if microbatches is None:
             microbatches = max(1, shape.global_batch // max(policy.dp, 1))
-        return build_train_step(cfg, opt, policy=policy, microbatches=microbatches, remat=remat)
+        return build_train_step(cfg, opt, policy=policy, microbatches=microbatches, remat=remat,
+                                accum_dtype=accum_dtype_for(cfg))
     if shape.kind == "prefill":
         return build_prefill_step(cfg, policy=policy)
     return build_serve_step(cfg, policy=policy)
@@ -152,7 +156,7 @@ def run_cell(arch_id, shape_name, *, multi_pod=False, out_dir=None, policy_overr
         cfg = dataclasses.replace(cfg, **cfg_overrides)
     shape = SHAPES_BY_NAME[shape_name]
     rec = {"arch": arch_id, "shape": shape_name, "multi_pod": multi_pod, "tag": tag,
-           "status": "ok", "accum_dtype": ACCUM_DTYPE}
+           "status": "ok", "accum_dtype": str(accum_dtype_for(cfg)).removeprefix("torch.")}
     name = _cell_name(arch_id, shape_name, multi_pod, tag)
     if shape_name in cfg.shape_skips:
         rec["status"] = "skipped"

@@ -223,8 +223,9 @@ def _load_state(engine, state, *, step=False):
 def run_pipeline(cfg, args):
     """The ResiHP runtime. Returns {"losses", "reconfigs"} as the reference,
     plus each step's seconds ("times"), each adaptation's plan, notes, layer
-    moves and measured recovery seconds ("adaptations") and the final plan
-    ("plan").
+    moves and measured recovery seconds ("adaptations"), the final plan
+    ("plan") and each step's bytes the world sent between stage groups
+    ("hand_off_bytes", Fig. 7's hand-offs; zeros without a process group).
 
     At world size 1 every plan device maps onto `--device` and the engine
     runs each stage whole there. Under `torchrun` with a world of N (or in a
@@ -275,7 +276,7 @@ def run_pipeline(cfg, args):
         _load_state(engine, full, step=True)
         say(f"[train] resumed from step {start}")
 
-    losses, times, reconfigs, adaptations = [], [], [], []
+    losses, times, reconfigs, adaptations, sent = [], [], [], [], []
     for it in range(start, args.steps):
         now = float(it)
         if it in injections:
@@ -323,13 +324,18 @@ def run_pipeline(cfg, args):
         dt = time.perf_counter() - t0
         losses.append(loss)
         times.append(dt)
+        sent.append(sum(b for _, _, b in engine.hand_offs))
         if ckpt:
             _save(ckpt, _engine_state(engine), it + 1, {"loss": loss}, spread)
         if it % max(args.steps // 10, 1) == 0 or it == args.steps - 1:
             say(f"[train] step {it} loss {loss:.4f} {dt*1e3:.0f} ms "
                 f"plan={engine.plan.summary()}")
+    if spread:  # the world's hand-off bytes, one sum after the run
+        sent_t = torch.tensor(sent, dtype=torch.int64, device=device)
+        dist.all_reduce(sent_t)
+        sent = sent_t.tolist()
     return {"losses": losses, "reconfigs": reconfigs, "times": times,
-            "adaptations": adaptations, "plan": engine.plan.summary()}
+            "adaptations": adaptations, "plan": engine.plan.summary(), "hand_off_bytes": sent}
 
 
 def parser():

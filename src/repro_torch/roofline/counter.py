@@ -16,7 +16,7 @@ card):
   * collective_bytes by kind: the `_c10d_functional` ops, at the
     reference's ring factors (`_RING`) and the size of each op's group;
   * peak_bytes: the most bytes held at once by the storages the counted
-    ops made (each held until it is freed);
+    ops made, collectives' outputs included (each held until it is freed);
   * the top ops by flops and by bytes, in place of the reference's
     `hbm_by_scope`.
 
@@ -228,6 +228,7 @@ class OpCounter(TorchDispatchMode):
                 if g > 1:
                     self.collective_bytes[kind] += scale * _RING[kind](
                         out_b, sum(map(_nbytes, ins)), g)
+            self._hold_outputs(ins, outs, window)  # a collective's output is memory too
             return
         if packet in flop_registry:
             f = scale * float(flop_registry[packet](*args, **kwargs, out_val=out))
@@ -247,6 +248,9 @@ class OpCounter(TorchDispatchMode):
             b = scale * float(sum(map(_nbytes, ins)) + out_b)
             self.hbm_bytes += b
             self.bytes_by_op[name] += b
+        self._hold_outputs(ins, outs, window)
+
+    def _hold_outputs(self, ins, outs, window):
         inputs = {t.untyped_storage()._cdata for t in ins}
         for t in outs:  # a view's or an in-place op's storage is not new
             storage = t.untyped_storage()

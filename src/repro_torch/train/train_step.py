@@ -2,7 +2,9 @@
 
 train_step: micro-batched gradient accumulation, global-norm clipping,
 optimizer update. Mixed precision as the reference: fp32 master parameters,
-bf16 compute, fp32 gradients. Under a `ShardingPolicy` with a mesh the train
+bf16 compute, fp32 gradients, accumulated over micro-batches in fp32 or, by
+the reference's `accum_dtype`, in bf16 (`_Accumulator`). Under a
+`ShardingPolicy` with a mesh the train
 state is DTensors placed by the reference's rules (`sharding_for_state`),
 each micro-batch is split over the dp axes (`batch_spec`), and the forward,
 the loss, the clip and the optimizer's in-place update act on DTensors;
@@ -112,13 +114,54 @@ def global_norm(tree):
     return torch.sqrt(sum(g.float().square().sum() for g in tree_leaves(tree)))
 
 
+class _Accumulator:
+    """The reference's accumulation in `accum_dtype` (its `accum` scan):
+    each micro-batch's gradient of a leaf, formed in fp32, is rounded to
+    `accum_dtype` and added into that leaf's accumulator as soon as
+    autograd has formed it (a post-accumulate hook, which then drops the
+    fp32 gradient: at most one leaf's exists at a time); `finish` divides
+    each sum by the micro-batch count in `accum_dtype` and leaves it in
+    `.grad` as fp32, one leaf at a time. Under a mesh each micro-batch's
+    gradient is placed as its parameter (its partial sums reduced in fp32)
+    before it is rounded."""
+
+    def __init__(self, leaves, dtype, sharded):
+        self.leaves, self.dtype, self.sharded = leaves, dtype, sharded
+        self.sums = [None] * len(leaves)
+        self.hooks = [p.register_post_accumulate_grad_hook(self._add(i))
+                      for i, p in enumerate(leaves)]
+
+    def _add(self, i):
+        def hook(p):
+            g = p.grad
+            if self.sharded:
+                g = g.redistribute(p.device_mesh, p.placements)
+            g = g.to(self.dtype)
+            self.sums[i] = g if self.sums[i] is None else self.sums[i].add_(g)
+            p.grad = None
+        return hook
+
+    def remove(self):
+        for handle in self.hooks:
+            handle.remove()
+
+    def finish(self, microbatches):
+        for i, p in enumerate(self.leaves):
+            total, self.sums[i] = self.sums[i], None
+            p.grad = (total / microbatches).float()
+
+
 def build_train_step(cfg, optimizer, *, policy=NULL_POLICY, microbatches=1, remat=True,
-                     clip_norm=1.0, compute_dtype=torch.bfloat16):
+                     clip_norm=1.0, compute_dtype=torch.bfloat16, accum_dtype=torch.float32):
     """Returns train_step(state, batch) -> (state, metrics); the state's
     parameters and optimizer state are updated in place. Under a policy
     with a mesh the state is `init_train_state(..., policy=policy)`'s, every
     rank passes the whole global batch, and the metrics come back as full
-    (replicated) tensors."""
+    (replicated) tensors. `accum_dtype` is the gradients' type across
+    micro-batches: float32 accumulates the mean's gradient into fp32
+    `.grad` (each micro-batch's loss scaled by 1 / microbatches, equal to
+    the reference's sum-then-divide up to rounding); any other type
+    follows the reference's order exactly (`_Accumulator`)."""
     sharded = policy.mesh is not None
     if sharded:
         from torch.distributed.tensor import DTensor
@@ -130,19 +173,32 @@ def build_train_step(cfg, optimizer, *, policy=NULL_POLICY, microbatches=1, rema
         if B % microbatches:
             raise ValueError(f"batch {B} does not split into {microbatches} micro-batches")
         n = B // microbatches
-        for p in tree_leaves(params):
+        leaves = tree_leaves(params)
+        for p in leaves:
             p.grad = None
         loss_sum = ntokens = 0.0
         with replicating():
-            for i in range(microbatches):
-                mb = policy.distribute_batch({k: v[i * n:(i + 1) * n] for k, v in batch.items()})
-                total, metrics = loss_fn(cfg, params, mb, remat=remat,
-                                         compute_dtype=compute_dtype, policy=policy)
-                (total / microbatches).backward()  # accumulates the mean into fp32 .grad
-                loss_sum = loss_sum + total.detach()
-                ntokens = ntokens + metrics["ntokens"]
-            if sharded:  # each gradient placed as its parameter (its partial sums reduced)
-                for p in tree_leaves(params):
+            accum = None if accum_dtype == torch.float32 else _Accumulator(leaves, accum_dtype,
+                                                                            sharded)
+            try:
+                for i in range(microbatches):
+                    mb = policy.distribute_batch({k: v[i * n:(i + 1) * n]
+                                                  for k, v in batch.items()})
+                    total, metrics = loss_fn(cfg, params, mb, remat=remat,
+                                             compute_dtype=compute_dtype, policy=policy)
+                    if accum is None:
+                        (total / microbatches).backward()  # the mean's gradient, into fp32 .grad
+                    else:
+                        total.backward()  # into the accumulators, by the hooks
+                    loss_sum = loss_sum + total.detach()
+                    ntokens = ntokens + metrics["ntokens"]
+            finally:
+                if accum is not None:
+                    accum.remove()
+            if accum is not None:
+                accum.finish(microbatches)
+            elif sharded:  # each gradient placed as its parameter (its partial sums reduced)
+                for p in leaves:
                     p.grad = p.grad.redistribute(p.device_mesh, p.placements)
             grads = tree_map(lambda p: p.grad, params)
             with torch.no_grad():

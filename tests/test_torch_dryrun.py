@@ -13,7 +13,9 @@ layers and an attention layer) are `ok` with the record's keys, their
 attention FLOPs are the kernel ops' visible pairs. The recurrent train and
 prefill cells finish in seconds because their loops run SAMPLE iterations
 and are counted whole (`roofline.counter.scan`). `skipped` follows each
-config's `shape_skips`, and the CLI prints its summary line.
+config's `shape_skips`, and the CLI prints its summary line. The train
+cells of grok-1 and jamba (above 5e10 parameters) accumulate gradients in
+bf16, every other arch's in float32, as the reference's dry-run.
 """
 import json
 import os
@@ -22,9 +24,10 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
 
 from repro_torch.configs import ASSIGNED_ARCHS, SHAPES_BY_NAME, get_arch
-from repro_torch.launch.dryrun import run_cell
+from repro_torch.launch.dryrun import accum_dtype_for, run_cell
 from repro_torch.roofline.analysis import H100
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -148,3 +151,39 @@ def test_cli_prints_the_summary(tmp_path):
     assert r.stdout.splitlines()[-1] == "[dryrun] done ok=0 skip=2 not_ported=0 fail=0"
     assert json.loads((tmp_path / "qwen3-8b__long_500k__pod2__baseline.json").read_text())[
         "status"] == "skipped"
+
+
+ACCUM = r"""
+import json
+from repro_torch.launch import dryrun
+built = []
+def build(cfg, opt, **kw):  # the step the cell would run: its accumulation type, then stop
+    built.append(str(kw["accum_dtype"]))
+    raise NotImplementedError("stopped before the step")
+dryrun.build_train_step = build
+recs = [dryrun.run_cell(a, "train_4k", multi_pod=mp)
+        for a in ("grok-1-314b", "jamba-1.5-large-398b", "qwen3-8b") for mp in (False, True)]
+print("RESULT " + json.dumps({"records": [(r["arch"], r["multi_pod"], r["accum_dtype"])
+                                          for r in recs],
+                              "built": built}))
+"""
+
+
+def test_train_records_accumulate_in_bf16_above_5e10_parameters():
+    """grok-1's and jamba's train_4k records on both production meshes
+    say bfloat16, and their step is built with it; qwen3-8b's say float32
+    (the reference: bf16 where `param_count()` > 5e10). The steps stop
+    when built: the records' memory is PERF.md's full run."""
+    r = subprocess.run([sys.executable, "-c", ACCUM], env=_env(), capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-4000:]
+    got = json.loads(next(x for x in r.stdout.splitlines() if x.startswith("RESULT "))[7:])
+    assert got["records"] == [[a, mp, t] for a, t in (("grok-1-314b", "bfloat16"),
+                                                      ("jamba-1.5-large-398b", "bfloat16"),
+                                                      ("qwen3-8b", "float32"))
+                              for mp in (False, True)]
+    assert got["built"] == ["torch.bfloat16"] * 4 + ["torch.float32"] * 2
+    for arch in ASSIGNED_ARCHS:
+        big = get_arch(arch).param_count() > 5e10
+        assert accum_dtype_for(get_arch(arch)) == (torch.bfloat16 if big else torch.float32)
+        assert big == (arch in ("grok-1-314b", "jamba-1.5-large-398b"))

@@ -19,6 +19,14 @@ the JAX init through `bridge.params_from_jax`, fp32, batches from
   * a stage whose attention the reference rule splits on head_dim (6
     heads, tp 4) on 4 ranks against the single-process engine;
   * the migration identity on 8 ranks (the chunk crosses ranks);
+  * Fig. 7's hand-offs (`engine.pipeline.boundary_routes`): on 8 ranks the
+    fail-stop run again with every pair moved whole, losses and masters
+    equal bit for bit, and the world's bytes per hand-off equal to
+    `p2p_cost_bytes` (TP 2 -> 2, then 1 -> 2 and 2 -> 1); on 4 ranks a
+    hand-off between two stages on the same ranks sends nothing;
+  * the port migrator's placement (`ProgressAwareMigrator`, executor (0, 1)
+    at speed 0.3, delta 0) executed on 8 ranks against the unplaced loss
+    and the JAX engine given the JAX migrator's placement;
   * the pipeline driver on 8 ranks with `--inject-failstop 3:5`, and its
     restart determinism on 4.
 
@@ -33,9 +41,11 @@ import numpy as np
 import pytest
 
 from repro.configs import get_arch, reduced
+from repro.core.scheduler.migration import ProgressAwareMigrator as JMigrator
+from repro.core.scheduler.p2p import p2p_cost_bytes as j_p2p_cost_bytes
 from repro.core.scheduler.plan import initial_plan as j_initial_plan
 from repro.core.scheduler.repartition import costs_for_arch as j_costs_for_arch
-from repro.core.scheduler.scheduler import Scheduler as JScheduler
+from repro.core.scheduler.scheduler import AdaptationPlan as JAdaptation, Scheduler as JScheduler
 from repro.data.synth import SyntheticPackedDataset
 from repro.engine import pipeline as j_pipeline
 from repro.models.model import init_params as j_init_params
@@ -43,6 +53,7 @@ from repro.parallel import sharding as j_sharding
 from repro.parallel.sharding import split_annotations
 from repro.train.optimizer import make_optimizer as j_make_optimizer
 from repro_torch.configs import get_arch as t_get_arch, reduced as t_reduced
+from repro_torch.core.scheduler.p2p import p2p_cost_bytes
 from repro_torch.core.scheduler.plan import initial_plan
 from repro_torch.engine.pipeline import stage_part
 from repro_torch.models.model import param_axes
@@ -54,6 +65,10 @@ CFG = reduced(get_arch("qwen3-8b"), n_layers=dh.PIPE_LAYERS)
 STEPS, FAULT_AT = 8, 4
 AFTER = "dp0[s0:tp2xL1 s1:tp2xL3] dp1[s0:tp1xL1 s1:tp2xL3]"  # the reference's plan string
 HEAD_DIM_OVER = {"n_heads": 6, "n_kv_heads": 2}
+SLOW = ((0, 1), 0.3, 0)  # the migrator's case: executor (0, 1) at speed 0.3, delta 0
+MOVED = [("B", 1, 1, 0, (1, 1)), ("F", 1, 1, 0, (1, 1))]  # what it moves: mb 1 of r0s1
+# a boundary tensor: one micro-batch (8 rows over 2 replicas x 2) x PIPE_SEQ x d_model, fp32
+TENSOR_BYTES = 2 * dh.PIPE_SEQ * CFG.d_model * 4
 
 
 class FakeMesh:
@@ -100,25 +115,30 @@ def spawned(tmp_path_factory):
     def restart(steps, sub, resume):
         return _driver_argv("--steps", str(steps), "--batch", "4", "--ckpt-dir", str(ckpt / sub),
                             "--ckpt-interval", "3", *(["--resume"] if resume else []))
+    placed = {"kind": "placement", "params": params, "batch": _batches(1)[0]}
     cases = {
         8: {"meshes": {"kind": "meshes"}, "failstop": failstop,
+            "failstop_whole": {**failstop, "route": "whole"},
             "migration": {"kind": "migration", "params": params, "batch": _batches(1)[0]},
+            "migrator": {**placed, "migrator": SLOW},
             "driver": {"kind": "driver", "runs": [_driver_argv(
                 "--dp", "2", "--pp", "2", "--tp", "2", "--steps", "6", "--batch", "8",
                 "--inject-failstop", "3:5")]}},
         4: {"meshes": {"kind": "meshes"}, "failstop": failstop, "head_dim": head_dim,
+            # F of (mb 0, r0s1) on r1s1, its B at home: both stages on ranks {2, 3}
+            "shared": {**placed, "placement": [("F", 0, 1, 0, (1, 1))]},
             "restart": {"kind": "driver", "runs": [restart(6, "a", False), restart(3, "b", False),
                                                     restart(6, "b", True)]}},
         1: {"meshes": {"kind": "meshes"}, "failstop": failstop},
     }
     groups = {world: dh.launch(dh.pipeline_cases, world, c) for world, c in cases.items()}
     # while the ranks run: the JAX engine, and the port's single-process one here
-    jax_run = _jax_losses()
+    jax_run, jax_migrator = _jax_losses(), _jax_migrator_losses()
     single = {"single": dh.single_process(failstop), "head_dim": dh.single_process(head_dim)}
 
     def get(world):
-        if world in ("jax", "single"):
-            return {"jax": jax_run, "single": single}[world]
+        if world in ("jax", "single", "jax_migrator"):
+            return {"jax": jax_run, "single": single, "jax_migrator": jax_migrator}[world]
         return groups[world].results()
     yield get
     for g in groups.values():
@@ -152,6 +172,51 @@ def _jax_losses():
     finally:
         mp.undo()
     return losses, ad.plan.summary()
+
+
+def _jax_migrator_losses():
+    """The JAX migrator's placement at `SLOW` on the initial dp2/pp2/tp2
+    plan (its Scheduler's `migrator_kwargs`, chunk costs F 1, B 2, W 0.5)
+    and the JAX engine's fp32 loss of the migration batch without and with
+    it -> (placement as (kind, mb, stage, replica, dst), base, placed)."""
+    plan = j_initial_plan(dh.PIPE_LAYERS, dp=2, pp=2, tp=2, microbatches=2)
+    slow, speed, delta = SLOW
+    speeds = {(r, s): 1.0 for r in range(2) for s in range(2)}
+    speeds[slow] = speed
+    kw = JScheduler(layer_costs=j_costs_for_arch(CFG, dh.PIPE_SEQ)).migrator_kwargs(
+        JAdaptation(plan=plan, stage_speeds=speeds, dead_stages=(), restore_required=False,
+                    plan_overhead_s=0.0),
+        n_mb=2, chunk_base_cost=lambda cid: {"F": 1.0, "B": 2.0, "W": 0.5}[cid.kind])
+    moved = JMigrator(**{**kw, "delta": delta}).run().migrations
+    placement = {}
+    for ev in moved:
+        f = ev.chunk
+        placement[f] = placement[type(f)("B", f.mb, f.stage, f.replica)] = ev.dst
+    j_embed = j_pipeline.embed_tokens
+    mp = pytest.MonkeyPatch()
+    mp.setattr(j_pipeline, "embed_tokens", lambda cfg, p, tokens: j_embed(cfg, p, tokens,
+                                                                        jnp.float32))
+    try:
+        eng = j_pipeline.PipelineEngine(CFG, plan, seed=0)
+        batch = {k: jnp.asarray(v) for k, v in _batches(1)[0].items()}
+        base = eng.run_iteration(batch)[0]
+        placed = eng.run_iteration(batch, placement=placement)[0]
+    finally:
+        mp.undo()
+    return sorted((c.kind, c.mb, c.stage, c.replica, tuple(d)) for c, d in placement.items()), \
+        base, placed
+
+
+def _world_bytes(logs):
+    """Every rank's hand-off logs, [rank][iteration] = [(src, dst, tp_src,
+    tp_dst, bytes it sent)] (every rank logs every hand-off, in one order)
+    -> [iteration] = [(src, dst, tp_src, tp_dst, bytes the world sent)]."""
+    out = []
+    for it in range(len(logs[0])):
+        rows = [log[it] for log in logs]
+        assert all([x[:4] for x in row] == [x[:4] for x in rows[0]] for row in rows)
+        out.append([(*x[:4], sum(row[k][4] for row in rows)) for k, x in enumerate(rows[0])])
+    return out
 
 
 # ------------------------------------------------------------------ meshes
@@ -292,15 +357,80 @@ def test_migration_identity_across_ranks(spawned):
     assert abs(res[0]["base"] - res[0]["migrated"]) < 1e-5
 
 
+# ------------------------------------------------------ Fig. 7 hand-offs
+def test_hand_offs_scatter_and_gather_as_fig7(spawned):
+    """The fail-stop run on 8 ranks by Fig. 7's rule and again with every
+    pair moved whole: losses and every rank's master equal bit for bit.
+    Each hand-off is between disjoint stage groups, and the world sends
+    `p2p_cost_bytes` (one tensor) by the rule, where the whole route sends
+    tp_dst tensors (the engine's route before the rule); the run covers TP
+    2 -> 2 before the fail-stop, 1 -> 2 (r1s0's activations) and 2 -> 1
+    (the gradients back) after it."""
+    results = spawned(8)
+    for rank, r in results.items():
+        assert r["failstop"]["losses"] == r["failstop_whole"]["losses"], rank
+        assert r["failstop"]["digest"] == r["failstop_whole"]["digest"], rank
+    fig7, whole = (_world_bytes([r[case]["hand_offs"] for r in results.values()])
+                   for case in ("failstop", "failstop_whole"))
+    pairs = set()
+    for it, (rows, wrows) in enumerate(zip(fig7, whole)):
+        assert len(rows) == 8  # 2 replicas x 2 micro-batches, forward and back
+        for (src, dst, tp_src, tp_dst, sent), w in zip(rows, wrows):
+            assert sent == p2p_cost_bytes(TENSOR_BYTES, tp_src, tp_dst) == TENSOR_BYTES
+            assert sent == j_p2p_cost_bytes(TENSOR_BYTES, tp_src, tp_dst)
+            assert w[4] == tp_dst * TENSOR_BYTES == p2p_cost_bytes(
+                TENSOR_BYTES, tp_src, tp_dst, scatter_gather=False)
+            pairs.add((it >= FAULT_AT, tp_src, tp_dst))
+    assert pairs == {(False, 2, 2), (True, 2, 2), (True, 1, 2), (True, 2, 1)}
+
+
+def test_hand_off_between_stages_on_shared_ranks_sends_nothing(spawned):
+    """On 4 ranks r0s1 and r1s1 both run on ranks {2, 3}: F of (mb 0,
+    r0s1) placed on r1s1 and its B at home moves the activation from
+    r1s1 to r0s1, which no byte crosses; every other hand-off is between
+    disjoint groups and sends one tensor; the loss is the unplaced one."""
+    res = {rank: r["shared"] for rank, r in spawned(4).items()}
+    assert all(r["placed"] == res[0]["placed"] for r in res.values())
+    assert abs(res[0]["placed"] - res[0]["base"]) <= 1e-5
+    (base,), (placed,) = (_world_bytes([[r[key]] for r in res.values()])
+                          for key in ("base_hand_offs", "hand_offs"))
+    assert [x[4] for x in base] == [TENSOR_BYTES] * 8
+    shared = [x for x in placed if x[:2] == ((1, 1), (0, 1))]
+    assert len(shared) == 1 and shared[0][4] == 0
+    assert all(x[4] == TENSOR_BYTES for x in placed if x[:2] != ((1, 1), (0, 1)))
+
+
+def test_migrator_placement_runs_on_stage_meshes(spawned):
+    """The port migrator's placement at executor (0, 1) 0.3, delta 0 on
+    the initial plan, executed on 8 ranks in fp32: the reference
+    migrator's placement (F and B of mb 1 of r0s1 onto r1s1); the moved
+    chunk's activation and gradient cross between replica groups by the
+    rule (one tensor each); the loss within 1e-5 of the unplaced one and
+    within 1e-4 of the JAX engine's under the JAX migrator's placement."""
+    res = {rank: r["migrator"] for rank, r in spawned(8).items()}
+    j_placement, j_base, j_placed = spawned("jax_migrator")
+    assert res[0]["placement"] == j_placement == MOVED
+    assert all(r["placed"] == res[0]["placed"] for r in res.values())
+    assert abs(res[0]["placed"] - res[0]["base"]) <= 1e-5
+    np.testing.assert_allclose(res[0]["placed"], j_placed, rtol=1e-4)
+    np.testing.assert_allclose(res[0]["base"], j_base, rtol=1e-4)
+    (placed,) = _world_bytes([[r["hand_offs"]] for r in res.values()])
+    crossing = [x for x in placed if {x[0][0], x[1][0]} == {0, 1}]
+    assert [x[:2] for x in crossing] == [((0, 0), (1, 1)), ((1, 1), (0, 0))]
+    assert all(x[4] == TENSOR_BYTES for x in placed)
+
+
 # ------------------------------------------------------------------ driver
 def test_driver_failstop_on_eight_ranks(spawned):
     """The port's counterpart of `test_fault_tolerant_training_subprocess_8dev`:
     `launch.train.main` in pipeline mode on 8 ranks, dp2/pp2/tp2, fail-stop
     of device 5 at step 3 -> one reconfiguration at step 3, the reference's
-    plan string, finite losses, the same on every rank."""
+    plan string, finite losses, the same on every rank; each step the world
+    sends 8 boundary tensors (bf16) between stage groups, each once."""
     res = {rank: r["driver"][0] for rank, r in spawned(8).items()}
     r = res[0]
     assert r["reconfigs"] == [3]
+    assert all(x["hand_off_bytes"] == [8 * TENSOR_BYTES // 2] * 6 for x in res.values())
     assert np.isfinite(r["losses"]).all() and len(r["losses"]) == 6
     (ad,) = r["adaptations"]
     assert ad["plan"] == r["plan"] == AFTER

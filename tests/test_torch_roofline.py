@@ -151,6 +151,48 @@ def test_ring_bytes_on_a_fake_group_mesh():
                    "all-reduce": [{"all-reduce": 2 * full * 3 / 4}, 0.0]}
 
 
+PEAK = r"""
+import json, torch, torch.distributed as dist
+from torch.testing._internal.distributed.fake_pg import FakeStore
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
+from repro_torch.roofline.counter import OpCounter
+
+dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=4)
+mesh = init_device_mesh("cpu", (4,), mesh_dim_names=("x",))
+full = torch.empty(1024, 256, dtype=torch.bfloat16, device="meta")
+out = {}
+for name, src, dst in (("all-gather", [Shard(0)], [Replicate()]),
+                       ("reduce-scatter", [Partial()], [Shard(0)]),
+                       ("all-reduce", [Partial()], [Replicate()])):
+    d = (distribute_tensor(full, mesh, src) if name == "all-gather"
+         else DTensor.from_local(full, mesh, src, run_check=False))
+    with OpCounter() as c:
+        kept = d.redistribute(mesh, dst)
+        out[name] = [c.peak_bytes, c.live_bytes, kept.to_local().untyped_storage().nbytes()]
+        del kept
+        out[name].append(c.live_bytes)
+print("RESULT " + json.dumps(out))
+"""
+
+
+def test_collective_outputs_count_in_the_peak():
+    """A redistribution's output is memory the rank holds: while it lives
+    the counter holds its bytes (an all-gather's and an all-reduce's whole
+    512 KiB, a reduce-scatter's quarter), the peak at least that, and
+    nothing once it is freed. A gradient that a collective forms (the
+    backward of a gathered weight) so counts in a sharded step's peak."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    r = subprocess.run([sys.executable, "-c", PEAK], env=env, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0, r.stderr[-4000:]
+    got = json.loads(next(x for x in r.stdout.splitlines() if x.startswith("RESULT "))[7:])
+    full = 1024 * 256 * 2
+    for name, size in (("all-gather", full), ("reduce-scatter", full // 4), ("all-reduce", full)):
+        peak, live, kept, after = got[name]
+        assert kept == size and live == size and peak >= size and after == 0, (name, got[name])
+
+
 def _one_document_ids(B, Sq, Sk):
     seg_q, seg_k = torch.ones((B, Sq), dtype=torch.int32), torch.ones((B, Sk), dtype=torch.int32)
     pos_q = torch.arange(Sq, dtype=torch.int32).repeat(B, 1)

@@ -214,7 +214,8 @@ RUNTIME_MODULES = [
     "repro_torch.core.scheduler.tp_reconfig", "repro_torch.core.scheduler.scheduler",
     "repro_torch.core.resihp", "repro_torch.checkpoint.checkpoint", "repro_torch.checkpoint",
     "repro_torch.core.recovery", "repro_torch.launch.mesh", "repro_torch.engine.pipeline",
-    "repro_torch.launch.train", "repro_torch.bridge",
+    "repro_torch.launch.train", "repro_torch.bridge", "repro_torch.core.scheduler.p2p",
+    "repro_torch.core.scheduler.migration",
 ]
 
 

@@ -27,6 +27,9 @@ CPU:
     reference's shard_map does; the MoE layer against the JAX `_moe_math`
     and the single-device `moe_ffn` on each data shard; a (1,1) mesh
     against the unsharded step and serving;
+  * bf16 gradient accumulation (`accum_dtype`) on (1,2): one step of
+    reduced qwen3-8b against the port's unsharded bf16 step and the JAX
+    bf16 step;
   * the driver: `torchrun --nproc-per-node 2 ... --tp 2` trains sharded
     on the CPU; a checkpoint saved on (2,2) resumes on (2,1) and the
     losses go on;
@@ -393,6 +396,12 @@ def _step_case(name):
             "clip_norm": 1.0}
 
 
+def _bf16_accum_case():
+    """One step of reduced qwen3-8b, its gradients accumulated in bf16."""
+    case = _step_case("qwen3-8b")
+    return {**case, "batches": case["batches"][:1], "accum_dtype": "bfloat16"}
+
+
 MOE_LAYER_OVER = {"capacity_factor": 0.5}  # 16 slots an expert for 64 x 2 assignments
 
 
@@ -423,6 +432,8 @@ def _mesh_cases(shape, ckpt_dir):
         cases["moe-layer-" + mode] = {"kind": "moe_layer", "arch": "qwen3-moe-30b-a3b",
                                       "over": MOE_LAYER_OVER, "policy": kw, "p": layer,
                                       "x": x, "dy": dy}
+    if shape == (1, 2):  # the reference's accumulation above 5e10 parameters
+        cases["qwen3-8b-bf16-accum"] = _bf16_accum_case()
     if shape == (2, 2):
         cases["placements"] = {"kind": "placements", "specs": PLACEMENT_SPECS}
         cases["driver-save"] = {"kind": "driver", "argv": _driver_argv(
@@ -732,6 +743,52 @@ def test_placements_put_the_specs_blocks_on_each_rank(spawned):
             np.testing.assert_array_equal(local, full[tuple(idx)])
     specs = [s for s, _ in results[0]["placements"]["locals"]]
     assert specs[0] == ("model", "data") and specs[4] == (None, ("data", "model"), None, None)
+
+
+def test_sharded_bf16_accumulation_matches_unsharded_and_jax(spawned):
+    """One step on (1, 2) with `accum_dtype=torch.bfloat16` through the
+    policy path (each micro-batch's gradient placed as its parameter in
+    fp32, then rounded and summed in bf16): the loss to 1e-5 relative of
+    the port's unsharded bf16 step and to 1e-4 of the JAX step with
+    `accum_dtype=jnp.bfloat16`, the grad norm to 1e-2 relative of both,
+    every clipped gradient within 1e-2 of its leaf's max abs of the
+    unsharded one's (the two bf16 roundings of a sum may part where the
+    tp split reorders the fp32 partial sums)."""
+    got = spawned((1, 2))[0]["qwen3-8b-bf16-accum"]
+    case = _bf16_accum_case()
+    cfg, _, _, _, params, _ = _model_inputs("qwen3-8b")
+    batch = case["batches"][0]
+    tcfg = t_reduced(t_get_arch("qwen3-8b"))
+    opt = make_optimizer("adamw", lr=LR)
+    tp = params_from_jax(params, dtype=torch.float32, device="cpu")
+    for p in tree_leaves(tp):
+        p.requires_grad_(True)
+    state = {"params": tp, "opt": opt.init(tp), "step": torch.zeros((), dtype=torch.int32)}
+    step = build_train_step(tcfg, opt, microbatches=2, compute_dtype=torch.float32,
+                            accum_dtype=torch.bfloat16)
+    state, m = step(state, {k: torch.from_numpy(v) for k, v in batch.items()})
+
+    def fp32_loss(cfg_, params_, batch_, policy, **k):
+        return j_loss_fn(cfg_, params_, batch_, policy, compute_dtype=jnp.float32, **k)
+    saved = j_train_step.loss_fn
+    j_train_step.loss_fn = fp32_loss  # read when the step is traced, at its first call
+    try:
+        jopt = j_make_optimizer("adamw", lr=LR)
+        jstep = jax.jit(j_train_step.build_train_step(cfg, J_NULL, jopt, microbatches=2,
+                                                      accum_dtype=jnp.bfloat16))
+        jp = jax.tree.map(jnp.asarray, params)
+        _, jm = jstep({"params": jp, "opt": jopt.init(jp), "step": jnp.zeros((), jnp.int32)},
+                      {k: jnp.asarray(v) for k, v in batch.items()})
+    finally:
+        j_train_step.loss_fn = saved
+    np.testing.assert_allclose(got["loss"][0], float(m["loss"]), rtol=1e-5)
+    np.testing.assert_allclose(got["loss"][0], float(jm["loss"]), rtol=1e-4)
+    np.testing.assert_allclose(got["grad_norm"][0], float(m["grad_norm"]), rtol=1e-2)
+    np.testing.assert_allclose(got["grad_norm"][0], float(jm["grad_norm"]), rtol=1e-2)
+    want = [p.grad.numpy() for p in tree_leaves(state["params"])]
+    assert len(got["grads"][0]) == len(want)
+    for i, (a, b) in enumerate(zip(got["grads"][0], want)):
+        assert np.abs(a - b).max() <= 1e-2 * np.abs(b).max() + 1e-12, i
 
 
 def test_one_rank_mesh_matches_unsharded(spawned):

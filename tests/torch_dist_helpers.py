@@ -19,6 +19,7 @@ inputs from the test and send back numpy results.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import pickle
@@ -136,7 +137,8 @@ def _numpy(tree_leaves_list):
 
 def _step_case(mesh, case):
     """len(batches) fp32 steps of the sharded train step from the case's
-    numpy parameters -> losses, grad norms, token counts, each step's
+    numpy parameters, gradients accumulated in the case's `accum_dtype`
+    (float32 by default) -> losses, grad norms, token counts, each step's
     clipped gradients, the final parameters and optimizer state (whole);
     with the case's "routes", also this rank's MoE routes of every call of
     the first step (run without remat then, whose recompute would record
@@ -161,7 +163,8 @@ def _step_case(mesh, case):
     routes = case.get("routes", False)
     step = build_train_step(cfg, opt, policy=policy, microbatches=case["microbatches"],
                             clip_norm=case["clip_norm"], compute_dtype=torch.float32,
-                            remat=not routes)
+                            remat=not routes,
+                            accum_dtype=getattr(torch, case.get("accum_dtype", "float32")))
     out = {"loss": [], "grad_norm": [], "ntokens": [], "grads": []}
     for i, batch in enumerate(case["batches"]):
         moe.moe_ffn.routes = [] if routes and i == 0 else None
@@ -484,41 +487,67 @@ def _my_stages(engine):
     return out
 
 
+def _hand_off_log(engine):
+    """The last iteration's hand-offs as this rank saw them: [(src, dst,
+    tp_src, tp_dst, bytes this rank sent)], in the engine's order."""
+    return [(src, dst, len(engine.ranks[src]), len(engine.ranks[dst]), sent)
+            for src, dst, sent in engine.hand_offs]
+
+
+@contextlib.contextmanager
+def _route(route):
+    """Hand-offs by Fig. 7's rule ("fig7", the engine's), or every pair moved
+    whole, each destination rank receiving the tensor from one source rank
+    ("whole", the rule's route for degrees it does not cover)."""
+    from repro_torch.engine import pipeline
+
+    rule = pipeline.boundary_routes
+    if route == "whole":
+        pipeline.boundary_routes = lambda *a: None
+    try:
+        yield
+    finally:
+        pipeline.boundary_routes = rule
+
+
 def _pipe_failstop_case(rank, world, case):
     """The case's numpy weights (of the model with the case's `over`), fp32,
     AdamW lr 5e-3, the case's plan (dp2/pp2/tp2 by default): one step per
     batch, the fail-stop of device 5 applied before step `fault_at` (None:
-    none); the single-process engine where no process group is initialised
-    (`single_process`) -> losses, plans, whether it ran on stage meshes, the
-    first stage's attention split, this rank's stages before and after, a
-    digest of its final master."""
-    import torch
+    none), hand-offs by the case's `route` (`_route`); the single-process
+    engine where no process group is initialised (`single_process`) ->
+    losses, plans, whether it ran on stage meshes, the first stage's
+    attention split, this rank's stages before and after, each iteration's
+    hand-offs (`_hand_off_log`), a digest of its final master."""
+    with _route(case.get("route", "fig7")):
+        import torch
 
-    from repro_torch.bridge import params_from_jax
-    from repro_torch.core.scheduler.plan import initial_plan
-    from repro_torch.engine.pipeline import PipelineEngine
-    from repro_torch.train.optimizer import make_optimizer
+        from repro_torch.bridge import params_from_jax
+        from repro_torch.core.scheduler.plan import initial_plan
+        from repro_torch.engine.pipeline import PipelineEngine
+        from repro_torch.train.optimizer import make_optimizer
 
-    cfg = _pipe_cfg(**case.get("over", {}))
-    plan = initial_plan(PIPE_LAYERS, **case.get("plan", {"dp": 2, "pp": 2, "tp": 2}),
-                        microbatches=2)
-    eng = PipelineEngine(cfg, plan, optimizer=make_optimizer("adamw", lr=5e-3), devices=["cpu"],
-                         params=params_from_jax(case["params"], dtype=torch.float32,
-                                                device="cpu"),
-                         compute_dtype=torch.float32)
-    out = {"losses": [], "plans": [plan.summary()], "spmd": eng.spmd,
-           "attn_shard": eng.policies[(0, 0)].attn_shard}
-    if eng.spmd:
-        out["stages_before"] = _my_stages(eng)
-    for i, batch in enumerate(case["batches"]):
-        if i == case["fault_at"]:
-            eng.apply_plan(_failstop_plan(cfg, plan))
-            out["plans"].append(eng.plan.summary())
-        out["losses"].append(eng.run_iteration(_tensor_batch(batch))[0])
-    if eng.spmd:
-        out["stages_after"] = _my_stages(eng)
-    out["digest"] = _master_digest(eng)
-    return out
+        cfg = _pipe_cfg(**case.get("over", {}))
+        plan = initial_plan(PIPE_LAYERS, **case.get("plan", {"dp": 2, "pp": 2, "tp": 2}),
+                            microbatches=2)
+        eng = PipelineEngine(cfg, plan, optimizer=make_optimizer("adamw", lr=5e-3),
+                             devices=["cpu"], compute_dtype=torch.float32,
+                             params=params_from_jax(case["params"], dtype=torch.float32,
+                                                    device="cpu"))
+        out = {"losses": [], "plans": [plan.summary()], "spmd": eng.spmd,
+               "attn_shard": eng.policies[(0, 0)].attn_shard, "hand_offs": []}
+        if eng.spmd:
+            out["stages_before"] = _my_stages(eng)
+        for i, batch in enumerate(case["batches"]):
+            if i == case["fault_at"]:
+                eng.apply_plan(_failstop_plan(cfg, plan))
+                out["plans"].append(eng.plan.summary())
+            out["losses"].append(eng.run_iteration(_tensor_batch(batch))[0])
+            out["hand_offs"].append(_hand_off_log(eng))
+        if eng.spmd:
+            out["stages_after"] = _my_stages(eng)
+        out["digest"] = _master_digest(eng)
+        return out
 
 
 def _pipe_migration_case(rank, world, case):
@@ -543,6 +572,57 @@ def _pipe_migration_case(rank, world, case):
     return {"base": base, "migrated": migrated}
 
 
+def migrator_placement(cfg, plan, slow, speed, delta):
+    """The port migrator's placement (`engine_placement`) for one iteration
+    of `plan` whose executor `slow` runs at `speed` (the others at 1.0),
+    from the Scheduler's `migrator_kwargs` (chunk costs F 1, B 2, W 0.5, as
+    the reference's tests) with Algorithm 1's `delta` -> {ChunkId: dst}."""
+    from repro_torch.core.scheduler.migration import ProgressAwareMigrator, engine_placement
+    from repro_torch.core.scheduler.repartition import costs_for_arch
+    from repro_torch.core.scheduler.scheduler import AdaptationPlan, Scheduler
+
+    speeds = {(r, s): 1.0 for r, rep in enumerate(plan.replicas) for s in range(rep.pp)}
+    speeds[slow] = speed
+    adaptation = AdaptationPlan(plan=plan, stage_speeds=speeds, dead_stages=(),
+                                restore_required=False, plan_overhead_s=0.0)
+    kw = Scheduler(layer_costs=costs_for_arch(cfg, PIPE_SEQ)).migrator_kwargs(
+        adaptation, n_mb=plan.microbatches,
+        chunk_base_cost=lambda cid: {"F": 1.0, "B": 2.0, "W": 0.5}[cid.kind])
+    return engine_placement(ProgressAwareMigrator(**{**kw, "delta": delta}).run().migrations)
+
+
+def _pipe_placement_case(rank, world, case):
+    """dp2/pp2/tp2 in fp32, no optimizer: the loss of one batch as planned
+    and under a placement, either the case's `placement` ([(kind, mb,
+    stage, replica, dst)]) or the port migrator's (`migrator_placement` at
+    the case's `migrator` = (slow executor, speed, delta)) -> both losses,
+    the placement as such tuples, both iterations' hand-offs."""
+    import torch
+
+    from repro_torch.bridge import params_from_jax
+    from repro_torch.core.detector.dag_sim import ChunkId
+    from repro_torch.core.scheduler.plan import initial_plan
+    from repro_torch.engine.pipeline import PipelineEngine
+
+    cfg = _pipe_cfg()
+    plan = initial_plan(PIPE_LAYERS, dp=2, pp=2, tp=2, microbatches=2)
+    eng = PipelineEngine(cfg, plan, devices=["cpu"], compute_dtype=torch.float32,
+                         params=params_from_jax(case["params"], dtype=torch.float32,
+                                                device="cpu"))
+    if "migrator" in case:
+        placement = migrator_placement(cfg, plan, *case["migrator"])
+    else:
+        placement = {ChunkId(k, m, s, r): tuple(dst) for k, m, s, r, dst in case["placement"]}
+    batch = _tensor_batch(case["batch"])
+    base, _ = eng.run_iteration(batch)
+    out = {"base": base, "base_hand_offs": _hand_off_log(eng)}
+    out["placed"], _ = eng.run_iteration(batch, placement=placement)
+    out["hand_offs"] = _hand_off_log(eng)
+    out["placement"] = sorted((c.kind, c.mb, c.stage, c.replica, tuple(dst))
+                              for c, dst in placement.items())
+    return out
+
+
 def _pipe_driver_case(rank, world, case):
     """`launch.train.main` in pipeline mode on every rank, once per argv in
     `case["runs"]` -> each run's result."""
@@ -552,7 +632,8 @@ def _pipe_driver_case(rank, world, case):
 
 
 PIPELINE_CASES = {"meshes": _pipe_meshes_case, "failstop": _pipe_failstop_case,
-                  "migration": _pipe_migration_case, "driver": _pipe_driver_case}
+                  "migration": _pipe_migration_case, "placement": _pipe_placement_case,
+                  "driver": _pipe_driver_case}
 
 
 def single_process(case):
