@@ -64,6 +64,13 @@ Phases, in one process; any failure exits nonzero:
   9. checkpoint the pipeline driver's restart on the fp32 parity model (6
              steps straight against 3 + save + restart + 3) and a Fig. 8b
              recovery from the checkpoint onto the card, bit for bit;
+             `RestartCostModel.from_manifest` prices that checkpoint and a
+             small one with a bf16 leaf (the manifest's bytes, no more than
+             the leaf files'), beside the disk's save and restore GB/s;
+     cluster the port's cluster simulator (host Python and numpy, no
+             torch): the simulator golden replayed with both engines, and
+             the reference example's 256-device run (four policies, 160
+             iterations) held to the throughputs the CPU gives, rel 1e-9;
  10. dense family at full width: gemma3-1b (26 layers, tied embeddings)
              serves 4 x 2048 + 64 greedy steps through 1024-slot rings that
              wrap (first and last step held to the packed forward), trains
@@ -256,6 +263,19 @@ FAMILY_TRAIN_STEPS, FAMILY_TRAIN_FIT = 10, 6
 PAPER_NEW_TOKENS = 16
 PARITY_ARCHS = ("qwen3-8b", "gemma3-1b", "h2o-danube-1.8b")  # head_dim 128, 256, 80
 CKPT_STEPS, CKPT_INTERVAL, TOL_RESTART = 6, 3, 1e-5
+# the cluster phase: the simulator golden's run (tests/golden/simulator_golden.json)
+# and examples/cluster_failures.py's 256-device run, whose simulated samples/s
+# per policy the CPU gives as below (both packages, numpy 2.0.2)
+GOLDEN_SIM = {"cfg": dict(dp=2, pp=2, tp=2, n_layers=8, n_microbatches=4, seq_len=2048,
+                          noise=0.01, seed=0),
+              "scenario": ("fig10_mixed", 3.0), "iters": 60,
+              "policy_kwargs": dict(plan_overhead_fixed=0.25)}
+EXAMPLE_SIM = {"cfg": dict(dp=4, pp=16, tp=4, n_layers=80, n_microbatches=6, seq_len=8192,
+                           seed=0),
+               "scenario": "example_mixed", "iters": 160,
+               "samples_per_s": {"resihp": 30.388704916614678, "recycle+": 29.12211984724184,
+                                 "oobleck+": 25.72355733059813, "recycle": 26.56963612667855}}
+TOL_SIM_REL = 1e-9  # the golden test's own bound
 # the fp32 parity path: reduced qwen3-8b at the real head width
 PARITY_SEQ, PARITY_BATCH, PARITY_MICROBATCHES = 256, 2, 2
 TOL_BF16, TOL_FP32 = 2e-2, 1e-4
@@ -2416,6 +2436,7 @@ def checkpoint_phase(cfg, device):
                                       dead_stages=[(0, 0), (1, 0)])
         torch.cuda.synchronize()
         restore_s = time.perf_counter() - t0
+        restart = restart_model_check(root, path, n_bytes, save_s, restore_s, device)
     want_leaves, got_leaves = ckpt_leaves(state), ckpt_leaves(got)
     exact = len(want_leaves) == len(got_leaves) and all(
         isinstance(g, torch.Tensor) and g.device == w.device and torch.equal(g, w)
@@ -2428,8 +2449,107 @@ def checkpoint_phase(cfg, device):
            "restarted_losses": restarted["losses"], "restart_abs_err": restart_err,
            "tol": TOL_RESTART, "fig8b": {"moves": len(tp.moves), "restored_step": step,
                                          "leaves": len(want_leaves), "bit_exact": exact},
-           "save_seconds": save_s, "restore_seconds": restore_s, "bytes": n_bytes}
+           "save_seconds": save_s, "restore_seconds": restore_s, "bytes": n_bytes,
+           "restart_model": restart}
     log("checkpoint", json.dumps(res))
+    return res
+
+
+def manifest_bytes(step_dir):
+    """Bytes of a checkpoint's leaves by its manifest, each dtype's size
+    from torch's dtype of the same name."""
+    leaves = json.loads((Path(step_dir) / "MANIFEST.json").read_text())["leaves"]
+    return sum(getattr(torch, leaf["dtype"]).itemsize * math.prod(leaf["shape"])
+               for leaf in leaves)
+
+
+def restart_model_check(root, path, n_bytes, save_s, restore_s, device):
+    """The restart cost model priced from the Fig. 8b checkpoint's manifest
+    and from a small checkpoint with a bf16 leaf (a name plain numpy does
+    not know): the manifest's bytes, no more than the leaf files' on disk.
+    The disk's save and restore GB/s (the card's machine, warm reads) stand
+    beside the model's aggregate rates."""
+    from repro_torch.checkpoint import RestartCostModel, save_checkpoint
+
+    model = RestartCostModel.from_manifest(path.parent)
+    bf16_path = save_checkpoint(root / "bf16", {
+        "h": torch.ones(33, 7, dtype=torch.bfloat16, device=device),
+        "w": torch.ones(5, 3, device=device)}, 0)
+    bf16 = RestartCostModel.from_manifest(bf16_path.parent)
+    checks = {}
+    for name, m, step_dir in (("fig8b", model, path), ("bf16", bf16, bf16_path)):
+        want = manifest_bytes(step_dir)
+        on_disk = sum(f.stat().st_size for f in step_dir.glob("leaf_*.npy"))
+        checks[name] = {"priced_bytes": m.state_gb * 1e9, "manifest_bytes": want,
+                        "leaf_file_bytes": on_disk}
+        if not (round(m.state_gb * 1e9) == want and want <= on_disk):
+            raise AssertionError(f"restart model {name}: {checks[name]}")
+    if checks["bf16"]["manifest_bytes"] != 33 * 7 * 2 + 5 * 3 * 4:
+        raise AssertionError(f"restart model: bf16 leaf not at 2 bytes {checks['bf16']}")
+    res = {"checks": checks, "state_gb": model.state_gb,
+           "save_cost_s": model.save_cost_s(), "restart_cost_s": model.restart_cost_s(),
+           "model_write_gbps": model.write_gbps, "model_read_gbps": model.read_gbps,
+           "card_machine_disk_save_gbps": n_bytes / save_s / 1e9,
+           "card_machine_disk_restore_gbps": n_bytes / restore_s / 1e9}
+    log("restart model:", json.dumps(res))
+    return res
+
+
+def cluster_phase():
+    """The port's cluster simulator on the card's host (Python and numpy;
+    it loads no torch of its own): the simulator golden with both engines,
+    its exact fields equal and its floats within TOL_SIM_REL, then the
+    reference example's 256-device run of four policies, each policy's
+    simulated samples/s within TOL_SIM_REL of the CPU's. Samples/s are the
+    simulator's modelled seconds, not a time of the card."""
+    from repro_torch.cluster import scenarios
+    from repro_torch.cluster.simulator import SimConfig, TrainingSim
+
+    res = {"numpy": np.__version__, "golden": {}, "example": {}}
+    golden = json.loads((Path(__file__).resolve().parent / "tests" / "golden" /
+                         "simulator_golden.json").read_text())
+    name, span = GOLDEN_SIM["scenario"]
+    for engine in ("fast", "python"):
+        t0 = time.perf_counter()
+        sim = TrainingSim("resihp", SimConfig(**GOLDEN_SIM["cfg"]), engine=engine,
+                          policy_kwargs=GOLDEN_SIM["policy_kwargs"])
+        compiled = sim.apply_scenario(scenarios.get(name, span=span))
+        sim.run(GOLDEN_SIM["iters"], stop_on_abort=False)
+        got = json.loads(json.dumps({
+            "compiled_events": compiled.as_tuples(),
+            "fired_events": [ev.as_tuple() for ev in sim.event_log],
+            "cluster_log": [[t, kind, int(target), float(value)]
+                            for t, kind, target, value in sim.cluster.events],
+            "n_iters": len(sim.trace), "aborted": sim.aborted,
+            "avg_throughput": sim.avg_throughput(skip=2),
+            "session_throughput": sim.session_throughput(skip=2),
+            "t_starts": [r.t_start for r in sim.trace],
+            "durations": [r.duration for r in sim.trace]}))
+        exact = ("compiled_events", "fired_events", "cluster_log", "n_iters", "aborted")
+        differ = [k for k in exact if got[k] != golden[k]] + [
+            k for k in ("avg_throughput", "session_throughput", "t_starts", "durations")
+            if np.shape(got[k]) != np.shape(golden[k])
+            or not np.allclose(got[k], golden[k], rtol=TOL_SIM_REL, atol=0.0)]
+        res["golden"][engine] = {"wall_seconds": time.perf_counter() - t0,
+                                 "n_iters": got["n_iters"], "fired": len(got["fired_events"]),
+                                 "avg_throughput": got["avg_throughput"], "differ": differ}
+        if differ:
+            raise AssertionError(f"simulator golden ({engine} engine, numpy {np.__version__}): "
+                                 f"first field that differs {differ[0]}")
+    for policy, want in EXAMPLE_SIM["samples_per_s"].items():
+        t0 = time.perf_counter()
+        sim = TrainingSim(policy, SimConfig(**EXAMPLE_SIM["cfg"]))
+        sim.apply_scenario(scenarios.get(EXAMPLE_SIM["scenario"]))
+        sim.run(EXAMPLE_SIM["iters"], stop_on_abort=False)
+        got = sim.avg_throughput(skip=2)
+        res["example"][policy] = {"simulated_samples_per_s": got,
+                                  "false_alarms": sim.detector.stats.false_alarms,
+                                  "aborted": sim.aborted,
+                                  "host_wall_seconds": time.perf_counter() - t0}
+        if not abs(got - want) <= TOL_SIM_REL * abs(want):
+            raise AssertionError(f"example {policy}: {got!r} simulated samples/s against "
+                                 f"{want!r} (numpy {np.__version__})")
+    log("cluster:", json.dumps(res))
     return res
 
 
@@ -4111,6 +4231,8 @@ def main(argv=None):
     record["checkpoint"] = checkpoint_phase(cfg, device)
     torch.cuda.empty_cache()
     mark("checkpoint")
+    record["cluster"] = cluster_phase()
+    mark("cluster")
 
     # the dense family at full width: gemma3-1b and h2o-danube-1.8b at full
     # depth, the paper's small-scale models (Table 3) at full depth to serve

@@ -9,9 +9,9 @@ per-(stage-shape): a pipeline stage with k layers has its own (alpha, beta)
 — equivalently we fit per layer and scale, which is what `per_layer=True`
 does so the ResiHP Scheduler can re-use the fit after layer repartition.
 
-A copy of `repro.core.detector.predictor.MicroBatchTimePredictor`, kept here
-so that the port fits Eq. 1 on times measured on the card without importing
-the JAX package.
+A copy of `repro.core.detector.predictor` (the predictor and its
+ground-truth generator `synthetic_chunk_time`), kept here so that the port
+fits Eq. 1 on times measured on the card without importing the JAX package.
 """
 from __future__ import annotations
 
@@ -66,3 +66,15 @@ class MicroBatchTimePredictor:
             errs.append(abs(pred - actual) / max(abs(actual), 1e-12))
         return float(np.mean(errs))
 
+
+def synthetic_chunk_time(alpha, beta, gamma, n_tokens, sum_l2, n_layers=1,
+                         kind="F", speed=1.0, b_ratio=2.0, w_ratio=1.0,
+                         noise=0.0, rng=None):
+    """Ground-truth generator used by the cluster simulator: same functional
+    form the predictor assumes, plus optional multiplicative jitter."""
+    t = (alpha * n_tokens + beta * sum_l2 + gamma) * n_layers
+    t *= {"F": 1.0, "B": b_ratio, "W": w_ratio}[kind]
+    t /= max(speed, 1e-9)
+    if noise and rng is not None:
+        t *= float(rng.normal(1.0, noise))
+    return t

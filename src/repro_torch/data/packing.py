@@ -81,3 +81,7 @@ def pack_stats(segment_ids: np.ndarray):
         lens = lens[lens > 0]
         out.append((int(lens.sum()), int((lens.astype(np.int64) ** 2).sum())))
     return out
+
+
+def quadratic_cost(row_lengths) -> int:
+    return int(sum(int(l) ** 2 for l in row_lengths))

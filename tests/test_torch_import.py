@@ -41,7 +41,31 @@ assert {"repro_torch.models.ssm", "repro_torch.models.xlstm", "repro_torch.confi
 assert {"repro_torch.parallel.sharding", "repro_torch.train.compression"} <= set(names)
 assert {"repro_torch.launch.specs", "repro_torch.launch.dryrun", "repro_torch.roofline.analysis",
         "repro_torch.roofline.counter"} <= set(names)
+assert {"repro_torch.cluster", "repro_torch.cluster.baselines", "repro_torch.cluster.events",
+        "repro_torch.cluster.fastsim", "repro_torch.cluster.hazard", "repro_torch.cluster.mining",
+        "repro_torch.cluster.registry", "repro_torch.cluster.scenarios",
+        "repro_torch.cluster.simulator", "repro_torch.cluster.workload",
+        "repro_torch.core.detector.lifecycle", "repro_torch.core.detector.credit",
+        "repro_torch.checkpoint.economics"} <= set(names)
 """
+
+# the simulator's process: no torch, no jax, no reference package
+SIMULATE = r"""
+import sys
+from repro_torch.cluster import scenarios
+from repro_torch.cluster.simulator import SimConfig, TrainingSim
+sim = TrainingSim("resihp", SimConfig(dp=2, pp=2, tp=2, n_layers=8, n_microbatches=4,
+                                      seq_len=2048, noise=0.01, seed=0),
+                  policy_kwargs=dict(plan_overhead_fixed=0.25, domains=True, credit=True))
+sim.apply_scenario(scenarios.get("fig10_mixed", span=0.2))
+sim.run(5, stop_on_abort=False)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("torch", "jax", "jaxlib", "repro"))
+print(len(sim.trace), len(sim.event_log), bad)
+assert len(sim.trace) == 5 and not bad, bad
+"""
+
+# the reference's files with a counterpart of another name in the port
+RENAMED = {"roofline/hlo.py": "roofline/counter.py"}
 
 
 def _env():
@@ -55,7 +79,28 @@ def test_port_imports_neither_jax_nor_reference():
                        text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     count = int(r.stdout.split()[0])
-    assert count >= 46  # every module of the slices so far was imported
+    assert count >= 79  # every module of the slices so far was imported
+
+
+def test_simulator_runs_without_torch_jax_or_reference():
+    """Importing `repro_torch.cluster.simulator` and running a simulation
+    (the domain and credit switches on, so the restart model and the fitted
+    credit file load too) loads neither torch, jax nor the JAX package."""
+    r = subprocess.run([sys.executable, "-c", SIMULATE], env=_env(), capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_every_reference_module_has_a_counterpart():
+    """Every `.py` and `.json` file of the JAX package has one at the same
+    relative path in the port (`RENAMED` lists the one that does not)."""
+    ref, port = SRC / "repro", SRC / "repro_torch"
+    files = sorted(p.relative_to(ref).as_posix() for p in ref.rglob("*")
+                   if p.suffix in (".py", ".json") and "__pycache__" not in p.parts)
+    assert len(files) > 60
+    missing = [f for f in files if not (port / RENAMED.get(f, f)).is_file()]
+    assert not missing, missing
+    assert all(not (port / f).exists() for f in RENAMED)
 
 
 def _imported_modules(path):

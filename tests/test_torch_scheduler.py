@@ -215,7 +215,12 @@ RUNTIME_MODULES = [
     "repro_torch.core.resihp", "repro_torch.checkpoint.checkpoint", "repro_torch.checkpoint",
     "repro_torch.core.recovery", "repro_torch.launch.mesh", "repro_torch.engine.pipeline",
     "repro_torch.launch.train", "repro_torch.bridge", "repro_torch.core.scheduler.p2p",
-    "repro_torch.core.scheduler.migration",
+    "repro_torch.core.scheduler.migration", "repro_torch.cluster", "repro_torch.cluster.baselines",
+    "repro_torch.cluster.events", "repro_torch.cluster.fastsim", "repro_torch.cluster.hazard",
+    "repro_torch.cluster.mining", "repro_torch.cluster.registry", "repro_torch.cluster.scenarios",
+    "repro_torch.cluster.simulator", "repro_torch.cluster.workload",
+    "repro_torch.core.detector.lifecycle", "repro_torch.core.detector.credit",
+    "repro_torch.checkpoint.economics", "repro_torch.core.detector", "repro_torch.data",
 ]
 
 

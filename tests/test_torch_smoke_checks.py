@@ -3,7 +3,9 @@ drop-free decode check (`moe_decode_check`) and the main path's first decode
 step held to it on the rows its prefill dropped nothing of
 (`main_first_check`, `dropped_rows`). The script's prompt length is cut to
 32 positions; the weights are fp32 from a seed, the compute bf16 as on the
-card, so the script's own tolerances hold. Imports no JAX."""
+card, so the script's own tolerances hold. Also the cluster phase (the
+port's simulator against the golden and the example's throughputs) and the
+restart model's check on checkpoints of the CPU. Imports no JAX."""
 import dataclasses
 import importlib.util
 from pathlib import Path
@@ -147,3 +149,32 @@ def test_full_xlstm_state_bytes():
     dh_m, dh_s = 2 * cfg.d_model // H, cfg.d_model // H
     assert got == 4 * (42 * B * H * (dh_m * dh_m + dh_m + 1) + 6 * 4 * B * H * dh_s)
     assert 2.8e9 < got < 2.85e9
+
+
+def test_cluster_phase_holds_on_the_cpu(smoke):
+    res = smoke.cluster_phase()
+    assert set(res["golden"]) == {"fast", "python"}
+    assert all(not g["differ"] and g["n_iters"] == 60 for g in res["golden"].values())
+    assert {p: e["simulated_samples_per_s"] for p, e in res["example"].items()} == \
+        smoke.EXAMPLE_SIM["samples_per_s"]
+
+
+def test_cluster_phase_fails_on_other_throughputs(smoke, monkeypatch):
+    monkeypatch.setattr(smoke, "EXAMPLE_SIM", {**smoke.EXAMPLE_SIM, "iters": 8,
+                                               "samples_per_s": {"resihp": 30.388704916614678}})
+    with pytest.raises(AssertionError, match="example resihp"):
+        smoke.cluster_phase()
+
+
+def test_restart_model_check_prices_the_checkpoint_and_a_bf16_leaf(smoke, tmp_path):
+    from repro_torch.checkpoint import save_checkpoint
+
+    state = {"params": {"w": torch.randn(64, 32), "b": torch.zeros(32)},
+             "opt": {"m": torch.ones(64, 32, dtype=torch.bfloat16)}, "step": 3}
+    path = save_checkpoint(tmp_path / "fig8b", state, 3)
+    n_bytes = sum(f.stat().st_size for f in path.glob("leaf_*.npy"))
+    res = smoke.restart_model_check(tmp_path, path, n_bytes, 0.5, 0.25, CPU)
+    want = (64 * 32 + 32) * 4 + 64 * 32 * 2 + 8
+    assert res["checks"]["fig8b"]["manifest_bytes"] == want
+    assert res["state_gb"] * 1e9 == pytest.approx(want, rel=1e-12)
+    assert res["checks"]["bf16"]["priced_bytes"] == pytest.approx(33 * 7 * 2 + 5 * 3 * 4)
